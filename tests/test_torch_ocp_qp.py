@@ -1,0 +1,193 @@
+"""PyTorch port, ocp_qp: batch-first Riccati and Riccati IPM against
+`jax.vmap` of the JAX package's functions on seeded random QPs.
+
+The port runs the batch in lockstep with a per-instance done mask; the
+vmapped JAX while_loop freezes finished instances the same way, so the
+per-instance iteration counts and statuses must be equal.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from acados_tpu.ocp_qp import data as jdata
+from acados_tpu.ocp_qp.ipm import IpmOpts as JIpmOpts
+from acados_tpu.ocp_qp.ipm import solve_ocp_qp as jax_solve_ocp_qp
+from acados_tpu.ocp_qp.riccati import riccati_factor as jax_factor
+from acados_tpu.ocp_qp.riccati import riccati_solve as jax_rsolve
+from acados_tpu_torch.ocp_qp import data as tdata
+from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
+from acados_tpu_torch.ocp_qp.riccati import riccati_factor, riccati_solve
+
+torch.set_num_threads(1)
+
+QP_FIELDS = ("Q", "R", "S", "q", "r", "A", "B", "b", "C", "D", "lg", "ug",
+             "mask_l", "mask_u", "Zl", "Zu", "zl", "zu", "soft_mask")
+SOL_FIELDS = ("x", "u", "pi", "lam_lg", "lam_ug", "t_lg", "t_ug", "sl", "su")
+
+
+def random_qp_batch(seed, B=8, N=8, nx=4, nu=2, nc=3, soft=False,
+                    x0_rows=True):
+    """Seeded batch of well-conditioned box/general-constrained OCP-QPs
+    (numpy, float64). With x0_rows, the first nx stage-0 rows pin x0
+    (lg == ug, the rows x0 elimination removes); without, those rows are
+    masked off and x0 is free. The other rows are centred on the
+    zero-input rollout so u = 0 is strictly feasible."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.normal(size=(B,) + s)
+    Qs, Rs = 0.3 * n(N + 1, nx, nx), 0.3 * n(N, nu, nu)
+    d = dict(
+        Q=np.einsum("bkij,bkil->bkjl", Qs, Qs) + np.eye(nx),
+        R=np.einsum("bkij,bkil->bkjl", Rs, Rs) + np.eye(nu),
+        S=0.05 * n(N, nu, nx),
+        q=n(N + 1, nx), r=n(N, nu),
+        A=np.eye(nx) + 0.1 * n(N, nx, nx),
+        B=0.3 * n(N, nx, nu), b=0.1 * n(N, nx))
+    nct = nc + nx
+    C = np.zeros((B, N + 1, nct, nx))
+    D = np.zeros((B, N, nct, nu))
+    x0 = 0.5 * n(nx)
+    C[:, 0, :nx] = np.eye(nx)
+    Cr, Dr = n(N + 1, nc, nx), n(N, nc, nu)
+    C[:, :, nx:], D[:, :, nx:] = Cr, Dr
+    x_roll = [x0]
+    for k in range(N):
+        x_roll.append(np.einsum("bij,bj->bi", d["A"][:, k], x_roll[-1])
+                      + d["b"][:, k])
+    g0 = np.einsum("bkij,bkj->bki", Cr, np.stack(x_roll, 1))
+    widths = 0.2 + 1.5 * rng.uniform(size=(2, B, N + 1, nc))
+    lg = np.zeros((B, N + 1, nct))
+    ug = np.zeros((B, N + 1, nct))
+    lg[:, 0, :nx] = ug[:, 0, :nx] = x0
+    lg[:, :, nx:] = g0 - widths[0]
+    ug[:, :, nx:] = g0 + widths[1]
+    mask = np.zeros((B, N + 1, nct))
+    mask[:, 0, :nx] = 1.0 if x0_rows else 0.0
+    mask[:, :, nx:] = 1.0
+    z = np.zeros((B, N + 1, nct))
+    soft_mask, Zl, zl = z.copy(), z.copy(), z.copy()
+    if soft:
+        soft_mask[:, :, nx:] = 1.0
+        Zl[:, :, nx:] = 10.0
+        zl[:, :, nx:] = 1.0
+    d.update(C=C, D=D, lg=lg, ug=ug, mask_l=mask, mask_u=mask.copy(),
+             Zl=Zl, Zu=Zl.copy(), zl=zl, zu=zl.copy(), soft_mask=soft_mask)
+    return d
+
+
+def to_jax(d):
+    return jdata.OcpQp(**{k: jnp.asarray(d[k]) for k in QP_FIELDS})
+
+
+def to_torch(d):
+    return tdata.OcpQp(**{k: torch.as_tensor(d[k]) for k in QP_FIELDS})
+
+
+def barrier_free_blocks(d):
+    return [d[k] for k in ("Q", "R", "S", "A", "B")]
+
+
+def test_riccati_factor_and_solve_match_vmap():
+    d = random_qp_batch(0, B=8, N=10)
+    Q, R, S, A, B = barrier_free_blocks(d)
+    jf = jax.vmap(jax_factor)(*(jnp.asarray(a) for a in (Q, R, S, A, B)))
+    tf = riccati_factor(*(torch.as_tensor(a) for a in (Q, R, S, A, B)))
+    for f in ("P", "Luu", "K", "LP0"):
+        np.testing.assert_allclose(getattr(tf, f).numpy(),
+                                   np.asarray(getattr(jf, f)),
+                                   rtol=0, atol=1e-11)
+    rhs = (d["q"], d["r"], d["b"])
+    jsol = jax.vmap(jax_rsolve)(jf, jnp.asarray(A), jnp.asarray(B),
+                                *(jnp.asarray(a) for a in rhs))
+    tsol = riccati_solve(tf, torch.as_tensor(A), torch.as_tensor(B),
+                         *(torch.as_tensor(a) for a in rhs))
+    for a, b in zip(tsol, jsol):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-11)
+
+
+def _solve_both(d, x0_fixed, warm=None, iter_max=50):
+    jopts, topts = JIpmOpts(iter_max=iter_max), IpmOpts(iter_max=iter_max)
+    jsolve = jax.jit(jax.vmap(
+        lambda qp, w: jax_solve_ocp_qp(qp, jopts, warm=w,
+                                       x0_fixed=x0_fixed)))
+    jwarm = None if warm is None else jdata.OcpQpSol(
+        **{k: jnp.asarray(warm[k]) for k in SOL_FIELDS})
+    twarm = None if warm is None else tdata.OcpQpSol(
+        **{k: torch.tensor(warm[k]) for k in SOL_FIELDS})
+    jsol, jinfo = jsolve(to_jax(d), jwarm)
+    tsol, tinfo = solve_ocp_qp(to_torch(d), topts, warm=twarm,
+                               x0_fixed=x0_fixed)
+    return jsol, jinfo, tsol, tinfo
+
+
+def _assert_same(jsol, jinfo, tsol, tinfo, tol=1e-9):
+    np.testing.assert_array_equal(tinfo.num_iter.numpy(),
+                                  np.asarray(jinfo.num_iter))
+    np.testing.assert_array_equal(tinfo.status.numpy(),
+                                  np.asarray(jinfo.status))
+    for f in SOL_FIELDS:
+        np.testing.assert_allclose(getattr(tsol, f).numpy(),
+                                   np.asarray(getattr(jsol, f)),
+                                   rtol=0, atol=tol, err_msg=f)
+
+
+@pytest.mark.parametrize("x0_fixed", [False, True])
+@pytest.mark.parametrize("soft", [False, True])
+def test_ipm_cold_matches_vmap(x0_fixed, soft):
+    """x0_fixed=False solves x0 as a free variable from P_0; x0_fixed
+    eliminates the x0 rows."""
+    d = random_qp_batch(1 + soft, B=8, N=8, soft=soft, x0_rows=x0_fixed)
+    jsol, jinfo, tsol, tinfo = _solve_both(d, x0_fixed)
+    assert np.all(np.asarray(jinfo.status) == 0)
+    _assert_same(jsol, jinfo, tsol, tinfo)
+
+
+@pytest.mark.parametrize("x0_fixed", [False, True])
+def test_ipm_warm_start_matches_vmap(x0_fixed):
+    """Warm start from the solution of a perturbed QP (the auto
+    complementarity cap path of _init_iterate)."""
+    d = random_qp_batch(3, B=8, N=8, x0_rows=x0_fixed)
+    jsol0, _, _, _ = _solve_both(d, x0_fixed)
+    warm = {k: np.asarray(getattr(jsol0, k)) for k in SOL_FIELDS}
+    d2 = dict(d, q=d["q"] + 0.05 * np.random.default_rng(4).normal(
+        size=d["q"].shape))
+    jsol, jinfo, tsol, tinfo = _solve_both(d2, x0_fixed, warm=warm)
+    assert np.all(np.asarray(jinfo.status) == 0)
+    _assert_same(jsol, jinfo, tsol, tinfo)
+
+
+def test_lockstep_freezes_early_finishers():
+    """One instance needs many more IPM iterations than the rest: its
+    softened rows are shifted far from where the dynamics can reach. The
+    early finishers are frozen bit for bit once done (stopping the batch
+    when the last of them is done gives the same bits as running on), and
+    every instance's num_iter equals jax.vmap(solve_ocp_qp)'s."""
+    slow = 5
+    d = random_qp_batch(10, B=8, N=8, soft=True)
+    d["lg"][slow, :, 4:] += 200.0
+    d["ug"][slow, :, 4:] += 200.0
+    jsol, jinfo, tsol, tinfo = _solve_both(d, x0_fixed=True)
+    _assert_same(jsol, jinfo, tsol, tinfo)
+    assert np.all(tinfo.status.numpy() == 0)
+    iters = tinfo.num_iter.numpy()
+    early = np.arange(8) != slow
+    assert iters[slow] >= iters[early].max() + 8, iters
+    cut = int(iters[early].max())
+    tsol_cut, tinfo_cut = solve_ocp_qp(to_torch(d), IpmOpts(iter_max=cut),
+                                       x0_fixed=True)
+    np.testing.assert_array_equal(tinfo_cut.num_iter.numpy()[early],
+                                  iters[early])
+    assert tinfo_cut.num_iter.numpy()[slow] == cut
+    for f in SOL_FIELDS:
+        np.testing.assert_array_equal(getattr(tsol_cut, f).numpy()[early],
+                                      getattr(tsol, f).numpy()[early],
+                                      err_msg=f)
+
+
+def test_zero_qp_shapes():
+    qp = tdata.zero_qp(tdata.OcpQpDims(N=5, nx=3, nu=2, nc=4), batch=2)
+    assert qp.Q.shape == (2, 6, 3, 3) and qp.D.shape == (2, 5, 4, 2)
+    assert qp.dims == tdata.OcpQpDims(N=5, nx=3, nu=2, nc=4)
