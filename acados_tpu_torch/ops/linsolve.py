@@ -2,18 +2,22 @@
 
 Counterpart of `acados_tpu/ops/linsolve.py`. On the CPU, A x = b goes to
 LAPACK through `torch.linalg.solve` (linsolve.py:74-77). On the card it
-goes through an explicit inverse and a matmul, as on the TPU
-(linsolve.py:78-85): the in-line Gauss-Jordan for n <= 8, the CUDA
-kernel above that.
+goes through an explicit inverse by the Gauss-Jordan kernel and a matmul,
+for every n. The reference takes its in-line Gauss-Jordan for n <= 8
+(linsolve.py:78-81) because XLA fuses it into the surrounding program;
+eager PyTorch fuses nothing, so the in-line loop would be about 10 n
+small launches where the kernel is one.
 """
 from __future__ import annotations
 
 import torch
 
 from acados_tpu_torch.ops.batched_inv import gj_inverse_any
-from acados_tpu_torch.ops.batched_inv import gj_inverse_plain as gj_inverse
 
 __all__ = ["gj_inverse", "linsolve"]
+
+# the reference's public name: the kernel wrapper (plain version on the CPU)
+gj_inverse = gj_inverse_any
 
 
 def linsolve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -23,7 +27,7 @@ def linsolve(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if vec:
             return torch.linalg.solve(A, b[..., None])[..., 0]
         return torch.linalg.solve(A, b)
-    Ainv = gj_inverse(A) if A.shape[-1] <= 8 else gj_inverse_any(A)
+    Ainv = gj_inverse_any(A)
     if vec:
         return (Ainv @ b[..., None])[..., 0]
     return Ainv @ b

@@ -11,14 +11,20 @@ failure exits non-zero:
     sm_90a (one nvcc per source, all started together);
  3. kernels against their plain PyTorch versions on the card: the
     Gauss-Jordan inverse K1 on the IRK stage Jacobians of the main path
-    (81,920 x 16 x 16 float32) and on seeded diagonally dominant batches
+    (81,920 x 16 x 16 float32), on seeded diagonally dominant batches
     (n = 4, 8, 16, 39, 48, a ragged batch size, n = 56 through the Schur
-    path), in float32 and float64; then its time at the main-path shape
-    beside its bound, the plain version and torch.linalg.inv;
+    path), on the same with rows permuted (row swaps at most steps), in
+    float32 and float64, and on matrices with equal magnitudes in their
+    pivot columns, where exact arithmetic makes kernel, plain version and
+    exact inverse agree bit for bit only under the lowest-index tie rule;
+    linsolve on the card launching K1 for small n too; then K1's time at
+    the main-path shape beside its bound, the plain version and
+    torch.linalg.inv;
  4. main path: AcadosOcpBatchSolver on the canonical pendulum IRK SQP-RTI
     config (N = 20, float32) at B = 4096, 1 cold + 15 warm + timed
     solve() calls; every status 0, the float32 tolerances met, and exactly
-    8 kernel launches per RTI call;
+    8 kernel launches per RTI call; then where the time of a call goes
+    (layers on the host clock, device busy share from torch.profiler);
  5. reference check: the same config in float64 at B = 8 on the card and
     on the CPU (the port's plain path, which the CPU tests hold against
     the JAX package) must agree.
@@ -126,6 +132,76 @@ def in_tolerance(solver, so):
     return bool(np.all(res <= np.asarray(tols))), res, tols
 
 
+def host_ms(fn, reps: int = 5) -> float:
+    """Median host-clock time of fn() ending in a synchronize (ms)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def time_split(solver) -> dict:
+    """Where the time of one warm RTI call goes: its layers on the host
+    clock (each synchronised, medians), then a torch.profiler trace of a
+    few calls for the device's busy share and kernel launches per call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
+                                                    linearize)
+    from acados_tpu_torch.ocp_nlp.sqp import use_x0_elimination
+    from acados_tpu_torch.ocp_qp.ipm import solve_ocp_qp
+    form, opts = solver.form, solver.opts
+    data, it = solver._data_dev, solver._it_dev
+    rows = build_static_rows(form, it.x.dtype, it.x.device)
+    lm = torch.tensor(opts.levenberg_marquardt, dtype=it.x.dtype,
+                      device=it.x.device)
+    x0f = use_x0_elimination(form, opts)
+    M = it.u.shape[0] * it.u.shape[1]
+    flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
+    step_args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
+                 flat(data.ts[:, :-1]), flat(data.dts))
+    qp = linearize(form, rows, data, it, lm)
+    out = dict(call_ms=host_ms(solver.solve),
+               linearize_ms=host_ms(lambda: linearize(form, rows, data, it,
+                                                      lm)),
+               irk_step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args)),
+               qp_ms=host_ms(lambda: solve_ocp_qp(qp, opts.qp_opts,
+                                                  x0_fixed=x0f)))
+    out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
+    calls = 3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            solver.solve()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = {}
+    for e in kern:
+        t = busy.setdefault(e.name, [0.0, 0])
+        t[0] += e.time_range.elapsed_us() / 1e3 / calls
+        t[1] += 1 / calls
+    busy_ms = sum(t[0] for t in busy.values())
+    out.update(device_busy_ms_per_call=busy_ms,
+               device_busy_share=busy_ms / out["call_ms"],
+               profiled_wall_ms_per_call=wall_ms / calls,
+               kernel_launches_per_call=len(kern) / calls,
+               top_kernels=[dict(name=k[:80], ms=v[0], launches=v[1])
+                            for k, v in sorted(busy.items(),
+                                               key=lambda kv: -kv[1][0])[:6]])
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -133,6 +209,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from acados_tpu_torch.ops import batched_inv, cuda_build
+    from acados_tpu_torch.ops.linsolve import linsolve
+    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
     from acados_tpu_torch.utils.device import full_precision_matmul
 
     # ---- 1. device ---------------------------------------------------------
@@ -204,6 +282,47 @@ def main() -> int:
             label = f"random n={n} B={batch}" + (" (Schur)" if n > 48
                                                   else "")
             check_inverse(label, A, fn, bound)
+        for n in (4, 8, 16, 39):
+            A = row_permuted_batch(rng, 1001, n)
+            swaps = np.mean(np.argmax(np.abs(A[:, :, 0]), axis=1) != 0)
+            check_inverse(f"rows permuted n={n} (swap at k=0: "
+                          f"{swaps:.0%})",
+                          torch.as_tensor(A, dtype=dtype, device=dev), kern,
+                          bound)
+    # equal magnitudes in the pivot columns, in exact arithmetic: the
+    # kernel must pick the lowest row index, as the plain version does
+    for n in (4, 8, 16, 39):
+        A, X = pivot_tie_batch(rng, 4096, n)
+        col0 = np.abs(A[:, :, 0])
+        ties = np.sum(np.sum(col0 == col0.max(1, keepdims=True), 1) > 1)
+        swaps = np.sum(np.argmax(col0, axis=1) != 0)
+        for dtype in (torch.float32, torch.float64):
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+            Ak, Ap = kern(At), batched_inv.gj_inverse_plain(At)
+            d_kp = float((Ak - Ap).abs().max())
+            d_kx = float((Ak - Xt).abs().max())
+            log(f"  ties n={n} B={len(A)} {str(dtype):<14} (ties at k=0 "
+                f"{ties}, swaps {swaps}): max|k-p| {d_kp:g}, "
+                f"max|k-exact| {d_kx:g}  bound 0  "
+                f"{'ok' if d_kp == d_kx == 0 else 'FAIL'}")
+            if not d_kp == d_kx == 0:
+                raise SystemExit(f"K1 breaks pivot ties differently: n={n}")
+    # linsolve on the card inverts through the kernel at every n
+    for n in (4, 16):
+        A = torch.as_tensor(rng.normal(size=(1001, n, n)) + n * np.eye(n),
+                            device=dev)
+        b = torch.as_tensor(rng.normal(size=(1001, n)), device=dev)
+        before = batched_inv.LAUNCHES
+        x = linsolve(A, b)
+        launched = batched_inv.LAUNCHES - before
+        ref = (batched_inv.gj_inverse_plain(A) @ b[..., None])[..., 0]
+        err = float((x - ref).abs().max() / ref.abs().max())
+        log(f"  linsolve n={n} float64: {launched} K1 launch, "
+            f"max|x-ref|/max|ref| {err:.3e}")
+        if launched != 1 or not err <= F64_BOUND:
+            raise SystemExit(f"linsolve on the card, n={n}: {launched} "
+                             f"launches, error {err:.3e}")
 
     # time at the main-path shape
     n = 16
@@ -261,6 +380,7 @@ def main() -> int:
         f"K1 {LAUNCHES_PER_RTI * k1_ms:.3f} ms per call "
         f"({LAUNCHES_PER_RTI * k1_ms / med * 100:.2f} %); qp_iter max "
         f"{int(qp_iter.max())} mean {float(qp_iter.mean()):.2f}")
+    log(f"  time split: {json.dumps(time_split(solver))}")
 
     # ---- 5. reference check at a small input --------------------------------------
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",

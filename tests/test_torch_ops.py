@@ -18,6 +18,7 @@ from acados_tpu.ops.linsolve import gj_inverse as jax_gj_inverse
 from acados_tpu.ops.linsolve import linsolve as jax_linsolve
 from acados_tpu_torch.ops import batched_inv, cuda_build
 from acados_tpu_torch.ops.linsolve import linsolve
+from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
 from acados_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
@@ -64,6 +65,42 @@ def test_pivot_ties_pick_lowest_row():
     np.testing.assert_allclose(ours, np.linalg.inv(A), atol=1e-14)
 
 
+@pytest.mark.parametrize("n", [4, 8, 16])
+def test_pivot_ties_and_swaps_exact(n):
+    """On the tie batch (pivot_tie_batch) the plain version, in float64
+    and float32, the Pallas kernel (interpret mode) and the JAX in-line
+    version all give the exact integer inverse bit for bit; the batch does
+    swap rows and meet ties at step 0. A plain version that took the
+    highest index among equal magnitudes fails this at each n."""
+    A, X = pivot_tie_batch(np.random.default_rng(200 + n), 1024, n)
+    assert len(A) >= 128
+    np.testing.assert_array_equal(
+        batched_inv.gj_inverse_plain(torch.as_tensor(A)).numpy(), X)
+    col0 = np.abs(A[:, :, 0])
+    assert np.any(np.argmax(col0, axis=1) != 0)          # step-0 swaps
+    assert np.any(np.sum(col0 == col0.max(1, keepdims=True), 1) > 1)
+    ours32 = batched_inv.gj_inverse_plain(torch.as_tensor(A).float())
+    np.testing.assert_array_equal(ours32.numpy(), X.astype(np.float32))
+    np.testing.assert_array_equal(
+        np.asarray(_gj_inverse_pallas(jnp.asarray(A))), X)
+    np.testing.assert_array_equal(np.asarray(jax_gj_inverse(jnp.asarray(A))),
+                                  X)
+
+
+@pytest.mark.parametrize("n", [4, 16])
+def test_row_permuted_batch_swaps_and_matches(n):
+    """Rows in a random order: swaps at most steps, and the plain version
+    still agrees with the Pallas kernel and with LAPACK."""
+    A = row_permuted_batch(np.random.default_rng(300 + n), 40, n)
+    assert np.mean(np.argmax(np.abs(A[:, :, 0]), axis=1) != 0) > 0.5
+    ours = batched_inv.gj_inverse_plain(torch.as_tensor(A)).numpy()
+    np.testing.assert_allclose(
+        ours, np.asarray(_gj_inverse_pallas(jnp.asarray(A))), rtol=0,
+        atol=1e-12)
+    ref = np.linalg.inv(A)
+    assert np.max(np.abs(ours - ref)) <= 1e-10 * np.max(np.abs(ref))
+
+
 def test_schur_path_n50():
     rng = np.random.default_rng(50)
     A = np.eye(50) - 0.05 * rng.normal(size=(4, 50, 50))
@@ -103,6 +140,16 @@ def test_linsolve_cpu(rhs):
     ref = (np.linalg.solve(A, b[..., None])[..., 0] if rhs == "vector"
            else np.linalg.solve(A, b))
     np.testing.assert_allclose(x, ref, atol=1e-12)
+
+
+@pytest.mark.parametrize("n", [4, 16])
+def test_linsolve_off_cpu_goes_through_kernel_wrapper(n):
+    """Off the CPU linsolve inverts through the kernel wrapper at every n
+    (no in-line loop for small n), so a tensor the wrapper does not take
+    is refused."""
+    A = torch.empty((2, n, n), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        linsolve(A, torch.empty((2, n), device="meta"))
 
 
 def test_cpu_tensor_takes_plain_version_without_launch():

@@ -110,15 +110,47 @@ def test_irk_rti_float32_batch_in_tolerance():
     solver = _port_batch(np.pad(x0s, ((0, 0), (0, 1))), **kw)
     for _ in range(10):
         assert np.all(solver.solve() == 0)
-    so = solver.acados_ocp.solver_options
     res = solver.get_stats("residuals")
-    stats = type("Stats", (), dict(res_stat=res[:, 0], res_eq=res[:, 1],
-                                   res_ineq=res[:, 2], res_comp=res[:, 3]))
-    gate = bench._residual_fields(stats, dict(
-        tol_stat=so.nlp_solver_tol_stat, tol_eq=so.nlp_solver_tol_eq,
-        tol_ineq=so.nlp_solver_tol_ineq, tol_comp=so.nlp_solver_tol_comp))
+    gate = _f32_gate(solver, type("Stats", (), dict(
+        res_stat=res[:, 0], res_eq=res[:, 1], res_ineq=res[:, 2],
+        res_comp=res[:, 3])))
     assert gate["in_tolerance"], gate
     assert gate["n_in_tol_stat"] == 64
+
+
+def _f32_gate(solver, stats):
+    """bench.py's in_tolerance gate at the configuration's tolerances."""
+    so = solver.acados_ocp.solver_options
+    return bench._residual_fields(stats, dict(
+        tol_stat=so.nlp_solver_tol_stat, tol_eq=so.nlp_solver_tol_eq,
+        tol_ineq=so.nlp_solver_tol_ineq, tol_comp=so.nlp_solver_tol_comp))
+
+
+def test_irk_rti_float32_plateau_matches_jax():
+    """Float32, B = 32, the same x0s through both packages: the warm RTI
+    loop settles (by call 8) on a largest res_stat just under the 2e-3
+    tolerance in both. Float32 rounding moves the IPM's stall exit, so
+    per-instance qp_iter may differ here; what must hold is that every
+    status is 0 in both, both pass the gate, and the port's plateau is
+    within 5 % of the reference's (measured 0.65 %)."""
+    kw = dict(N=N, dtype="float32", nlp_solver_type="SQP_RTI",
+              integrator_type="IRK")
+    solve_batch, data, it, _, _, _ = bench._build_rti(
+        jax_pendulum_ocp, X0, SIGMA, 32, jnp.float32, seed=0, **kw)
+    solver = _port_batch(data.lb_0, **kw)
+    for _ in range(10):
+        it, stats = solve_batch(data, it)
+        assert np.all(np.asarray(stats.status) == 0)
+        assert np.all(solver.solve() == 0)
+    res = solver.get_stats("residuals")
+    ours = _f32_gate(solver, type("Stats", (), dict(
+        res_stat=res[:, 0], res_eq=res[:, 1], res_ineq=res[:, 2],
+        res_comp=res[:, 3])))
+    ref = _f32_gate(solver, stats)
+    assert ours["in_tolerance"] and ref["in_tolerance"], (ours, ref)
+    plateau, ref_plateau = res[:, 0].max(), np.asarray(stats.res_stat).max()
+    assert abs(plateau - ref_plateau) <= 0.05 * ref_plateau, (plateau,
+                                                              ref_plateau)
 
 
 def test_single_solver_matches_jax_float64():
