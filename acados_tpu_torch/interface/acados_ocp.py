@@ -202,7 +202,8 @@ class AcadosOcpDims:
 @dataclasses.dataclass
 class AcadosOcpOptions:
     """Reference: acados_ocp_options.py:46-140 (same names/defaults where
-    they transfer; qp_solver names map onto the internal Riccati IPM)."""
+    they transfer; qp_solver names map onto the internal Riccati IPM,
+    FULL_CONDENSING_* onto full condensing and the dense IPM)."""
 
     N_horizon: Optional[int] = None
     tf: Optional[float] = None
@@ -282,8 +283,8 @@ class AcadosOcpOptions:
     sim_method_jac_reuse: bool = False
     collocation_type: str = "GAUSS_LEGENDRE"
     # condensing horizon (reference qp_solver_cond_N,
-    # acados_ocp_options.py; None = no partial condensing). The nearest
-    # divisor of N is used (static XLA shapes need uniform blocks).
+    # acados_ocp_options.py; None or >= N = no partial condensing, the
+    # only setting ported; FULL_CONDENSING_* qp_solvers ignore it).
     qp_solver_cond_N: Optional[int] = None
     # AS-RTI (reference as_rti_level/as_rti_iter, acados_ocp_options.py:
     # 134-135; level int 0..4 = A,B,C,D,STANDARD — strings also accepted)

@@ -27,6 +27,7 @@ from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
                                           use_x0_elimination)
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts
+from acados_tpu_torch.ocp_qp.xcond import resolve_cond_N
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
 
@@ -85,8 +86,7 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
         regularize_method=so.regularize_method,
         reg_epsilon=so.reg_epsilon,
         globalization=so.globalization if not rti else "FIXED_STEP",
-        cond_N=so.qp_solver_cond_N,
-        full_cond=str(so.qp_solver).startswith("FULL_CONDENSING"),
+        cond_N=_resolve_cond(ocp), full_cond=_is_full_cond(so),
         step_length=(so.globalization_fixed_step_length
                      if so.globalization_fixed_step_length is not None
                      else so.nlp_solver_step_length),
@@ -97,6 +97,21 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
         collect_phase_times=so.collect_phase_times,
         nlp_qp_tol_strategy=so.nlp_qp_tol_strategy,
         qp_opts=qp_opts)
+
+
+def _is_full_cond(so) -> bool:
+    """Every FULL_CONDENSING_* qp_solver takes the dense IPM path."""
+    return str(so.qp_solver).startswith("FULL_CONDENSING")
+
+
+def _resolve_cond(ocp: AcadosOcp) -> int | None:
+    """qp_solver_cond_N -> the partial-condensing horizon, as
+    acados_tpu/interface/solver.py:_resolve_cond maps it: None for full
+    condensing and for cond_N >= N (HPIPM's "no condensing")."""
+    so = ocp.solver_options
+    if so.qp_solver_cond_N is None or _is_full_cond(so):
+        return None
+    return resolve_cond_N(so.N_horizon or ocp.dims.N, so.qp_solver_cond_N)
 
 
 def _torch_dtype(ocp: AcadosOcp):

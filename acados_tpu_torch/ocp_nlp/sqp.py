@@ -1,7 +1,8 @@
 """SQP solver: linearize -> residuals -> regularize -> QP -> step, batch-first.
 
 Counterpart of `acados_tpu/ocp_nlp/sqp.py` for SQP and SQP_RTI with the
-FIXED_STEP globalization. The JAX package runs one `lax.while_loop` per
+FIXED_STEP globalization, on the Riccati IPM or, with full condensing,
+the dense IPM. The JAX package runs one `lax.while_loop` per
 instance and vmaps it; the port runs the whole batch in lockstep and
 freezes each instance that has stopped with `where(active, new, old)`, so
 per-instance iteration counts and statuses are those of the vmapped loop.
@@ -24,6 +25,7 @@ from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bmax, _bsum,
                                          solve_ocp_qp)
 from acados_tpu_torch.ocp_qp.riccati import _mTv
+from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
 from acados_tpu_torch.utils.device import full_precision_matmul
 from acados_tpu_torch.utils.struct import (select_fields, tensor_dataclass,
                                            where_batch)
@@ -83,7 +85,6 @@ _NOT_PORTED = {
     "with_adaptive_levenberg_marquardt": (False, "adaptive LM"),
     "qpscaling": ("NO_SCALING", "QP front-ends (qpscaling)"),
     "cond_N": (None, "QP front-ends (partial condensing)"),
-    "full_cond": (False, "QP front-ends (full condensing)"),
     "qp_solver_name": ("RICCATI_IPM", "QP breadth (registry backends)"),
     "collect_phase_times": (False, "phase times"),
     "timeout_max_time": (0.0, "in-loop timeout"),
@@ -185,6 +186,10 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     x0_fixed = use_x0_elimination(form, opts)
 
     def solve_qp(qp, warm=None):
+        """QP backend dispatch (acados_tpu/ocp_nlp/sqp.py:482-500): full
+        condensing -> the dense IPM, cold; else the Riccati IPM."""
+        if opts.full_cond:
+            return solve_ocp_qp_xcond(qp, opts.qp_opts, full_cond=True)
         return solve_ocp_qp(qp, opts.qp_opts, warm=warm, x0_fixed=x0_fixed)
 
     def solve(data: NlpData, init: NlpIterate):

@@ -6,7 +6,8 @@ recursion is a Python loop over N on (B, ., .) tensors. The small
 products use `torch.matmul` and the Cholesky factors
 `torch.linalg.cholesky_ex` / `torch.cholesky_solve`; the TPU-only
 unroll and VPU dispatch of `ops/small_chol.py` and `ops/smallmm.py` has no
-counterpart here.
+counterpart here; above n = 12, where the TPU launches the Pallas
+Cholesky, `_chol` takes `chol_any` (the kernel K2 on the card).
 
 Convention: the dynamics multiplier pi_k is attached to
 (A_k x_k + B_k u_k + b_k - x_{k+1}), so pi_k = P_{k+1} dx_{k+1} + p_{k+1}.
@@ -15,6 +16,7 @@ from __future__ import annotations
 
 import torch
 
+from acados_tpu_torch.ops.batched_chol import chol_any
 from acados_tpu_torch.utils.struct import tensor_dataclass
 
 # largest n the TPU factors with unrolled jnp code (ops/small_chol.py);
@@ -24,12 +26,11 @@ UNROLL_MAX_N = 12
 
 def _chol(H: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor; NaN where H is not positive definite, as
-    the reference's LAPACK path returns."""
-    if H.device.type == "cuda" and H.shape[-1] > UNROLL_MAX_N:
-        raise NotImplementedError(
-            f"Cholesky of n={H.shape[-1]} > {UNROLL_MAX_N} on the card is "
-            "the TPU kernel K2 (acados_tpu/ops/batched_chol.py:"
-            "_chol_kernel), not ported yet (ROADMAP.md Queue 2, K2)")
+    the reference's LAPACK path returns. Above UNROLL_MAX_N it is
+    `chol_any` (the kernel K2 on the card), as
+    acados_tpu/ocp_qp/riccati.py:41-45 dispatches on the TPU."""
+    if H.shape[-1] > UNROLL_MAX_N:
+        return chol_any(H)
     L, info = torch.linalg.cholesky_ex(H)
     return torch.where((info != 0)[..., None, None],
                        torch.full_like(L, float("nan")), L)

@@ -1,14 +1,15 @@
-"""Seeded test matrices for the Gauss-Jordan inverse (K1).
+"""Seeded test inputs: matrices for the Gauss-Jordan inverse (K1) and
+batches of OCP-QPs.
 
-Shared by the CPU tests (tests/test_torch_ops.py) and the card's check
-(chip_smoke.py), so both hold the kernel and its plain version to the
-same cases. numpy only; nothing here runs in the solver.
+Shared by the CPU tests (tests/test_torch_ops.py, test_torch_ocp_qp.py)
+and the card's check (chip_smoke.py), so both hold the port to the same
+cases. numpy only; nothing here runs in the solver.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["pivot_tie_batch", "row_permuted_batch"]
+__all__ = ["pivot_tie_batch", "random_qp_batch", "row_permuted_batch"]
 
 
 def row_permuted_batch(rng: np.random.Generator, B: int,
@@ -50,3 +51,52 @@ def pivot_tie_batch(rng: np.random.Generator, B: int,
     unit = np.all(A @ X == np.eye(n), axis=(1, 2)) & \
         (np.abs(X).max(axis=(1, 2), initial=0.0) < 2.0 ** 20)
     return A[unit], X[unit]
+
+
+def random_qp_batch(seed, B=8, N=8, nx=4, nu=2, nc=3, soft=False,
+                    x0_rows=True):
+    """Seeded batch of well-conditioned box/general-constrained OCP-QPs
+    (numpy, float64). With x0_rows, the first nx stage-0 rows pin x0
+    (lg == ug, the rows x0 elimination removes); without, those rows are
+    masked off and x0 is free. The other rows are centred on the
+    zero-input rollout so u = 0 is strictly feasible."""
+    rng = np.random.default_rng(seed)
+    n = lambda *s: rng.normal(size=(B,) + s)
+    Qs, Rs = 0.3 * n(N + 1, nx, nx), 0.3 * n(N, nu, nu)
+    d = dict(
+        Q=np.einsum("bkij,bkil->bkjl", Qs, Qs) + np.eye(nx),
+        R=np.einsum("bkij,bkil->bkjl", Rs, Rs) + np.eye(nu),
+        S=0.05 * n(N, nu, nx),
+        q=n(N + 1, nx), r=n(N, nu),
+        A=np.eye(nx) + 0.1 * n(N, nx, nx),
+        B=0.3 * n(N, nx, nu), b=0.1 * n(N, nx))
+    nct = nc + nx
+    C = np.zeros((B, N + 1, nct, nx))
+    D = np.zeros((B, N, nct, nu))
+    x0 = 0.5 * n(nx)
+    C[:, 0, :nx] = np.eye(nx)
+    Cr, Dr = n(N + 1, nc, nx), n(N, nc, nu)
+    C[:, :, nx:], D[:, :, nx:] = Cr, Dr
+    x_roll = [x0]
+    for k in range(N):
+        x_roll.append(np.einsum("bij,bj->bi", d["A"][:, k], x_roll[-1])
+                      + d["b"][:, k])
+    g0 = np.einsum("bkij,bkj->bki", Cr, np.stack(x_roll, 1))
+    widths = 0.2 + 1.5 * rng.uniform(size=(2, B, N + 1, nc))
+    lg = np.zeros((B, N + 1, nct))
+    ug = np.zeros((B, N + 1, nct))
+    lg[:, 0, :nx] = ug[:, 0, :nx] = x0
+    lg[:, :, nx:] = g0 - widths[0]
+    ug[:, :, nx:] = g0 + widths[1]
+    mask = np.zeros((B, N + 1, nct))
+    mask[:, 0, :nx] = 1.0 if x0_rows else 0.0
+    mask[:, :, nx:] = 1.0
+    z = np.zeros((B, N + 1, nct))
+    soft_mask, Zl, zl = z.copy(), z.copy(), z.copy()
+    if soft:
+        soft_mask[:, :, nx:] = 1.0
+        Zl[:, :, nx:] = 10.0
+        zl[:, :, nx:] = 1.0
+    d.update(C=C, D=D, lg=lg, ug=ug, mask_l=mask, mask_u=mask.copy(),
+             Zl=Zl, Zu=Zl.copy(), zl=zl, zu=zl.copy(), soft_mask=soft_mask)
+    return d

@@ -27,7 +27,30 @@ failure exits non-zero:
     (layers on the host clock, device busy share from torch.profiler);
  5. reference check: the same config in float64 at B = 8 on the card and
     on the CPU (the port's plain path, which the CPU tests hold against
-    the JAX package) must agree.
+    the JAX package) must agree;
+ 6. full-condensing path: the same config with qp_solver =
+    "FULL_CONDENSING_HPIPM" (full condensing, then the dense IPM, whose
+    barrier Hessian is factored by the Cholesky kernel K2 once per
+    lockstep round) at B = 4096 float32, 1 cold + 15 warm + timed calls;
+    every status 0, in tolerance, K1 at 8 launches per call and K2 at the
+    sum over calls of the batch's largest qp_iter; then where the time
+    goes (linearize, condense, dense IPM, expand);
+ 7. the Cholesky kernels K2 (factor), K3 (solve) and K4 (fused) against
+    their plain versions: the barrier Hessians captured from phase 6's
+    first dense-IPM round (4096 x 24 x 24), seeded SPD batches at n = 1,
+    4, 13, 24, 39, 64 with a ragged B = 1001, in float32 and float64, and
+    a batch mixing SPD with indefinite and non-finite matrices, which
+    must come back NaN throughout; then their times at (4096, 24, 24)
+    float32 beside their bounds, the plain versions and the library's
+    Cholesky calls;
+ 8. the public ops entry points (chol_factor_batched, chol_solve_batched,
+    chol_factor_solve_batched: K3 and K4 have no solver caller) on the
+    barrier Hessians of phase 6 in float64, one launch each, against the
+    plain fused version;
+ 9. reference check of the full-condensing path: float64, B = 8, card
+    against CPU;
+10. the Riccati IPM with a free initial state at nx = 16 (P_0 factored by
+    K2, one launch a round), float64, card against CPU.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -40,6 +63,7 @@ import time
 
 import numpy as np
 
+DEVICE = "cuda"
 B_MAIN = 4096
 N_HORIZON = 20
 WARM_CALLS = 15
@@ -48,6 +72,7 @@ LAUNCHES_PER_RTI = 8          # 4 inverses per substep x 2 substeps
 X0_CENTER = (0.0, np.pi, 0.0, 0.0)
 X0_SIGMA = 0.05
 SEED = 0
+FULL_COND = "FULL_CONDENSING_HPIPM"
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
@@ -85,6 +110,49 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def device_ms(fn, kernel: str, reps: int = 20) -> float:
+    """Mean device time (ms) of one launch of the kernel named like
+    `kernel` (fn() launches it once), from torch.profiler's CUDA events:
+    the kernel alone, without the host's time between launches, which
+    CUDA events around a short kernel also count. The profiler may keep
+    only some of the launches' records; the mean is over those."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and kernel in e.name]
+    if not us:
+        raise SystemExit(f"profiler saw no {kernel} kernel in {reps} calls")
+    return sum(us) / 1e3 / len(us)
+
+
+def bound_of(bytes_moved: float, flops: float):
+    """The least time the card could take (ms) and what bounds it."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def reset_counts():
+    """Every kernel's launch count to 0."""
+    from acados_tpu_torch.ops import batched_chol, batched_inv
+    batched_inv.LAUNCHES = 0
+    for k in batched_chol.LAUNCHES:
+        batched_chol.LAUNCHES[k] = 0
+
+
+def read_counts() -> dict:
+    from acados_tpu_torch.ops import batched_chol, batched_inv
+    return dict(gj_inverse=batched_inv.LAUNCHES, **batched_chol.LAUNCHES)
+
+
 def check_inverse(name, A, inv_kernel, bound):
     """Kernel against the plain version on the same input; returns
     (rel_err, abs_err, resid)."""
@@ -106,13 +174,16 @@ def check_inverse(name, A, inv_kernel, bound):
     return rel, abs_err, resid
 
 
-def rti_batch(ocp_kw, B, device, seed=SEED):
+def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None):
     """The main path's batch solver with bench.py's _build_rti set-up:
     x0 per instance = X0_CENTER + N(0, X0_SIGMA), set as lbx/ubx at stage
-    0, and the x trajectory initialised at x0."""
+    0, and the x trajectory initialised at x0. qp_solver, if given, is
+    set in the solver options."""
     from acados_tpu_torch import AcadosOcpBatchSolver
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     ocp = make_pendulum_ocp(**ocp_kw)
+    if qp_solver is not None:
+        ocp.solver_options.qp_solver = qp_solver
     solver = AcadosOcpBatchSolver(ocp, N_batch=B, device=device)
     rng = np.random.default_rng(seed)
     x0s = np.asarray(X0_CENTER) + rng.normal(0.0, X0_SIGMA, (B, 4))
@@ -146,36 +217,51 @@ def host_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def time_split(solver) -> dict:
-    """Where the time of one warm RTI call goes: its layers on the host
-    clock (each synchronised, medians), then a torch.profiler trace of a
-    few calls for the device's busy share and kernel launches per call."""
+def run_calls(solver, label, on_call=None):
+    """1 cold + WARM_CALLS warm + TIMED_CALLS timed solve() calls: every
+    status must be 0 and the last call in tolerance. Returns the timed
+    calls' host times (ms) and each call's largest qp_iter."""
+    import torch
+    call_ms, statuses, qp_max = [], [], []
+    for c in range(1 + WARM_CALLS + TIMED_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = solver.solve()
+        torch.cuda.synchronize()
+        if c > WARM_CALLS:
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        statuses.append(st)
+        qp_max.append(int(solver.get_stats("qp_iter").max()))
+        if on_call is not None:
+            on_call(c)
+    bad = [c for c, st in enumerate(statuses) if np.any(st != 0)]
+    if bad:
+        raise SystemExit(f"{label}: non-zero statuses in calls {bad}: "
+                         f"{np.unique(statuses[bad[0]], return_counts=True)}")
+    ok_tol, res, tols = in_tolerance(solver, solver.acados_ocp.solver_options)
+    log(f"  residual maxima {res.tolist()} vs tolerances {list(tols)}: "
+        f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
+    if not ok_tol:
+        raise SystemExit(f"{label} not in tolerance")
+    x = solver._it_dev.x
+    if x.shape != (solver.N_batch, N_HORIZON + 1, 4) or not bool(
+            torch.isfinite(x).all()):
+        raise SystemExit(f"bad trajectory tensor {tuple(x.shape)}")
+    return call_ms, qp_max
+
+
+def call_stats(call_ms) -> str:
+    med = float(np.median(call_ms))
+    p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
+    return (f"median {med:.2f} ms (p10 {p10:.2f}, p90 {p90:.2f}) over "
+            f"{len(call_ms)} calls -> {B_MAIN / med * 1e3:.1f} solves/s")
+
+
+def profile_calls(solver, call_ms: float, calls: int = 3) -> dict:
+    """A torch.profiler trace of a few solve() calls: the device's busy
+    share of the unprofiled call time, launches per call, top kernels."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
-                                                    linearize)
-    from acados_tpu_torch.ocp_nlp.sqp import use_x0_elimination
-    from acados_tpu_torch.ocp_qp.ipm import solve_ocp_qp
-    form, opts = solver.form, solver.opts
-    data, it = solver._data_dev, solver._it_dev
-    rows = build_static_rows(form, it.x.dtype, it.x.device)
-    lm = torch.tensor(opts.levenberg_marquardt, dtype=it.x.dtype,
-                      device=it.x.device)
-    x0f = use_x0_elimination(form, opts)
-    M = it.u.shape[0] * it.u.shape[1]
-    flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
-    step_args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
-                 flat(data.ts[:, :-1]), flat(data.dts))
-    qp = linearize(form, rows, data, it, lm)
-    out = dict(call_ms=host_ms(solver.solve),
-               linearize_ms=host_ms(lambda: linearize(form, rows, data, it,
-                                                      lm)),
-               irk_step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args)),
-               qp_ms=host_ms(lambda: solve_ocp_qp(qp, opts.qp_opts,
-                                                  x0_fixed=x0f)))
-    out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
-    calls = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -192,14 +278,144 @@ def time_split(solver) -> dict:
         t[0] += e.time_range.elapsed_us() / 1e3 / calls
         t[1] += 1 / calls
     busy_ms = sum(t[0] for t in busy.values())
-    out.update(device_busy_ms_per_call=busy_ms,
-               device_busy_share=busy_ms / out["call_ms"],
-               profiled_wall_ms_per_call=wall_ms / calls,
-               kernel_launches_per_call=len(kern) / calls,
-               top_kernels=[dict(name=k[:80], ms=v[0], launches=v[1])
-                            for k, v in sorted(busy.items(),
-                                               key=lambda kv: -kv[1][0])[:6]])
+    return dict(device_busy_ms_per_call=busy_ms,
+                device_busy_share=busy_ms / call_ms,
+                profiled_wall_ms_per_call=wall_ms / calls,
+                kernel_launches_per_call=len(kern) / calls,
+                top_kernels=[dict(name=k[:80], ms=v[0], launches=v[1])
+                             for k, v in sorted(busy.items(),
+                                                key=lambda kv: -kv[1][0])[:6]])
+
+
+def linearized(solver):
+    """(linearize thunk, its QP) at the solver's current iterate."""
+    import torch
+    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
+                                                    linearize)
+    form, opts = solver.form, solver.opts
+    data, it = solver._data_dev, solver._it_dev
+    rows = build_static_rows(form, it.x.dtype, it.x.device)
+    lm = torch.tensor(opts.levenberg_marquardt, dtype=it.x.dtype,
+                      device=it.x.device)
+    lin = lambda: linearize(form, rows, data, it, lm)
+    return lin, lin()
+
+
+def time_split(solver) -> dict:
+    """Where the time of one warm RTI call goes: its layers on the host
+    clock (each synchronised, medians), then a torch.profiler trace of a
+    few calls for the device's busy share and kernel launches per call."""
+    from acados_tpu_torch.ocp_nlp.sqp import use_x0_elimination
+    from acados_tpu_torch.ocp_qp.ipm import solve_ocp_qp
+    form, opts = solver.form, solver.opts
+    data, it = solver._data_dev, solver._it_dev
+    x0f = use_x0_elimination(form, opts)
+    M = it.u.shape[0] * it.u.shape[1]
+    flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
+    step_args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
+                 flat(data.ts[:, :-1]), flat(data.dts))
+    lin, qp = linearized(solver)
+    out = dict(call_ms=host_ms(solver.solve),
+               linearize_ms=host_ms(lin),
+               irk_step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args)),
+               qp_ms=host_ms(lambda: solve_ocp_qp(qp, opts.qp_opts,
+                                                  x0_fixed=x0f)))
+    out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
+    out.update(profile_calls(solver, out["call_ms"]))
     return out
+
+
+def fc_time_split(solver) -> dict:
+    """time_split for the full-condensing path: linearize, condense,
+    dense IPM, expand."""
+    from acados_tpu_torch.dense_qp.ipm import solve_dense_qp
+    from acados_tpu_torch.ocp_qp.full_condensing import (full_condense,
+                                                         full_expand)
+    qp_opts = solver.opts.qp_opts
+    lin, qp = linearized(solver)
+    dense, cache = full_condense(qp)
+    sol_d, info = solve_dense_qp(dense, qp_opts)
+    out = dict(call_ms=host_ms(solver.solve),
+               linearize_ms=host_ms(lin),
+               condense_ms=host_ms(lambda: full_condense(qp)),
+               dense_ipm_ms=host_ms(lambda: solve_dense_qp(dense, qp_opts)),
+               dense_ipm_rounds=int(info.num_iter.max()),
+               expand_ms=host_ms(lambda: full_expand(qp, cache, sol_d)))
+    out["rest_ms"] = out["call_ms"] - sum(
+        out[k] for k in ("linearize_ms", "condense_ms", "dense_ipm_ms",
+                         "expand_ms"))
+    out.update(profile_calls(solver, out["call_ms"]))
+    return out
+
+
+def spd_batch(rng, B, n):
+    """Seeded SPD matrices A A' / n + I."""
+    A = rng.normal(size=(B, n, n))
+    return A @ np.swapaxes(A, 1, 2) / n + np.eye(n)
+
+
+def chol_flops(n):
+    """Operations of the factor as the kernel runs it: the sums, the
+    column scalings, a sqrt and a reciprocal per column."""
+    return (n ** 3 - n) / 3 + n * (n - 1) / 2 + 2 * n
+
+
+def check_chol(name, H, b, bound, bad=None):
+    """K2, K3 and K4 against their plain versions on the same inputs;
+    returns {kernel: (rel_err, abs_err)}. `bad` marks the matrices that
+    must come back NaN throughout (all others finite)."""
+    import torch
+    from acados_tpu_torch.ops import batched_chol as bc
+    Lk = bc.chol_factor_batched(H)
+    Lp = bc.chol_factor_plain(H)
+    # K3's input: the plain factors, an identity in place of a NaN one
+    eye = torch.eye(H.shape[-1], dtype=H.dtype, device=H.device)
+    Lref = torch.where(torch.isnan(Lp).flatten(1).any(1)[:, None, None],
+                       eye, Lp)
+    pairs = dict(chol_factor=(Lk, Lp),
+                 chol_solve=(bc.chol_solve_batched(Lref, b),
+                             bc.chol_solve_plain(Lref, b)))
+    xk, Lk4 = bc.chol_factor_solve_batched(H, b)
+    xp, Lp4 = bc.chol_factor_solve_plain(H, b)
+    pairs["chol_factor_solve"] = (torch.cat([xk, Lk4.flatten(1)], 1),
+                                  torch.cat([xp, Lp4.flatten(1)], 1))
+    torch.cuda.synchronize()
+    out, fail = {}, []
+    for kname, (k, p) in pairs.items():
+        good = torch.isfinite(p).flatten(1).all(1)
+        nan_k = torch.isnan(k).flatten(1)
+        nan_ok = bool((nan_k.all(1) == ~good).all()) and bool(
+            torch.isfinite(k[good]).all())
+        if bad is not None and kname != "chol_solve":
+            nan_ok = nan_ok and bool((~good == bad).all())
+        abs_err = float((k[good] - p[good]).abs().max()) if good.any() \
+            else 0.0
+        rel = abs_err / max(float(p[good].abs().max()), 1e-300) \
+            if good.any() else 0.0
+        ok = rel <= bound and nan_ok
+        out[kname] = (rel, abs_err)
+        log(f"  {kname:<18} {name:<30} {str(H.dtype):<14} "
+            f"max|k-p|/max|p| {rel:.3e}  NaN rows "
+            f"{int((~good).sum())}/{len(good)} {'as planned' if nan_ok else 'WRONG'}"
+            f"  bound {bound:g}  {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail.append(kname)
+    if fail:
+        raise SystemExit(f"{fail} disagree with their plain versions: {name}")
+    return out
+
+
+def indefinite_batch(rng, B, n):
+    """SPD matrices with every 5th made indefinite, every 7th given a NaN
+    and every 11th an infinite diagonal entry in the lower triangle;
+    returns (H, bad)."""
+    H = spd_batch(rng, B, n)
+    bad = np.zeros(B, bool)
+    H[::5, n // 2, n // 2] = -1.0
+    H[3::7, n - 1, 0] = np.nan
+    H[6::11, n // 3, n // 3] = np.inf
+    bad[::5] = bad[3::7] = bad[6::11] = True
+    return H, bad
 
 
 def main() -> int:
@@ -208,9 +424,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this test needs a GPU",
               file=sys.stderr)
         return 2
-    from acados_tpu_torch.ops import batched_inv, cuda_build
+    from acados_tpu_torch.dense_qp import ipm as dense_ipm
+    from acados_tpu_torch.ocp_qp import data as qp_data
+    from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
+    from acados_tpu_torch.ops import batched_chol, batched_inv, cuda_build
     from acados_tpu_torch.ops.linsolve import linsolve
-    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
+    from acados_tpu_torch.testing import (pivot_tie_batch, random_qp_batch,
+                                          row_permuted_batch)
     from acados_tpu_torch.utils.device import full_precision_matmul
 
     # ---- 1. device ---------------------------------------------------------
@@ -220,7 +440,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     full_precision_matmul()
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -327,56 +547,41 @@ def main() -> int:
     # time at the main-path shape
     n = 16
     k1_ms = cuda_ms(lambda: kern(J), reps=30)
+    k1_dev_ms = device_ms(lambda: kern(J), "gj_inv")
     plain_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(J), reps=20)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(J), reps=20)
     bytes_moved = 2 * M * n * n * J.element_size()
     flops = M * (4 * n ** 3 - 2 * n ** 2)
-    t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"K1 at {tuple(J.shape)} float32: kernel {k1_ms:.4f} ms, plain "
+    bound_ms, bound_by = bound_of(bytes_moved, flops)
+    log(f"K1 at {tuple(J.shape)} float32: kernel {k1_ms:.4f} ms (device "
+        f"{k1_dev_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
+    kernels = [{
+        "name": "gj_inverse", "route": "cuda",
+        "source": "acados_tpu_torch/csrc/gj_inverse.cu",
+        "replaces": "acados_tpu/ops/batched_inv.py:39",
+        "launches": None, "max_abs_err": abs32,
+        "max_rel_err_f32": rel32, "ms": k1_ms, "device_ms": k1_dev_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]
 
     # ---- 4. main path ----------------------------------------------------------
-    so = ocp.solver_options
-    batched_inv.LAUNCHES = 0
-    call_ms, statuses = [], []
     n_calls = 1 + WARM_CALLS + TIMED_CALLS
-    for c in range(n_calls):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        st = solver.solve()
-        torch.cuda.synchronize()
-        if c > WARM_CALLS:
-            call_ms.append((time.perf_counter() - t0) * 1e3)
-        statuses.append(st)
-    launches = batched_inv.LAUNCHES
+    reset_counts()
+    call_ms, qp_max = run_calls(solver, "main path")
+    counts = read_counts()
+    launches = counts["gj_inverse"]
+    kernels[0]["launches"] = launches
     log(f"main path: pendulum IRK SQP-RTI, B={B_MAIN}, N={N_HORIZON}, "
-        f"float32, {n_calls} solve() calls, K1 launches {launches}")
+        f"float32, {n_calls} solve() calls, launches {counts}")
     if launches != LAUNCHES_PER_RTI * n_calls:
         raise SystemExit(f"expected {LAUNCHES_PER_RTI * n_calls} K1 "
                          f"launches, counted {launches}")
-    bad = [c for c, st in enumerate(statuses) if np.any(st != 0)]
-    if bad:
-        raise SystemExit(f"non-zero statuses in calls {bad}: "
-                         f"{np.unique(statuses[bad[0]], return_counts=True)}")
-    ok_tol, res, tols = in_tolerance(solver, so)
-    log(f"  residual maxima {res.tolist()} vs tolerances {list(tols)}: "
-        f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
-    if not ok_tol:
-        raise SystemExit("main path not in tolerance")
-    x = solver._it_dev.x
-    if x.shape != (B_MAIN, N_HORIZON + 1, 4) or not bool(
-            torch.isfinite(x).all()):
-        raise SystemExit(f"bad trajectory tensor {tuple(x.shape)}")
     med = float(np.median(call_ms))
-    p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
     qp_iter = solver.get_stats("qp_iter")
-    log(f"  per call: median {med:.2f} ms (p10 {p10:.2f}, p90 {p90:.2f}) "
-        f"over {len(call_ms)} calls -> {B_MAIN / med * 1e3:.1f} solves/s; "
+    log(f"  per call: {call_stats(call_ms)}; "
         f"K1 {LAUNCHES_PER_RTI * k1_ms:.3f} ms per call "
         f"({LAUNCHES_PER_RTI * k1_ms / med * 100:.2f} %); qp_iter max "
         f"{int(qp_iter.max())} mean {float(qp_iter.mean()):.2f}")
@@ -385,32 +590,207 @@ def main() -> int:
     # ---- 5. reference check at a small input --------------------------------------
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
-    gpu, _ = rti_batch(kw64, 8, dev, seed=1)
-    cpu, _ = rti_batch(kw64, 8, "cpu", seed=1)
-    for _ in range(3):
-        st_g, st_c = gpu.solve(), cpu.solve()
-        if not (np.array_equal(st_g, st_c) and np.array_equal(
-                gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
-            raise SystemExit("card and CPU disagree on statuses/qp_iter")
-    gap = 0.0
-    for f in ("x", "u", "pi"):
-        a = getattr(gpu._it_dev, f).cpu().numpy()
-        b = getattr(cpu._it_dev, f).numpy()
-        gap = max(gap, float(np.max(np.abs(a - b) / (1 + np.abs(b)))))
-    log(f"reference check float64 B=8, 3 RTI calls: card vs CPU "
-        f"max |d|/(1+|ref|) {gap:.3e} (bound 1e-9), statuses "
-        f"{st_g.tolist()}")
-    if not gap <= 1e-9:
-        raise SystemExit("card and CPU disagree")
 
-    kernels = {"kernels": [{
-        "name": "gj_inverse", "route": "cuda",
-        "source": "acados_tpu_torch/csrc/gj_inverse.cu",
-        "replaces": "acados_tpu/ops/batched_inv.py:39",
-        "launches": launches, "max_abs_err": abs32,
-        "max_rel_err_f32": rel32, "ms": k1_ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]}
-    log(json.dumps(kernels))
+    def card_vs_cpu(label, qp_solver=None):
+        gpu, _ = rti_batch(kw64, 8, dev, seed=1, qp_solver=qp_solver)
+        cpu, _ = rti_batch(kw64, 8, "cpu", seed=1, qp_solver=qp_solver)
+        for _ in range(3):
+            st_g, st_c = gpu.solve(), cpu.solve()
+            if not (np.array_equal(st_g, st_c) and np.array_equal(
+                    gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
+                raise SystemExit(f"{label}: card and CPU disagree on "
+                                 "statuses/qp_iter")
+        gap = 0.0
+        for f in ("x", "u", "pi"):
+            a = getattr(gpu._it_dev, f).cpu().numpy()
+            b = getattr(cpu._it_dev, f).numpy()
+            gap = max(gap, float(np.max(np.abs(a - b) / (1 + np.abs(b)))))
+        log(f"{label} float64 B=8, 3 RTI calls: card vs CPU "
+            f"max |d|/(1+|ref|) {gap:.3e} (bound 1e-9), statuses "
+            f"{st_g.tolist()}, qp_iter {gpu.get_stats('qp_iter').tolist()}")
+        if not gap <= 1e-9:
+            raise SystemExit(f"{label}: card and CPU disagree")
+
+    card_vs_cpu("reference check")
+
+    # ---- 6. full-condensing path ----------------------------------------------------
+    fc, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                           nlp_solver_type="SQP_RTI", integrator_type="IRK"),
+                      B_MAIN, dev, qp_solver=FULL_COND)
+    if not (fc.opts.full_cond and fc.opts.cond_N is None):
+        raise SystemExit("the full-condensing options did not take")
+    hb = []
+    orig_chol = dense_ipm.chol_any
+
+    def capture_hb(H):
+        hb.append(H.detach().clone())
+        return orig_chol(H)
+
+    def release(c):
+        dense_ipm.chol_any = orig_chol
+
+    dense_ipm.chol_any = capture_hb   # the cold call's first round only
+    reset_counts()
+    try:
+        fc_ms, fc_qp_max = run_calls(
+            fc, "full-condensing path",
+            on_call=lambda c: release(c) if c == 0 else None)
+    finally:
+        dense_ipm.chol_any = orig_chol
+    counts = read_counts()
+    nv = 4 + N_HORIZON
+    log(f"full-condensing path: pendulum IRK SQP-RTI, {FULL_COND}, "
+        f"B={B_MAIN}, float32, {n_calls} solve() calls, launches {counts}; "
+        f"largest qp_iter per call {fc_qp_max} (sum {sum(fc_qp_max)})")
+    if counts["gj_inverse"] != LAUNCHES_PER_RTI * n_calls:
+        raise SystemExit(f"expected {LAUNCHES_PER_RTI * n_calls} K1 "
+                         f"launches, counted {counts['gj_inverse']}")
+    if counts["chol_factor"] != sum(fc_qp_max):
+        raise SystemExit(f"expected {sum(fc_qp_max)} K2 launches (one per "
+                         f"dense-IPM round), counted {counts['chol_factor']}")
+    k2_launches = counts["chol_factor"]
+    Hb = hb[0]
+    if Hb.shape != (B_MAIN, nv, nv) or len(hb) != fc_qp_max[0]:
+        raise SystemExit(f"captured {len(hb)} barrier Hessians of shape "
+                         f"{tuple(Hb.shape)}")
+    fc_qp = fc.get_stats("qp_iter")
+    log(f"  per call: {call_stats(fc_ms)}; qp_iter max {int(fc_qp.max())} "
+        f"mean {float(fc_qp.mean()):.2f}")
+    log(f"  time split: {json.dumps(fc_time_split(fc))}")
+
+    # ---- 7. K2, K3, K4 against their plain versions ---------------------------------
+    log("K2/K3/K4 batched Cholesky: kernels vs plain versions on the card")
+    b_hb = torch.as_tensor(rng.normal(size=(B_MAIN, nv)), device=dev)
+    errs32 = check_chol(f"barrier Hessians {tuple(Hb.shape)}", Hb,
+                        b_hb.float(), F32_BOUND)
+    check_chol(f"barrier Hessians {tuple(Hb.shape)}", Hb.double(), b_hb,
+               F64_BOUND)
+    for dtype, bound in ((torch.float32, F32_BOUND),
+                         (torch.float64, F64_BOUND)):
+        for n in (1, 4, 13, 24, 39, 64):
+            H = torch.as_tensor(spd_batch(rng, 1001, n), dtype=dtype,
+                                device=dev)
+            b = torch.as_tensor(rng.normal(size=(1001, n)), dtype=dtype,
+                                device=dev)
+            check_chol(f"SPD n={n} B=1001", H, b, bound)
+        for n in (4, 24, 64):
+            H, bad = indefinite_batch(rng, 1001, n)
+            check_chol(f"indefinite/non-finite n={n} B=1001",
+                       torch.as_tensor(H, dtype=dtype, device=dev),
+                       torch.as_tensor(rng.normal(size=(1001, n)),
+                                       dtype=dtype, device=dev),
+                       bound, bad=torch.as_tensor(bad, device=dev))
+
+    # times at the dense IPM's shape
+    n, Bm, sz = nv, B_MAIN, Hb.element_size()
+    bf = b_hb.float()
+    L32 = batched_chol.chol_factor_plain(Hb)
+    factor_solve_lib = lambda: torch.cholesky_solve(
+        bf[..., None], torch.linalg.cholesky_ex(Hb)[0])
+    specs = [
+        ("chol_factor", ":38", lambda: batched_chol.chol_factor_batched(Hb),
+         lambda: batched_chol.chol_factor_plain(Hb),
+         lambda: torch.linalg.cholesky_ex(Hb), "torch.linalg.cholesky_ex",
+         2 * Bm * n * n * sz, Bm * chol_flops(n)),
+        ("chol_solve", ":60",
+         lambda: batched_chol.chol_solve_batched(L32, bf),
+         lambda: batched_chol.chol_solve_plain(L32, bf),
+         lambda: torch.cholesky_solve(bf[..., None], L32),
+         "torch.cholesky_solve", Bm * (n * n + 2 * n) * sz,
+         Bm * 2 * n * n),
+        ("chol_factor_solve", ":79",
+         lambda: batched_chol.chol_factor_solve_batched(Hb, bf),
+         lambda: batched_chol.chol_factor_solve_plain(Hb, bf),
+         factor_solve_lib, "cholesky_ex + cholesky_solve",
+         Bm * (2 * n * n + 2 * n) * sz, Bm * (chol_flops(n) + 2 * n * n)),
+    ]
+    for kname, line, kfn, pfn, lfn, lname, nbytes, nflops in specs:
+        k_ms = cuda_ms(kfn, reps=30)
+        k_dev_ms = device_ms(kfn, "chol_kernel")
+        p_ms = cuda_ms(pfn, reps=10)
+        l_ms = cuda_ms(lfn, reps=20)
+        b_ms, b_by = bound_of(nbytes, nflops)
+        log(f"{kname} at ({Bm}, {n}, {n}) float32: kernel {k_ms:.4f} ms "
+            f"(device {k_dev_ms:.4f} ms), "
+            f"plain {p_ms:.4f} ms, {lname} {l_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+            f"{nflops / 1e6:.2f} MFLOP)")
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "acados_tpu_torch/csrc/batched_chol.cu",
+            "replaces": "acados_tpu/ops/batched_chol.py" + line,
+            "launches": k2_launches if kname == "chol_factor" else None,
+            "max_abs_err": errs32[kname][1],
+            "max_rel_err_f32": errs32[kname][0], "ms": k_ms,
+            "device_ms": k_dev_ms,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms})
+
+    # ---- 8. the public ops entry points ----------------------------------------------
+    from acados_tpu_torch.ops import (chol_factor_batched,
+                                      chol_factor_solve_batched,
+                                      chol_solve_batched)
+    H64, b64 = Hb.double(), b_hb
+    reset_counts()
+    L = chol_factor_batched(H64)
+    x3 = chol_solve_batched(L, b64)
+    x4, L4 = chol_factor_solve_batched(H64, b64)
+    counts = read_counts()
+    ref, _ = batched_chol.chol_factor_solve_plain(H64, b64)
+    gap = max(float((x - ref).abs().max() / ref.abs().max())
+              for x in (x3, x4))
+    lib = torch.cholesky_solve(b64[..., None],
+                               torch.linalg.cholesky(H64))[..., 0]
+    lib_gap = float((x4 - lib).abs().max() / lib.abs().max())
+    log(f"ops entry points on the barrier Hessians, float64: launches "
+        f"{counts}, max|x-plain|/max|plain| {gap:.3e} (bound "
+        f"{F64_BOUND:g}), L of K2 and K4 equal: {bool(torch.equal(L, L4))}; "
+        f"beside torch.cholesky_solve {lib_gap:.3e}")
+    if counts != dict(gj_inverse=0, chol_factor=1, chol_solve=1,
+                      chol_factor_solve=1) or not gap <= F64_BOUND \
+            or not torch.equal(L, L4):
+        raise SystemExit("ops entry points failed")
+    for kd in kernels[2:]:
+        kd["launches"] = counts[kd["name"]]
+
+    # ---- 9. full-condensing reference check ------------------------------------------
+    card_vs_cpu("full-condensing reference check", qp_solver=FULL_COND)
+
+    # ---- 10. Riccati IPM with a free initial state at nx = 16 -----------------------------
+    d = random_qp_batch(SEED, B=256, N=8, nx=16, nu=2, nc=3, x0_rows=False)
+    opts = IpmOpts(iter_max=50)
+    sols = {}
+    for where in ("cpu", dev):
+        qp = qp_data.OcpQp(**{k: torch.as_tensor(v, device=where)
+                              for k, v in d.items()})
+        reset_counts()
+        sols[str(where)] = solve_ocp_qp(qp, opts, x0_fixed=False)
+        counts = read_counts()
+    (sc, ic), (sg, ig) = sols["cpu"], sols[str(dev)]
+    rounds = int(ig.num_iter.max())
+    rel_gap = lambda fields: max(
+        float(np.max(np.abs(getattr(sg, f).cpu().numpy()
+                            - getattr(sc, f).numpy())
+                     / (1 + np.abs(getattr(sc, f).numpy()))))
+        for f in fields)
+    gap = rel_gap(("x", "u", "pi"))
+    same = (np.array_equal(ig.num_iter.cpu(), ic.num_iter)
+            and np.array_equal(ig.status.cpu(), ic.status))
+    log(f"Riccati IPM, x0 free, nx=16, B=256, float64: card vs CPU "
+        f"max |d|/(1+|ref|) over x, u, pi {gap:.3e} (bound 1e-8; over "
+        f"lam_lg, lam_ug {rel_gap(('lam_lg', 'lam_ug')):.3e}), equal "
+        f"iterations and statuses {same}, K2 launches "
+        f"{counts['chol_factor']} for {rounds} rounds, statuses "
+        f"{np.unique(ig.status.cpu()).tolist()}")
+    # 1e-8: the worst of these 256 random instances amplifies the
+    # rounding differences of cuBLAS against the CPU's BLAS (and of the
+    # port against the JAX package on the CPU) to a few 1e-9; K2 itself
+    # matches its plain version bit for bit (phase 7)
+    if not (same and gap <= 1e-8 and counts["chol_factor"] == rounds
+            and bool((ig.status == 0).all())):
+        raise SystemExit("Riccati IPM with P_0 through K2 failed")
+
+    log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

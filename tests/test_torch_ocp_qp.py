@@ -20,61 +20,13 @@ from acados_tpu.ocp_qp.riccati import riccati_solve as jax_rsolve
 from acados_tpu_torch.ocp_qp import data as tdata
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
 from acados_tpu_torch.ocp_qp.riccati import riccati_factor, riccati_solve
+from acados_tpu_torch.testing import random_qp_batch
 
 torch.set_num_threads(1)
 
 QP_FIELDS = ("Q", "R", "S", "q", "r", "A", "B", "b", "C", "D", "lg", "ug",
              "mask_l", "mask_u", "Zl", "Zu", "zl", "zu", "soft_mask")
 SOL_FIELDS = ("x", "u", "pi", "lam_lg", "lam_ug", "t_lg", "t_ug", "sl", "su")
-
-
-def random_qp_batch(seed, B=8, N=8, nx=4, nu=2, nc=3, soft=False,
-                    x0_rows=True):
-    """Seeded batch of well-conditioned box/general-constrained OCP-QPs
-    (numpy, float64). With x0_rows, the first nx stage-0 rows pin x0
-    (lg == ug, the rows x0 elimination removes); without, those rows are
-    masked off and x0 is free. The other rows are centred on the
-    zero-input rollout so u = 0 is strictly feasible."""
-    rng = np.random.default_rng(seed)
-    n = lambda *s: rng.normal(size=(B,) + s)
-    Qs, Rs = 0.3 * n(N + 1, nx, nx), 0.3 * n(N, nu, nu)
-    d = dict(
-        Q=np.einsum("bkij,bkil->bkjl", Qs, Qs) + np.eye(nx),
-        R=np.einsum("bkij,bkil->bkjl", Rs, Rs) + np.eye(nu),
-        S=0.05 * n(N, nu, nx),
-        q=n(N + 1, nx), r=n(N, nu),
-        A=np.eye(nx) + 0.1 * n(N, nx, nx),
-        B=0.3 * n(N, nx, nu), b=0.1 * n(N, nx))
-    nct = nc + nx
-    C = np.zeros((B, N + 1, nct, nx))
-    D = np.zeros((B, N, nct, nu))
-    x0 = 0.5 * n(nx)
-    C[:, 0, :nx] = np.eye(nx)
-    Cr, Dr = n(N + 1, nc, nx), n(N, nc, nu)
-    C[:, :, nx:], D[:, :, nx:] = Cr, Dr
-    x_roll = [x0]
-    for k in range(N):
-        x_roll.append(np.einsum("bij,bj->bi", d["A"][:, k], x_roll[-1])
-                      + d["b"][:, k])
-    g0 = np.einsum("bkij,bkj->bki", Cr, np.stack(x_roll, 1))
-    widths = 0.2 + 1.5 * rng.uniform(size=(2, B, N + 1, nc))
-    lg = np.zeros((B, N + 1, nct))
-    ug = np.zeros((B, N + 1, nct))
-    lg[:, 0, :nx] = ug[:, 0, :nx] = x0
-    lg[:, :, nx:] = g0 - widths[0]
-    ug[:, :, nx:] = g0 + widths[1]
-    mask = np.zeros((B, N + 1, nct))
-    mask[:, 0, :nx] = 1.0 if x0_rows else 0.0
-    mask[:, :, nx:] = 1.0
-    z = np.zeros((B, N + 1, nct))
-    soft_mask, Zl, zl = z.copy(), z.copy(), z.copy()
-    if soft:
-        soft_mask[:, :, nx:] = 1.0
-        Zl[:, :, nx:] = 10.0
-        zl[:, :, nx:] = 1.0
-    d.update(C=C, D=D, lg=lg, ug=ug, mask_l=mask, mask_u=mask.copy(),
-             Zl=Zl, Zu=Zl.copy(), zl=zl, zu=zl.copy(), soft_mask=soft_mask)
-    return d
 
 
 def to_jax(d):
@@ -191,3 +143,32 @@ def test_zero_qp_shapes():
     qp = tdata.zero_qp(tdata.OcpQpDims(N=5, nx=3, nu=2, nc=4), batch=2)
     assert qp.Q.shape == (2, 6, 3, 3) and qp.D.shape == (2, 5, 4, 2)
     assert qp.dims == tdata.OcpQpDims(N=5, nx=3, nu=2, nc=4)
+
+
+def test_ipm_x0_free_nx14_factors_P0_through_chol_any(monkeypatch):
+    """nx = 14 > 12: the free-initial-state Riccati solve factors P_0 with
+    chol_any (the kernel K2 on the card, its plain version here), once
+    per lockstep IPM round, as the JAX package takes its Pallas Cholesky
+    there on the TPU; iterations, statuses and solution equal
+    jax.vmap(solve_ocp_qp)'s."""
+    from acados_tpu_torch.ocp_qp import riccati
+    calls = []
+    orig = riccati.chol_any
+
+    def spy(H):
+        calls.append(tuple(H.shape))
+        return orig(H)
+
+    monkeypatch.setattr(riccati, "chol_any", spy)
+    d = random_qp_batch(12, B=8, N=6, nx=14, nu=2, x0_rows=False)
+    jsol, jinfo, tsol, tinfo = _solve_both(d, x0_fixed=False)
+    assert np.all(np.asarray(jinfo.status) == 0)
+    np.testing.assert_array_equal(tinfo.num_iter.numpy(),
+                                  np.asarray(jinfo.num_iter))
+    np.testing.assert_array_equal(tinfo.status.numpy(),
+                                  np.asarray(jinfo.status))
+    for f in SOL_FIELDS:   # relative 1e-9: |pi| reaches ~4 at nx = 14
+        ref = np.asarray(getattr(jsol, f))
+        gap = np.abs(getattr(tsol, f).numpy() - ref) / (1 + np.abs(ref))
+        assert gap.max() <= 1e-9, (f, gap.max())
+    assert calls == [(8, 14, 14)] * int(tinfo.num_iter.max())
