@@ -23,10 +23,13 @@
 // ((n, n, B) after a transpose); here a matrix maps onto one warp.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32), at the
-// dense IPM's shape (4096, 24, 24) float32:
-//   factor bytes: 2 * 4096 * 576 * 4 B = 18.9 MB -> 5.6 us;
+// dense IPM's shape (4096, 24, 24) float32, counting the 300 entries of a
+// lower triangle read (the input's upper triangle is never read) and
+// every entry written:
+//   factor bytes: 4096 * (300 + 576) * 4 B = 14.4 MB -> 4.3 us;
 //          flops: n^3/3 + n^2/2 + 2n ~ 4.9 kFLOP a matrix, 20 MFLOP -> 0.3 us;
-//   solve  bytes: (4096 * 576 + 2 * 4096 * 24) * 4 B = 10.2 MB -> 3.0 us;
+//   solve  bytes: 4096 * (300 + 2 * 24) * 4 B = 5.7 MB -> 1.7 us;
+//   fused  bytes: 4096 * (300 + 576 + 2 * 24) * 4 B = 15.1 MB -> 4.5 us;
 // so every launch is bound by bytes (a few microseconds), and by the
 // latency of its n-step dependent recurrence at this batch.
 //

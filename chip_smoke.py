@@ -50,7 +50,10 @@ failure exits non-zero:
  9. reference check of the full-condensing path: float64, B = 8, card
     against CPU;
 10. the Riccati IPM with a free initial state at nx = 16 (P_0 factored by
-    K2, one launch a round), float64, card against CPU.
+    K2, one launch a round), float64, card against CPU; with K2 on that
+    run's P_0 against its plain version, the same solve on the card with
+    the plain version in K2's place, and the CPU's own spread on inputs
+    moved by one rounding step, beside it.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -63,7 +66,6 @@ import time
 
 import numpy as np
 
-DEVICE = "cuda"
 B_MAIN = 4096
 N_HORIZON = 20
 WARM_CALLS = 15
@@ -110,26 +112,33 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def device_ms(fn, kernel: str, reps: int = 20) -> float:
-    """Mean device time (ms) of one launch of the kernel named like
-    `kernel` (fn() launches it once), from torch.profiler's CUDA events:
-    the kernel alone, without the host's time between launches, which
-    CUDA events around a short kernel also count. The profiler may keep
-    only some of the launches' records; the mean is over those."""
+def device_ms(fn, reps: int = 20) -> float:
+    """Median device time (ms) of one fn() call, the calls queued back to
+    back behind a spin kernel that holds the stream until all of them are
+    queued: the events between the calls then time the card alone, not
+    the host's launch time, which CUDA events around a short kernel on an
+    idle card also count. The spin doubles until the host has queued
+    every call before the first event is reached."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    cycles = 1 << 24
+    while True:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+        torch.cuda._sleep(cycles)
+        ev[0].record()
+        for r in range(reps):
             fn()
+            ev[r + 1].record()
+        queued_in_time = not ev[0].query()
         torch.cuda.synchronize()
-    us = [e.time_range.elapsed_us() for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and kernel in e.name]
-    if not us:
-        raise SystemExit(f"profiler saw no {kernel} kernel in {reps} calls")
-    return sum(us) / 1e3 / len(us)
+        if queued_in_time:
+            return float(np.median([ev[r].elapsed_time(ev[r + 1])
+                                    for r in range(reps)]))
+        if cycles >= 1 << 32:
+            raise SystemExit("device_ms: the host could not queue "
+                             f"{reps} calls ahead of the card")
+        cycles *= 2
 
 
 def bound_of(bytes_moved: float, flops: float):
@@ -418,6 +427,98 @@ def indefinite_batch(rng, B, n):
     return H, bad
 
 
+def riccati_free_x0(dev) -> None:
+    """Phase 10: the Riccati IPM with a free initial state at nx = 16,
+    whose P_0 goes through chol_any (K2 on the card, one launch a round),
+    float64, card against CPU. The same solve on the card with P_0
+    factored by the plain version, K2 on the captured P_0 against the
+    plain version, and the CPU solve of inputs moved by one rounding
+    step show where the gap between card and CPU comes from."""
+    import torch
+    from acados_tpu_torch.ocp_qp import data as qp_data
+    from acados_tpu_torch.ocp_qp import riccati
+    from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
+    from acados_tpu_torch.ops import batched_chol
+    from acados_tpu_torch.testing import random_qp_batch
+    d = random_qp_batch(SEED, B=256, N=8, nx=16, nu=2, nc=3, x0_rows=False)
+    rng = np.random.default_rng(SEED + 1)
+    # every number of the problem (not the masks) moved by about one
+    # rounding step, up or down
+    d_moved = {k: v if "mask" in k else v * (
+        1 + np.finfo(np.float64).eps * rng.choice((-1.0, 1.0), v.shape))
+        for k, v in d.items()}
+    opts = IpmOpts(iter_max=50)
+    orig_chol = riccati.chol_any
+    p0 = []
+
+    def capture_p0(H):
+        p0.append(H.detach().clone())
+        return orig_chol(H)
+
+    def solve(data, where, chol=orig_chol):
+        qp = qp_data.OcpQp(**{k: torch.as_tensor(v, device=where)
+                              for k, v in data.items()})
+        riccati.chol_any = chol
+        try:
+            reset_counts()
+            sol, info = solve_ocp_qp(qp, opts, x0_fixed=False)
+            return sol, info, read_counts()
+        finally:
+            riccati.chol_any = orig_chol
+
+    sc, ic, _ = solve(d, "cpu")
+    sm, _, _ = solve(d_moved, "cpu")
+    sg, ig, counts = solve(d, dev, capture_p0)
+    sp, _, counts_p = solve(d, dev, batched_chol.chol_factor_plain)
+
+    def gaps(s, fields=("x", "u", "pi")):
+        """Per instance, max |s - cpu| / (1 + |cpu|) over `fields`."""
+        out = 0.0
+        for f in fields:
+            a, b = getattr(s, f).cpu().numpy(), getattr(sc, f).numpy()
+            out = np.maximum(out, np.max(
+                (np.abs(a - b) / (1 + np.abs(b))).reshape(len(b), -1), 1))
+        return out
+
+    g_card, g_moved = gaps(sg), gaps(sm)
+    gap, lam_gap = float(g_card.max()), float(
+        gaps(sg, ("lam_lg", "lam_ug")).max())
+    worst, worst_moved = int(np.argmax(g_card)), int(np.argmax(g_moved))
+    fields = ("x", "u", "pi", "lam_lg", "lam_ug")
+    plain_same = all(torch.equal(getattr(sg, f), getattr(sp, f))
+                     for f in fields)
+    k2_same = all(torch.equal(batched_chol.chol_factor_plain(P),
+                              batched_chol.chol_factor_batched(P))
+                  for P in p0)
+    rounds = int(ig.num_iter.max())
+    same = (np.array_equal(ig.num_iter.cpu(), ic.num_iter)
+            and np.array_equal(ig.status.cpu(), ic.status))
+    log(f"Riccati IPM, x0 free, nx=16, B=256, float64: card vs CPU "
+        f"max |d|/(1+|ref|) over x, u, pi {gap:.3e} (bound 1e-8; over "
+        f"lam_lg, lam_ug {lam_gap:.3e}), equal iterations and statuses "
+        f"{same}, K2 launches {counts['chol_factor']} for {rounds} rounds, "
+        f"statuses {np.unique(ig.status.cpu()).tolist()}")
+    log(f"  worst instance {worst} ({g_card[worst]:.3e}; median instance "
+        f"{float(np.median(g_card)):.3e}, {int(np.sum(g_card > 1e-9))} "
+        f"above 1e-9); K2 on this run's {len(p0)} P_0 batches equals the "
+        f"plain version bit for bit: {k2_same}; the card's solve with P_0 "
+        f"factored by the plain version ({counts_p['chol_factor']} K2 "
+        f"launches) equals the one through K2 bit for bit: {plain_same}")
+    log(f"  CPU against the CPU on inputs moved by one rounding step: "
+        f"worst instance {worst_moved} ({g_moved[worst_moved]:.3e}; "
+        f"instance {worst} {g_moved[worst]:.3e}; median "
+        f"{float(np.median(g_moved)):.3e})")
+    # 1e-8: K2 is bit for bit the plain version on these P_0, and the gap
+    # is the same without it; one instance amplifies rounding-level
+    # differences (cuBLAS against the CPU's BLAS, or a rounding step of
+    # its inputs) to a few 1e-9
+    if not (same and gap <= 1e-8 and counts["chol_factor"] == rounds
+            and len(p0) == rounds and counts_p["chol_factor"] == 0
+            and k2_same and plain_same
+            and bool((ig.status == 0).all())):
+        raise SystemExit("Riccati IPM with P_0 through K2 failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -425,12 +526,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from acados_tpu_torch.dense_qp import ipm as dense_ipm
-    from acados_tpu_torch.ocp_qp import data as qp_data
-    from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
     from acados_tpu_torch.ops import batched_chol, batched_inv, cuda_build
     from acados_tpu_torch.ops.linsolve import linsolve
-    from acados_tpu_torch.testing import (pivot_tie_batch, random_qp_batch,
-                                          row_permuted_batch)
+    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
     from acados_tpu_torch.utils.device import full_precision_matmul
 
     # ---- 1. device ---------------------------------------------------------
@@ -440,7 +538,7 @@ def main() -> int:
         f"device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     full_precision_matmul()
-    dev = torch.device(DEVICE)
+    dev = torch.device("cuda")
 
     # ---- 2. build ------------------------------------------------------------
     t0 = time.perf_counter()
@@ -547,14 +645,14 @@ def main() -> int:
     # time at the main-path shape
     n = 16
     k1_ms = cuda_ms(lambda: kern(J), reps=30)
-    k1_dev_ms = device_ms(lambda: kern(J), "gj_inv")
+    k1_dev_ms = device_ms(lambda: kern(J))
     plain_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(J), reps=20)
     lib_ms = cuda_ms(lambda: torch.linalg.inv(J), reps=20)
     bytes_moved = 2 * M * n * n * J.element_size()
     flops = M * (4 * n ** 3 - 2 * n ** 2)
     bound_ms, bound_by = bound_of(bytes_moved, flops)
     log(f"K1 at {tuple(J.shape)} float32: kernel {k1_ms:.4f} ms (device "
-        f"{k1_dev_ms:.4f} ms), plain "
+        f"{k1_dev_ms:.4f} ms back to back), plain "
         f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, bound "
         f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
         f"{flops / 1e9:.3f} GFLOP)")
@@ -683,6 +781,7 @@ def main() -> int:
 
     # times at the dense IPM's shape
     n, Bm, sz = nv, B_MAIN, Hb.element_size()
+    tri = n * (n + 1) // 2    # the kernels read only a lower triangle
     bf = b_hb.float()
     L32 = batched_chol.chol_factor_plain(Hb)
     factor_solve_lib = lambda: torch.cholesky_solve(
@@ -691,27 +790,28 @@ def main() -> int:
         ("chol_factor", ":38", lambda: batched_chol.chol_factor_batched(Hb),
          lambda: batched_chol.chol_factor_plain(Hb),
          lambda: torch.linalg.cholesky_ex(Hb), "torch.linalg.cholesky_ex",
-         2 * Bm * n * n * sz, Bm * chol_flops(n)),
+         Bm * (tri + n * n) * sz, Bm * chol_flops(n)),
         ("chol_solve", ":60",
          lambda: batched_chol.chol_solve_batched(L32, bf),
          lambda: batched_chol.chol_solve_plain(L32, bf),
          lambda: torch.cholesky_solve(bf[..., None], L32),
-         "torch.cholesky_solve", Bm * (n * n + 2 * n) * sz,
+         "torch.cholesky_solve", Bm * (tri + 2 * n) * sz,
          Bm * 2 * n * n),
         ("chol_factor_solve", ":79",
          lambda: batched_chol.chol_factor_solve_batched(Hb, bf),
          lambda: batched_chol.chol_factor_solve_plain(Hb, bf),
          factor_solve_lib, "cholesky_ex + cholesky_solve",
-         Bm * (2 * n * n + 2 * n) * sz, Bm * (chol_flops(n) + 2 * n * n)),
+         Bm * (tri + n * n + 2 * n) * sz,
+         Bm * (chol_flops(n) + 2 * n * n)),
     ]
     for kname, line, kfn, pfn, lfn, lname, nbytes, nflops in specs:
         k_ms = cuda_ms(kfn, reps=30)
-        k_dev_ms = device_ms(kfn, "chol_kernel")
+        k_dev_ms = device_ms(kfn)
         p_ms = cuda_ms(pfn, reps=10)
         l_ms = cuda_ms(lfn, reps=20)
         b_ms, b_by = bound_of(nbytes, nflops)
         log(f"{kname} at ({Bm}, {n}, {n}) float32: kernel {k_ms:.4f} ms "
-            f"(device {k_dev_ms:.4f} ms), "
+            f"(device {k_dev_ms:.4f} ms back to back), "
             f"plain {p_ms:.4f} ms, {lname} {l_ms:.4f} ms, bound "
             f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
             f"{nflops / 1e6:.2f} MFLOP)")
@@ -757,38 +857,7 @@ def main() -> int:
     card_vs_cpu("full-condensing reference check", qp_solver=FULL_COND)
 
     # ---- 10. Riccati IPM with a free initial state at nx = 16 -----------------------------
-    d = random_qp_batch(SEED, B=256, N=8, nx=16, nu=2, nc=3, x0_rows=False)
-    opts = IpmOpts(iter_max=50)
-    sols = {}
-    for where in ("cpu", dev):
-        qp = qp_data.OcpQp(**{k: torch.as_tensor(v, device=where)
-                              for k, v in d.items()})
-        reset_counts()
-        sols[str(where)] = solve_ocp_qp(qp, opts, x0_fixed=False)
-        counts = read_counts()
-    (sc, ic), (sg, ig) = sols["cpu"], sols[str(dev)]
-    rounds = int(ig.num_iter.max())
-    rel_gap = lambda fields: max(
-        float(np.max(np.abs(getattr(sg, f).cpu().numpy()
-                            - getattr(sc, f).numpy())
-                     / (1 + np.abs(getattr(sc, f).numpy()))))
-        for f in fields)
-    gap = rel_gap(("x", "u", "pi"))
-    same = (np.array_equal(ig.num_iter.cpu(), ic.num_iter)
-            and np.array_equal(ig.status.cpu(), ic.status))
-    log(f"Riccati IPM, x0 free, nx=16, B=256, float64: card vs CPU "
-        f"max |d|/(1+|ref|) over x, u, pi {gap:.3e} (bound 1e-8; over "
-        f"lam_lg, lam_ug {rel_gap(('lam_lg', 'lam_ug')):.3e}), equal "
-        f"iterations and statuses {same}, K2 launches "
-        f"{counts['chol_factor']} for {rounds} rounds, statuses "
-        f"{np.unique(ig.status.cpu()).tolist()}")
-    # 1e-8: the worst of these 256 random instances amplifies the
-    # rounding differences of cuBLAS against the CPU's BLAS (and of the
-    # port against the JAX package on the CPU) to a few 1e-9; K2 itself
-    # matches its plain version bit for bit (phase 7)
-    if not (same and gap <= 1e-8 and counts["chol_factor"] == rounds
-            and bool((ig.status == 0).all())):
-        raise SystemExit("Riccati IPM with P_0 through K2 failed")
+    riccati_free_x0(dev)
 
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
