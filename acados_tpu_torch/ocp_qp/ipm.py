@@ -393,7 +393,8 @@ def solve_ocp_qp(qp: OcpQp, opts: IpmOpts = None,
             break
         weights = _row_weights(qp, it)
         Qb, Rb, Sb = _barrier_hessian(qp, weights[0])
-        fact = riccati_factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps)
+        fact = riccati_factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps,
+                              factor_p0=dx0_zero is None)
         # affine (predictor) step: rc = 0 -> rhs = -lam*t
         d_aff = _newton_step(qp, fact, it, res, weights,
                              -ml * it.lam_l * it.t_l,

@@ -62,21 +62,29 @@ class RiccatiFactor:
     P   (B, N+1, nx, nx)  cost-to-go Hessians
     Luu (B, N,   nu, nu)  lower Cholesky of Huu_k = Rb_k + B_k' P_{k+1} B_k
     K   (B, N,   nu, nx)  feedback gains, du = K dx + kff
-    LP0 (B, nx, nx)       lower Cholesky of P_0 (free-initial-state solve)
+    LP0 (B, nx, nx)       lower Cholesky of P_0 (free-initial-state solve);
+                          None when the factorization was built for solves
+                          with a fixed initial state
     """
 
     P: torch.Tensor
     Luu: torch.Tensor
     K: torch.Tensor
-    LP0: torch.Tensor
+    LP0: torch.Tensor | None
 
 
-def riccati_factor(Qb, Rb, Sb, A, B, reg_eps: float = 0.0) -> RiccatiFactor:
+def riccati_factor(Qb, Rb, Sb, A, B, reg_eps: float = 0.0,
+                   factor_p0: bool = True) -> RiccatiFactor:
     """Backward Riccati factorization.
 
     Qb: (B, N+1, nx, nx); Rb: (B, N, nu, nu); Sb: (B, N, nu, nx);
     A: (B, N, nx, nx); B: (B, N, nx, nu). reg_eps is added to the diagonal
     before each Cholesky.
+
+    factor_p0: factor P_0 for a solve with a free initial state. Solves
+    with a fixed x0 never read it (under jit the JAX package drops that
+    Cholesky as dead code), so with False LP0 is None and no factor of
+    P_0 is computed: above nx = 12 that is one K2 launch saved.
     """
     N = A.shape[1]
     nx, nu = Qb.shape[-1], Rb.shape[-1]
@@ -96,7 +104,7 @@ def riccati_factor(Qb, Rb, Sb, A, B, reg_eps: float = 0.0) -> RiccatiFactor:
         P = Qb[:, k] + _T(A_k) @ PA + _T(Hux) @ K
         P = 0.5 * (P + _T(P))
         Ps[k], Luus[k], Ks[k] = P, Luu, K
-    LP0 = _chol(P + eye_x)
+    LP0 = _chol(P + eye_x) if factor_p0 else None
     return RiccatiFactor(P=torch.stack(Ps, 1), Luu=torch.stack(Luus, 1),
                          K=torch.stack(Ks, 1), LP0=LP0)
 
@@ -130,6 +138,10 @@ def riccati_solve(fact: RiccatiFactor, A, B, qb, rb, b, dx0=None):
     N = A.shape[1]
     kff, p = riccati_backward(fact, A, B, qb, rb, b)
     if dx0 is None:
+        if fact.LP0 is None:
+            raise ValueError("a solve with a free initial state needs the "
+                             "factor of P_0: riccati_factor(..., "
+                             "factor_p0=True)")
         dx0 = -_cho_solve(fact.LP0, p[:, 0])
     dx = dx0
     dxs, dus, dpis = [dx0], [None] * N, [None] * N

@@ -22,7 +22,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 
 # kernel library name -> source file in csrc/
-SOURCES = {"gj_inverse": "gj_inverse.cu", "batched_chol": "batched_chol.cu"}
+SOURCES = {"gj_inverse": "gj_inverse.cu", "batched_chol": "batched_chol.cu",
+           "small_mm": "small_mm.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -1,15 +1,31 @@
-"""Seeded test inputs: matrices for the Gauss-Jordan inverse (K1) and
-batches of OCP-QPs.
+"""Seeded test inputs: matrices for the Gauss-Jordan inverse (K1),
+batches of OCP-QPs, and RTI batches set up from per-instance x0s.
 
-Shared by the CPU tests (tests/test_torch_ops.py, test_torch_ocp_qp.py)
-and the card's check (chip_smoke.py), so both hold the port to the same
-cases. numpy only; nothing here runs in the solver.
+Shared by the CPU tests (tests/test_torch_*.py) and the card's check
+(chip_smoke.py), so both hold the port to the same cases. Nothing here
+runs in the solver.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["pivot_tie_batch", "random_qp_batch", "row_permuted_batch"]
+__all__ = ["pivot_tie_batch", "random_qp_batch", "row_permuted_batch",
+           "rti_batch"]
+
+
+def rti_batch(ocp, x0s: np.ndarray, device):
+    """AcadosOcpBatchSolver of len(x0s) instances of `ocp`, set up as
+    bench.py's _build_rti sets up the JAX package's batch: each
+    instance's x0 as lbx = ubx at stage 0 and as its initial x at every
+    stage, through the per-instance views as a user would."""
+    from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+    solver = AcadosOcpBatchSolver(ocp, len(x0s), device=device)
+    for i, view in enumerate(solver.ocp_solvers):
+        view.set(0, "lbx", x0s[i])
+        view.set(0, "ubx", x0s[i])
+        for k in range(solver.N + 1):
+            view.set(k, "x", x0s[i])
+    return solver
 
 
 def row_permuted_batch(rng: np.random.Generator, B: int,

@@ -53,7 +53,30 @@ failure exits non-zero:
     K2, one launch a round), float64, card against CPU; with K2 on that
     run's P_0 against its plain version, the same solve on the card with
     the plain version in K2's place, and the CPU's own spread on inputs
-    moved by one rounding step, beside it.
+    moved by one rounding step, beside it;
+11. chain path: AcadosOcpBatchSolver on make_chain_mass_ocp(n_mass=8,
+    N=40) (nx = 39, nu = 3, the Kronecker IRK path) in float32 at B = 256,
+    x0 = steady state + N(0, 0.02), 1 cold + 15 warm + timed calls; every
+    status 0, bench.py's chain tolerances met, K1 exactly 2 launches a call
+    of (10240, 39, 39), K2 and K5 none; K1 on the captured block
+    determinants against its plain version, and its time there; then
+    where the time of a call goes;
+12. chain sweep: n_mass = 3, 5, 11 (nx = 9, 21, 57) at B = 256, N = 40,
+    1 cold + 15 warm calls; every status 0 and in tolerance, K1 at 2
+    launches a call (4 at nx = 57: two n = 29 inverses of the Schur
+    recursion per determinant);
+13. the small-matrix product K5 against its plain version, bit for bit:
+    on phase 11's dynamics Jacobians (A @ A at (10240, 39, 39)), on seeded
+    batches at n = 1, 20, 39, 48, 64 with B = 1001 in float32 and float64,
+    and on a batch with NaN and infinite entries; then its device time
+    beside torch.bmm's and the bound over the microbenchmark's grid
+    (n = 20, 39, 48, 64 x B = 256 ... 10240);
+14. chain reference check: float64, n_mass = 8, N = 40, B = 4, 3 RTI
+    calls, card against CPU, beside the CPU's own spread under one
+    rounding step of the x0s;
+15. the quadrotor (N = 20) and race car (N = 30, Tf = 0.6) ERK RTI batches
+    at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 20 warm calls; every
+    status 0, within stat 5e-3 and eq 1e-4, no kernel launches.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -80,6 +103,18 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 F32_BOUND = 1e-4
 F64_BOUND = 1e-12
+# the chain entry of bench.py: n_mass = 8 (nx = 39), B = 256, N = 40, x0
+# spread 0.02 around the steady state, and its float32 tolerances
+# (stat, eq, ineq, comp)
+N_MASS, B_CHAIN, N_CHAIN, CHAIN_SIGMA = 8, 256, 40, 0.02
+CHAIN_TOLS = (1e-2, 1e-4, 1e-3, 1e-2)
+K1_PER_CHAIN_CALL = 2         # one block-determinant inverse per substep
+# bench.py's quadrotor and race car entries: (builder, x0 spread, OCP
+# keywords), gated at stat 5e-3 and eq 1e-4
+ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
+              ("race_car", 0.01, dict(N=30, Tf=0.6)))
+ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
+B_ERK = 1024
 
 
 def log(*a):
@@ -151,15 +186,39 @@ def bound_of(bytes_moved: float, flops: float):
 
 def reset_counts():
     """Every kernel's launch count to 0."""
-    from acados_tpu_torch.ops import batched_chol, batched_inv
+    from acados_tpu_torch.ops import batched_chol, batched_inv, small_mm
     batched_inv.LAUNCHES = 0
+    small_mm.LAUNCHES = 0
     for k in batched_chol.LAUNCHES:
         batched_chol.LAUNCHES[k] = 0
 
 
 def read_counts() -> dict:
-    from acados_tpu_torch.ops import batched_chol, batched_inv
-    return dict(gj_inverse=batched_inv.LAUNCHES, **batched_chol.LAUNCHES)
+    from acados_tpu_torch.ops import batched_chol, batched_inv, small_mm
+    return dict(gj_inverse=batched_inv.LAUNCHES, **batched_chol.LAUNCHES,
+                small_mm=small_mm.LAUNCHES)
+
+
+class K1Shapes:
+    """While active, records the shape of every K1 launch and keeps a copy
+    of the first launch's input."""
+
+    def __enter__(self):
+        from acados_tpu_torch.ops import batched_inv
+        self._mod, self._orig = batched_inv, batched_inv._gj_inverse_cuda
+        self.shapes, self.first = [], None
+
+        def record(A):
+            if self.first is None:
+                self.first = A.detach().clone()
+            self.shapes.append(tuple(A.shape))
+            return self._orig(A)
+
+        batched_inv._gj_inverse_cuda = record
+        return self
+
+    def __exit__(self, *exc):
+        self._mod._gj_inverse_cuda = self._orig
 
 
 def check_inverse(name, A, inv_kernel, bound):
@@ -188,27 +247,40 @@ def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None):
     x0 per instance = X0_CENTER + N(0, X0_SIGMA), set as lbx/ubx at stage
     0, and the x trajectory initialised at x0. qp_solver, if given, is
     set in the solver options."""
-    from acados_tpu_torch import AcadosOcpBatchSolver
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
     ocp = make_pendulum_ocp(**ocp_kw)
     if qp_solver is not None:
         ocp.solver_options.qp_solver = qp_solver
-    solver = AcadosOcpBatchSolver(ocp, N_batch=B, device=device)
     rng = np.random.default_rng(seed)
     x0s = np.asarray(X0_CENTER) + rng.normal(0.0, X0_SIGMA, (B, 4))
-    for i, view in enumerate(solver.ocp_solvers):
-        view.set(0, "lbx", x0s[i])
-        view.set(0, "ubx", x0s[i])
-        for k in range(solver.N + 1):
-            view.set(k, "x", x0s[i])
-    return solver, ocp
+    return batch_at(ocp, x0s, device), ocp
 
 
-def in_tolerance(solver, so):
-    """bench.py's _residual_fields gate on the last solve's residuals."""
+def chain_batch(n_mass, B, dtype, device, seed=SEED, moved=False):
+    """bench_chain_rti's set-up: the chain OCP at N = N_CHAIN, x0 per
+    instance = steady state + N(0, CHAIN_SIGMA). moved: every x0 entry
+    moved by one rounding step, up or down at random."""
+    from acados_tpu_torch.models.chain_mass import make_chain_mass_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    ocp, xrest = make_chain_mass_ocp(n_mass=n_mass, N=N_CHAIN, dtype=dtype)
+    rng = np.random.default_rng(seed)
+    x0s = xrest + rng.normal(0.0, CHAIN_SIGMA, (B, len(xrest)))
+    if moved:
+        x0s = x0s * (1 + np.finfo(np.float64).eps * rng.choice(
+            (-1.0, 1.0), x0s.shape))
+    return batch_at(ocp, x0s, device)
+
+
+def in_tolerance(solver, tols=None):
+    """bench.py's _residual_fields gate on the last solve's residuals, at
+    the configuration's tolerances unless tols (stat, eq, ineq, comp) are
+    given."""
+    so = solver.acados_ocp.solver_options
     res = solver.get_stats("residuals").max(axis=0)
-    tols = (so.nlp_solver_tol_stat, so.nlp_solver_tol_eq,
-            so.nlp_solver_tol_ineq, so.nlp_solver_tol_comp)
+    if tols is None:
+        tols = (so.nlp_solver_tol_stat, so.nlp_solver_tol_eq,
+                so.nlp_solver_tol_ineq, so.nlp_solver_tol_comp)
     return bool(np.all(res <= np.asarray(tols))), res, tols
 
 
@@ -226,18 +298,20 @@ def host_ms(fn, reps: int = 5) -> float:
     return float(np.median(times))
 
 
-def run_calls(solver, label, on_call=None):
-    """1 cold + WARM_CALLS warm + TIMED_CALLS timed solve() calls: every
-    status must be 0 and the last call in tolerance. Returns the timed
-    calls' host times (ms) and each call's largest qp_iter."""
+def run_calls(solver, label, on_call=None, tols=None, warm=WARM_CALLS,
+              timed=TIMED_CALLS):
+    """1 cold + `warm` warm + `timed` timed solve() calls: every status
+    must be 0 and the last call in tolerance (at `tols`, or the
+    configuration's). Returns the timed calls' host times (ms) and each
+    call's largest qp_iter."""
     import torch
     call_ms, statuses, qp_max = [], [], []
-    for c in range(1 + WARM_CALLS + TIMED_CALLS):
+    for c in range(1 + warm + timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         st = solver.solve()
         torch.cuda.synchronize()
-        if c > WARM_CALLS:
+        if c > warm:
             call_ms.append((time.perf_counter() - t0) * 1e3)
         statuses.append(st)
         qp_max.append(int(solver.get_stats("qp_iter").max()))
@@ -247,23 +321,23 @@ def run_calls(solver, label, on_call=None):
     if bad:
         raise SystemExit(f"{label}: non-zero statuses in calls {bad}: "
                          f"{np.unique(statuses[bad[0]], return_counts=True)}")
-    ok_tol, res, tols = in_tolerance(solver, solver.acados_ocp.solver_options)
+    ok_tol, res, tols = in_tolerance(solver, tols)
     log(f"  residual maxima {res.tolist()} vs tolerances {list(tols)}: "
         f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
     if not ok_tol:
         raise SystemExit(f"{label} not in tolerance")
     x = solver._it_dev.x
-    if x.shape != (solver.N_batch, N_HORIZON + 1, 4) or not bool(
-            torch.isfinite(x).all()):
+    if x.shape != (solver.N_batch, solver.N + 1, solver.form.nx) or not \
+            bool(torch.isfinite(x).all()):
         raise SystemExit(f"bad trajectory tensor {tuple(x.shape)}")
     return call_ms, qp_max
 
 
-def call_stats(call_ms) -> str:
+def call_stats(call_ms, B=B_MAIN) -> str:
     med = float(np.median(call_ms))
     p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
     return (f"median {med:.2f} ms (p10 {p10:.2f}, p90 {p90:.2f}) over "
-            f"{len(call_ms)} calls -> {B_MAIN / med * 1e3:.1f} solves/s")
+            f"{len(call_ms)} calls -> {B / med * 1e3:.1f} solves/s")
 
 
 def profile_calls(solver, call_ms: float, calls: int = 3) -> dict:
@@ -313,8 +387,13 @@ def linearized(solver):
 def time_split(solver) -> dict:
     """Where the time of one warm RTI call goes: its layers on the host
     clock (each synchronised, medians), then a torch.profiler trace of a
-    few calls for the device's busy share and kernel launches per call."""
-    from acados_tpu_torch.ocp_nlp.sqp import use_x0_elimination
+    few calls for the device's busy share and kernel launches per call.
+    The QP is warm-started from the NLP multipliers where the
+    configuration asks for it, as the SQP loop does."""
+    import torch
+    from acados_tpu_torch.ocp_nlp.sqp import (_nlp_residuals,
+                                              use_x0_elimination)
+    from acados_tpu_torch.ocp_qp.data import OcpQpSol
     from acados_tpu_torch.ocp_qp.ipm import solve_ocp_qp
     form, opts = solver.form, solver.opts
     data, it = solver._data_dev, solver._it_dev
@@ -324,11 +403,20 @@ def time_split(solver) -> dict:
     step_args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
                  flat(data.ts[:, :-1]), flat(data.dts))
     lin, qp = linearized(solver)
+    warm = None
+    if opts.warm_start_first_qp_from_nlp:
+        warm = OcpQpSol(x=torch.zeros_like(qp.q), u=torch.zeros_like(qp.r),
+                        pi=it.pi, lam_lg=it.lam_l, lam_ug=it.lam_u,
+                        t_lg=torch.ones_like(it.lam_l),
+                        t_ug=torch.ones_like(it.lam_u), sl=it.sl, su=it.su)
+    _, info = solve_ocp_qp(qp, opts.qp_opts, warm=warm, x0_fixed=x0f)
     out = dict(call_ms=host_ms(solver.solve),
                linearize_ms=host_ms(lin),
                irk_step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args)),
                qp_ms=host_ms(lambda: solve_ocp_qp(qp, opts.qp_opts,
-                                                  x0_fixed=x0f)))
+                                                  warm=warm, x0_fixed=x0f)),
+               qp_rounds=int(info.num_iter.max()),
+               residuals_ms=host_ms(lambda: _nlp_residuals(qp, it)))
     out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
     out.update(profile_calls(solver, out["call_ms"]))
     return out
@@ -355,6 +443,50 @@ def fc_time_split(solver) -> dict:
                          "expand_ms"))
     out.update(profile_calls(solver, out["call_ms"]))
     return out
+
+
+def card_vs_cpu(label, make, moved=None, calls=3):
+    """The same float64 batch (make(device) -> solver) on the card and on
+    the CPU, `calls` RTI calls: equal statuses and qp_iter, and
+    max |d|/(1 + |ref|) over x, u, pi within 1e-9, naming the worst
+    instance. moved, if given, makes the CPU batch again from inputs
+    moved by one rounding step (moved() -> solver), to log the CPU's own
+    spread beside the card's gap."""
+    import torch
+    gpu, cpu = make(torch.device("cuda")), make("cpu")
+    for _ in range(calls):
+        st_g, st_c = gpu.solve(), cpu.solve()
+        if not (np.array_equal(st_g, st_c) and np.array_equal(
+                gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
+            raise SystemExit(f"{label}: card and CPU disagree on "
+                             "statuses/qp_iter")
+
+    def gaps(s):
+        """Per instance, max |s - cpu| / (1 + |cpu|) over x, u, pi."""
+        out = 0.0
+        for f in ("x", "u", "pi"):
+            a = getattr(s._it_dev, f).cpu().numpy()
+            b = getattr(cpu._it_dev, f).numpy()
+            out = np.maximum(out, np.max(
+                (np.abs(a - b) / (1 + np.abs(b))).reshape(len(b), -1), 1))
+        return out
+
+    g = gaps(gpu)
+    worst = int(np.argmax(g))
+    log(f"{label} float64 B={len(g)}, {calls} RTI calls: card vs CPU "
+        f"max |d|/(1+|ref|) {g[worst]:.3e} (bound 1e-9, worst instance "
+        f"{worst}), statuses {st_g.tolist()}, qp_iter "
+        f"{gpu.get_stats('qp_iter').tolist()}")
+    if moved is not None:
+        cpu_moved = moved()
+        for _ in range(calls):
+            cpu_moved.solve()
+        gm = gaps(cpu_moved)
+        log(f"  CPU against the CPU on x0s moved by one rounding step: "
+            f"worst instance {int(np.argmax(gm))} ({gm.max():.3e}; "
+            f"instance {worst} {gm[worst]:.3e})")
+    if not g[worst] <= 1e-9:
+        raise SystemExit(f"{label}: card and CPU disagree")
 
 
 def spd_batch(rng, B, n):
@@ -519,6 +651,195 @@ def riccati_free_x0(dev) -> None:
         raise SystemExit("Riccati IPM with P_0 through K2 failed")
 
 
+def k1_entry(name, A, launches, rel, abs_err) -> dict:
+    """K1's kernels-line entry at the shape of A (float32): its time per
+    wrapper call and back to back, the plain version's and
+    torch.linalg.inv's, and the bound."""
+    import torch
+    from acados_tpu_torch.ops import batched_inv
+    kern = batched_inv._gj_inverse_cuda
+    M, n = A.shape[0], A.shape[-1]
+    k_ms = cuda_ms(lambda: kern(A), reps=30)
+    k_dev_ms = device_ms(lambda: kern(A))
+    p_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(A), reps=10)
+    l_ms = cuda_ms(lambda: torch.linalg.inv(A), reps=20)
+    nbytes = 2 * M * n * n * A.element_size()
+    flops = M * (4 * n ** 3 - 2 * n ** 2)
+    b_ms, b_by = bound_of(nbytes, flops)
+    log(f"K1 at {tuple(A.shape)} float32: kernel {k_ms:.4f} ms (device "
+        f"{k_dev_ms:.4f} ms back to back), plain {p_ms:.4f} ms, "
+        f"torch.linalg.inv {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"name": name, "route": "cuda",
+            "source": "acados_tpu_torch/csrc/gj_inverse.cu",
+            "replaces": "acados_tpu/ops/batched_inv.py:39",
+            "shape": list(A.shape), "launches": launches,
+            "max_abs_err": abs_err, "max_rel_err_f32": rel, "ms": k_ms,
+            "device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms}
+
+
+def chain_path(dev):
+    """Phase 11: the chain RTI batch at full width. Returns K1's kernels
+    entry at the chain's shape and the dynamics Jacobians A of one
+    linearisation, (B * N, nx, nx)."""
+    from acados_tpu_torch.ops import batched_inv
+    solver = chain_batch(N_MASS, B_CHAIN, "float32", dev)
+    nx = solver.form.nx
+    n_calls = 1 + WARM_CALLS + TIMED_CALLS
+    reset_counts()
+    with K1Shapes() as k1:
+        call_ms, qp_max = run_calls(solver, "chain path", tols=CHAIN_TOLS)
+    counts = read_counts()
+    M = B_CHAIN * N_CHAIN
+    log(f"chain path: make_chain_mass_ocp(n_mass={N_MASS}, N={N_CHAIN}), "
+        f"nx={nx}, IRK 2 stages kron, B={B_CHAIN}, float32, {n_calls} "
+        f"solve() calls, launches {counts}, K1 shapes "
+        f"{sorted(set(k1.shapes))}; largest qp_iter per call {qp_max}")
+    want = K1_PER_CHAIN_CALL * n_calls
+    if counts["gj_inverse"] != want or k1.shapes != [(M, nx, nx)] * want:
+        raise SystemExit(f"chain path: expected {want} K1 launches of "
+                         f"{(M, nx, nx)}, counted {counts['gj_inverse']}")
+    if any(v for k, v in counts.items() if k != "gj_inverse"):
+        raise SystemExit(f"chain path: unexpected launches {counts}")
+    log(f"  per call: {call_stats(call_ms, B_CHAIN)}; qp_iter max "
+        f"{int(solver.get_stats('qp_iter').max())} mean "
+        f"{float(solver.get_stats('qp_iter').mean()):.2f}")
+    log(f"  time split: {json.dumps(time_split(solver))}")
+    # K1 on the block determinants of the cold call's first substep
+    D = k1.first
+    rel, abs_err, _ = check_inverse(
+        f"chain block determinants {tuple(D.shape)}", D,
+        batched_inv._gj_inverse_cuda, F32_BOUND)
+    entry = k1_entry("gj_inverse_chain", D, counts["gj_inverse"], rel,
+                     abs_err)
+    _, qp = linearized(solver)
+    return entry, qp.A.reshape(M, nx, nx).contiguous()
+
+
+def chain_sweep(dev):
+    """Phase 12: n_mass = 3, 5, 11 at B_CHAIN, N_CHAIN, float32."""
+    for n_mass, per_call in ((3, 2), (5, 2), (11, 4)):
+        solver = chain_batch(n_mass, B_CHAIN, "float32", dev)
+        reset_counts()
+        with K1Shapes() as k1:
+            call_ms, qp_max = run_calls(solver, f"chain n_mass={n_mass}",
+                                        tols=CHAIN_TOLS,
+                                        warm=WARM_CALLS - 1, timed=1)
+        counts = read_counts()
+        calls = 1 + WARM_CALLS
+        log(f"chain sweep n_mass={n_mass} nx={solver.form.nx}: {calls} "
+            f"calls, K1 launches {counts['gj_inverse']} of "
+            f"{sorted(set(k1.shapes))}, largest qp_iter per call {qp_max}, "
+            f"last call {call_ms[0]:.2f} ms")
+        if counts["gj_inverse"] != per_call * calls:
+            raise SystemExit(f"chain n_mass={n_mass}: expected "
+                             f"{per_call * calls} K1 launches")
+
+
+def same_bits(k, p) -> bool:
+    """Equal entry for entry, NaN where the other is NaN."""
+    import torch
+    nan = torch.isnan(p)
+    return bool(torch.equal(torch.isnan(k), nan)) and bool(
+        torch.equal(k[~nan], p[~nan]))
+
+
+def small_mm_phase(dev, A) -> dict:
+    """Phase 13: K5 against its plain version bit for bit, then its times
+    over the microbenchmark's grid beside torch.bmm and the bound."""
+    import torch
+    from acados_tpu_torch.ops.small_mm import small_mm_batched, small_mm_plain
+
+    def check(label, X, Y):
+        k = small_mm_batched(X, Y)
+        torch.cuda.synchronize()
+        p = small_mm_plain(X, Y)
+        ok = same_bits(k, p)
+        fin = torch.isfinite(p)
+        err = float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) \
+            else 0.0
+        log(f"  {label:<40} {str(X.dtype):<14} max|k-p| {err:g}, NaN "
+            f"{int(torch.isnan(p).sum())}, bit for bit {ok}")
+        if not ok:
+            raise SystemExit(f"K5 disagrees with its plain version: {label}")
+        return err
+
+    log("K5 small_mm: kernel vs plain version on the card")
+    reset_counts()
+    small_mm_batched(A, A)
+    launches = read_counts()["small_mm"]
+    err32 = check(f"chain Jacobians A @ A {tuple(A.shape)}", A, A)
+    check(f"chain Jacobians A @ A {tuple(A.shape)}", A.double(), A.double())
+    rng = np.random.default_rng(SEED)
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 20, 39, 48, 64):
+            X, Y = (torch.as_tensor(rng.normal(size=(1001, n, n)),
+                                    dtype=dtype, device=dev)
+                    for _ in range(2))
+            check(f"random n={n} B=1001", X, Y)
+        X, Y = (torch.as_tensor(rng.normal(size=(1001, 39, 39)), dtype=dtype,
+                                device=dev) for _ in range(2))
+        X[::7, 3, 5] = float("nan")
+        Y[::5, 11, 2] = float("inf")
+        X[::11, 20, 30] = -float("inf")
+        check("NaN/inf entries n=39 B=1001", X, Y)
+
+    log("K5 grid, float32 (device ms back to back; torch.bmm with TF32 off):")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for n in (20, 39, 48, 64):
+        for B in (256, 1024, 4096, 10240):
+            X, Y = (torch.randn((B, n, n), generator=gen, device=dev)
+                    for _ in range(2))
+            k_dev = device_ms(lambda: small_mm_batched(X, Y))
+            l_dev = device_ms(lambda: torch.bmm(X, Y))
+            b_ms, b_by = bound_of(3 * B * n * n * 4, 2 * B * n ** 3)
+            log(f"  n={n:2d} B={B:5d}: K5 {k_dev:.4f} ms, torch.bmm "
+                f"{l_dev:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    X = A
+    M, n = X.shape[0], X.shape[-1]
+    k_ms = cuda_ms(lambda: small_mm_batched(X, X), reps=30)
+    k_dev = device_ms(lambda: small_mm_batched(X, X))
+    p_ms = cuda_ms(lambda: small_mm_plain(X, X), reps=5)
+    l_ms = cuda_ms(lambda: torch.bmm(X, X), reps=30)
+    l_dev = device_ms(lambda: torch.bmm(X, X))
+    nbytes, flops = 3 * M * n * n * X.element_size(), 2 * M * n ** 3
+    b_ms, b_by = bound_of(nbytes, flops)
+    log(f"K5 at {tuple(X.shape)} float32: kernel {k_ms:.4f} ms (device "
+        f"{k_dev:.4f} ms back to back), plain {p_ms:.4f} ms, torch.bmm "
+        f"{l_ms:.4f} ms (device {l_dev:.4f} ms), bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    return {"name": "small_mm", "route": "cuda",
+            "source": "acados_tpu_torch/csrc/small_mm.cu",
+            "replaces": "scratch/bench_smallmm39.py:39",
+            "shape": list(X.shape), "launches": launches,
+            "solver_path_launches": 0, "max_abs_err": err32, "ms": k_ms,
+            "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            "library_device_ms": l_dev}
+
+
+def erk_models(dev):
+    """Phase 15: the quadrotor and race car RTI batches at bench.py's
+    widths, float32."""
+    from acados_tpu_torch import models
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    for name, sigma, kw in ERK_MODELS:
+        ocp = getattr(models, f"make_{name}_ocp")(dtype="float32", **kw)
+        nx = len(ocp.constraints.x0)
+        x0s = np.random.default_rng(SEED).normal(0.0, sigma, (B_ERK, nx))
+        solver = batch_at(ocp, x0s, dev)
+        reset_counts()
+        call_ms, qp_max = run_calls(solver, name, tols=ERK_TOLS, warm=19,
+                                    timed=1)
+        counts = read_counts()
+        log(f"{name}: nx={nx}, N={solver.N}, B={B_ERK}, float32, 21 calls, "
+            f"launches {counts}, largest qp_iter per call {qp_max}, last "
+            f"call {call_ms[0]:.2f} ms")
+        if any(counts.values()):
+            raise SystemExit(f"{name}: unexpected kernel launches {counts}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -557,31 +878,19 @@ def main() -> int:
                                  integrator_type="IRK"), B_MAIN, dev)
     # stage Jacobians of one linearisation of the main path: the first
     # inverse the IRK step asks for at the initial iterate
-    import acados_tpu_torch.sim.irk as irk_mod
-    captured = []
-    orig_inv = irk_mod.gj_inverse_any
-
-    def capture(A):
-        if not captured:
-            captured.append(A.detach().clone())
-        return orig_inv(A)
-
-    irk_mod.gj_inverse_any = capture
-    try:
-        data = solver._data
-        M = B_MAIN * N_HORIZON
-        flat = lambda a: torch.as_tensor(
-            np.asarray(a).reshape((M,) + np.shape(a)[2:]),
-            dtype=torch.float32, device=dev)
-        x_init = np.repeat(np.asarray(data["lb_0"])[:, None, :4], N_HORIZON,
-                           axis=1)
+    data = solver._data
+    M = B_MAIN * N_HORIZON
+    flat = lambda a: torch.as_tensor(
+        np.asarray(a).reshape((M,) + np.shape(a)[2:]), dtype=torch.float32,
+        device=dev)
+    x_init = np.repeat(np.asarray(data["lb_0"])[:, None, :4], N_HORIZON,
+                       axis=1)
+    with K1Shapes() as k1:
         solver.form.step_jac_fn(
             flat(x_init), torch.zeros((M, 1), device=dev),
             torch.zeros((M, 0), device=dev),
             flat(data["ts"][:, :-1]), flat(data["dts"]))
-    finally:
-        irk_mod.gj_inverse_any = orig_inv
-    J = captured[0]
+    J = k1.first
     if J.shape != (M, 16, 16):
         raise SystemExit(f"unexpected stage Jacobian shape {tuple(J.shape)}")
     kern = batched_inv._gj_inverse_cuda
@@ -643,27 +952,8 @@ def main() -> int:
                              f"launches, error {err:.3e}")
 
     # time at the main-path shape
-    n = 16
-    k1_ms = cuda_ms(lambda: kern(J), reps=30)
-    k1_dev_ms = device_ms(lambda: kern(J))
-    plain_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(J), reps=20)
-    lib_ms = cuda_ms(lambda: torch.linalg.inv(J), reps=20)
-    bytes_moved = 2 * M * n * n * J.element_size()
-    flops = M * (4 * n ** 3 - 2 * n ** 2)
-    bound_ms, bound_by = bound_of(bytes_moved, flops)
-    log(f"K1 at {tuple(J.shape)} float32: kernel {k1_ms:.4f} ms (device "
-        f"{k1_dev_ms:.4f} ms back to back), plain "
-        f"{plain_ms:.4f} ms, torch.linalg.inv {lib_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}: {bytes_moved / 1e6:.1f} MB, "
-        f"{flops / 1e9:.3f} GFLOP)")
-    kernels = [{
-        "name": "gj_inverse", "route": "cuda",
-        "source": "acados_tpu_torch/csrc/gj_inverse.cu",
-        "replaces": "acados_tpu/ops/batched_inv.py:39",
-        "launches": None, "max_abs_err": abs32,
-        "max_rel_err_f32": rel32, "ms": k1_ms, "device_ms": k1_dev_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms}]
+    kernels = [k1_entry("gj_inverse", J, None, rel32, abs32)]
+    k1_ms = kernels[0]["ms"]
 
     # ---- 4. main path ----------------------------------------------------------
     n_calls = 1 + WARM_CALLS + TIMED_CALLS
@@ -688,28 +978,8 @@ def main() -> int:
     # ---- 5. reference check at a small input --------------------------------------
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
-
-    def card_vs_cpu(label, qp_solver=None):
-        gpu, _ = rti_batch(kw64, 8, dev, seed=1, qp_solver=qp_solver)
-        cpu, _ = rti_batch(kw64, 8, "cpu", seed=1, qp_solver=qp_solver)
-        for _ in range(3):
-            st_g, st_c = gpu.solve(), cpu.solve()
-            if not (np.array_equal(st_g, st_c) and np.array_equal(
-                    gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
-                raise SystemExit(f"{label}: card and CPU disagree on "
-                                 "statuses/qp_iter")
-        gap = 0.0
-        for f in ("x", "u", "pi"):
-            a = getattr(gpu._it_dev, f).cpu().numpy()
-            b = getattr(cpu._it_dev, f).numpy()
-            gap = max(gap, float(np.max(np.abs(a - b) / (1 + np.abs(b)))))
-        log(f"{label} float64 B=8, 3 RTI calls: card vs CPU "
-            f"max |d|/(1+|ref|) {gap:.3e} (bound 1e-9), statuses "
-            f"{st_g.tolist()}, qp_iter {gpu.get_stats('qp_iter').tolist()}")
-        if not gap <= 1e-9:
-            raise SystemExit(f"{label}: card and CPU disagree")
-
-    card_vs_cpu("reference check")
+    card_vs_cpu("reference check",
+                lambda where: rti_batch(kw64, 8, where, seed=1)[0])
 
     # ---- 6. full-condensing path ----------------------------------------------------
     fc, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
@@ -819,7 +1089,7 @@ def main() -> int:
             "name": kname, "route": "cuda",
             "source": "acados_tpu_torch/csrc/batched_chol.cu",
             "replaces": "acados_tpu/ops/batched_chol.py" + line,
-            "launches": k2_launches if kname == "chol_factor" else None,
+            "shape": [Bm, n, n], "launches": k2_launches if kname == "chol_factor" else None,
             "max_abs_err": errs32[kname][1],
             "max_rel_err_f32": errs32[kname][0], "ms": k_ms,
             "device_ms": k_dev_ms,
@@ -847,17 +1117,39 @@ def main() -> int:
         f"{F64_BOUND:g}), L of K2 and K4 equal: {bool(torch.equal(L, L4))}; "
         f"beside torch.cholesky_solve {lib_gap:.3e}")
     if counts != dict(gj_inverse=0, chol_factor=1, chol_solve=1,
-                      chol_factor_solve=1) or not gap <= F64_BOUND \
+                      chol_factor_solve=1, small_mm=0) \
+            or not gap <= F64_BOUND \
             or not torch.equal(L, L4):
         raise SystemExit("ops entry points failed")
     for kd in kernels[2:]:
         kd["launches"] = counts[kd["name"]]
 
     # ---- 9. full-condensing reference check ------------------------------------------
-    card_vs_cpu("full-condensing reference check", qp_solver=FULL_COND)
+    card_vs_cpu("full-condensing reference check",
+                lambda where: rti_batch(kw64, 8, where, seed=1,
+                                        qp_solver=FULL_COND)[0])
 
     # ---- 10. Riccati IPM with a free initial state at nx = 16 -----------------------------
     riccati_free_x0(dev)
+
+    # ---- 11. chain path at full width (the Kronecker IRK path) -----------------------------
+    k1_chain, A_chain = chain_path(dev)
+    kernels.append(k1_chain)
+
+    # ---- 12. chain sweep -------------------------------------------------------------------
+    chain_sweep(dev)
+
+    # ---- 13. K5 against its plain version, its times -----------------------------------------
+    kernels.append(small_mm_phase(dev, A_chain))
+
+    # ---- 14. chain reference check -----------------------------------------------------------
+    card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN})",
+                lambda where: chain_batch(N_MASS, 4, "float64", where),
+                moved=lambda: chain_batch(N_MASS, 4, "float64", "cpu",
+                                          moved=True))
+
+    # ---- 15. quadrotor and race car ------------------------------------------------------------
+    erk_models(dev)
 
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")

@@ -110,9 +110,8 @@ def test_float32_jacobians_stay_float32():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError, match="Kronecker"):
-        make_irk_step_jac(_torch_impl(), NX, 0, num_stages=2,
-                          jac_reuse=True, explicit_ode=True)
+    """The Kronecker path (2 stages, jac_reuse) is ported: see
+    tests/test_torch_chain.py."""
     with pytest.raises(NotImplementedError, match="nz > 0"):
         make_irk_step_jac(_torch_impl(), NX, nz=1)
     with pytest.raises(NotImplementedError, match="GNSF"):

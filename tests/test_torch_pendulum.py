@@ -29,6 +29,7 @@ from acados_tpu_torch.ocp_nlp import linearize as tlin
 from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
 from acados_tpu_torch.ocp_nlp.sqp import init_iterate, make_sqp_solver
 from acados_tpu_torch.ocp_qp import xcond
+from acados_tpu_torch.testing import rti_batch
 from acados_tpu_torch.utils.convert import iterate_from_numpy
 
 torch.set_num_threads(1)
@@ -50,15 +51,8 @@ def _full_cond(make_ocp):
 def _port_batch(data_lb_0, make_ocp=make_pendulum_ocp, **ocp_kw):
     """Port batch solver with the x0s of the JAX data set through the
     per-instance views, as a user would."""
-    x0s = np.asarray(data_lb_0)[:, :4]
-    solver = AcadosOcpBatchSolver(make_ocp(**ocp_kw), len(x0s),
-                                  device="cpu")
-    for i, view in enumerate(solver.ocp_solvers):
-        view.set(0, "lbx", x0s[i])
-        view.set(0, "ubx", x0s[i])
-        for k in range(N + 1):
-            view.set(k, "x", x0s[i])
-    return solver
+    return rti_batch(make_ocp(**ocp_kw), np.asarray(data_lb_0)[:, :4],
+                     "cpu")
 
 
 def _traj(solver, field, n):
