@@ -9,84 +9,252 @@
 // (__fmul_rn / __fadd_rn, never contracted into an FMA). The plain
 // PyTorch version, acados_tpu_torch/ops/small_mm.py:small_mm_plain, runs
 // the same recurrence one eager multiply and one eager add per k, so the
-// two agree bit for bit, NaN and infinity included.
+// two agree bit for bit, NaN and infinity included. No tensor cores: the
+// product is float32 with TF32 off, or float64, and the separate rounding
+// is the contract.
 //
-// Layout: the natural row-major (batch, n, n) tensors, read once and
-// written once. On the TPU the batch sat on the 128 lanes ((n, n, B) after
-// a transpose, padded to a multiple of 128); here a block takes whole
-// matrix pairs and masks the ragged end of the batch itself.
+// What bounds it on an H100 SXM at the chain's shape (10240, 39, 39)
+// float32:
+//   bytes: 3 * 10240 * 1521 * 4 B = 186.9 MB at 3.35 TB/s -> 55.8 us
+//   FP instructions: a multiply and an add a step, 2 B n^3 = 1.215 G lane
+//          instructions; 132 SMs issue 128 lanes a clock: ~36 us at
+//          1.98 GHz (the padding below adds 5 %)
+//   shared-memory loads: with one output a thread, 2 scalar loads a step,
+//          2 n^3 = 118,638 lane loads a pair, ~38 M warp loads over the
+//          batch; at one 128-byte access per SM a clock ~0.15 ms on their
+//          own, 3x the byte bound (such a kernel measured 4.2x it).
 //
-// What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside the
-// tensor cores), at the chain's shape (10240, 39, 39) float32:
-//   bytes: 3 * 10240 * 1521 * 4 B = 186.9 MB -> 55.8 us
-//   flops: 2 n^3 = 118.6 kFLOP a pair, 1.215 GFLOP -> 18 us (and twice
-//          that for separate multiply and add instructions: 36 us)
-// so a launch is bound by bytes, with the arithmetic close behind.
-//
-// Design against that: each pair is staged in shared memory (row stride
-// n | 1), so device memory sees one coalesced read of X and Y and one
-// coalesced write of the product. The threads of a block own output
-// entries (e = tid, tid + blockDim, ...), consecutive threads on
-// consecutive columns, so a warp reads one X entry as a broadcast and a
-// row of Y across the banks. At small n a block holds several pairs
-// (kThreads / n^2 of them) so that its threads have work. No tensor
-// cores: the product is float32 with TF32 off, and float64. Register
-// blocking, wgmma and TMA are later work.
+// Design against that:
+// - Register tiles. n is padded to NP: 4 for n <= 4, the next multiple of
+//   8 above (one template per band, so every divisor but n is a
+//   constant). Each thread owns a 4 x 4 tile of one product (at n = 39,
+//   NP = 40: 100 threads a pair). X is staged transposed, so for each k
+//   the thread reads its 4 entries of X's column k and its 4 entries of
+//   Y's row k as one 16-byte load each (two for float64) and updates its
+//   16 sums in ascending k: 2 vector loads feed 32 FP instructions, ~7,800
+//   vector loads a pair at n = 39 in place of 118,638 scalar ones. The
+//   threads of a warp that share a tile row read the same X address. The
+//   padded rows and columns hold whatever shared memory held; they feed
+//   only outputs that are never stored.
+// - Copies. A block takes a group of P consecutive pairs (P = 256 /
+//   threads a pair, fewer where 32 KB of float32 or 64 KB of float64
+//   would not hold them, or where a small batch would leave resident
+//   blocks without a group), so its span of X, Y and out is contiguous.
+//   Consecutive threads take consecutive elements, each with one 4-byte
+//   (8-byte) cp.async straight into its place: transposed for X, in rows
+//   of NP for Y. A 16-byte copy could not: the rows of an odd n start off
+//   16-byte boundaries, and cp.async does not transpose. The element's
+//   row and column come from a multiply by a reciprocal (exact below 2^17
+//   elements, and a group holds at most 2^12 of each operand), not a
+//   division. X^T's row stride is 4 times an odd number (NP or NP + 4),
+//   so the 8 transposed stores of 8 consecutive k fall into 8 different
+//   quads of banks, not into one bank (32 ways at NP = 64).
+// - One stage, persistent blocks. As many blocks as fit on the card walk
+//   over the groups; the copies of one block overlap with the products of
+//   the other blocks on its SM (several at every n). A second stage a block
+//   (the next group's copies in flight while this one multiplies), a warp
+//   that copies 4 x 8 blocks of X, 8 x 8 or 4 x 8 tiles and blocks of up
+//   to 800 threads were measured on the card and were all slower: the
+//   copies and the products share the SM's load/store path and issue
+//   slots, so a block's own overlap buys nothing, and larger tiles or
+//   blocks cost resident warps.
+// - Stores. Outputs go from registers straight to device memory: 16-byte
+//   stores when n is a multiple of 4 (every row then starts 16-byte
+//   aligned), single elements otherwise; the threads of a warp write
+//   neighbouring columns, so the sectors are filled.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kMaxN = 64;
-constexpr int kThreads = 256;
+constexpr int kMaxDevices = 64;
 constexpr size_t kDefaultSmem = 48 * 1024;
+constexpr int kTile = 4;         // a thread's tile: kTile x kTile outputs
+constexpr int kBlockThreads = 256;  // at most
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
 
-__host__ __device__ __forceinline__ int row_stride(int n) { return n | 1; }
+constexpr int cmin(int a, int b) { return a < b ? a : b; }
+constexpr int cmax(int a, int b) { return a > b ? a : b; }
 
-// shared memory of one pair: X and Y, each n rows of row_stride(n)
-template <typename T>
-__host__ __device__ __forceinline__ size_t pair_smem(int n) {
-  return static_cast<size_t>(2 * n * row_stride(n)) * sizeof(T);
+// shape of a band: NP = padded n
+template <typename T, int NP>
+struct Band {
+  static constexpr int kTiles = NP / kTile;           // tiles a row
+  static constexpr int kTpp = kTiles * kTiles;        // threads a pair
+  static constexpr int kLDT = kTiles % 2 ? NP : NP + 4;  // X^T's row stride
+  static constexpr int kXElems = NP * kLDT;           // X^T of one pair
+  static constexpr int kYElems = NP * NP;             // Y of one pair
+  static constexpr int kGroupBytes = sizeof(T) == 4 ? 32 * 1024 : 64 * 1024;
+  static constexpr int kPairs = cmin(
+      cmax(1, kBlockThreads / kTpp),
+      cmax(1, kGroupBytes / ((kXElems + kYElems) *
+                             static_cast<int>(sizeof(T)))));
+  static constexpr int kThreads = kPairs * kTpp;
+  static constexpr size_t kSmem = (kXElems + kYElems) * kPairs * sizeof(T);
+};
+
+// e / d for e < 2^17 and 1 <= d <= 64, with m = ceil(2^31 / d)
+__device__ __forceinline__ int div_by(int e, unsigned m) {
+  return static_cast<int>(
+      (static_cast<unsigned long long>(static_cast<unsigned>(e)) * m) >> 31);
 }
 
 template <typename T>
-__global__ void small_mm_kernel(const T* __restrict__ X,
-                                const T* __restrict__ Y, T* __restrict__ out,
-                                long long batch, int n, int ppb) {
+__device__ __forceinline__ void copy_async(T* dst, const T* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s),
+               "l"(src), "n"(sizeof(T)));
+}
+__device__ __forceinline__ void copy_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::);
+}
+
+__device__ __forceinline__ void load4(const float* s, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(s);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+__device__ __forceinline__ void load4(const double* s, double (&v)[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(s);
+  const double2 b = *reinterpret_cast<const double2*>(s + 2);
+  v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
+}
+__device__ __forceinline__ void store4(float* d, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(d) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void store4(double* d, const double (&v)[4]) {
+  reinterpret_cast<double2*>(d)[0] = make_double2(v[0], v[1]);
+  reinterpret_cast<double2*>(d)[1] = make_double2(v[2], v[3]);
+}
+
+// copy `pairs` pairs from element `base` into shared memory: X transposed
+// (Xs[p][k][i], row stride kLDT), then Y in rows of NP (Ys[p][k][j])
+template <typename T, int NP>
+__device__ __forceinline__ void stage_group(T* Xs, const T* __restrict__ X,
+                                            const T* __restrict__ Y,
+                                            long long base, int pairs, int n,
+                                            unsigned m) {
+  using Bd = Band<T, NP>;
+  T* Ys = Xs + Bd::kPairs * Bd::kXElems;
+  const int count = pairs * n * n;
+  for (int e = threadIdx.x; e < count; e += Bd::kThreads) {
+    const int row = div_by(e, m);       // p * n + r over the group
+    const int c = e - row * n;
+    const int p = div_by(row, m);
+    const int r = row - p * n;
+    copy_async(Xs + p * Bd::kXElems + c * Bd::kLDT + r, X + base + e);
+    copy_async(Ys + p * Bd::kYElems + r * NP + c, Y + base + e);
+  }
+  copy_wait_all();
+}
+
+// this thread's tile of pair slot p, from (i0, j0), into o (row stride n):
+// acc[u][v] = sum over ascending k of X[i0+u][k] Y[k][j0+v]
+template <typename T, int NP>
+__device__ __forceinline__ void multiply(const T* S, int p, int i0, int j0,
+                                         int n, T* __restrict__ o) {
+  using Bd = Band<T, NP>;
+  const T* xs = S + p * Bd::kXElems + i0;
+  const T* ys = S + Bd::kPairs * Bd::kXElems + p * Bd::kYElems + j0;
+  T acc[kTile][kTile];
+#pragma unroll
+  for (int u = 0; u < kTile; ++u)
+#pragma unroll
+    for (int v = 0; v < kTile; ++v) acc[u][v] = T(0);
+#pragma unroll 4
+  for (int k = 0; k < n; ++k) {
+    T a[kTile], b[kTile];
+    load4(xs + k * Bd::kLDT, a);
+    load4(ys + k * NP, b);
+#pragma unroll
+    for (int u = 0; u < kTile; ++u)
+#pragma unroll
+      for (int v = 0; v < kTile; ++v) acc[u][v] = add(acc[u][v], mul(a[u], b[v]));
+  }
+  if ((n & 3) == 0) {  // rows 16-byte aligned, and j0 + 3 < n
+#pragma unroll
+    for (int u = 0; u < kTile; ++u)
+      if (i0 + u < n) store4(o + u * n, acc[u]);
+  } else {
+#pragma unroll
+    for (int u = 0; u < kTile; ++u)
+#pragma unroll
+      for (int v = 0; v < kTile; ++v)
+        if (i0 + u < n && j0 + v < n) o[u * n + v] = acc[u][v];
+  }
+}
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(Band<T, NP>::kThreads)
+small_mm_kernel(const T* __restrict__ X, const T* __restrict__ Y,
+                T* __restrict__ out, long long batch, int n, unsigned m,
+                int group) {
+  using Bd = Band<T, NP>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* S = reinterpret_cast<T*>(smem_raw);
-  const int ld = row_stride(n);
+  T* const S = reinterpret_cast<T*>(smem_raw);
   const int nn = n * n;
-  const long long first = static_cast<long long>(blockIdx.x) * ppb;
-  const long long left = batch - first;
-  const int pairs = left < ppb ? static_cast<int>(left) : ppb;
-  const int total = pairs * nn;
-  const long long base = first * nn;
+  const long long groups = (batch + group - 1) / group;
 
-  // stage X and Y: pair p at S + p * 2 n ld, X rows then Y rows
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int p = e / nn, r = e - p * nn;
-    const int i = r / n, j = r - i * n;
-    T* Sp = S + p * 2 * n * ld;
-    Sp[i * ld + j] = X[base + e];
-    Sp[(n + i) * ld + j] = Y[base + e];
-  }
-  __syncthreads();
+  // this thread's tile: pair slot p, rows i0.., columns j0..
+  const int p = threadIdx.x / Bd::kTpp;
+  const int q = threadIdx.x - p * Bd::kTpp;
+  const int ti = q / Bd::kTiles;
+  const int i0 = kTile * ti, j0 = kTile * (q - ti * Bd::kTiles);
 
-  for (int e = threadIdx.x; e < total; e += blockDim.x) {
-    const int p = e / nn, r = e - p * nn;
-    const int i = r / n, j = r - i * n;
-    const T* xs = S + p * 2 * n * ld + i * ld;
-    const T* ys = S + (p * 2 + 1) * n * ld + j;
-    T acc = T(0);
-    for (int k = 0; k < n; ++k) acc = add(acc, mul(xs[k], ys[k * ld]));
-    out[base + e] = acc;
+  for (long long g = blockIdx.x; g < groups; g += gridDim.x) {
+    const long long left = batch - g * group;
+    const int pairs = left < group ? static_cast<int>(left) : group;
+    const long long base = g * group * nn;
+    stage_group<T, NP>(S, X, Y, base, pairs, n, m);
+    __syncthreads();  // every thread's copies have landed
+    if (p < pairs && i0 < n && j0 < n) {
+      multiply<T, NP>(S, p, i0, j0, n, out + base + p * nn + i0 * n + j0);
+    }
+    __syncthreads();  // the stage is refilled in the next round
   }
+}
+
+template <typename T, int NP>
+int launch_band(const T* X, const T* Y, T* out, long long batch, int n,
+                cudaStream_t stream) {
+  using Bd = Band<T, NP>;
+  static int blocks_per_sm[kMaxDevices] = {};  // 0: not yet asked
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  const auto kernel = small_mm_kernel<T, NP>;
+  if (blocks_per_sm[dev] == 0) {
+    if (Bd::kSmem > kDefaultSmem) {  // float64 at NP >= 56
+      err = cudaFuncSetAttribute(kernel,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 static_cast<int>(Bd::kSmem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    int fit = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &fit, kernel, Bd::kThreads, Bd::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    blocks_per_sm[dev] = fit > 0 ? fit : 1;
+  }
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // pairs a group: kPairs, or fewer where the batch would not give every
+  // resident block a group
+  const long long resident = static_cast<long long>(blocks_per_sm[dev]) * sms;
+  const long long fill = (batch + resident - 1) / resident;
+  const int group = fill < Bd::kPairs ? static_cast<int>(fill) : Bd::kPairs;
+  const long long groups = (batch + group - 1) / group;
+  const long long blocks = groups < resident ? groups : resident;
+  const unsigned m = static_cast<unsigned>(((1ULL << 31) + n - 1) / n);
+  kernel<<<static_cast<unsigned>(blocks), Bd::kThreads, Bd::kSmem, stream>>>(
+      X, Y, out, batch, n, m, group);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -96,23 +264,18 @@ int launch(const T* X, const T* Y, T* out, long long batch, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
-  int ppb = kThreads / (n * n);
-  if (ppb < 1) ppb = 1;
-  const size_t smem = pair_smem<T>(n) * ppb;
-  if (smem > kDefaultSmem) {
-    // past the default 48 KB only with one pair a block: float64 at
-    // n >= 56
-    const cudaError_t err = cudaFuncSetAttribute(
-        small_mm_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const long long blocks = (batch + ppb - 1) / ppb;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  small_mm_kernel<T><<<static_cast<unsigned>(blocks), kThreads, smem,
-                       stream>>>(X, Y, out, batch, n, ppb);
-  return static_cast<int>(cudaGetLastError());
+  switch (n <= 4 ? 4 : (n + 7) / 8 * 8) {
+    case 4: return launch_band<T, 4>(X, Y, out, batch, n, stream);
+    case 8: return launch_band<T, 8>(X, Y, out, batch, n, stream);
+    case 16: return launch_band<T, 16>(X, Y, out, batch, n, stream);
+    case 24: return launch_band<T, 24>(X, Y, out, batch, n, stream);
+    case 32: return launch_band<T, 32>(X, Y, out, batch, n, stream);
+    case 40: return launch_band<T, 40>(X, Y, out, batch, n, stream);
+    case 48: return launch_band<T, 48>(X, Y, out, batch, n, stream);
+    case 56: return launch_band<T, 56>(X, Y, out, batch, n, stream);
+    default: return launch_band<T, 64>(X, Y, out, batch, n, stream);
+  }
 }
 
 }  // namespace

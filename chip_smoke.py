@@ -68,9 +68,11 @@ failure exits non-zero:
 13. the small-matrix product K5 against its plain version, bit for bit:
     on phase 11's dynamics Jacobians (A @ A at (10240, 39, 39)), on seeded
     batches at n = 1, 20, 39, 48, 64 with B = 1001 in float32 and float64,
-    and on a batch with NaN and infinite entries; then its device time
-    beside torch.bmm's and the bound over the microbenchmark's grid
-    (n = 20, 39, 48, 64 x B = 256 ... 10240);
+    on a batch with NaN and infinite entries, and on the edge cases of its
+    pair groups and padded tiles (n = 1, 7, 39, 40, 64 at B = 1, 2, 3, 5,
+    1023, and n = 1, 7 at B = 200,003); then its device time beside
+    torch.bmm's and the bound over the microbenchmark's grid (n = 20, 39,
+    48, 64 x B = 256 ... 10240), and at the chain's shape in float64;
 14. chain reference check: float64, n_mass = 8, N = 40, B = 4, 3 RTI
     calls, card against CPU, beside the CPU's own spread under one
     rounding step of the x0s;
@@ -101,6 +103,7 @@ FULL_COND = "FULL_CONDENSING_HPIPM"
 # H100 SXM published peaks (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12            # outside the tensor cores
 F32_BOUND = 1e-4
 F64_BOUND = 1e-12
 # the chain entry of bench.py: n_mass = 8 (nx = 39), B = 256, N = 40, x0
@@ -115,6 +118,16 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
               ("race_car", 0.01, dict(N=30, Tf=0.6)))
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
+# K5's edge cases: n at the start, inside and at the end of a band of the
+# kernel's padded sizes, batches that end inside a pair group (4 k + 3
+# among them), and a long batch with more groups than resident blocks
+K5_EDGE_N = (1, 7, 39, 40, 64)
+K5_EDGE_B = (1, 2, 3, 5, 1023)
+K5_LONG_B = 200_003
+# K5 at (10240, 39, 39) float32, device ms back to back, before the
+# register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
+# 700.00 W)
+K5_PREVIOUS_DEVICE_MS = 0.2336
 
 
 def log(*a):
@@ -176,10 +189,10 @@ def device_ms(fn, reps: int = 20) -> float:
         cycles *= 2
 
 
-def bound_of(bytes_moved: float, flops: float):
+def bound_of(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
     """The least time the card could take (ms) and what bounds it."""
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                  else "operations")
 
@@ -746,12 +759,13 @@ def same_bits(k, p) -> bool:
 
 
 def small_mm_phase(dev, A) -> dict:
-    """Phase 13: K5 against its plain version bit for bit, then its times
-    over the microbenchmark's grid beside torch.bmm and the bound."""
+    """Phase 13: K5 against its plain version bit for bit (the edge cases
+    of its pair groups and padded tiles included), then its times over the
+    microbenchmark's grid beside torch.bmm and the bound."""
     import torch
     from acados_tpu_torch.ops.small_mm import small_mm_batched, small_mm_plain
 
-    def check(label, X, Y):
+    def check(label, X, Y, quiet=False):
         k = small_mm_batched(X, Y)
         torch.cuda.synchronize()
         p = small_mm_plain(X, Y)
@@ -759,8 +773,9 @@ def small_mm_phase(dev, A) -> dict:
         fin = torch.isfinite(p)
         err = float((k[fin] - p[fin]).abs().max()) if bool(fin.any()) \
             else 0.0
-        log(f"  {label:<40} {str(X.dtype):<14} max|k-p| {err:g}, NaN "
-            f"{int(torch.isnan(p).sum())}, bit for bit {ok}")
+        if not quiet or not ok:
+            log(f"  {label:<40} {str(X.dtype):<14} max|k-p| {err:g}, NaN "
+                f"{int(torch.isnan(p).sum())}, bit for bit {ok}")
         if not ok:
             raise SystemExit(f"K5 disagrees with its plain version: {label}")
         return err
@@ -784,6 +799,18 @@ def small_mm_phase(dev, A) -> dict:
         Y[::5, 11, 2] = float("inf")
         X[::11, 20, 30] = -float("inf")
         check("NaN/inf entries n=39 B=1001", X, Y)
+        # the ends of a pair group and the padded tile edge: short and
+        # ragged batches, n inside and at the end of a band, and batches
+        # with more groups than the card holds blocks
+        cases = [(n, B) for n in K5_EDGE_N for B in K5_EDGE_B]
+        cases += [(n, K5_LONG_B) for n in (1, 7)]
+        for n, B in cases:
+            X, Y = (torch.as_tensor(rng.normal(size=(B, n, n)), dtype=dtype,
+                                    device=dev) for _ in range(2))
+            check(f"edge n={n} B={B}", X, Y, quiet=True)
+        log(f"  edge cases {str(dtype):<14} {len(cases)} batches (n in "
+            f"{K5_EDGE_N}, B in {K5_EDGE_B}; n = 1, 7 at B = {K5_LONG_B}), "
+            f"bit for bit True")
 
     log("K5 grid, float32 (device ms back to back; torch.bmm with TF32 off):")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -806,17 +833,28 @@ def small_mm_phase(dev, A) -> dict:
     nbytes, flops = 3 * M * n * n * X.element_size(), 2 * M * n ** 3
     b_ms, b_by = bound_of(nbytes, flops)
     log(f"K5 at {tuple(X.shape)} float32: kernel {k_ms:.4f} ms (device "
-        f"{k_dev:.4f} ms back to back), plain {p_ms:.4f} ms, torch.bmm "
+        f"{k_dev:.4f} ms back to back; {K5_PREVIOUS_DEVICE_MS} before the "
+        f"register-tiled design), plain {p_ms:.4f} ms, torch.bmm "
         f"{l_ms:.4f} ms (device {l_dev:.4f} ms), bound {b_ms:.4f} ms "
         f"({b_by}: {nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
+    X64 = A.double()
+    k64 = device_ms(lambda: small_mm_batched(X64, X64))
+    l64 = device_ms(lambda: torch.bmm(X64, X64))
+    b64, b64_by = bound_of(2 * nbytes, flops, FP64_FLOPS)
+    log(f"K5 at {tuple(X.shape)} float64: device {k64:.4f} ms back to "
+        f"back, torch.bmm {l64:.4f} ms, bound {b64:.4f} ms ({b64_by}: "
+        f"{2 * nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP at "
+        f"{FP64_FLOPS / 1e12:g} TFLOP/s)")
     return {"name": "small_mm", "route": "cuda",
             "source": "acados_tpu_torch/csrc/small_mm.cu",
             "replaces": "scratch/bench_smallmm39.py:39",
             "shape": list(X.shape), "launches": launches,
             "solver_path_launches": 0, "max_abs_err": err32, "ms": k_ms,
-            "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms,
-            "library_device_ms": l_dev}
+            "device_ms": k_dev, "previous_device_ms": K5_PREVIOUS_DEVICE_MS,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "library_device_ms": l_dev,
+            "f64_device_ms": k64, "f64_library_device_ms": l64,
+            "f64_bound_ms": b64}
 
 
 def erk_models(dev):
