@@ -14,15 +14,18 @@
 // is the contract.
 //
 // What bounds it on an H100 SXM at the chain's shape (10240, 39, 39)
-// float32:
+// float32, counted for this design:
 //   bytes: 3 * 10240 * 1521 * 4 B = 186.9 MB at 3.35 TB/s -> 55.8 us
-//   FP instructions: a multiply and an add a step, 2 B n^3 = 1.215 G lane
-//          instructions; 132 SMs issue 128 lanes a clock: ~36 us at
-//          1.98 GHz (the padding below adds 5 %)
-//   shared-memory loads: with one output a thread, 2 scalar loads a step,
-//          2 n^3 = 118,638 lane loads a pair, ~38 M warp loads over the
-//          batch; at one 128-byte access per SM a clock ~0.15 ms on their
-//          own, 3x the byte bound (such a kernel measured 4.2x it).
+//   FP instructions: a multiply and an add a step, 2 B n NP^2 = 1.278 G
+//          lane instructions with the padding (2 B n^3 = 1.215 G without);
+//          132 SMs issue 128 lanes a clock: ~38 us at 1.98 GHz
+//   shared-memory loads: 2 16-byte loads a thread a step, 2 n (NP/4)^2 =
+//          7,800 a pair, 80 M over the batch; a warp's Y load spans 10
+//          tiles (2 wavefronts) and its X load at most 4 broadcast
+//          addresses (1), ~3.8 M wavefronts: ~14 us. The copies' 4-byte
+//          shared stores add ~2.4 M (X's transposed ones 4-way).
+// No one of these reaches the bytes' 55.8 us: the copies and the products
+// share each SM's issue slots and load/store path.
 //
 // Design against that:
 // - Register tiles. n is padded to NP: 4 for n <= 4, the next multiple of
@@ -31,8 +34,7 @@
 //   NP = 40: 100 threads a pair). X is staged transposed, so for each k
 //   the thread reads its 4 entries of X's column k and its 4 entries of
 //   Y's row k as one 16-byte load each (two for float64) and updates its
-//   16 sums in ascending k: 2 vector loads feed 32 FP instructions, ~7,800
-//   vector loads a pair at n = 39 in place of 118,638 scalar ones. The
+//   16 sums in ascending k: 2 vector loads feed 32 FP instructions. The
 //   threads of a warp that share a tile row read the same X address. The
 //   padded rows and columns hold whatever shared memory held; they feed
 //   only outputs that are never stored.
@@ -51,13 +53,10 @@
 //   quads of banks, not into one bank (32 ways at NP = 64).
 // - One stage, persistent blocks. As many blocks as fit on the card walk
 //   over the groups; the copies of one block overlap with the products of
-//   the other blocks on its SM (several at every n). A second stage a block
-//   (the next group's copies in flight while this one multiplies), a warp
-//   that copies 4 x 8 blocks of X, 8 x 8 or 4 x 8 tiles and blocks of up
-//   to 800 threads were measured on the card and were all slower: the
-//   copies and the products share the SM's load/store path and issue
-//   slots, so a block's own overlap buys nothing, and larger tiles or
-//   blocks cost resident warps.
+//   the other blocks on its SM (several at every n). A block has no second
+//   stage of its own: its copies and products would compete for the same
+//   issue slots and load/store path, and the stage would cost resident
+//   blocks (the variants that measured slower are in PERF.md section 6).
 // - Stores. Outputs go from registers straight to device memory: 16-byte
 //   stores when n is a multiple of 4 (every row then starts 16-byte
 //   aligned), single elements otherwise; the threads of a warp write
@@ -68,7 +67,6 @@
 namespace {
 
 constexpr int kMaxN = 64;
-constexpr int kMaxDevices = 64;
 constexpr size_t kDefaultSmem = 48 * 1024;
 constexpr int kTile = 4;         // a thread's tile: kTile x kTile outputs
 constexpr int kBlockThreads = 256;  // at most
@@ -222,31 +220,25 @@ template <typename T, int NP>
 int launch_band(const T* X, const T* Y, T* out, long long batch, int n,
                 cudaStream_t stream) {
   using Bd = Band<T, NP>;
-  static int blocks_per_sm[kMaxDevices] = {};  // 0: not yet asked
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   const auto kernel = small_mm_kernel<T, NP>;
-  if (blocks_per_sm[dev] == 0) {
-    if (Bd::kSmem > kDefaultSmem) {  // float64 at NP >= 56
-      err = cudaFuncSetAttribute(kernel,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 static_cast<int>(Bd::kSmem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    int fit = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &fit, kernel, Bd::kThreads, Bd::kSmem);
+  cudaError_t err;
+  if (Bd::kSmem > kDefaultSmem) {  // float64 at NP >= 56
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(Bd::kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    blocks_per_sm[dev] = fit > 0 ? fit : 1;
   }
-  int sms = 0;
+  int fit = 0, dev = 0, sms = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit, kernel,
+                                                      Bd::kThreads, Bd::kSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   // pairs a group: kPairs, or fewer where the batch would not give every
   // resident block a group
-  const long long resident = static_cast<long long>(blocks_per_sm[dev]) * sms;
+  const long long resident = static_cast<long long>(fit > 0 ? fit : 1) * sms;
   const long long fill = (batch + resident - 1) / resident;
   const int group = fill < Bd::kPairs ? static_cast<int>(fill) : Bd::kPairs;
   const long long groups = (batch + group - 1) / group;

@@ -12,16 +12,13 @@ block size, has no counterpart.
 
 At the chain's shape (10240, 39, 39) float32 the card must move 186.9 MB
 (55.8 us at 3.35 TB/s) and issue 1.215 G separate FP multiplies and adds
-(~36 us on 132 SMs x 128 lanes). A design with one output a thread is
-bound instead by its 2 n^3 scalar shared-memory loads a pair (~38 M warp
-loads over the batch, ~0.15 ms). The kernel therefore gives each thread
-a 4 x 4 register tile (n padded to a multiple of 8, one template per
-band) and stages X transposed, so one 16-byte load of X and one of Y
-feed 32 FP instructions. Persistent blocks walk over groups of
-consecutive pairs, copied element by element into shared memory with
-`cp.async`; the copies of one block overlap with the products of the
-others on its SM. The source header has the counts and the designs that
-measured slower.
+(~36 us on 132 SMs x 128 lanes). The kernel gives each thread a 4 x 4
+register tile (n padded to a multiple of 8, one template per band) and
+stages X transposed, so one 16-byte load of X and one of Y feed 32 FP
+instructions. Persistent blocks walk over groups of consecutive pairs,
+copied element by element into shared memory with `cp.async`; the
+copies of one block overlap with the products of the others on its SM.
+The source header has the byte, FP-instruction and shared-load counts.
 
 No solver path calls it, in either package: the chain's products go to
 `torch.matmul` as the JAX package leaves them to XLA.

@@ -119,14 +119,16 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
 # K5's edge cases: n at the start, inside and at the end of a band of the
-# kernel's padded sizes, batches that end inside a pair group (4 k + 3
-# among them), and a long batch with more groups than resident blocks
-K5_EDGE_N = (1, 7, 39, 40, 64)
+# kernel's padded sizes (one n in each band: 4, 8, 16, ..., 64), batches
+# that end inside a pair group (4 k + 3 among them), a long batch with
+# more groups than resident blocks, and every n at a short ragged batch
+K5_EDGE_N = (1, 7, 13, 20, 29, 39, 40, 48, 53, 64)
 K5_EDGE_B = (1, 2, 3, 5, 1023)
 K5_LONG_B = 200_003
+K5_SWEEP_B = 7
 # K5 at (10240, 39, 39) float32, device ms back to back, before the
 # register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
-# 700.00 W)
+# 700.00 W), for the log line only
 K5_PREVIOUS_DEVICE_MS = 0.2336
 
 
@@ -763,7 +765,9 @@ def small_mm_phase(dev, A) -> dict:
     of its pair groups and padded tiles included), then its times over the
     microbenchmark's grid beside torch.bmm and the bound."""
     import torch
-    from acados_tpu_torch.ops.small_mm import small_mm_batched, small_mm_plain
+    from acados_tpu_torch.ops.small_mm import (SMALL_MM_MAX_N,
+                                               small_mm_batched,
+                                               small_mm_plain)
 
     def check(label, X, Y, quiet=False):
         k = small_mm_batched(X, Y)
@@ -804,13 +808,14 @@ def small_mm_phase(dev, A) -> dict:
         # with more groups than the card holds blocks
         cases = [(n, B) for n in K5_EDGE_N for B in K5_EDGE_B]
         cases += [(n, K5_LONG_B) for n in (1, 7)]
+        cases += [(n, K5_SWEEP_B) for n in range(1, SMALL_MM_MAX_N + 1)]
         for n, B in cases:
             X, Y = (torch.as_tensor(rng.normal(size=(B, n, n)), dtype=dtype,
                                     device=dev) for _ in range(2))
             check(f"edge n={n} B={B}", X, Y, quiet=True)
         log(f"  edge cases {str(dtype):<14} {len(cases)} batches (n in "
-            f"{K5_EDGE_N}, B in {K5_EDGE_B}; n = 1, 7 at B = {K5_LONG_B}), "
-            f"bit for bit True")
+            f"{K5_EDGE_N}, B in {K5_EDGE_B}; n = 1, 7 at B = {K5_LONG_B}; "
+            f"n = 1..{SMALL_MM_MAX_N} at B = {K5_SWEEP_B}), bit for bit True")
 
     log("K5 grid, float32 (device ms back to back; torch.bmm with TF32 off):")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -850,8 +855,7 @@ def small_mm_phase(dev, A) -> dict:
             "replaces": "scratch/bench_smallmm39.py:39",
             "shape": list(X.shape), "launches": launches,
             "solver_path_launches": 0, "max_abs_err": err32, "ms": k_ms,
-            "device_ms": k_dev, "previous_device_ms": K5_PREVIOUS_DEVICE_MS,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms, "library_device_ms": l_dev,
             "f64_device_ms": k64, "f64_library_device_ms": l64,
             "f64_bound_ms": b64}
