@@ -4,39 +4,77 @@
 // Replaces the TPU kernel acados_tpu/ops/batched_inv.py:_gj_inv_kernel
 // (launched by _gj_inverse_pallas, public entry gj_inverse_any). It
 // computes the same function: for each matrix, Gauss-Jordan on [A | I];
-// at step k the pivot is the row i >= k of largest |M[i][k]|, the lowest
-// row index among equal magnitudes (what jnp.argmax picks); rows k and p
-// are swapped, the pivot row is divided by the pivot, and column k is
+// at step k the pivot is the row at position >= k of largest |M[.][k]|,
+// the lowest position among equal magnitudes (what jnp.argmax picks); it
+// moves to position k, is divided by the pivot, and column k is
 // eliminated from every other row. The plain PyTorch version of the same
-// loop is acados_tpu_torch/ops/batched_inv.py:gj_inverse_plain.
+// loop is acados_tpu_torch/ops/batched_inv.py:gj_inverse_plain. Both
+// branches below divide as it does (IEEE division) and differ from it
+// only by fused multiply-adds in the elimination.
 //
 // Layout: the natural row-major (batch, n, n) tensor, read once and
-// written once. No batch-minor relayout and no identity padding of the
-// batch: lanes past the end of the batch compute on an identity and do
-// not store.
+// written once.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside
-// the tensor cores), at the main path's shape (81,920, 16, 16) float32:
-//   bytes: 2 * 81,920 * 256 * 4 B = 168 MB  -> 50 us
-//   flops: n steps * (n - 1) rows * 2n columns multiply-subtracts
-//          ~ 4 n^3 = 16.4 kFLOP a matrix = 1.34 GFLOP -> 20 us
-// so a launch is memory-bound, with a bound of about 50 us.
+// the tensor cores): 2 n^2 x 4 bytes and about 2 n^3 flops a matrix.
+//   (81,920, 16, 16) float32: 168 MB -> 50 us; 0.67 GFLOP -> 10 us
+//   (10240, 39, 39) float32:  125 MB -> 37 us; 1.22 GFLOP -> 18 us
+// so both shapes the solvers launch are bound by bytes.
 //
-// Design against that bound: every matrix stays on chip for all n
-// elimination steps, so device memory sees exactly one read of A and one
-// write of A^-1.
-//   - n in {2, 4, 8, 16} (template instances): a group of 2n lanes holds
-//     one matrix in registers, lane j owning column j of [A | I]; a warp
-//     holds 32 / (2n) matrices. The pivot search runs in lane k of the
-//     group, and __shfl_sync broadcasts the pivot row index, the pivot
-//     and the column-k elimination factors. Row swaps are unrolled
-//     selects, so no register array is indexed at run time.
-//   - any other n <= 48: one warp per matrix with [A | I] in shared
-//     memory, a warp-shuffle argmax for the pivot, and each lane owning
-//     the columns j = lane, lane + 32, ...
-// Making it fast (coalesced loads through shared memory, more matrices
-// per warp, keeping the stage matrices resident across the Newton
-// iterations) is later work.
+// n in {2, 4, 8, 16}: the register branch gj_inv_reg (a template per n).
+// A group of 2n lanes holds one matrix in registers, lane j owning column
+// j of [A | I]; a warp holds 32 / (2n) matrices. The pivot search runs in
+// lane k of the group, and __shfl_sync broadcasts the pivot row index,
+// the pivot and the column-k elimination factors. Row swaps are unrolled
+// selects, so no register array is indexed at run time. Making it fast is
+// later work.
+//
+// Every other n <= 48: the warp branch gj_inv_warp, one warp a matrix, n
+// padded to a band NP of 8, 16, ..., 48 (a template per band and type).
+// The branch it replaced kept [A | I] in shared memory and had each lane
+// walk 2n columns over all n rows a step: about 14,000 shared accesses a
+// matrix at n = 39, half of them on columns of I still zero. This one:
+//   - Rows never move. Lane i owns row i, and row i + 32 above n = 32,
+//     as NP registers each, and every row carries its logical position;
+//     a pivot swap exchanges two positions. Storage is in place: slot
+//     j < k of a row holds the inverse's column p_j (p_j the row that
+//     pivoted at step j), slot j >= k the matrix's column j. A step costs
+//     NP multiply-adds a row instead of 2n, and moves nothing. At the end
+//     out[pos_i][p_j] = slot j of row i. Rows n..NP-1 are an identity
+//     block, each its own pivot at 1 from step n on, so the steps up to
+//     the band's end change nothing and run unguarded.
+//   - Pivot search: redux.sync max over (|x| bits + 1, 0 for rows at
+//     positions < k), then min over (position << 6 | row) among the
+//     lanes that hold it: two warp reductions (three in float64), the
+//     lowest position winning ties.
+//   - Broadcast through shared memory: the owner stores its raw row as
+//     NP / 4 predicated 16-byte stores; lane c divides slot c (and c + 32)
+//     by the pivot, slot k becoming 1 / pivot (a zero over a finite
+//     nonzero pivot is multiplied instead, the same signed zero off the
+//     division's slow path); every lane reads the NP quotients back as
+//     16-byte broadcasts. 36 shared-access instructions a step at n = 39
+//     (the owner's stores are issued for both row sets), about 1,800 a
+//     matrix with the staging instead of about 14,000.
+//   - Registers: every register index is a compile-time constant. The k
+//     loop runs in groups of 8 steps (4 at NP = 16), unrolled inside a
+//     group, and the rows' registers rotate by a group between groups,
+//     where unrolling the whole k loop would multiply the code several
+//     times over. Occupancy is set by registers (about 165 a thread at
+//     NP = 40 in float32, 12 warps an SM); float64 spills at NP = 40 and
+//     48 (ptxas reports them in chip_smoke.py's build phase).
+//   - Staging: the warp copies its n^2 contiguous elements with
+//     consecutive lanes on consecutive addresses into a per-warp tile of
+//     row stride NP + 1 (odd: a walk down a column hits 32 banks), reads
+//     its rows from there, writes the result back through the tile to
+//     [pos_i][p_j], and stores it coalesced. Up to 4 warps a block, as
+//     many as fit in 48 KB of static shared memory.
+// At (10240, 39, 39) float32 (NP = 40) that is 224 warp instructions a
+// step (86 FFMA, 44 selects, 36 shared accesses, 2 redux, 34 integer and
+// moves, 8 branch; `python3 k1_compare.py --sass` prints these counts
+// from the SASS), 40 steps and the staging: about 9,500 a matrix, 97 M
+// over the batch, 0.093 ms of issue on 132 SMs x 4 schedulers at
+// 1.98 GHz, above the 0.037 ms byte bound. PERF.md gives what the card
+// reaches.
 
 #include <cuda_runtime.h>
 
@@ -114,69 +152,270 @@ __global__ void gj_inv_reg(const T* __restrict__ A, T* __restrict__ out,
   }
 }
 
-template <typename T>
-__global__ void gj_inv_smem(const T* __restrict__ A, T* __restrict__ out,
-                            int n) {
-  extern __shared__ unsigned char smem_raw[];
-  T* M = reinterpret_cast<T*>(smem_raw);  // [A | I], n x 2n row-major
-  T* fcol = M + 2 * n * n;                 // column-k factors
-  const int nc = 2 * n;
-  const int lane = threadIdx.x;
-  const long long m = blockIdx.x;
-  const T* a = A + m * n * n;
+// ---- the warp branch: every n <= 48 but 2, 4, 8, 16 ----------------------
 
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e % n;
-    M[i * nc + j] = a[e];
-    M[i * nc + n + j] = T(i == j);
+// |x| as an unsigned ordinal plus one, so that 0 marks a row that cannot
+// pivot and a zero magnitude still beats it.
+__device__ __forceinline__ unsigned mag_key(float x) {
+  return __float_as_uint(fabsf(x)) + 1u;
+}
+__device__ __forceinline__ unsigned long long mag_key(double x) {
+  return static_cast<unsigned long long>(__double_as_longlong(fabs(x))) +
+         1ull;
+}
+
+// A pivot whose zero quotients x * pivot gives exactly (finite, not 0).
+__device__ __forceinline__ bool finite_nonzero(float x) {
+  return __float_as_uint(fabsf(x)) - 1u < 0x7f7fffffu;
+}
+__device__ __forceinline__ bool finite_nonzero(double x) {
+  return static_cast<unsigned long long>(__double_as_longlong(fabs(x))) -
+             1ull <
+         0x7fefffffffffffffull;
+}
+
+// A 16-byte shared store made only where p holds, predicated rather than
+// branched: one lane of the warp (the pivot row's owner) stores.
+__device__ __forceinline__ void st_shared_if(bool p, float* dst, float a,
+                                             float b, float c, float d) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %0, 0;\n"
+      " @q st.shared.v4.f32 [%1], {%2, %3, %4, %5};\n}\n" ::"r"(
+          static_cast<unsigned>(p)),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "f"(a),
+      "f"(b), "f"(c), "f"(d)
+      : "memory");
+#endif
+}
+__device__ __forceinline__ void st_shared_if(bool p, double* dst, double a,
+                                             double b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %0, 0;\n"
+      " @q st.shared.v2.f64 [%1], {%2, %3};\n}\n" ::"r"(
+          static_cast<unsigned>(p)),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "d"(a),
+      "d"(b)
+      : "memory");
+#endif
+}
+
+// The smallest tag among the lanes that hold the largest key.
+__device__ __forceinline__ unsigned warp_argmax(unsigned key, unsigned tag) {
+  const unsigned best = __reduce_max_sync(kFull, key);
+  return __reduce_min_sync(kFull, key == best ? tag : ~0u);
+}
+__device__ __forceinline__ unsigned warp_argmax(unsigned long long key,
+                                                unsigned tag) {
+  const unsigned hi = static_cast<unsigned>(key >> 32);
+  const unsigned lo = static_cast<unsigned>(key);
+  const unsigned bhi = __reduce_max_sync(kFull, hi);
+  const unsigned blo = __reduce_max_sync(kFull, hi == bhi ? lo : 0u);
+  return __reduce_min_sync(kFull, hi == bhi && lo == blo ? tag : ~0u);
+}
+
+// Per-warp shared layout and block size of a band NP: a tile of NP rows
+// at stride NP + 1, the raw pivot row, its quotients, and the row that
+// pivoted at each step. As many warps a block as fit in 48 KB of static
+// shared memory, at most 4.
+template <typename T, int NP>
+struct WarpCfg {
+  static constexpr int kRows = NP > 32 ? 2 : 1;  // rows a lane owns
+  static constexpr int kLd = NP + 1;
+  static constexpr int kTile = NP * kLd;
+  static constexpr int kBytes =
+      (kTile + 2 * NP) * static_cast<int>(sizeof(T)) + NP * 4;
+  static constexpr int kWarps =
+      (48 * 1024 / kBytes) < 4 ? (48 * 1024 / kBytes) : 4;
+  static constexpr int kGroup = NP == 16 ? 4 : 8;  // steps a group
+  static_assert(NP % 8 == 0 && NP <= kMaxN && NP % kGroup == 0, "band");
+  static_assert(kWarps >= 1 && kBytes % 16 == 0, "layout");
+};
+
+// At least two blocks an SM: with that bound ptxas keeps every float32
+// band free of spills.
+template <typename T, int NP>
+__global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
+    gj_inv_warp(const T* __restrict__ A, T* __restrict__ out,
+                long long batch, int n) {
+  using C = WarpCfg<T, NP>;
+  constexpr int RL = C::kRows, LD = C::kLd, G = C::kGroup;
+  constexpr int VK = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
+  __shared__ __align__(16) unsigned char smem[C::kWarps * C::kBytes];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const long long m = static_cast<long long>(blockIdx.x) * C::kWarps + wid;
+  if (m >= batch) return;  // warp-uniform; only __syncwarp below
+  T* tile = reinterpret_cast<T*>(smem + wid * C::kBytes);
+  T* raw = tile + C::kTile;
+  T* quot = raw + NP;
+  int* pk = reinterpret_cast<int*>(quot + NP);
+  const int nn = n * n;
+  // e / n == (e * magic) >> 20 exactly for e < 48 * 48
+  const unsigned magic = ((1u << 20) + n - 1) / n;
+
+  // stage: n^2 contiguous elements, consecutive lanes on consecutive
+  // addresses, 8 loads in flight a lane
+  const T* a = A + m * nn;
+  for (int e0 = 0; e0 < nn; e0 += 8 * 32) {
+    T v[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * 32 + lane;
+      if (e < nn) v[u] = a[e];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int e = e0 + u * 32 + lane;
+      if (e < nn) {
+        const int r = static_cast<int>((static_cast<unsigned>(e) * magic) >> 20);
+        tile[r * LD + e - r * n] = v[u];
+      }
+    }
   }
   __syncwarp();
 
-  for (int k = 0; k < n; ++k) {
-    // warp argmax of |M[i][k]| over i >= k, lowest index on ties
-    T best = T(-1);
-    int p = n;
-    for (int i = k + lane; i < n; i += 32) {
-      const T v = abs_val(M[i * nc + k]);
-      if (v > best) {
-        best = v;
-        p = i;
+  // lane owns row lane (R0) and, above n = 32, row lane + 32 (R1). Rows
+  // n..NP-1 are an identity block whose positions are their indices; a
+  // row past NP is zero, position -1. Register j holds slot
+  // (j + rot) mod NP.
+  T R0[NP], R1[RL == 2 ? NP : 1];
+  auto load_row = [&](T(&R)[NP], int i) {
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      R[j] = T(i == j);
+      if (i < n && j < n) R[j] = tile[i * LD + j];
+    }
+    return i < NP ? i : -1;
+  };
+  int pos0 = load_row(R0, lane);
+  int pos1 = -1;
+  if constexpr (RL == 2) pos1 = load_row(R1, lane + 32);
+
+  // 16-byte shared accesses of a row (the owner's store, everyone's load)
+  auto store_row = [&](bool p, T* dst, const T(&R)[NP]) {
+#pragma unroll
+    for (int q = 0; q < NP / VK; ++q) {
+      if constexpr (VK == 4) {
+        st_shared_if(p, dst + 4 * q, R[4 * q], R[4 * q + 1], R[4 * q + 2],
+                     R[4 * q + 3]);
+      } else {
+        st_shared_if(p, dst + 2 * q, R[2 * q], R[2 * q + 1]);
       }
     }
-    for (int off = 16; off > 0; off >>= 1) {
-      const T ob = __shfl_down_sync(kFull, best, off);
-      const int op = __shfl_down_sync(kFull, p, off);
-      if (ob > best || (ob == best && op < p)) {
-        best = ob;
-        p = op;
+  };
+  auto load_vec = [&](T(&R)[NP], const T* src) {
+#pragma unroll
+    for (int q = 0; q < NP / VK; ++q) {
+      if constexpr (VK == 4) {
+        const float4 v = reinterpret_cast<const float4*>(src)[q];
+        R[4 * q] = v.x;
+        R[4 * q + 1] = v.y;
+        R[4 * q + 2] = v.z;
+        R[4 * q + 3] = v.w;
+      } else {
+        const double2 v = reinterpret_cast<const double2*>(src)[q];
+        R[2 * q] = v.x;
+        R[2 * q + 1] = v.y;
       }
     }
-    p = __shfl_sync(kFull, p, 0);
-    if (p != k) {
-      for (int j = lane; j < nc; j += 32) {
-        const T t = M[k * nc + j];
-        M[k * nc + j] = M[p * nc + j];
-        M[p * nc + j] = t;
+  };
+
+  const int groups = (n + G - 1) / G;
+#pragma unroll 1
+  for (int g = 0; g < groups; ++g) {
+#pragma unroll
+    for (int kk = 0; kk < G; ++kk) {
+      const int k = g * G + kk;  // the step; its slot is register kk
+      // pivot: the largest |slot k| over rows at positions >= k, the
+      // lowest position among equal magnitudes; tag = position, row
+      using Key = decltype(mag_key(T(0)));
+      Key lk = pos0 >= k ? mag_key(R0[kk]) : 0;
+      unsigned lt = (static_cast<unsigned>(pos0) << 6) | lane;
+      if constexpr (RL == 2) {
+        const Key key = pos1 >= k ? mag_key(R1[kk]) : 0;
+        const unsigned tag = (static_cast<unsigned>(pos1) << 6) | (lane + 32);
+        if (key > lk || (key == lk && tag < lt)) {
+          lk = key;
+          lt = tag;
+        }
+      }
+      const unsigned w = warp_argmax(lk, lt);
+      const int wpos = static_cast<int>(w >> 6);
+      const int wrow = static_cast<int>(w & 63);
+      // its owner broadcasts the raw row through shared memory
+      store_row(wrow == lane, raw, R0);
+      if constexpr (RL == 2) store_row(wrow == lane + 32, raw, R1);
+      if (lane == 0) pk[k] = wrow;
+      __syncwarp();
+      // lane c divides slot c by the pivot; slot kk becomes 1 / piv. A
+      // zero over a finite nonzero pivot is x * piv (the same signed
+      // zero), which keeps zeros off the division's slow path.
+      const T piv = raw[kk];
+      const bool plain_zero = finite_nonzero(piv);
+#pragma unroll
+      for (int c0 = 0; c0 < NP; c0 += 32) {
+        // every lane divides (past NP it repeats slot NP - 1): no branch
+        const int c = c0 + lane < NP ? c0 + lane : NP - 1;
+        const T x = c == kk ? T(1) : raw[c];
+        const bool z = plain_zero && x == T(0);
+        const T q = (z ? T(1) : x) / piv;
+        quot[c] = z ? x * piv : q;
+      }
+      __syncwarp();
+      T nk[NP];
+      load_vec(nk, quot);
+      // every row eliminates slot kk and receives the inverse's column
+      // in it; the pivot row then takes the quotients
+      auto update = [&](T(&R)[NP], int& pos) {
+        const T f = R[kk];
+#pragma unroll
+        for (int j = 0; j < NP; ++j) {
+          R[j] = (j == kk ? T(0) : R[j]) - f * nk[j];
+        }
+        pos = pos == wpos ? k : (pos == k ? wpos : pos);
+      };
+      update(R0, pos0);
+      if (wrow == lane) load_vec(R0, quot);
+      if constexpr (RL == 2) {
+        update(R1, pos1);
+        if (wrow == lane + 32) load_vec(R1, quot);
       }
     }
-    __syncwarp();
-    const T piv = M[k * nc + k];
-    for (int i = lane; i < n; i += 32) fcol[i] = M[i * nc + k];
-    __syncwarp();
-    for (int j = lane; j < nc; j += 32) {
-      const T nk = M[k * nc + j] / piv;
-      for (int i = 0; i < n; ++i) {
-        if (i != k) M[i * nc + j] = M[i * nc + j] - fcol[i] * nk;
-      }
-      M[k * nc + j] = nk;
+    if constexpr (G < NP) {  // next group's slots into registers 0..G-1
+      auto rotate = [](T(&R)[NP]) {
+        T t[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) t[j] = R[j];
+#pragma unroll
+        for (int j = 0; j < NP - G; ++j) R[j] = R[j + G];
+#pragma unroll
+        for (int j = 0; j < G; ++j) R[NP - G + j] = t[j];
+      };
+      rotate(R0);
+      if constexpr (RL == 2) rotate(R1);
     }
-    __syncwarp();
   }
 
-  T* o = out + m * n * n;
-  for (int e = lane; e < n * n; e += 32) {
-    const int i = e / n, j = e % n;
-    o[e] = M[i * nc + n + j];
+  // out[pos][p_s] = slot s, through the tile, then a coalesced store
+  const int rot = (G * groups) % NP;
+  auto place_row = [&](const T(&R)[NP], int pos) {
+    if (pos < 0 || pos >= n) return;
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      int s = j + rot;
+      if (s >= NP) s -= NP;
+      if (s < n) tile[pos * LD + pk[s]] = R[j];
+    }
+  };
+  place_row(R0, pos0);
+  if constexpr (RL == 2) place_row(R1, pos1);
+  __syncwarp();
+  T* o = out + m * nn;
+  for (int e = lane; e < nn; e += 32) {
+    const int r = static_cast<int>((static_cast<unsigned>(e) * magic) >> 20);
+    o[e] = tile[r * LD + e - r * n];
   }
 }
 
@@ -187,6 +426,15 @@ void launch_reg(const T* A, T* out, long long batch, cudaStream_t stream) {
   const long long blocks = (batch + kPerBlock - 1) / kPerBlock;
   gj_inv_reg<T, N><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
       A, out, batch);
+}
+
+template <typename T, int NP>
+void launch_warp(const T* A, T* out, long long batch, int n,
+                 cudaStream_t stream) {
+  constexpr int W = WarpCfg<T, NP>::kWarps;
+  const long long blocks = (batch + W - 1) / W;
+  gj_inv_warp<T, NP><<<static_cast<unsigned>(blocks), W * 32, 0, stream>>>(
+      A, out, batch, n);
 }
 
 template <typename T>
@@ -201,11 +449,15 @@ int launch(const T* A, T* out, long long batch, int n, void* stream_ptr) {
     case 4: launch_reg<T, 4>(A, out, batch, stream); break;
     case 8: launch_reg<T, 8>(A, out, batch, stream); break;
     case 16: launch_reg<T, 16>(A, out, batch, stream); break;
-    default: {
-      const size_t smem = static_cast<size_t>(2 * n * n + n) * sizeof(T);
-      gj_inv_smem<T><<<static_cast<unsigned>(batch), 32, smem, stream>>>(
-          A, out, n);
-    }
+    default:
+      switch ((n + 7) / 8) {
+        case 1: launch_warp<T, 8>(A, out, batch, n, stream); break;
+        case 2: launch_warp<T, 16>(A, out, batch, n, stream); break;
+        case 3: launch_warp<T, 24>(A, out, batch, n, stream); break;
+        case 4: launch_warp<T, 32>(A, out, batch, n, stream); break;
+        case 5: launch_warp<T, 40>(A, out, batch, n, stream); break;
+        default: launch_warp<T, 48>(A, out, batch, n, stream); break;
+      }
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,14 +12,18 @@ failure exits non-zero:
  3. kernels against their plain PyTorch versions on the card: the
     Gauss-Jordan inverse K1 on the IRK stage Jacobians of the main path
     (81,920 x 16 x 16 float32), on seeded diagonally dominant batches
-    (n = 4, 8, 16, 39, 48, a ragged batch size, n = 56 through the Schur
-    path), on the same with rows permuted (row swaps at most steps), in
-    float32 and float64, and on matrices with equal magnitudes in their
-    pivot columns, where exact arithmetic makes kernel, plain version and
-    exact inverse agree bit for bit only under the lowest-index tie rule;
-    linsolve on the card launching K1 for small n too; then K1's time at
-    the main-path shape beside its bound, the plain version and
-    torch.linalg.inv;
+    (n = 4, 8, 16 for its register branch, n = 9, 21, 29, 39, 48 for its
+    warp branch, a ragged batch size, n = 56 through the Schur path), on
+    the same with rows permuted (row swaps at most steps), in float32 and
+    float64, on matrices with equal magnitudes in their pivot columns,
+    where exact arithmetic makes kernel, plain version and exact inverse
+    agree bit for bit only under the lowest-index tie rule, and on the
+    warp branch's edge cases (every n = 1..48 at B = 7; B = 1, 2, 3, 33 at
+    n = 9, 29, 39, 48; n = 3 at B = 200,003); linsolve on the card
+    launching K1 for small n too; then K1's time at the main-path shape
+    beside its bound, the plain version and torch.linalg.inv, and over
+    the warp branch's grid (n = 9, 21, 29, 39, 48 x B = 1024, 10240
+    float32, and (10240, 39, 39) float64) beside the branch it replaced;
  4. main path: AcadosOcpBatchSolver on the canonical pendulum IRK SQP-RTI
     config (N = 20, float32) at B = 4096, 1 cold + 15 warm + timed
     solve() calls; every status 0, the float32 tolerances met, and exactly
@@ -126,6 +130,30 @@ K5_EDGE_N = (1, 7, 13, 20, 29, 39, 40, 48, 53, 64)
 K5_EDGE_B = (1, 2, 3, 5, 1023)
 K5_LONG_B = 200_003
 K5_SWEEP_B = 7
+# K1's warp branch (every n <= 48 but 2, 4, 8, 16): the n of its checks
+# and grid (one in each band from 16 to 48), the n and batches of its
+# edge cases (batches that end inside a block of warps), the long batch
+# and the short batch every n runs at
+K1_BRANCH_N = (9, 21, 29, 39, 48)
+K1_EDGE_N = (9, 29, 39, 48)
+K1_EDGE_B = (1, 2, 3, 33)
+K1_LONG_B = 200_003
+K1_SWEEP_B = 7
+K1_GRID_B = (1024, 10240)
+# the branch K1's warp branch replaced (one warp a matrix, [A | I] in
+# shared memory): device ms back to back over k1_grid's cells, by (n, B,
+# type), from k1_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
+# lines only
+K1_PARENT_DEVICE_MS = {
+    (9, 1024, "float32"): 0.0145, (9, 10240, "float32"): 0.0394,
+    (21, 1024, "float32"): 0.0477, (21, 10240, "float32"): 0.1833,
+    (29, 1024, "float32"): 0.0750, (29, 10240, "float32"): 0.3177,
+    (39, 1024, "float32"): 0.1628, (39, 10240, "float32"): 0.8959,
+    (48, 1024, "float32"): 0.2298, (48, 10240, "float32"): 1.8106,
+    (39, 10240, "float64"): 1.7107}
+# the same branch at the chain's shape, on the chain's block determinants
+# (chip_smoke.py phase 11; NVIDIA H100 80GB HBM3, 700.00 W)
+K1_PARENT_CHAIN_DEVICE_MS = 0.9014
 # K5 at (10240, 39, 39) float32, device ms back to back, before the
 # register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
 # 700.00 W), for the log line only
@@ -236,9 +264,9 @@ class K1Shapes:
         self._mod._gj_inverse_cuda = self._orig
 
 
-def check_inverse(name, A, inv_kernel, bound):
+def check_inverse(name, A, inv_kernel, bound, quiet=False):
     """Kernel against the plain version on the same input; returns
-    (rel_err, abs_err, resid)."""
+    (rel_err, abs_err, resid). quiet: log only a failure."""
     import torch
     from acados_tpu_torch.ops.batched_inv import gj_inverse_plain
     Ak = inv_kernel(A)
@@ -249,9 +277,10 @@ def check_inverse(name, A, inv_kernel, bound):
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     resid = float((A @ Ak - eye).abs().max())
     ok = rel <= bound and resid <= bound and bool(torch.isfinite(Ak).all())
-    log(f"  {name:<34} {str(A.dtype):<14} max|k-p|/max|p| {rel:.3e}  "
-        f"max|A Ainv - I| {resid:.3e}  bound {bound:g}  "
-        f"{'ok' if ok else 'FAIL'}")
+    if not quiet or not ok:
+        log(f"  {name:<34} {str(A.dtype):<14} max|k-p|/max|p| {rel:.3e}  "
+            f"max|A Ainv - I| {resid:.3e}  bound {bound:g}  "
+            f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit(f"K1 disagrees with its plain version: {name}")
     return rel, abs_err, resid
@@ -666,10 +695,138 @@ def riccati_free_x0(dev) -> None:
         raise SystemExit("Riccati IPM with P_0 through K2 failed")
 
 
-def k1_entry(name, A, launches, rel, abs_err) -> dict:
+def k1_batches(dev, rng, kern):
+    """K1 against its plain version on seeded batches at every n of the
+    warp branch's grid and at the register branch's n = 4, 8, 16: random
+    N(0, 1) + n I, the same with rows permuted (row swaps at most steps),
+    in float32 and float64, and matrices with equal magnitudes in their
+    pivot columns, where exact arithmetic makes kernel, plain version and
+    exact inverse agree bit for bit only under the lowest-index tie
+    rule."""
+    import torch
+    from acados_tpu_torch.ops.batched_inv import gj_inverse_plain
+    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
+    ns = K1_BRANCH_N + (4, 8, 16)
+    for dtype, bound in ((torch.float32, F32_BOUND),
+                         (torch.float64, F64_BOUND)):
+        for n in ns:
+            A = torch.as_tensor(rng.normal(size=(1001, n, n)) + n * np.eye(n),
+                                dtype=dtype, device=dev)
+            check_inverse(f"random n={n} B=1001", A, kern, bound)
+        for n in ns:
+            A = row_permuted_batch(rng, 1001, n)
+            swaps = np.mean(np.argmax(np.abs(A[:, :, 0]), axis=1) != 0)
+            check_inverse(f"rows permuted n={n} (swap at k=0: "
+                          f"{swaps:.0%})",
+                          torch.as_tensor(A, dtype=dtype, device=dev), kern,
+                          bound)
+    for n in ns:
+        A, X = pivot_tie_batch(rng, 4096, n)
+        col0 = np.abs(A[:, :, 0])
+        ties = np.sum(np.sum(col0 == col0.max(1, keepdims=True), 1) > 1)
+        swaps = np.sum(np.argmax(col0, axis=1) != 0)
+        for dtype in (torch.float32, torch.float64):
+            At = torch.as_tensor(A, dtype=dtype, device=dev)
+            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
+            Ak, Ap = kern(At), gj_inverse_plain(At)
+            d_kp = float((Ak - Ap).abs().max())
+            d_kx = float((Ak - Xt).abs().max())
+            ok = len(A) > 0 and d_kp == d_kx == 0
+            log(f"  ties n={n} B={len(A)} {str(dtype):<14} (ties at k=0 "
+                f"{ties}, swaps {swaps}): max|k-p| {d_kp:g}, "
+                f"max|k-exact| {d_kx:g}  bound 0  {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K1 breaks pivot ties differently: n={n}")
+
+
+def k1_edge_cases(dev, rng, kern):
+    """K1 against its plain version where the warp branch's bands and
+    blocks end: every n = 1..48 at a short batch, batches that end inside
+    a block of warps, and a long batch of n = 3 (50,001 blocks). The long
+    batch is strictly diagonally dominant with its rows permuted, so it
+    pivots and stays well conditioned: 200,003 draws of N(0, 1) + 3 I hold
+    matrices so ill-conditioned that rounding otherwise (with fused
+    multiply-adds or without) moves their float32 inverses by more than
+    1e-4 of the batch's largest entry."""
+    import torch
+    from acados_tpu_torch.ops.batched_inv import _GJ_MAX_N
+    for dtype, bound in ((torch.float32, F32_BOUND),
+                         (torch.float64, F64_BOUND)):
+        cases = [(n, K1_SWEEP_B) for n in range(1, _GJ_MAX_N + 1)]
+        cases += [(n, B) for n in K1_EDGE_N for B in K1_EDGE_B]
+        worst = 0.0
+        for n, B in cases:
+            A = torch.as_tensor(rng.normal(size=(B, n, n)) + n * np.eye(n),
+                                dtype=dtype, device=dev)
+            worst = max(worst, check_inverse(f"edge n={n} B={B}", A, kern,
+                                             bound, quiet=True)[0])
+        n = 3
+        A = rng.uniform(-1.0, 1.0, (K1_LONG_B, n, n)) + 2 * n * np.eye(n)
+        A = np.take_along_axis(
+            A, np.argsort(rng.random((K1_LONG_B, n)))[..., None], 1)
+        worst = max(worst, check_inverse(
+            f"long n={n} B={K1_LONG_B}", torch.as_tensor(
+                A, dtype=dtype, device=dev), kern, bound, quiet=True)[0])
+        log(f"  edge cases {str(dtype):<14} {len(cases) + 1} batches (n = "
+            f"1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in {K1_EDGE_N} at B in "
+            f"{K1_EDGE_B}; n = 3 dominant, rows permuted, at B = "
+            f"{K1_LONG_B}): worst max|k-p|/max|p| {worst:.3e}, bound "
+            f"{bound:g}, ok")
+
+
+def k1_bound(A):
+    """K1's bound (ms, what bounds it) at the shape and type of A: each
+    input byte read and each output byte written once, and 2 n^3 flops a
+    matrix (the in-place Gauss-Jordan's multiply-adds)."""
+    import torch
+    M, n = A.shape[0], A.shape[-1]
+    peak = FP32_FLOPS if A.dtype == torch.float32 else FP64_FLOPS
+    return bound_of(2 * M * n * n * A.element_size(), 2 * M * n ** 3, peak)
+
+
+def k1_grid(kerns: dict, parent=None, order=None) -> list:
+    """Device ms back to back of each K1 wrapper in kerns ({label: fn}),
+    called in turns (order: labels, default each once), over the warp
+    branch's grid (n in K1_BRANCH_N x B in K1_GRID_B, float32, and
+    (10240, 39, 39) float64), beside torch.linalg.inv (CUDA events around
+    one call: it waits for the host) and the bound. parent: device ms of
+    an earlier build by (n, B, dtype name), logged beside."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    order = list(kerns) if order is None else order
+    cells = [(n, B, torch.float32) for n in K1_BRANCH_N for B in K1_GRID_B]
+    cells.append((39, 10240, torch.float64))
+    log("K1 grid (device ms back to back; torch.linalg.inv CUDA events "
+        "around one call; N(0, 1) + n I):")
+    rows = []
+    for n, B, dtype in cells:
+        A = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype) \
+            + n * torch.eye(n, device=dev, dtype=dtype)
+        times = {label: [] for label in kerns}
+        for label in order:
+            times[label].append(device_ms(lambda: kerns[label](A)))
+        lib = cuda_ms(lambda: torch.linalg.inv(A), reps=10)
+        b_ms, b_by = k1_bound(A)
+        dt = str(dtype).split(".")[-1]
+        row = dict(n=n, B=B, dtype=dt, bound_ms=b_ms, bound_by=b_by,
+                   library_ms=lib, **{k: float(np.median(v))
+                                      for k, v in times.items()})
+        rows.append(row)
+        old = (parent or {}).get((n, B, dt))
+        log(f"  n={n:2d} B={B:5d} {dt:<7} " + "  ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+            for k, v in times.items())
+            + (f"  (before: {old:.4f})" if old is not None else "")
+            + f"  torch.linalg.inv {lib:.4f}  bound {b_ms:.4f} ({b_by})")
+    return rows
+
+
+def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
     """K1's kernels-line entry at the shape of A (float32): its time per
     wrapper call and back to back, the plain version's and
-    torch.linalg.inv's, and the bound."""
+    torch.linalg.inv's, and the bound. before: an earlier build's device
+    ms at this shape, logged beside."""
     import torch
     from acados_tpu_torch.ops import batched_inv
     kern = batched_inv._gj_inverse_cuda
@@ -679,10 +836,11 @@ def k1_entry(name, A, launches, rel, abs_err) -> dict:
     p_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(A), reps=10)
     l_ms = cuda_ms(lambda: torch.linalg.inv(A), reps=20)
     nbytes = 2 * M * n * n * A.element_size()
-    flops = M * (4 * n ** 3 - 2 * n ** 2)
-    b_ms, b_by = bound_of(nbytes, flops)
+    flops = 2 * M * n ** 3
+    b_ms, b_by = k1_bound(A)
+    was = f"; {before} before the warp branch" if before else ""
     log(f"K1 at {tuple(A.shape)} float32: kernel {k_ms:.4f} ms (device "
-        f"{k_dev_ms:.4f} ms back to back), plain {p_ms:.4f} ms, "
+        f"{k_dev_ms:.4f} ms back to back{was}), plain {p_ms:.4f} ms, "
         f"torch.linalg.inv {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
     return {"name": name, "route": "cuda",
@@ -727,7 +885,7 @@ def chain_path(dev):
         f"chain block determinants {tuple(D.shape)}", D,
         batched_inv._gj_inverse_cuda, F32_BOUND)
     entry = k1_entry("gj_inverse_chain", D, counts["gj_inverse"], rel,
-                     abs_err)
+                     abs_err, before=K1_PARENT_CHAIN_DEVICE_MS)
     _, qp = linearized(solver)
     return entry, qp.A.reshape(M, nx, nx).contiguous()
 
@@ -891,7 +1049,6 @@ def main() -> int:
     from acados_tpu_torch.dense_qp import ipm as dense_ipm
     from acados_tpu_torch.ops import batched_chol, batched_inv, cuda_build
     from acados_tpu_torch.ops.linsolve import linsolve
-    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
     from acados_tpu_torch.utils.device import full_precision_matmul
 
     # ---- 1. device ---------------------------------------------------------
@@ -941,42 +1098,15 @@ def main() -> int:
     check_inverse(f"stage Jacobians {tuple(J.shape)}", J.double(), kern,
                   F64_BOUND)
     rng = np.random.default_rng(SEED)
+    k1_batches(dev, rng, kern)
+    k1_edge_cases(dev, rng, kern)
     for dtype, bound in ((torch.float32, F32_BOUND),
                          (torch.float64, F64_BOUND)):
-        for n in (4, 8, 16, 39, 48, 56):
-            batch = 1001
-            A = rng.normal(size=(batch, n, n)) + n * np.eye(n)
-            A = torch.as_tensor(A, dtype=dtype, device=dev)
-            fn = kern if n <= 48 else batched_inv._inv_impl
-            label = f"random n={n} B={batch}" + (" (Schur)" if n > 48
-                                                  else "")
-            check_inverse(label, A, fn, bound)
-        for n in (4, 8, 16, 39):
-            A = row_permuted_batch(rng, 1001, n)
-            swaps = np.mean(np.argmax(np.abs(A[:, :, 0]), axis=1) != 0)
-            check_inverse(f"rows permuted n={n} (swap at k=0: "
-                          f"{swaps:.0%})",
-                          torch.as_tensor(A, dtype=dtype, device=dev), kern,
-                          bound)
-    # equal magnitudes in the pivot columns, in exact arithmetic: the
-    # kernel must pick the lowest row index, as the plain version does
-    for n in (4, 8, 16, 39):
-        A, X = pivot_tie_batch(rng, 4096, n)
-        col0 = np.abs(A[:, :, 0])
-        ties = np.sum(np.sum(col0 == col0.max(1, keepdims=True), 1) > 1)
-        swaps = np.sum(np.argmax(col0, axis=1) != 0)
-        for dtype in (torch.float32, torch.float64):
-            At = torch.as_tensor(A, dtype=dtype, device=dev)
-            Xt = torch.as_tensor(X, dtype=dtype, device=dev)
-            Ak, Ap = kern(At), batched_inv.gj_inverse_plain(At)
-            d_kp = float((Ak - Ap).abs().max())
-            d_kx = float((Ak - Xt).abs().max())
-            log(f"  ties n={n} B={len(A)} {str(dtype):<14} (ties at k=0 "
-                f"{ties}, swaps {swaps}): max|k-p| {d_kp:g}, "
-                f"max|k-exact| {d_kx:g}  bound 0  "
-                f"{'ok' if d_kp == d_kx == 0 else 'FAIL'}")
-            if not d_kp == d_kx == 0:
-                raise SystemExit(f"K1 breaks pivot ties differently: n={n}")
+        n = 56
+        A = torch.as_tensor(rng.normal(size=(1001, n, n)) + n * np.eye(n),
+                            dtype=dtype, device=dev)
+        check_inverse(f"random n={n} B=1001 (Schur)", A,
+                      batched_inv._inv_impl, bound)
     # linsolve on the card inverts through the kernel at every n
     for n in (4, 16):
         A = torch.as_tensor(rng.normal(size=(1001, n, n)) + n * np.eye(n),
@@ -993,8 +1123,9 @@ def main() -> int:
             raise SystemExit(f"linsolve on the card, n={n}: {launched} "
                              f"launches, error {err:.3e}")
 
-    # time at the main-path shape
+    # time at the main-path shape, then over the warp branch's grid
     kernels = [k1_entry("gj_inverse", J, None, rel32, abs32)]
+    k1_grid({"K1": kern}, parent=K1_PARENT_DEVICE_MS)
     k1_ms = kernels[0]["ms"]
 
     # ---- 4. main path ----------------------------------------------------------

@@ -32,7 +32,8 @@ def _well_conditioned(rng, B, n):
     return A
 
 
-@pytest.mark.parametrize("n,B", [(3, 40), (8, 17), (16, 33)])
+@pytest.mark.parametrize("n,B", [(3, 40), (8, 17), (16, 33), (21, 9),
+                                 (29, 9), (39, 9)])
 def test_plain_matches_jax_gauss_jordan(n, B):
     rng = np.random.default_rng(100 + n)
     A = _well_conditioned(rng, B, n)
@@ -179,3 +180,76 @@ def test_entry_points_default_to_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device(None)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def _row_owned_schedule(A: torch.Tensor) -> torch.Tensor:
+    """A PyTorch model of the schedule of K1's warp branch
+    (csrc/gj_inverse.cu, gj_inv_warp): row i stays where it is and
+    carries its logical position pos[i]; a swap exchanges two positions,
+    and among equal magnitudes the lowest position wins. Each row holds n
+    slots: slot j < k holds the inverse's column p_j (p_j the row that
+    pivoted at step j), slot j >= k the matrix's column j. At step k the
+    pivot row's slots are divided by the pivot, slot k becoming 1 / piv,
+    and every other row takes R[j] - f R_piv[j] with f = R[k], slot k
+    becoming 0 - f (1 / piv). At the end out[pos[i], p_k] = R[i, k]."""
+    Bsz, n, _ = A.shape
+    R = A.clone()
+    b = torch.arange(Bsz)
+    rows = torch.arange(n)
+    pos = rows.expand(Bsz, n).clone()
+    pk = torch.empty((Bsz, n), dtype=torch.long)
+    for k in range(n):
+        neg = torch.tensor(-1.0, dtype=A.dtype)
+        mag = torch.where(pos >= k, R[:, :, k].abs(), neg)
+        best = mag.max(dim=1, keepdim=True).values
+        wpos = torch.where(mag == best, pos, n).min(dim=1).values
+        p = torch.argmax((pos == wpos[:, None]).int(), dim=1)
+        pk[:, k] = p
+        raw = R[b, p].clone()
+        piv = raw[:, k:k + 1].clone()
+        raw[:, k] = 1.0
+        nk = raw / piv
+        f = R[:, :, k:k + 1]
+        upd = R - f * nk[:, None, :]
+        upd[:, :, k] = 0.0 - f[..., 0] * nk[:, None, k]
+        upd[b, p] = nk
+        R = upd
+        pos = torch.where(pos == wpos[:, None], k,
+                          torch.where(pos == k, wpos[:, None], pos))
+    out = torch.empty_like(R)
+    out[b[:, None, None], pos[:, :, None], pk[:, None, :]] = R
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind", ["random", "rows_permuted"])
+@pytest.mark.parametrize("n", [1, 9, 21, 29, 39, 48])
+def test_row_owned_schedule_is_bit_for_bit_plain(n, kind, dtype):
+    """The warp branch's schedule (rows never move, n slots in place,
+    logical positions) computes what gj_inverse_plain computes, to the
+    last bit: it drops only the columns that hold 0 or 1 and the updates
+    that leave them so. The kernel differs from both only by fused
+    multiply-adds."""
+    rng = np.random.default_rng(400 + n)
+    A = (_well_conditioned(rng, 64, n) if kind == "random"
+         else row_permuted_batch(rng, 64, n))
+    At = torch.as_tensor(A, dtype=dtype)
+    ours = _row_owned_schedule(At)
+    plain = batched_inv.gj_inverse_plain(At)
+    assert float((ours - plain).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [21, 39])
+def test_row_owned_schedule_breaks_ties_as_plain(n, dtype):
+    """On the pivot-tie batch the schedule, the plain version and the
+    exact inverse agree bit for bit: positions, not rows, break ties."""
+    A, X = pivot_tie_batch(np.random.default_rng(500 + n), 512, n)
+    col0 = np.abs(A[:, :, 0])
+    assert np.any(np.argmax(col0, axis=1) != 0)
+    assert np.any(np.sum(col0 == col0.max(1, keepdims=True), 1) > 1)
+    At = torch.as_tensor(A, dtype=dtype)
+    ours = _row_owned_schedule(At)
+    np.testing.assert_array_equal(ours.numpy(),
+                                  batched_inv.gj_inverse_plain(At).numpy())
+    np.testing.assert_array_equal(ours.numpy(), X.astype(ours.numpy().dtype))
