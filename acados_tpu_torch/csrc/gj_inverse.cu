@@ -30,19 +30,16 @@
 // later work.
 //
 // Every other n <= 48: the warp branch gj_inv_warp, one warp a matrix, n
-// padded to a band NP of 8, 16, ..., 48 (a template per band and type).
-// The branch it replaced kept [A | I] in shared memory and had each lane
-// walk 2n columns over all n rows a step: about 14,000 shared accesses a
-// matrix at n = 39, half of them on columns of I still zero. This one:
+// padded to a band NP of 8, 16, ..., 48 (a template per band and type):
 //   - Rows never move. Lane i owns row i, and row i + 32 above n = 32,
 //     as NP registers each, and every row carries its logical position;
 //     a pivot swap exchanges two positions. Storage is in place: slot
 //     j < k of a row holds the inverse's column p_j (p_j the row that
 //     pivoted at step j), slot j >= k the matrix's column j. A step costs
-//     NP multiply-adds a row instead of 2n, and moves nothing. At the end
-//     out[pos_i][p_j] = slot j of row i. Rows n..NP-1 are an identity
-//     block, each its own pivot at 1 from step n on, so the steps up to
-//     the band's end change nothing and run unguarded.
+//     NP multiply-adds a row, where [A | I] takes 2n, and moves nothing.
+//     At the end out[pos_i][p_j] = slot j of row i. Rows n..NP-1 are an
+//     identity block, each its own pivot at 1 from step n on, so the
+//     steps up to the band's end change nothing and run unguarded.
 //   - Pivot search: redux.sync max over (|x| bits + 1, 0 for rows at
 //     positions < k), then min over (position << 6 | row) among the
 //     lanes that hold it: two warp reductions (three in float64), the
@@ -54,7 +51,7 @@
 //     division's slow path); every lane reads the NP quotients back as
 //     16-byte broadcasts. 36 shared-access instructions a step at n = 39
 //     (the owner's stores are issued for both row sets), about 1,800 a
-//     matrix with the staging instead of about 14,000.
+//     matrix with the staging.
 //   - Registers: every register index is a compile-time constant. The k
 //     loop runs in groups of 8 steps (4 at NP = 16), unrolled inside a
 //     group, and the rows' registers rotate by a group between groups,

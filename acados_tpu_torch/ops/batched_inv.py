@@ -68,8 +68,11 @@ def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
     return M[..., :, n:]
 
 
-def _gj_inverse_cuda(A: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on a (B, n, n) CUDA tensor."""
+def _gj_inverse_cuda(A: torch.Tensor,
+                     source: str = "gj_inverse") -> torch.Tensor:
+    """Launch the CUDA kernel on a (B, n, n) CUDA tensor. source: its
+    library, `cuda_build`'s name for csrc/gj_inverse.cu or the path of a
+    copy of that file (to hold two versions of the kernel side by side)."""
     global LAUNCHES
     if A.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
@@ -86,7 +89,7 @@ def _gj_inverse_cuda(A: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(A)
     if A.shape[0] == 0:
         return out  # nothing to launch, nothing to count
-    lib = cuda_build.load("gj_inverse")
+    lib = cuda_build.load(source)
     fn = lib.gj_inverse_f32 if A.dtype == torch.float32 \
         else lib.gj_inverse_f64
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,

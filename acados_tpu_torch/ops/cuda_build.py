@@ -6,7 +6,9 @@ Each source under `acados_tpu_torch/csrc/` is compiled at first use by
 source so an edited source is rebuilt. Nothing is built when a module is
 imported: the first call of a kernel wrapper on a CUDA tensor builds its
 library, and `build_all()` builds every source at once (one `nvcc` each,
-all started together).
+all started together). A library may also be named by the path of a copy
+of a source (an earlier version, say), which is built the same way beside
+the others, so two versions of a kernel can run side by side.
 """
 from __future__ import annotations
 
@@ -42,14 +44,22 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _target(name: str) -> Path:
-    src = CSRC / SOURCES[name]
+def _source(name: str) -> Path:
+    """The source of a library: a name of SOURCES, or a path to a .cu."""
+    return CSRC / SOURCES[name] if name in SOURCES else Path(name).resolve()
+
+
+def target(name: str) -> Path:
+    """The library built from a source (a name of SOURCES or a path):
+    named by the source's file name and a hash of its contents."""
+    src = _source(name)
     digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
 
 
 def build_all(names=None) -> dict[str, str]:
-    """Compile the named kernel sources (default: all) in parallel.
+    """Compile the named kernel sources (default: all of SOURCES; a name
+    may be a path to a copy of a source) in parallel.
 
     Returns {name: nvcc's -Xptxas -v report} for the sources it compiled;
     raises RuntimeError naming every source that failed.
@@ -59,11 +69,11 @@ def build_all(names=None) -> dict[str, str]:
     nvcc = _nvcc()
     procs = {}
     for name in names:
-        out = _target(name)
-        if out.exists():
-            continue
+        out = target(name)
+        if out.exists() or any(out == o for _, _, o in procs.values()):
+            continue  # built, or one nvcc already builds this source
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(_source(name))]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
@@ -81,10 +91,11 @@ def build_all(names=None) -> dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The ctypes handle of a kernel library, building it if needed."""
+    """The ctypes handle of a kernel library (a name of SOURCES or a path
+    to a copy of a source), building it if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        out = _target(name)
+        out = target(name)
         if not out.exists():
             build_all([name])
         lib = ctypes.CDLL(str(out))

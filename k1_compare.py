@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Build copies of K1's CUDA source side by side and compare them on one
 GPU: each against the plain version (chip_smoke.py's K1 batches and edge
-cases), then their device times in turns over K1's grid.
+cases), on N(0, 1) + 3 I at n = 3 against the plain version and against
+each other, then their device times in turns over K1's grid.
 
 Run from the root of the repository:
 
@@ -16,8 +17,11 @@ first and name both:
     python3 k1_compare.py before=build/gj_inverse_before.cu \\
         now=acados_tpu_torch/csrc/gj_inverse.cu
 
-The builds are timed in turns (each label, then the labels in reverse), so
-two versions are compared on one card in one run. --sass prints, for each
+The copies are built by `cuda_build` and launched through K1's own wrapper
+(`batched_inv._gj_inverse_cuda`), one library per source. A build that
+fails a check is logged and still timed, and the exit code is then 1. The
+builds are timed in turns (each label, then the labels in reverse), so two
+versions are compared on one card in one run. --sass prints, for each
 build and each band of the warp branch, the SASS instruction mix of one
 elimination step (cuobjdump). Needs one GPU and nvcc; imports nothing of
 JAX.
@@ -25,7 +29,7 @@ JAX.
 from __future__ import annotations
 
 import collections
-import ctypes
+import functools
 import json
 import re
 import subprocess
@@ -38,30 +42,20 @@ import numpy as np
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
-OUT = ROOT / "build" / "k1_compare"
 SOURCE = "acados_tpu_torch/csrc/gj_inverse.cu"
+ILL_SEEDS = (0, 1, 2, 3)
 
 
 def build(specs: dict) -> dict:
-    """{label: source path} -> {label: ctypes library}, one nvcc each, all
-    started together; logs each build's registers and spills."""
-    from acados_tpu_torch.ops import cuda_build
-    OUT.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for label, src in specs.items():
-        lib = OUT / f"lib{label}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(lib),
-               str(ROOT / src)]
-        procs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                         stderr=subprocess.STDOUT, text=True),
-                        lib)
-    libs = {}
-    for label, (proc, lib) in procs.items():
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"build {label} failed:\n{log}")
+    """{label: source path} -> {label: K1 wrapper on that build}; all
+    built at once, each build's registers and spills logged."""
+    from acados_tpu_torch.ops import batched_inv, cuda_build
+    paths = {label: str((ROOT / src).resolve()) for label, src in
+             specs.items()}
+    reports = cuda_build.build_all(list(paths.values()))
+    for label, path in paths.items():
         kernel = None
-        for line in log.splitlines():
+        for line in reports.get(path, "").splitlines():
             m = re.search(r"Compiling entry function '.*?(gj_inv_\w+?)I([fd])"
                           r"(?:Li(\d+)E)?", line)
             if m:
@@ -69,28 +63,9 @@ def build(specs: dict) -> dict:
             elif kernel and ("registers" in line or "spill" in line):
                 cs.log(f"  ptxas {label} {kernel}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
-        libs[label] = ctypes.CDLL(str(lib))
-    return libs
-
-
-def wrapper(lib):
-    """A K1 wrapper around one build, as batched_inv._gj_inverse_cuda."""
-    import torch
-
-    def inv(A):
-        A = A.contiguous()
-        out = torch.empty_like(A)
-        fn = lib.gj_inverse_f32 if A.dtype == torch.float32 \
-            else lib.gj_inverse_f64
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err = fn(A.data_ptr(), out.data_ptr(), A.shape[0], A.shape[-1],
-                 torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"gj_inverse launch failed: CUDA error {err}")
-        return out
-    return inv
+    return {label: functools.partial(batched_inv._gj_inverse_cuda,
+                                     source=path)
+            for label, path in paths.items()}
 
 
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -117,12 +92,48 @@ def step_mix(sass: str) -> list:
         rows.append(dict(
             band=f"{m.group(1)}{m.group(2)}", instructions=len(ops),
             per_step=(steps[-1] - steps[0]) / k,
-            fma=per("FFMA", "DFMA"), select=per("FSEL", "SEL"),
-            shared=per("LDS", "STS"), reduce=per("REDUX"),
+            fma=per("FFMA", "DFMA"), mul_add=per("FMUL", "FADD", "DMUL",
+                                                 "DADD"),
+            select=per("FSEL", "SEL"), shared=per("LDS", "STS"),
+            reduce=per("REDUX"),
             integer=per("ISETP", "IMAD", "IADD3", "VIADD", "LOP3", "SHF",
                         "LEA", "MOV", "P2R", "R2P"),
             branch=per("BRA", "BSSY", "BSYNC", "CALL")))
     return rows
+
+
+def ill_conditioned_n3(kerns: dict) -> None:
+    """Each build on N(0, 1) + 3 I at n = 3, B = 200,003 (one batch a seed
+    of ILL_SEEDS, float32 and float64): its max|k - p| / max|p| against
+    the plain version and the matrices it does not match bit for bit, and
+    each later build's largest difference from the first build's result.
+    Logged only: such batches hold matrices so ill-conditioned that
+    rounding differences alone exceed F32_BOUND and F64_BOUND."""
+    import torch
+    from acados_tpu_torch.ops.batched_inv import gj_inverse_plain
+    dev = torch.device("cuda")
+    n, B = 3, cs.K1_LONG_B
+    cs.log(f"N(0, 1) + {n} I at n = {n}, B = {B} (logged, not gated):")
+    for seed in ILL_SEEDS:
+        A0 = np.random.default_rng(seed).normal(size=(B, n, n)) \
+            + n * np.eye(n)
+        for dtype in (torch.float32, torch.float64):
+            A = torch.as_tensor(A0, dtype=dtype, device=dev)
+            P = gj_inverse_plain(A)
+            outs = {label: kern(A) for label, kern in kerns.items()}
+            first = next(iter(outs.values()))
+            parts = []
+            for label, K in outs.items():
+                d = (K - P).abs().amax((1, 2))
+                part = (f"{label} {float(d.max() / P.abs().max()):.3e} "
+                        f"({int((d > 0).sum())} != plain")
+                if K is not first:
+                    dk = (K - first).abs().amax((1, 2))
+                    part += (f"; max|{label} - {next(iter(outs))}| "
+                             f"{float(dk.max()):.3e} in {int((dk > 0).sum())}")
+                parts.append(part + ")")
+            cs.log(f"  seed {seed} {str(dtype):<14} max|k-p|/max|p|: "
+                   + ", ".join(parts))
 
 
 def main() -> int:
@@ -140,31 +151,39 @@ def main() -> int:
     full_precision_matmul()
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    kerns = {label: wrapper(lib) for label, lib in build(specs).items()}
+    kerns = build(specs)
     cs.log(f"build: {sorted(specs)} in {time.perf_counter() - t0:.1f} s")
     if "--sass" in sys.argv:
         tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
-        for label in specs:
-            sass = subprocess.run([str(tool), "-sass",
-                                   str(OUT / f"lib{label}.so")],
-                                  capture_output=True, text=True,
-                                  check=True).stdout
+        for label, kern in kerns.items():
+            sass = subprocess.run(
+                [str(tool), "-sass",
+                 str(cuda_build.target(kern.keywords["source"]))],
+                capture_output=True, text=True, check=True).stdout
             for row in step_mix(sass):
                 cs.log(f"  sass {label} {row['band']}: {row['instructions']}"
                        f" instructions, {row['per_step']:.0f} a step: "
-                       f"{row['fma']:.0f} FMA, {row['select']:.0f} select, "
+                       f"{row['fma']:.0f} FMA, {row['mul_add']:.0f} "
+                       f"mul/add, {row['select']:.0f} select, "
                        f"{row['shared']:.1f} shared, {row['reduce']:.0f} "
                        f"redux, {row['integer']:.0f} integer/move, "
                        f"{row['branch']:.1f} branch")
+    failed = []
     for label, kern in kerns.items():
         cs.log(f"K1 build {label!r} against the plain version:")
         rng = np.random.default_rng(cs.SEED)
-        cs.k1_batches(dev, rng, kern)
-        cs.k1_edge_cases(dev, rng, kern)
+        try:
+            cs.k1_batches(dev, rng, kern)
+            cs.k1_edge_cases(dev, rng, kern)
+        except SystemExit as e:
+            cs.log(f"  build {label!r} FAILED: {e}")
+            failed.append(label)
+    ill_conditioned_n3(kerns)
     labels = list(kerns)
     rows = cs.k1_grid(kerns, order=labels + labels[::-1])
-    cs.log(json.dumps({"k1_grid": rows, "card": cs.card_line()}))
-    return 0
+    cs.log(json.dumps({"k1_grid": rows, "card": cs.card_line(),
+                       "failed": failed}))
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

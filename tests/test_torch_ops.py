@@ -6,6 +6,8 @@ it) and as the JAX in-line Gauss-Jordan, so they agree to rounding. The
 CUDA kernel itself runs only on the card (chip_smoke.py holds it against
 this plain version there); here the wrapper must refuse, not fall back.
 """
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -172,6 +174,55 @@ def test_wrapper_refuses_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build_all()
+
+
+def test_build_names_a_copy_of_a_source_by_path(tmp_path):
+    """A library named by the path of a copy of a source is built beside
+    the named one: the same file name, its own hash, so an identical copy
+    shares the named library and an edited one does not."""
+    src = cuda_build.CSRC / cuda_build.SOURCES["gj_inverse"]
+    same = tmp_path / "gj_inverse.cu"
+    same.write_bytes(src.read_bytes())
+    edited = tmp_path / "edited" / "gj_inverse.cu"
+    edited.parent.mkdir()
+    edited.write_bytes(src.read_bytes() + b"\n// edited\n")
+    named = cuda_build.target("gj_inverse")
+    assert named.parent == cuda_build.BUILD_DIR
+    assert named.name.startswith("libgj_inverse-")
+    assert cuda_build.target(str(same)) == named
+    assert cuda_build.target(str(edited)) != named
+    assert cuda_build.target(str(edited)).name.startswith("libgj_inverse-")
+
+
+def test_build_runs_one_nvcc_per_distinct_source(monkeypatch, tmp_path):
+    """Two names of one source (a name and an identical copy) start one
+    nvcc; an edited copy starts its own."""
+    src = cuda_build.CSRC / cuda_build.SOURCES["gj_inverse"]
+    same = tmp_path / "same" / "gj_inverse.cu"
+    edited = tmp_path / "edited" / "gj_inverse.cu"
+    for path, extra in ((same, b""), (edited, b"\n// edited\n")):
+        path.parent.mkdir()
+        path.write_bytes(src.read_bytes() + extra)
+    started = []
+
+    class FakeNvcc:
+        returncode = 0
+
+        def __init__(self, cmd, **kwargs):
+            out = Path(cmd[cmd.index("-o") + 1])
+            out.write_bytes(b"")
+            started.append(cmd[-1])
+
+        def communicate(self):
+            return "", None
+
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(cuda_build, "_nvcc", lambda: "nvcc")
+    monkeypatch.setattr(cuda_build.subprocess, "Popen", FakeNvcc)
+    cuda_build.build_all(["gj_inverse", str(same), str(edited)])
+    assert started == [str(src), str(edited)]
+    assert cuda_build.target(str(same)).exists()
+    assert cuda_build.target(str(edited)).exists()
 
 
 def test_entry_points_default_to_cuda():
