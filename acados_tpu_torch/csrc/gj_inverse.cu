@@ -21,13 +21,41 @@
 //   (10240, 39, 39) float32:  125 MB -> 37 us; 1.22 GFLOP -> 18 us
 // so both shapes the solvers launch are bound by bytes.
 //
-// n in {2, 4, 8, 16}: the register branch gj_inv_reg (a template per n).
-// A group of 2n lanes holds one matrix in registers, lane j owning column
-// j of [A | I]; a warp holds 32 / (2n) matrices. The pivot search runs in
-// lane k of the group, and __shfl_sync broadcasts the pivot row index,
-// the pivot and the column-k elimination factors. Row swaps are unrolled
-// selects, so no register array is indexed at run time. Making it fast is
-// later work.
+// n in {2, 4, 8, 16}: the group branch gj_inv_group (a template per n,
+// type and RL, the rows a lane owns: RL = 1 at n = 2 and 16, 2 at n = 4
+// and 8, the faster of the two on the H100). It runs the warp branch's
+// schedule (below) on a group of n / RL lanes, so a warp holds 32 RL / n
+// matrices:
+//   - Lane l of a group owns rows l RL .. l RL + RL - 1 as n registers
+//     each (compile-time indices; rows of consecutive lanes are
+//     contiguous, so each lane loads its rows as 16-byte vectors, 8-byte
+//     at n = 2 in float32). Rows never move, slots are in place, and the
+//     k loop unrolls fully (n <= 16): no group rotation, no padding.
+//   - Pivot search on (magnitude key, position), the lowest position
+//     winning ties: where a warp holds 2 groups (n = 16), the warp
+//     branch's warp_argmax once a group, each lane's values masked out of
+//     the other group's reduction (4 redux.sync a step in float32); with
+//     more groups, log2(n / RL) butterfly rounds of __shfl_xor_sync on a
+//     64-bit (key, ~position) pair. The row at the winning position owns
+//     the pivot; the row that pivoted at step j holds position j from
+//     then on, which gives the inverse's column order at the end.
+//   - Broadcast through the group's slice of shared memory as in the
+//     warp branch: the owner's predicated vector stores, lane l dividing
+//     slots l + t n / RL, the quotients read back as vector broadcasts.
+//     The owner's row takes them as the warp branch's does; in float32
+//     ptxas then predicates the update's multiply-adds off for the owner,
+//     which keeps the loaded quotients, so taking them costs nothing.
+//   - Staging out through a per-matrix tile of row stride n + 1, then one
+//     coalesced store of the warp's matrices. A group past the batch
+//     inverts the identity and stores nothing: every lane of a warp takes
+//     part in every reduction; only a whole warp past the batch returns.
+// At (81,920, 16, 16) float32 (two matrices a warp) a step is 96 warp
+// instructions (16 FFMA for the update and 5 in the division, 4 redux, 14
+// shared accesses, 11 selects, 31 integer and moves; `python3
+// k1_compare.py --sass` prints these counts from the SASS), 1,656 a warp
+// with the staging, 68 M over the batch: 0.065 ms of issue on 132 SMs x
+// 4 schedulers at 1.98 GHz, 1.3x the 0.050 ms byte bound. PERF.md gives
+// what the card reaches.
 //
 // Every other n <= 48: the warp branch gj_inv_warp, one warp a matrix, n
 // padded to a band NP of 8, 16, ..., 48 (a template per band and type):
@@ -80,76 +108,7 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 48;
 
-__device__ __forceinline__ float abs_val(float x) { return fabsf(x); }
-__device__ __forceinline__ double abs_val(double x) { return fabs(x); }
-
-template <typename T, int N>
-__global__ void gj_inv_reg(const T* __restrict__ A, T* __restrict__ out,
-                           long long batch) {
-  constexpr int W = 2 * N;       // lanes per matrix, a power of two
-  constexpr int G = 32 / W;      // matrices per warp
-  const int lane = threadIdx.x & 31;
-  const int j = lane % W;        // owned column of [A | I]
-  const long long warp =
-      (static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-  const long long m = warp * G + lane / W;
-  const bool valid = m < batch;
-  const T* a = A + m * N * N;
-
-  T c[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if (j < N) {
-      c[i] = valid ? a[i * N + j] : T(i == j);
-    } else {
-      c[i] = T(i == j - N);
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < N; ++k) {
-    // pivot search (meaningful in lane k of the group)
-    int p = k;
-    T best = abs_val(c[k]);
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      const T v = abs_val(c[i]);
-      if (v > best) {
-        best = v;
-        p = i;
-      }
-    }
-    p = __shfl_sync(kFull, p, k, W);
-    // swap rows k and p
-    const T ck = c[k];
-    T cp = ck;
-#pragma unroll
-    for (int i = k + 1; i < N; ++i) {
-      if (i == p) {
-        cp = c[i];
-        c[i] = ck;
-      }
-    }
-    c[k] = cp;
-    // normalise the pivot row, eliminate column k from every other row
-    const T piv = __shfl_sync(kFull, c[k], k, W);
-    const T nk = c[k] / piv;
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      const T f = __shfl_sync(kFull, c[i], k, W);
-      if (i != k) c[i] = c[i] - f * nk;
-    }
-    c[k] = nk;
-  }
-
-  if (valid && j >= N) {
-    T* o = out + m * N * N;
-#pragma unroll
-    for (int i = 0; i < N; ++i) o[i * N + (j - N)] = c[i];
-  }
-}
-
-// ---- the warp branch: every n <= 48 but 2, 4, 8, 16 ----------------------
+// ---- shared by both branches ----------------------------------------------
 
 // |x| as an unsigned ordinal plus one, so that 0 marks a row that cannot
 // pivot and a zero magnitude still beats it.
@@ -197,6 +156,66 @@ __device__ __forceinline__ void st_shared_if(bool p, double* dst, double a,
       : "memory");
 #endif
 }
+__device__ __forceinline__ void st_shared_if(bool p, float* dst, float a,
+                                             float b) {
+#if defined(__CUDA_ARCH__)
+  asm volatile(
+      "{\n .reg .pred q;\n setp.ne.u32 q, %0, 0;\n"
+      " @q st.shared.v2.f32 [%1], {%2, %3};\n}\n" ::"r"(
+          static_cast<unsigned>(p)),
+      "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "f"(a),
+      "f"(b)
+      : "memory");
+#endif
+}
+
+// Elements a vector access of a row of NP takes: 16 bytes, or the whole
+// row where it is shorter (8 bytes at NP = 2 in float32).
+template <typename T, int NP>
+__host__ __device__ constexpr int vec_len() {
+  return 16 / static_cast<int>(sizeof(T)) < NP
+             ? 16 / static_cast<int>(sizeof(T))
+             : NP;
+}
+
+// Vector accesses of a row: the owner's predicated shared store, and a
+// load (shared or global; src aligned to the vector).
+template <typename T, int NP>
+__device__ __forceinline__ void store_row(bool p, T* dst, const T (&R)[NP]) {
+  constexpr int VK = vec_len<T, NP>();
+#pragma unroll
+  for (int q = 0; q < NP / VK; ++q) {
+    if constexpr (VK == 4) {
+      st_shared_if(p, dst + 4 * q, R[4 * q], R[4 * q + 1], R[4 * q + 2],
+                   R[4 * q + 3]);
+    } else {
+      st_shared_if(p, dst + 2 * q, R[2 * q], R[2 * q + 1]);
+    }
+  }
+}
+template <typename T, int NP>
+__device__ __forceinline__ void load_vec(T (&R)[NP], const T* src) {
+  constexpr int VK = vec_len<T, NP>();
+#pragma unroll
+  for (int q = 0; q < NP / VK; ++q) {
+    if constexpr (VK == 4) {
+      const float4 v = reinterpret_cast<const float4*>(src)[q];
+      R[4 * q] = v.x;
+      R[4 * q + 1] = v.y;
+      R[4 * q + 2] = v.z;
+      R[4 * q + 3] = v.w;
+    } else if constexpr (sizeof(T) == 4) {
+      const float2 v = reinterpret_cast<const float2*>(src)[q];
+      R[2 * q] = v.x;
+      R[2 * q + 1] = v.y;
+    } else {
+      const double2 v = reinterpret_cast<const double2*>(src)[q];
+      R[2 * q] = v.x;
+      R[2 * q + 1] = v.y;
+    }
+  }
+}
+// ---- the warp branch: every n <= 48 but 2, 4, 8, 16 ----------------------
 
 // The smallest tag among the lanes that hold the largest key.
 __device__ __forceinline__ unsigned warp_argmax(unsigned key, unsigned tag) {
@@ -238,7 +257,6 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
                 long long batch, int n) {
   using C = WarpCfg<T, NP>;
   constexpr int RL = C::kRows, LD = C::kLd, G = C::kGroup;
-  constexpr int VK = 16 / static_cast<int>(sizeof(T));  // per 16 bytes
   __shared__ __align__(16) unsigned char smem[C::kWarps * C::kBytes];
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
@@ -289,35 +307,6 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
   int pos0 = load_row(R0, lane);
   int pos1 = -1;
   if constexpr (RL == 2) pos1 = load_row(R1, lane + 32);
-
-  // 16-byte shared accesses of a row (the owner's store, everyone's load)
-  auto store_row = [&](bool p, T* dst, const T(&R)[NP]) {
-#pragma unroll
-    for (int q = 0; q < NP / VK; ++q) {
-      if constexpr (VK == 4) {
-        st_shared_if(p, dst + 4 * q, R[4 * q], R[4 * q + 1], R[4 * q + 2],
-                     R[4 * q + 3]);
-      } else {
-        st_shared_if(p, dst + 2 * q, R[2 * q], R[2 * q + 1]);
-      }
-    }
-  };
-  auto load_vec = [&](T(&R)[NP], const T* src) {
-#pragma unroll
-    for (int q = 0; q < NP / VK; ++q) {
-      if constexpr (VK == 4) {
-        const float4 v = reinterpret_cast<const float4*>(src)[q];
-        R[4 * q] = v.x;
-        R[4 * q + 1] = v.y;
-        R[4 * q + 2] = v.z;
-        R[4 * q + 3] = v.w;
-      } else {
-        const double2 v = reinterpret_cast<const double2*>(src)[q];
-        R[2 * q] = v.x;
-        R[2 * q + 1] = v.y;
-      }
-    }
-  };
 
   const int groups = (n + G - 1) / G;
 #pragma unroll 1
@@ -416,13 +405,208 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
   }
 }
 
-template <typename T, int N>
-void launch_reg(const T* A, T* out, long long batch, cudaStream_t stream) {
-  constexpr int kThreads = 128;
-  constexpr long long kPerBlock = (kThreads / 32) * (32 / (2 * N));
-  const long long blocks = (batch + kPerBlock - 1) / kPerBlock;
-  gj_inv_reg<T, N><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      A, out, batch);
+// ---- the group branch: n = 2, 4, 8, 16 -------------------------------------
+
+// The lowest position among the rows of largest key over a group of W
+// lanes (W a power of two), by log2(W) butterfly rounds of
+// __shfl_xor_sync, so every lane of the group ends with it. key, pos: the
+// lane's best row (positions are distinct, and a row that can pivot has a
+// key above 0). A float32 key rides with ~pos as one 64-bit pair; a
+// float64 key takes a shuffle of its own.
+template <int W>
+__device__ __forceinline__ int group_argmax(unsigned key, int pos) {
+  unsigned long long v = (static_cast<unsigned long long>(key) << 32) |
+                         ~static_cast<unsigned>(pos);
+#pragma unroll
+  for (int s = 1; s < W; s <<= 1) {
+    const unsigned long long o = __shfl_xor_sync(kFull, v, s, W);
+    v = o > v ? o : v;
+  }
+  return static_cast<int>(~static_cast<unsigned>(v));
+}
+template <int W>
+__device__ __forceinline__ int group_argmax(unsigned long long key,
+                                            int pos) {
+  unsigned np = ~static_cast<unsigned>(pos);
+#pragma unroll
+  for (int s = 1; s < W; s <<= 1) {
+    const unsigned long long ok = __shfl_xor_sync(kFull, key, s, W);
+    const unsigned ot = __shfl_xor_sync(kFull, np, s, W);
+    if (ok > key || (ok == key && ot > np)) {
+      key = ok;
+      np = ot;
+    }
+  }
+  return static_cast<int>(~np);
+}
+
+// The same by the warp branch's warp_argmax once a group: each lane's key
+// and position enter its own group's full-warp reduction only (the other
+// groups' lanes give key 0 and tag ~0u), 2 redux.sync a group (3 in
+// float64). Cheaper than the butterfly where a warp holds 2 groups.
+template <int W, typename Key>
+__device__ __forceinline__ int group_argmax_redux(Key key, int pos) {
+  const int g = (threadIdx.x & 31) / W;
+  int p = 0;
+#pragma unroll
+  for (int h = 0; h < 32 / W; ++h) {
+    const unsigned w = warp_argmax(g == h ? key : Key(0),
+                                   g == h ? static_cast<unsigned>(pos) : ~0u);
+    if (g == h) p = static_cast<int>(w);
+  }
+  return p;
+}
+
+// A group of N / RL lanes holds one matrix, each lane RL consecutive rows;
+// per matrix in shared memory: the raw pivot row, its quotients, and a
+// tile of N rows at stride N + 1 for the result. 4 warps a block.
+template <typename T, int N, int RL>
+struct GroupCfg {
+  static constexpr int kLanes = N / RL;       // lanes a matrix
+  static constexpr int kMats = 32 / kLanes;   // matrices a warp
+  static constexpr int kLd = N + 1;
+  static constexpr int kBytes =
+      ((2 * N + N * kLd) * static_cast<int>(sizeof(T)) + 15) / 16 * 16;
+  static constexpr int kWarps = 4;
+  static_assert((N & (N - 1)) == 0 && N <= 16 && (RL == 1 || RL == 2) &&
+                    kLanes >= 1 && kLanes <= 32,
+                "group");
+};
+
+template <typename T, int N, int RL>
+__global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
+    gj_inv_group(const T* __restrict__ A, T* __restrict__ out,
+                 long long batch, bool vec) {
+  using C = GroupCfg<T, N, RL>;
+  constexpr int L = C::kLanes, G = C::kMats, LD = C::kLd;
+  __shared__ __align__(16) unsigned char smem[C::kWarps * G * C::kBytes];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int gl = lane % L;  // lane in the group
+  const long long m0 = (static_cast<long long>(blockIdx.x) * C::kWarps +
+                        wid) * G;  // the warp's first matrix
+  // warp-uniform; a group past the batch inverts the identity, unstored,
+  // so that every lane of a warp takes part in every reduction
+  if (m0 >= batch) return;
+  const long long m = m0 + lane / L;
+  unsigned char* base = smem + (wid * G + lane / L) * C::kBytes;
+  T* raw = reinterpret_cast<T*>(base);
+  T* quot = raw + N;
+  T* tile = quot + N;
+
+  // rows gl * RL + t of the matrix, contiguous in A; position = row
+  T R[RL][N];
+  int pos[RL];
+#pragma unroll
+  for (int t = 0; t < RL; ++t) {
+    const int r = gl * RL + t;
+    pos[t] = r;
+    const T* a = A + m * (N * N) + r * N;
+    if (m < batch && vec) {
+      load_vec(R[t], a);
+    } else {
+#pragma unroll
+      for (int j = 0; j < N; ++j) R[t][j] = m < batch ? a[j] : T(r == j);
+    }
+  }
+
+#pragma unroll
+  for (int k = 0; k < N; ++k) {
+    // pivot: the largest |slot k| over rows at positions >= k, the lowest
+    // position among equal magnitudes
+    using Key = decltype(mag_key(T(0)));
+    Key lk = 0;
+    int lp = N;
+#pragma unroll
+    for (int t = 0; t < RL; ++t) {
+      const Key key = pos[t] >= k ? mag_key(R[t][k]) : 0;
+      if (key > lk || (key == lk && pos[t] < lp)) {
+        lk = key;
+        lp = pos[t];
+      }
+    }
+    int wpos;
+    if constexpr (G <= 2) {
+      wpos = group_argmax_redux<L>(lk, lp);
+    } else {
+      wpos = group_argmax<L>(lk, lp);
+    }
+    bool own[RL];
+#pragma unroll
+    for (int t = 0; t < RL; ++t) own[t] = pos[t] == wpos;
+    // its owner broadcasts the raw row through shared memory
+#pragma unroll
+    for (int t = 0; t < RL; ++t) store_row(own[t], raw, R[t]);
+    __syncwarp();
+    // lane gl divides slots gl + t L by the pivot; slot k becomes 1 / piv.
+    // A zero over a finite nonzero pivot is x * piv (the same signed
+    // zero), which keeps zeros off the division's slow path.
+    const T piv = raw[k];
+    const bool plain_zero = finite_nonzero(piv);
+#pragma unroll
+    for (int t = 0; t < RL; ++t) {
+      const int c = gl + t * L;
+      const T x = c == k ? T(1) : raw[c];
+      const bool z = plain_zero && x == T(0);
+      const T q = (z ? T(1) : x) / piv;
+      quot[c] = z ? x * piv : q;
+    }
+    __syncwarp();
+    T nk[N];
+    load_vec(nk, quot);
+    // every row eliminates slot k and receives the inverse's column in
+    // it; the pivot row then takes the quotients
+#pragma unroll
+    for (int t = 0; t < RL; ++t) {
+      const T f = R[t][k];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        R[t][j] = (j == k ? T(0) : R[t][j]) - f * nk[j];
+      }
+      pos[t] = own[t] ? k : (pos[t] == k ? wpos : pos[t]);
+      if (own[t]) load_vec(R[t], quot);
+    }
+  }
+
+  // the row that pivoted at step j holds position j from then on:
+  // out[pos][row at j] = slot j, through the tile, then the warp's
+  // matrices stored coalesced
+  int* row_at = reinterpret_cast<int*>(raw);
+#pragma unroll
+  for (int t = 0; t < RL; ++t) row_at[pos[t]] = gl * RL + t;
+  __syncwarp();
+#pragma unroll
+  for (int j = 0; j < N; ++j) {
+    const int col = row_at[j];
+#pragma unroll
+    for (int t = 0; t < RL; ++t) tile[pos[t] * LD + col] = R[t][j];
+  }
+  __syncwarp();
+  const long long left = (batch - m0) * (N * N);
+  const unsigned char* wbase = smem + wid * G * C::kBytes;
+  T* o = out + m0 * (N * N);
+#pragma unroll
+  for (int e0 = 0; e0 < G * N * N; e0 += 32) {
+    const int e = e0 + lane;
+    if (e < left) {
+      const int g = e / (N * N), r = (e / N) % N, c = e % N;
+      o[e] = reinterpret_cast<const T*>(wbase + g * C::kBytes)[2 * N +
+                                                               r * LD + c];
+    }
+  }
+}
+
+template <typename T, int N, int RL>
+void launch_group(const T* A, T* out, long long batch, cudaStream_t stream) {
+  using C = GroupCfg<T, N, RL>;
+  const long long warps = (batch + C::kMats - 1) / C::kMats;
+  const long long blocks = (warps + C::kWarps - 1) / C::kWarps;
+  // rows load as vectors where A is aligned to them (a fresh tensor is)
+  constexpr int kVecBytes = vec_len<T, N>() * static_cast<int>(sizeof(T));
+  const bool vec = reinterpret_cast<unsigned long long>(A) % kVecBytes == 0;
+  gj_inv_group<T, N, RL>
+      <<<static_cast<unsigned>(blocks), C::kWarps * 32, 0, stream>>>(
+          A, out, batch, vec);
 }
 
 template <typename T, int NP>
@@ -442,10 +626,10 @@ int launch(const T* A, T* out, long long batch, int n, void* stream_ptr) {
   if (batch == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (n) {
-    case 2: launch_reg<T, 2>(A, out, batch, stream); break;
-    case 4: launch_reg<T, 4>(A, out, batch, stream); break;
-    case 8: launch_reg<T, 8>(A, out, batch, stream); break;
-    case 16: launch_reg<T, 16>(A, out, batch, stream); break;
+    case 2: launch_group<T, 2, 1>(A, out, batch, stream); break;
+    case 4: launch_group<T, 4, 2>(A, out, batch, stream); break;
+    case 8: launch_group<T, 8, 2>(A, out, batch, stream); break;
+    case 16: launch_group<T, 16, 1>(A, out, batch, stream); break;
     default:
       switch ((n + 7) / 8) {
         case 1: launch_warp<T, 8>(A, out, batch, n, stream); break;

@@ -6,12 +6,13 @@ is the hand-written Gauss-Jordan kernel in `csrc/gj_inverse.cu` (which
 replaces the Pallas kernel `_gj_inv_kernel`), on the CPU the plain
 PyTorch loop below, which runs the same algorithm.
 
-The kernel has two branches. n = 2, 4, 8, 16 keep [A | I] in registers,
-a column a lane. Every other n <= 48 runs one warp a matrix with the
-rows owned by lanes and never moved: each row carries its logical
-position (a pivot swap exchanges two positions), and its n slots are
-updated in place, slot k receiving the inverse's column of the row that
-pivoted at step k. That computes what `gj_inverse_plain` computes, to the
+The kernel has two branches with one schedule: the rows are owned by
+lanes and never moved. Each row carries its logical position (a pivot
+swap exchanges two positions), and its n slots are updated in place,
+slot k receiving the inverse's column of the row that pivoted at step k.
+n = 2, 4, 8, 16 run a group of n or n / 2 lanes a matrix (one or two
+rows a lane), so a warp holds several matrices; every other n <= 48 runs
+one warp a matrix. That computes what `gj_inverse_plain` computes, to the
 last bit: it drops only the columns of [A | I] that hold 0 or 1 and the
 updates that leave them so (tests/test_torch_ops.py holds a PyTorch model
 of that schedule against `gj_inverse_plain` bit for bit). Both branches

@@ -12,18 +12,21 @@ failure exits non-zero:
  3. kernels against their plain PyTorch versions on the card: the
     Gauss-Jordan inverse K1 on the IRK stage Jacobians of the main path
     (81,920 x 16 x 16 float32), on seeded diagonally dominant batches
-    (n = 4, 8, 16 for its register branch, n = 9, 21, 29, 39, 48 for its
+    (n = 2, 4, 8, 16 for its group branch, n = 9, 21, 29, 39, 48 for its
     warp branch, a ragged batch size, n = 56 through the Schur path), on
     the same with rows permuted (row swaps at most steps), in float32 and
     float64, on matrices with equal magnitudes in their pivot columns,
     where exact arithmetic makes kernel, plain version and exact inverse
     agree bit for bit only under the lowest-index tie rule, and on the
-    warp branch's edge cases (every n = 1..48 at B = 7; B = 1, 2, 3, 33 at
-    n = 9, 29, 39, 48; n = 3 at B = 200,003); linsolve on the card
-    launching K1 for small n too; then K1's time at the main-path shape
-    beside its bound, the plain version and torch.linalg.inv, and over
-    the warp branch's grid (n = 9, 21, 29, 39, 48 x B = 1024, 10240
-    float32, and (10240, 39, 39) float64) beside the branch it replaced;
+    edge cases of both branches (every n = 1..48 at B = 7; B = 1, 2, 3,
+    33 at n = 9, 29, 39, 48; B = 1, 2, 3, 33, 65, 1023 at n = 2, 4, 8,
+    16; n = 2, 3, 16 at B = 200,003; a misaligned input at n = 2 and 16);
+    linsolve on the card launching K1 for small n too; then K1's time at
+    the main-path shape beside its bound, the plain version and
+    torch.linalg.inv, and over both branches' grid (n = 9, 21, 29, 39, 48
+    x B = 1024, 10240 and n = 2, 4, 8, 16 x B = 10240, 81920 float32,
+    (10240, 39, 39) and (81920, 16, 16) float64) beside the branches they
+    replaced;
  4. main path: AcadosOcpBatchSolver on the canonical pendulum IRK SQP-RTI
     config (N = 20, float32) at B = 4096, 1 cold + 15 warm + timed
     solve() calls; every status 0, the float32 tolerances met, and exactly
@@ -140,6 +143,13 @@ K1_EDGE_B = (1, 2, 3, 33)
 K1_LONG_B = 200_003
 K1_SWEEP_B = 7
 K1_GRID_B = (1024, 10240)
+# K1's group branch (n = 2, 4, 8, 16): batches that end inside a group of
+# lanes, a warp and a block of warps, the n of the long batch beside the
+# warp branch's n = 3, and the batches of its grid
+K1_GROUP_N = (2, 4, 8, 16)
+K1_GROUP_EDGE_B = (1, 2, 3, 33, 65, 1023)
+K1_LONG_N = (2, 3, 16)
+K1_GROUP_GRID_B = (10240, 81920)
 # the branch K1's warp branch replaced (one warp a matrix, [A | I] in
 # shared memory): device ms back to back over k1_grid's cells, by (n, B,
 # type), from k1_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
@@ -154,6 +164,17 @@ K1_PARENT_DEVICE_MS = {
 # the same branch at the chain's shape, on the chain's block determinants
 # (chip_smoke.py phase 11; NVIDIA H100 80GB HBM3, 700.00 W)
 K1_PARENT_CHAIN_DEVICE_MS = 0.9014
+# the branch K1's group branch replaced ([A | I] in registers, a column a
+# lane): device ms back to back over k1_grid's group cells, from
+# k1_compare.py, and on the main path's stage Jacobians, from this
+# script (NVIDIA H100 80GB HBM3, 700.00 W), for the log lines only
+K1_PARENT_GROUP_DEVICE_MS = {
+    (2, 10240, "float32"): 0.0056, (2, 81920, "float32"): 0.0071,
+    (4, 10240, "float32"): 0.0065, (4, 81920, "float32"): 0.0133,
+    (8, 10240, "float32"): 0.0108, (8, 81920, "float32"): 0.0439,
+    (16, 10240, "float32"): 0.0341, (16, 81920, "float32"): 0.2175,
+    (16, 81920, "float64"): 0.4028}
+K1_PARENT_MAIN_DEVICE_MS = 0.2793
 # K5 at (10240, 39, 39) float32, device ms back to back, before the
 # register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
 # 700.00 W), for the log line only
@@ -697,7 +718,7 @@ def riccati_free_x0(dev) -> None:
 
 def k1_batches(dev, rng, kern):
     """K1 against its plain version on seeded batches at every n of the
-    warp branch's grid and at the register branch's n = 4, 8, 16: random
+    warp branch's grid and at the group branch's n = 2, 4, 8, 16: random
     N(0, 1) + n I, the same with rows permuted (row swaps at most steps),
     in float32 and float64, and matrices with equal magnitudes in their
     pivot columns, where exact arithmetic makes kernel, plain version and
@@ -706,7 +727,7 @@ def k1_batches(dev, rng, kern):
     import torch
     from acados_tpu_torch.ops.batched_inv import gj_inverse_plain
     from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
-    ns = K1_BRANCH_N + (4, 8, 16)
+    ns = K1_BRANCH_N + K1_GROUP_N
     for dtype, bound in ((torch.float32, F32_BOUND),
                          (torch.float64, F64_BOUND)):
         for n in ns:
@@ -740,11 +761,14 @@ def k1_batches(dev, rng, kern):
 
 
 def k1_edge_cases(dev, rng, kern):
-    """K1 against its plain version where the warp branch's bands and
-    blocks end: every n = 1..48 at a short batch, batches that end inside
-    a block of warps, and a long batch of n = 3 (50,001 blocks). The long
-    batch is strictly diagonally dominant with its rows permuted, so it
-    pivots and stays well conditioned: 200,003 draws of N(0, 1) + 3 I hold
+    """K1 against its plain version where the branches' groups, warps,
+    bands and blocks end: every n = 1..48 at a short batch, batches that
+    end inside a block of warps (warp branch) or inside a group, a warp or
+    a block (group branch), long batches at n = 2, 3, 16 (more warps than
+    the card holds at once), and an input one element off its allocation
+    (not aligned to the group branch's vector loads). The long batches
+    are strictly diagonally dominant with their rows permuted, so they
+    pivot and stay well conditioned: 200,003 draws of N(0, 1) + 3 I hold
     matrices so ill-conditioned that the kernel's fused multiply-adds
     alone move their inverses by more than F32_BOUND or F64_BOUND of the
     batch's largest entry (k1_compare.py logs such batches)."""
@@ -754,24 +778,34 @@ def k1_edge_cases(dev, rng, kern):
                          (torch.float64, F64_BOUND)):
         cases = [(n, K1_SWEEP_B) for n in range(1, _GJ_MAX_N + 1)]
         cases += [(n, B) for n in K1_EDGE_N for B in K1_EDGE_B]
+        cases += [(n, B) for n in K1_GROUP_N for B in K1_GROUP_EDGE_B]
         worst = 0.0
         for n, B in cases:
             A = torch.as_tensor(rng.normal(size=(B, n, n)) + n * np.eye(n),
                                 dtype=dtype, device=dev)
             worst = max(worst, check_inverse(f"edge n={n} B={B}", A, kern,
                                              bound, quiet=True)[0])
-        n = 3
-        A = rng.uniform(-1.0, 1.0, (K1_LONG_B, n, n)) + 2 * n * np.eye(n)
-        A = np.take_along_axis(
-            A, np.argsort(rng.random((K1_LONG_B, n)))[..., None], 1)
-        worst = max(worst, check_inverse(
-            f"long n={n} B={K1_LONG_B}", torch.as_tensor(
-                A, dtype=dtype, device=dev), kern, bound, quiet=True)[0])
-        log(f"  edge cases {str(dtype):<14} {len(cases) + 1} batches (n = "
-            f"1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in {K1_EDGE_N} at B in "
-            f"{K1_EDGE_B}; n = 3 dominant, rows permuted, at B = "
-            f"{K1_LONG_B}): worst max|k-p|/max|p| {worst:.3e}, bound "
-            f"{bound:g}, ok")
+        for n in K1_LONG_N:
+            A = rng.uniform(-1.0, 1.0, (K1_LONG_B, n, n)) + 2 * n * np.eye(n)
+            A = np.take_along_axis(
+                A, np.argsort(rng.random((K1_LONG_B, n)))[..., None], 1)
+            worst = max(worst, check_inverse(
+                f"long n={n} B={K1_LONG_B}", torch.as_tensor(
+                    A, dtype=dtype, device=dev), kern, bound, quiet=True)[0])
+        for n in (2, 16):
+            B = 1023
+            flat = torch.empty(B * n * n + 1, dtype=dtype, device=dev)
+            A = flat[1:].view(B, n, n)
+            A.copy_(torch.as_tensor(rng.normal(size=(B, n, n))
+                                    + n * np.eye(n), dtype=dtype))
+            worst = max(worst, check_inverse(
+                f"misaligned n={n} B={B}", A, kern, bound, quiet=True)[0])
+        log(f"  edge cases {str(dtype):<14} {len(cases) + len(K1_LONG_N) + 2}"
+            f" batches (n = 1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in "
+            f"{K1_EDGE_N} at B in {K1_EDGE_B}; n in {K1_GROUP_N} at B in "
+            f"{K1_GROUP_EDGE_B}; n in {K1_LONG_N} dominant, rows permuted, "
+            f"at B = {K1_LONG_B}; misaligned n = 2, 16): worst "
+            f"max|k-p|/max|p| {worst:.3e}, bound {bound:g}, ok")
 
 
 def k1_bound(A):
@@ -786,9 +820,10 @@ def k1_bound(A):
 
 def k1_grid(kerns: dict, parent=None, order=None) -> list:
     """Device ms back to back of each K1 wrapper in kerns ({label: fn}),
-    called in turns (order: labels, default each once), over the warp
-    branch's grid (n in K1_BRANCH_N x B in K1_GRID_B, float32, and
-    (10240, 39, 39) float64), beside torch.linalg.inv (CUDA events around
+    called in turns (order: labels, default each once), over both
+    branches' grid (n in K1_BRANCH_N x B in K1_GRID_B and n in K1_GROUP_N
+    x B in K1_GROUP_GRID_B, float32, and (10240, 39, 39) and
+    (81920, 16, 16) float64), beside torch.linalg.inv (CUDA events around
     one call: it waits for the host) and the bound. parent: device ms of
     an earlier build by (n, B, dtype name), logged beside."""
     import torch
@@ -797,6 +832,9 @@ def k1_grid(kerns: dict, parent=None, order=None) -> list:
     order = list(kerns) if order is None else order
     cells = [(n, B, torch.float32) for n in K1_BRANCH_N for B in K1_GRID_B]
     cells.append((39, 10240, torch.float64))
+    cells += [(n, B, torch.float32) for n in K1_GROUP_N
+              for B in K1_GROUP_GRID_B]
+    cells.append((16, 81920, torch.float64))
     log("K1 grid (device ms back to back; torch.linalg.inv CUDA events "
         "around one call; N(0, 1) + n I):")
     rows = []
@@ -814,7 +852,7 @@ def k1_grid(kerns: dict, parent=None, order=None) -> list:
                                       for k, v in times.items()})
         rows.append(row)
         old = (parent or {}).get((n, B, dt))
-        log(f"  n={n:2d} B={B:5d} {dt:<7} " + "  ".join(
+        log(f"  n={n:2d} B={B:6d} {dt:<7} " + "  ".join(
             f"{k} {' '.join(f'{t:.4f}' for t in v)}"
             for k, v in times.items())
             + (f"  (before: {old:.4f})" if old is not None else "")
@@ -825,20 +863,31 @@ def k1_grid(kerns: dict, parent=None, order=None) -> list:
 def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
     """K1's kernels-line entry at the shape of A (float32): its time per
     wrapper call and back to back, the plain version's and
-    torch.linalg.inv's, and the bound. before: an earlier build's device
-    ms at this shape, logged beside."""
+    torch.linalg.inv's, and the bound. before: the replaced branch's
+    device ms at this shape, logged beside. A as the solver hands it over:
+    where it is not contiguous (the IRK stage Jacobians come transposed),
+    each wrapper call copies it first, and the device time on a
+    contiguous copy is given beside, for the kernel alone."""
     import torch
     from acados_tpu_torch.ops import batched_inv
     kern = batched_inv._gj_inverse_cuda
     M, n = A.shape[0], A.shape[-1]
     k_ms = cuda_ms(lambda: kern(A), reps=30)
     k_dev_ms = device_ms(lambda: kern(A))
+    contiguous = {}
+    if not A.is_contiguous():
+        Ac = A.contiguous()
+        contiguous = {"contiguous_device_ms": device_ms(lambda: kern(Ac))}
     p_ms = cuda_ms(lambda: batched_inv.gj_inverse_plain(A), reps=10)
     l_ms = cuda_ms(lambda: torch.linalg.inv(A), reps=20)
     nbytes = 2 * M * n * n * A.element_size()
     flops = 2 * M * n ** 3
     b_ms, b_by = k1_bound(A)
-    was = f"; {before} before the warp branch" if before else ""
+    was = f"; the replaced branch: {before}" if before else ""
+    if contiguous:
+        was += (f"; strides {A.stride()}, so the wrapper's copy is in it: "
+                f"{contiguous['contiguous_device_ms']:.4f} ms on a "
+                f"contiguous copy")
     log(f"K1 at {tuple(A.shape)} float32: kernel {k_ms:.4f} ms (device "
         f"{k_dev_ms:.4f} ms back to back{was}), plain {p_ms:.4f} ms, "
         f"torch.linalg.inv {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
@@ -849,7 +898,7 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
             "shape": list(A.shape), "launches": launches,
             "max_abs_err": abs_err, "max_rel_err_f32": rel, "ms": k_ms,
             "device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms}
+            "bound_by": b_by, "library_ms": l_ms, **contiguous}
 
 
 def chain_path(dev):
@@ -1123,9 +1172,11 @@ def main() -> int:
             raise SystemExit(f"linsolve on the card, n={n}: {launched} "
                              f"launches, error {err:.3e}")
 
-    # time at the main-path shape, then over the warp branch's grid
-    kernels = [k1_entry("gj_inverse", J, None, rel32, abs32)]
-    k1_grid({"K1": kern}, parent=K1_PARENT_DEVICE_MS)
+    # time at the main-path shape, then over both branches' grid
+    kernels = [k1_entry("gj_inverse", J, None, rel32, abs32,
+                        before=K1_PARENT_MAIN_DEVICE_MS)]
+    k1_grid({"K1": kern},
+            parent={**K1_PARENT_DEVICE_MS, **K1_PARENT_GROUP_DEVICE_MS})
     k1_ms = kernels[0]["ms"]
 
     # ---- 4. main path ----------------------------------------------------------

@@ -2,7 +2,9 @@
 """Build copies of K1's CUDA source side by side and compare them on one
 GPU: each against the plain version (chip_smoke.py's K1 batches and edge
 cases), on N(0, 1) + 3 I at n = 3 against the plain version and against
-each other, then their device times in turns over K1's grid.
+each other, each later build against the first bit for bit on the group
+branch's batches (n = 2, 4, 8, 16), then their device times in turns over
+K1's grid.
 
 Run from the root of the repository:
 
@@ -21,10 +23,23 @@ The copies are built by `cuda_build` and launched through K1's own wrapper
 (`batched_inv._gj_inverse_cuda`), one library per source. A build that
 fails a check is logged and still timed, and the exit code is then 1. The
 builds are timed in turns (each label, then the labels in reverse), so two
-versions are compared on one card in one run. --sass prints, for each
-build and each band of the warp branch, the SASS instruction mix of one
-elimination step (cuobjdump). Needs one GPU and nvcc; imports nothing of
-JAX.
+versions are compared on one card in one run. The first build is the
+reference of the bit-for-bit lines: name the earlier commit's copy first.
+A build whose group-branch results differ from the first's also makes the
+exit code 1. --sass prints, for each build, the SASS instruction mix of
+one elimination step (cuobjdump) for each band of the warp branch and
+each instance of the group branch. Needs one GPU and nvcc; imports
+nothing of JAX.
+
+The group branch's rows a lane (RL, 1 or 2 at each n) are held against
+the other choice by a copy that differs in the dispatch lines alone:
+
+    sed -e 's/\\(launch_group<T, [0-9]*\\), 1>/\\1, 3>/' \\
+        -e 's/\\(launch_group<T, [0-9]*\\), 2>/\\1, 1>/' \\
+        -e 's/\\(launch_group<T, [0-9]*\\), 3>/\\1, 2>/' \\
+        acados_tpu_torch/csrc/gj_inverse.cu > build/gj_inverse_flip.cu
+    python3 k1_compare.py before=build/gj_inverse_before.cu \\
+        now=acados_tpu_torch/csrc/gj_inverse.cu flip=build/gj_inverse_flip.cu
 """
 from __future__ import annotations
 
@@ -57,9 +72,10 @@ def build(specs: dict) -> dict:
         kernel = None
         for line in reports.get(path, "").splitlines():
             m = re.search(r"Compiling entry function '.*?(gj_inv_\w+?)I([fd])"
-                          r"(?:Li(\d+)E)?", line)
+                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?", line)
             if m:
-                kernel = f"{m.group(1)} {m.group(2)}{m.group(3) or ''}"
+                kernel = f"{m.group(1)} {m.group(2)}{m.group(3) or ''}" + (
+                    f" RL={m.group(4)}" if m.group(4) else "")
             elif kernel and ("registers" in line or "spill" in line):
                 cs.log(f"  ptxas {label} {kernel}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
@@ -72,30 +88,44 @@ _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
 def step_mix(sass: str) -> list:
-    """Per band of the warp branch: its SASS instructions, and those of one
-    elimination step and their mix, averaged over the loop's body (one
-    REDUX.MIN a step)."""
+    """Per band of the warp branch and per instance of the group branch:
+    its SASS instructions, and those of one elimination step and their
+    mix. The warp branch's step is averaged over its loop's body (one
+    REDUX.MIN a step); the group branch has no loop (its k loop unrolls
+    fully), so its step is its main body over n: the instructions up to
+    its first unpredicated EXIT, staging included, the division's slow
+    path (a subroutine after it) left out."""
     rows = []
     for func in re.split(r"\n\s*Function : ", sass):
-        m = re.search(r"gj_inv_warpI([fd])Li(\d+)E", func.split("\n", 1)[0])
-        if not m:
+        head = func.split("\n", 1)[0]
+        warp = re.search(r"gj_inv_warpI([fd])Li(\d+)E", head)
+        group = re.search(r"gj_inv_groupI([fd])Li(\d+)ELi(\d+)E", head)
+        if not (warp or group):
             continue
-        ops = [mm.group(2) for mm in map(_INSN.search, func.split("\n"))
-               if mm]
-        steps = [i for i, op in enumerate(ops) if op == "REDUX.MIN"]
-        if len(steps) < 2:
-            continue
-        body = collections.Counter(op.split(".")[0]
-                                   for op in ops[steps[0]:steps[-1]])
-        k = len(steps) - 1
+        insns = [mm.groups() for mm in map(_INSN.search, func.split("\n"))
+                 if mm]
+        ops = [op for _, op in insns]
+        if warp:
+            steps = [i for i, op in enumerate(ops) if op == "REDUX.MIN"]
+            if len(steps) < 2:
+                continue
+            body = ops[steps[0]:steps[-1]]
+            k = len(steps) - 1
+            band = f"{warp.group(1)}{warp.group(2)}"
+        else:
+            end = next((i + 1 for i, (pred, op) in enumerate(insns)
+                        if op == "EXIT" and not pred), len(ops))
+            body, k = ops[:end], int(group.group(2))
+            band = f"{group.group(1)}{group.group(2)} RL={group.group(3)}"
+        body = collections.Counter(op.split(".")[0] for op in body)
         per = lambda *names: sum(body[x] for x in names) / k
         rows.append(dict(
-            band=f"{m.group(1)}{m.group(2)}", instructions=len(ops),
-            per_step=(steps[-1] - steps[0]) / k,
+            band=band, instructions=len(ops),
+            per_step=sum(body.values()) / k,
             fma=per("FFMA", "DFMA"), mul_add=per("FMUL", "FADD", "DMUL",
                                                  "DADD"),
             select=per("FSEL", "SEL"), shared=per("LDS", "STS"),
-            reduce=per("REDUX"),
+            reduce=per("REDUX"), shuffle=per("SHFL"),
             integer=per("ISETP", "IMAD", "IADD3", "VIADD", "LOP3", "SHF",
                         "LEA", "MOV", "P2R", "R2P"),
             branch=per("BRA", "BSSY", "BSYNC", "CALL")))
@@ -136,6 +166,49 @@ def ill_conditioned_n3(kerns: dict) -> None:
                    + ", ".join(parts))
 
 
+def group_bit_equality(kerns: dict) -> list:
+    """Each later build against the first on the group branch's batches
+    (n in chip_smoke's K1_GROUP_N, float32 and float64): N(0, 1) + n I at
+    each B of the grid, the same with rows permuted, the pivot-tie batch,
+    and the long diagonally dominant batch with rows permuted. Logs max
+    |build - first| and the matrices that differ; returns the labels of
+    the builds that differ anywhere (expected none: the same operations in
+    the same order)."""
+    import torch
+    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
+    dev = torch.device("cuda")
+    ref, *rest = kerns
+    differ = []
+    if not rest:
+        return differ
+    cs.log(f"group branch, each build against {ref!r} bit for bit:")
+    for n in cs.K1_GROUP_N:
+        rng = np.random.default_rng(cs.SEED + n)
+        batches = [(f"random B={B}", rng.normal(size=(B, n, n))
+                    + n * np.eye(n)) for B in cs.K1_GROUP_GRID_B]
+        batches.append(("rows permuted B=10240",
+                        row_permuted_batch(rng, 10240, n)))
+        batches.append(("ties", pivot_tie_batch(rng, 4096, n)[0]))
+        A = rng.uniform(-1.0, 1.0, (cs.K1_LONG_B, n, n)) + 2 * n * np.eye(n)
+        batches.append((f"long dominant B={cs.K1_LONG_B}", np.take_along_axis(
+            A, np.argsort(rng.random((cs.K1_LONG_B, n)))[..., None], 1)))
+        for name, A0 in batches:
+            for dtype in (torch.float32, torch.float64):
+                A = torch.as_tensor(A0, dtype=dtype, device=dev)
+                first = kerns[ref](A)
+                parts = []
+                for label in rest:
+                    d = (kerns[label](A) - first).abs().amax((1, 2))
+                    count = int((d > 0).sum())
+                    parts.append(f"max|{label} - {ref}| {float(d.max()):g} "
+                                 f"in {count} of {len(A)}")
+                    if count and label not in differ:
+                        differ.append(label)
+                cs.log(f"  n={n:2d} {name:<28} {str(dtype):<14} "
+                       + ", ".join(parts))
+    return differ
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -166,7 +239,8 @@ def main() -> int:
                        f"{row['fma']:.0f} FMA, {row['mul_add']:.0f} "
                        f"mul/add, {row['select']:.0f} select, "
                        f"{row['shared']:.1f} shared, {row['reduce']:.0f} "
-                       f"redux, {row['integer']:.0f} integer/move, "
+                       f"redux, {row['shuffle']:.1f} shuffle, "
+                       f"{row['integer']:.0f} integer/move, "
                        f"{row['branch']:.1f} branch")
     failed = []
     for label, kern in kerns.items():
@@ -179,6 +253,8 @@ def main() -> int:
             cs.log(f"  build {label!r} FAILED: {e}")
             failed.append(label)
     ill_conditioned_n3(kerns)
+    failed += [label for label in group_bit_equality(kerns)
+               if label not in failed]
     labels = list(kerns)
     rows = cs.k1_grid(kerns, order=labels + labels[::-1])
     cs.log(json.dumps({"k1_grid": rows, "card": cs.card_line(),

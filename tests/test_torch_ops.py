@@ -34,8 +34,8 @@ def _well_conditioned(rng, B, n):
     return A
 
 
-@pytest.mark.parametrize("n,B", [(3, 40), (8, 17), (16, 33), (21, 9),
-                                 (29, 9), (39, 9)])
+@pytest.mark.parametrize("n,B", [(2, 17), (3, 40), (4, 33), (8, 17),
+                                 (16, 33), (21, 9), (29, 9), (39, 9)])
 def test_plain_matches_jax_gauss_jordan(n, B):
     rng = np.random.default_rng(100 + n)
     A = _well_conditioned(rng, B, n)
@@ -234,8 +234,9 @@ def test_entry_points_default_to_cuda():
 
 
 def _row_owned_schedule(A: torch.Tensor) -> torch.Tensor:
-    """A PyTorch model of the schedule of K1's warp branch
-    (csrc/gj_inverse.cu, gj_inv_warp): row i stays where it is and
+    """A PyTorch model of the schedule of K1's warp and group branches
+    (csrc/gj_inverse.cu, gj_inv_warp and gj_inv_group, which differ only
+    in how many lanes hold a matrix): row i stays where it is and
     carries its logical position pos[i]; a swap exchanges two positions,
     and among equal magnitudes the lowest position wins. Each row holds n
     slots: slot j < k holds the inverse's column p_j (p_j the row that
@@ -274,9 +275,10 @@ def _row_owned_schedule(A: torch.Tensor) -> torch.Tensor:
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind", ["random", "rows_permuted"])
-@pytest.mark.parametrize("n", [1, 9, 21, 29, 39, 48])
+@pytest.mark.parametrize("n", [1, 2, 4, 8, 9, 16, 21, 29, 39, 48])
 def test_row_owned_schedule_is_bit_for_bit_plain(n, kind, dtype):
-    """The warp branch's schedule (rows never move, n slots in place,
+    """The warp and group branches' schedule (rows never move, n slots in
+    place,
     logical positions) computes what gj_inverse_plain computes, to the
     last bit: it drops only the columns that hold 0 or 1 and the updates
     that leave them so. The kernel differs from both only by fused
@@ -291,7 +293,7 @@ def test_row_owned_schedule_is_bit_for_bit_plain(n, kind, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n", [21, 39])
+@pytest.mark.parametrize("n", [4, 16, 21, 39])
 def test_row_owned_schedule_breaks_ties_as_plain(n, dtype):
     """On the pivot-tie batch the schedule, the plain version and the
     exact inverse agree bit for bit: positions, not rows, break ties."""
@@ -304,3 +306,52 @@ def test_row_owned_schedule_breaks_ties_as_plain(n, dtype):
     np.testing.assert_array_equal(ours.numpy(),
                                   batched_inv.gj_inverse_plain(At).numpy())
     np.testing.assert_array_equal(ours.numpy(), X.astype(ours.numpy().dtype))
+
+
+def _sass_function(name: str, ops: list) -> str:
+    """A function of a cuobjdump -sass listing, one instruction a line."""
+    lines = [f"\t\tFunction : {name}",
+             "\t.headerflags\t@\"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)\""]
+    for i, op in enumerate(ops):
+        lines.append(f"        /*{16 * i:04x}*/                   {op} ;"
+                     f"   /* 0x000000000000000000000000000000 */")
+    return "\n".join(lines)
+
+
+def test_step_mix_reads_both_branches():
+    """k1_compare.step_mix on a listing holding both kernels and another:
+    the warp branch's step is averaged between its REDUX.MIN marks, the
+    group branch's is its body up to the first unpredicated EXIT over n
+    (the division's slow path after it is left out), and other functions
+    are skipped."""
+    import k1_compare
+    group = (["LDC R1, c[0x0][0x28]", "@P0 EXIT"]
+             + ["SHFL.BFLY PT, R3, R2, 0x1, 0x1e1f"] * 128
+             + ["FFMA R4, R5, R6, R4"] * 256 + ["LDS.128 R8, [R2]"] * 64
+             + ["FSEL R4, R5, R6, P0"] * 16 + ["EXIT"]
+             + ["BRA 0x10"] + ["FFMA R4, R5, R6, R4"] * 32
+             + ["RET.REL.NODEC R2 0x0"])
+    warp = (["S2R R0, SR_TID.X"] * 5
+            + (["REDUX.MIN UR4, R3"] + ["FFMA R4, R5, R6, R4"] * 40
+               + ["REDUX.MAX UR5, R3"] * 2 + ["LDS.128 R8, [R2]"] * 10)
+            * 3 + ["REDUX.MIN UR4, R3", "EXIT"])
+    other = ["FFMA R4, R5, R6, R4"] * 7 + ["EXIT"]
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        _sass_function("_ZN12_GLOBAL__N_112gj_inv_groupIfLi16ELi1EEEvPKT_"
+                       "PS2_xb", group),
+        _sass_function("_ZN12_GLOBAL__N_111chol_factorIfEEvPKT_PS1_xi",
+                       other),
+        _sass_function("_ZN12_GLOBAL__N_111gj_inv_warpIdLi40EEEvPKT_PS1_xi",
+                       warp)])
+    rows = {row["band"]: row for row in k1_compare.step_mix(sass)}
+    assert sorted(rows) == ["d40", "f16 RL=1"]
+    g = rows["f16 RL=1"]
+    assert g["instructions"] == len(group)
+    assert g["per_step"] == 467 / 16
+    assert (g["fma"], g["shuffle"], g["shared"], g["select"]) == (16, 8, 4, 1)
+    w = rows["d40"]
+    assert w["instructions"] == len(warp)
+    assert (w["per_step"], w["fma"], w["reduce"], w["shared"]) == (53, 40, 3,
+                                                                   10)
+    assert w["shuffle"] == 0
