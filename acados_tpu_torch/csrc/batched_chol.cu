@@ -16,15 +16,16 @@
 // one (__fmul_rn / __fsub_rn, never contracted into an FMA), and sqrt and
 // division are the IEEE ones, so the kernels repeat the arithmetic of the
 // plain PyTorch versions in acados_tpu_torch/ops/batched_chol.py
-// operation for operation.
+// operation for operation. That rules out tensor cores too, which a
+// 4.9 kFLOP factor would leave idle anyway.
 //
 // Layout: the natural row-major (batch, n, n) and (batch, n) tensors,
 // read once and written once. On the TPU the batch sat on the 128 lanes
-// ((n, n, B) after a transpose); here a matrix maps onto one warp.
+// ((n, n, B) after a transpose); here a matrix maps onto a group of lanes.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32), at the
 // dense IPM's shape (4096, 24, 24) float32, counting the 300 entries of a
-// lower triangle read (the input's upper triangle is never read) and
+// lower triangle read (the input's upper triangle is never needed) and
 // every entry written:
 //   factor bytes: 4096 * (300 + 576) * 4 B = 14.4 MB -> 4.3 us;
 //          flops: n^3/3 + n^2/2 + 2n ~ 4.9 kFLOP a matrix, 20 MFLOP -> 0.3 us;
@@ -33,9 +34,63 @@
 // so every launch is bound by bytes (a few microseconds), and by the
 // latency of its n-step dependent recurrence at this batch.
 //
-// Design against that: each matrix stays in shared memory for the whole
-// recurrence, so device memory sees one coalesced read of the lower
-// triangle and one coalesced write. One warp per matrix:
+// The factor at n <= 32 (every K2 launch of the solvers: the dense IPM's
+// barrier Hessians, nv = 24 on the pendulum, and the Riccati P_0 at
+// nx = 16): the row branch chol_factor_rows<T, NP>.
+//   - Bands NP = 4, 8, 16, 24, 32 (a template each); n is padded to its
+//     band with the identity ([[H, 0], [0, I]]), which adds pivots of 1
+//     and leaves every entry of the factor's n x n block as it was, so
+//     n = 24 runs no padding step. A group of W = 4, 8, 16, 32, 32 lanes
+//     holds one matrix, a warp 32 / W of them (8, 4, 2, 1, 1).
+//   - Lane i of a group owns row i as NP registers with compile-time
+//     indices; the step loop and every loop inside it unroll fully.
+//   - Right-looking order: at step j the group's diagonal s_jj comes from
+//     lane j by one __shfl_sync; every lane takes d = sqrt(s_jj) and
+//     1 / d itself (IEEE results, the same in every lane), scales its
+//     entry j to L[i][j] (lane j keeps d), and writes it to the group's
+//     column slot in shared memory (two slots, used in turn, so one
+//     __syncwarp a step orders both the writes and the next step's
+//     overwrite). Lanes read the column back as 16-byte broadcast loads
+//     and update S[i][c] -= L[i][j] L[c][j] for every c > j. Entry (i, c)
+//     so receives the plain version's products in the plain version's
+//     order (ascending j), one rounding each, and the updates of a step
+//     are independent: the chain a step is the pivot alone.
+//   - Entries above the diagonal, the padding lanes (NP = 24) and a
+//     group past the batch (which factors the identity and stores
+//     nothing) compute values that are never read; no lane leaves early,
+//     so every lane takes part in every shuffle and __syncwarp.
+//   - The pivot test sets the lane's failure flag and does not return; a
+//     failed group stores NaN in every entry.
+//   - Float32 bands up to NP = 24 are held to 64 registers (NP = 24 takes
+//     76 otherwise, and NP = 32 would spill), so 32 warps fit on an SM
+//     and the dense IPM's 4096 matrices, a warp each, run in one wave on
+//     132 SMs.
+//   - Loads and stores: where a row is a whole number of 16-byte vectors
+//     (n % 4 == 0 in float32, n % 2 == 0 in float64) and both tensors are
+//     16-byte aligned, lane i reads row i as 16-byte vectors, only those
+//     that start at or below the diagonal, and writes it the same way
+//     (zeros above the diagonal). Otherwise the warp's matrices, which
+//     are contiguous, pass through shared memory in one coalesced copy
+//     each way (n = 13, or an input one element off its allocation).
+//     No index is split by an integer division.
+//   Counts at (4096, 24, 24) float32, a step j: one shuffle, the pivot
+//   test, sqrt and the division 1 / d with their range checks and
+//   slow-path branches (about 25 instructions), a multiply, one shared
+//   store, a __syncwarp, (24 - j) / 4 broadcast loads and 23 - j
+//   multiply-subtract pairs (unfused: 46 - 2j instructions, interleaved by
+//   ptxas with the shuffle's and the sqrt's latency): 64 warp
+//   instructions a step in the SASS, about 1.6 k a matrix with the
+//   staging, 6.6 M over the batch, one matrix a warp: about 6-7 us of
+//   issue across 132 SMs, beside the 4.3 us byte bound. Measured
+//   (k2_compare.py, H100 SXM at 700 W): 0.0154-0.0160 ms back to back;
+//   the steady state at B = 65536 takes about 8.4 us a wave of 4224
+//   matrices (issue bound), and one wave adds about 5 us for the launch,
+//   its first loads and its last stores, which n = 4 alone takes.
+//
+// The factor at n = 33..64, the solve (K3) and the fused factor and
+// solve (K4): chol_kernel, one warp per matrix, the matrix in shared
+// memory for the whole recurrence (one coalesced read of the lower
+// triangle, one coalesced write):
 //   - factor: column by column, lanes own the rows i >= j (a second row
 //     when n > 32) and run their sums serially in k; the pivot is
 //     broadcast with __shfl_sync and its test is warp-uniform, so a bad
@@ -46,9 +101,6 @@
 //     ascending sum starts with the entry solved just before it;
 //   - the row stride in shared memory is odd, so lanes reading a column
 //     hit 32 different banks.
-// Making it fast (several matrices per warp at small n, a parallel back
-// substitution, keeping Hb on chip across the IPM's predictor and
-// corrector) is later work.
 
 #include <cuda_runtime.h>
 
@@ -219,16 +271,186 @@ int launch(const T* M, const T* b, T* x, T* L, long long batch, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---- the row branch: the factor at n <= 32 ----------------------------------
+
+// Band NP: W lanes a matrix (the power of two at or above NP), G matrices
+// a warp, V elements a 16-byte vector, 4 warps a block. Per warp in
+// shared memory: two column slots of 32 entries (group g's at g W), and
+// on the staged route the warp's G matrices as they lie in memory.
+template <typename T, int NP>
+struct RowCfg {
+  static constexpr int kLanes = NP <= 4 ? 4 : NP <= 8 ? 8 : NP <= 16 ? 16 : 32;
+  static constexpr int kMats = 32 / kLanes;
+  static constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  static constexpr int kWarps = 4;
+  // float32 up to NP = 24: at most 64 registers, so 32 warps fit on an SM
+  // and the dense IPM's 4096 matrices (a warp each) run in one wave on 132
+  // SMs (NP = 32 would spill)
+  static constexpr int kMinBlocks = sizeof(T) == 4 && NP <= 24 ? 8 : 1;
+  static_assert(NP % kVec == 0 && NP <= kLanes, "band");
+  __host__ __device__ static size_t warp_bytes(int n, bool vec) {
+    const size_t tile = vec ? 0 : (kMats * n * n * sizeof(T) + 15) / 16 * 16;
+    return 2 * 32 * sizeof(T) + tile;
+  }
+};
+
+// R[q V .. q V + V - 1] <-> 16 bytes at p (aligned)
+template <typename T, int NP>
+__device__ __forceinline__ void load16(T (&R)[NP], int q, const T* p) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    R[4 * q] = v.x;
+    R[4 * q + 1] = v.y;
+    R[4 * q + 2] = v.z;
+    R[4 * q + 3] = v.w;
+  } else {
+    const double2 v = *reinterpret_cast<const double2*>(p);
+    R[2 * q] = v.x;
+    R[2 * q + 1] = v.y;
+  }
+}
+template <typename T, int NP>
+__device__ __forceinline__ void store16(T* p, int q, const T (&R)[NP]) {
+  if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) =
+        make_float4(R[4 * q], R[4 * q + 1], R[4 * q + 2], R[4 * q + 3]);
+  } else {
+    *reinterpret_cast<double2*>(p) = make_double2(R[2 * q], R[2 * q + 1]);
+  }
+}
+
+template <typename T, int NP>
+__global__ void __launch_bounds__(RowCfg<T, NP>::kWarps * 32,
+                                  RowCfg<T, NP>::kMinBlocks)
+    chol_factor_rows(const T* __restrict__ H, T* __restrict__ L,
+                     long long batch, int n, bool vec) {
+  using C = RowCfg<T, NP>;
+  constexpr int W = C::kLanes, G = C::kMats, V = C::kVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int gl = lane & (W - 1);  // the row this lane owns
+  const int g = lane / W;         // its group (matrix) in the warp
+  const long long m0 =
+      (static_cast<long long>(blockIdx.x) * C::kWarps + wid) * G;
+  if (m0 >= batch) return;  // warp-uniform
+  const bool live = m0 + g < batch;  // a group past the batch: unstored
+  const int nn = n * n;
+  const long long left = (batch - m0) * nn;
+  const int span = left < G * nn ? static_cast<int>(left) : G * nn;
+  T* col = reinterpret_cast<T*>(smem_raw + wid * C::warp_bytes(n, vec));
+  T* tile = col + 64;               // staged route only
+  T* row = tile + g * nn + gl * n;  // staged route: this lane's row
+
+  // row gl of the padded matrix: the identity's, then H's lower part
+  T S[NP];
+#pragma unroll
+  for (int c = 0; c < NP; ++c) S[c] = T(c == gl);
+  const bool mine = live && gl < n;
+  if (vec) {
+    const T* src = H + (m0 + g) * nn + gl * n;
+#pragma unroll
+    for (int q = 0; q < NP / V; ++q) {
+      if (mine && q * V < n && q * V <= gl) load16(S, q, src + q * V);
+    }
+  } else {
+    const T* src = H + m0 * nn;
+    for (int e = lane; e < span; e += 32) tile[e] = src[e];
+    __syncwarp();
+#pragma unroll
+    for (int c = 0; c < NP; ++c) {
+      if (mine && c < n && c <= gl) S[c] = row[c];
+    }
+  }
+
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const T piv = __shfl_sync(kFull, S[j], j, W);  // s_jj, from lane j
+    ok = ok && pivot_ok(piv);  // false for NaN too
+    const T d = sqrt_rn(piv);
+    const T inv = dvd(T(1), d);
+    S[j] = gl == j ? d : mul(S[j], inv);
+    T* slot = col + (j & 1) * 32 + g * W;
+    slot[gl] = S[j];
+    // the next pivot, from lane j + 1's own L[j + 1][j] (the product and
+    // difference its update below repeats), shuffled before this step's
+    // slot round trip and updates, which then hide its latency
+    __syncwarp();
+    T Lc[NP];  // L[c][j] for c > j
+#pragma unroll
+    for (int q = (j + 1) / V; q < NP / V; ++q) load16(Lc, q, slot + q * V);
+#pragma unroll
+    for (int c = j + 1; c < NP; ++c) S[c] = sub(S[c], mul(S[j], Lc[c]));
+  }
+
+  // row gl of L: the lower triangle, 0 above; NaN throughout if a pivot
+  // failed
+  const T nan = quiet_nan<T>();
+#pragma unroll
+  for (int c = 0; c < NP; ++c) S[c] = !ok ? nan : (c <= gl ? S[c] : T(0));
+  if (vec) {
+    T* dst = L + (m0 + g) * nn + gl * n;
+#pragma unroll
+    for (int q = 0; q < NP / V; ++q) {
+      if (mine && q * V < n) store16(dst + q * V, q, S);
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < NP; ++c) {
+      if (mine && c < n) row[c] = S[c];
+    }
+    __syncwarp();
+    T* dst = L + m0 * nn;
+    for (int e = lane; e < span; e += 32) dst[e] = tile[e];
+  }
+}
+
+template <typename T, int NP>
+int launch_rows(const T* H, T* L, long long batch, int n,
+                cudaStream_t stream) {
+  using C = RowCfg<T, NP>;
+  const long long warps = (batch + C::kMats - 1) / C::kMats;
+  const long long blocks = (warps + C::kWarps - 1) / C::kWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  // rows move as 16-byte vectors where they are whole vectors and both
+  // tensors are aligned to them (fresh tensors are)
+  const bool vec = n * sizeof(T) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(H) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(L) % 16 == 0;
+  chol_factor_rows<T, NP>
+      <<<static_cast<unsigned>(blocks), C::kWarps * 32,
+         C::kWarps * C::warp_bytes(n, vec), stream>>>(H, L, batch, n, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2: the row branch at n <= 32, chol_kernel above.
+template <typename T>
+int launch_factor(const T* H, T* L, long long batch, int n,
+                  void* stream_ptr) {
+  if (n < 1 || n > 32 || batch <= 0) {
+    return launch<T, Op::kFactor>(H, nullptr, nullptr, L, batch, n,
+                                  stream_ptr);
+  }
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (n <= 4) return launch_rows<T, 4>(H, L, batch, n, stream);
+  if (n <= 8) return launch_rows<T, 8>(H, L, batch, n, stream);
+  if (n <= 16) return launch_rows<T, 16>(H, L, batch, n, stream);
+  if (n <= 24) return launch_rows<T, 24>(H, L, batch, n, stream);
+  return launch_rows<T, 32>(H, L, batch, n, stream);
+}
+
 }  // namespace
 
 extern "C" int chol_factor_f32(const float* H, float* L, long long batch,
                                int n, void* stream) {
-  return launch<float, Op::kFactor>(H, nullptr, nullptr, L, batch, n, stream);
+  return launch_factor<float>(H, L, batch, n, stream);
 }
 
 extern "C" int chol_factor_f64(const double* H, double* L, long long batch,
                                int n, void* stream) {
-  return launch<double, Op::kFactor>(H, nullptr, nullptr, L, batch, n, stream);
+  return launch_factor<double>(H, L, batch, n, stream);
 }
 
 extern "C" int chol_solve_f32(const float* L, const float* b, float* x,

@@ -15,6 +15,12 @@ depends only on where the tensor lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. The Pallas `tile_b`
 argument, which sizes TPU VMEM blocks, has no counterpart.
 
+K2 at n <= 32 (every solver's launch) runs the kernel's row branch: lanes
+own rows, in the right-looking order, which subtracts the plain version's
+products in the plain version's order, so it equals `chol_factor_plain`
+bit for bit (tests/test_torch_chol.py holds a PyTorch model of that
+schedule against it).
+
 A matrix that is not positive definite (a pivot that is <= 0 or not
 finite) comes back NaN in every entry, from kernel and plain version
 alike, as `jnp.linalg.cholesky` returns it.
@@ -118,9 +124,12 @@ def _check(M: torch.Tensor, b: torch.Tensor | None = None) -> int:
     return n
 
 
-def _launch(name: str, inputs, outputs, n: int) -> None:
+def _launch(name: str, inputs, outputs, n: int,
+            source: str = "batched_chol") -> None:
     """Call the C entry point `name`_f32/_f64 on PyTorch's current stream
-    and count the launch."""
+    and count the launch. source: the library, `cuda_build`'s name for
+    csrc/batched_chol.cu or the path of a copy of that file (to hold two
+    versions of the kernels side by side)."""
     lead = inputs[0]
     if lead.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
@@ -128,7 +137,7 @@ def _launch(name: str, inputs, outputs, n: int) -> None:
     batch = lead.shape[0]
     if batch == 0:
         return  # nothing to launch, nothing to count
-    lib = cuda_build.load("batched_chol")
+    lib = cuda_build.load(source)
     suffix = "_f32" if lead.dtype == torch.float32 else "_f64"
     fn = getattr(lib, name + suffix)
     nptr = len(inputs) + len(outputs)
@@ -144,38 +153,43 @@ def _launch(name: str, inputs, outputs, n: int) -> None:
     LAUNCHES[name] += 1
 
 
-def chol_factor_batched(H: torch.Tensor) -> torch.Tensor:
+def chol_factor_batched(H: torch.Tensor,
+                        source: str = "batched_chol") -> torch.Tensor:
     """Lower Cholesky of a batch of SPD matrices, H: (B, n, n) ->
-    (B, n, n), n <= 64 (K2)."""
+    (B, n, n), n <= 64 (K2). source: the kernels' library, as for
+    `_launch`."""
     n = _check(H)
     if H.device.type == "cpu":
         return chol_factor_plain(H)
     H = H.contiguous()
     L = torch.empty_like(H)
-    _launch("chol_factor", (H,), (L,), n)
+    _launch("chol_factor", (H,), (L,), n, source)
     return L
 
 
-def chol_solve_batched(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Solve L L' x = b for a batch; L: (B, n, n) lower, b: (B, n) (K3)."""
+def chol_solve_batched(L: torch.Tensor, b: torch.Tensor,
+                       source: str = "batched_chol") -> torch.Tensor:
+    """Solve L L' x = b for a batch; L: (B, n, n) lower, b: (B, n) (K3).
+    source: as for `chol_factor_batched`."""
     n = _check(L, b)
     if L.device.type == "cpu":
         return chol_solve_plain(L, b)
     L, b = L.contiguous(), b.contiguous()
     x = torch.empty_like(b)
-    _launch("chol_solve", (L, b), (x,), n)
+    _launch("chol_solve", (L, b), (x,), n, source)
     return x
 
 
-def chol_factor_solve_batched(H: torch.Tensor, b: torch.Tensor):
+def chol_factor_solve_batched(H: torch.Tensor, b: torch.Tensor,
+                              source: str = "batched_chol"):
     """Fused factor + solve, x = H^-1 b for SPD H, in one launch (K4).
-    Returns (x, L)."""
+    Returns (x, L). source: as for `chol_factor_batched`."""
     n = _check(H, b)
     if H.device.type == "cpu":
         return chol_factor_solve_plain(H, b)
     H, b = H.contiguous(), b.contiguous()
     x, L = torch.empty_like(b), torch.empty_like(H)
-    _launch("chol_factor_solve", (H, b), (x, L), n)
+    _launch("chol_factor_solve", (H, b), (x, L), n, source)
     return x, L
 
 

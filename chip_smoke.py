@@ -47,9 +47,16 @@ failure exits non-zero:
     first dense-IPM round (4096 x 24 x 24), seeded SPD batches at n = 1,
     4, 13, 24, 39, 64 with a ragged B = 1001, in float32 and float64, and
     a batch mixing SPD with indefinite and non-finite matrices, which
-    must come back NaN throughout; then their times at (4096, 24, 24)
+    must come back NaN throughout; K2 bit for bit (NaN in the same
+    matrices), float32 and float64, on the barrier Hessians, every
+    n = 1..32 at B = 7, B = 1, 2, 3, 5, 33, 1023 at n = 4, 8, 16, 24, 32,
+    B = 200,003 at n = 4 and 24, a misaligned input at n = 24 and 13, and
+    the indefinite and non-finite batches at n = 4, 13, 24 with a bad
+    matrix in every group position; then their times at (4096, 24, 24)
     float32 beside their bounds, the plain versions and the library's
-    Cholesky calls;
+    Cholesky calls, and K2's grid (n = 4, 8, 13, 16, 24, 32 x B = 4096,
+    65536 float32, (4096, 24, 24) float64, n = 39, 64 at B = 4096)
+    beside the replaced kernel's figures and torch.linalg.cholesky_ex;
  8. the public ops entry points (chol_factor_batched, chol_solve_batched,
     chol_factor_solve_batched: K3 and K4 have no solver caller) on the
     barrier Hessians of phase 6 in float64, one launch each, against the
@@ -175,6 +182,31 @@ K1_PARENT_GROUP_DEVICE_MS = {
     (16, 10240, "float32"): 0.0341, (16, 81920, "float32"): 0.2175,
     (16, 81920, "float64"): 0.4028}
 K1_PARENT_MAIN_DEVICE_MS = 0.2793
+# K2's row branch (n <= 32, bands 4, 8, 16, 24, 32): an n in each band
+# with the batches that end inside a group, a warp and a block of warps,
+# the long batches, the short batch every n <= 32 runs at, and K2's grid
+# (K2_WIDE_N: the shared-memory kernel above the row branch)
+K2_ROW_N = (4, 8, 16, 24, 32)
+K2_EDGE_B = (1, 2, 3, 5, 33, 1023)
+K2_LONG_N = (4, 24)
+K2_LONG_B = 200_003
+K2_SWEEP_B = 7
+K2_GRID_N = (4, 8, 13, 16, 24, 32)
+K2_GRID_B = (4096, 65536)
+K2_WIDE_N = (39, 64)
+# the K2 the row branch replaced (one warp a matrix, left-looking, in
+# shared memory): device ms back to back over k2_grid's cells, by (n, B,
+# type), from k2_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
+# lines only
+K2_PARENT_DEVICE_MS = {
+    (4, 4096, "float32"): 0.0073, (4, 65536, "float32"): 0.0383,
+    (8, 4096, "float32"): 0.0101, (8, 65536, "float32"): 0.0738,
+    (13, 4096, "float32"): 0.0152, (13, 65536, "float32"): 0.1376,
+    (16, 4096, "float32"): 0.0178, (16, 65536, "float32"): 0.1727,
+    (24, 4096, "float32"): 0.0289, (24, 65536, "float32"): 0.3156,
+    (32, 4096, "float32"): 0.0423, (32, 65536, "float32"): 0.4870,
+    (24, 4096, "float64"): 0.0329, (39, 4096, "float32"): 0.0645,
+    (64, 4096, "float32"): 0.2332}
 # K5 at (10240, 39, 39) float32, device ms back to back, before the
 # register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
 # 700.00 W), for the log line only
@@ -622,6 +654,107 @@ def indefinite_batch(rng, B, n):
     H[6::11, n // 3, n // 3] = np.inf
     bad[::5] = bad[3::7] = bad[6::11] = True
     return H, bad
+
+
+def k2_bit_checks(dev, rng, kern, Hb=None) -> None:
+    """K2 (kern: chol_factor_batched, or the same on a copy's build)
+    against chol_factor_plain bit for bit, NaN in the same matrices, in
+    float32 and float64: on the barrier Hessians Hb (where given), every
+    n = 1..32 at B = K2_SWEEP_B, the batches of K2_EDGE_B at each band's n
+    (they end inside a group, a warp and a block of warps), B = K2_LONG_B
+    at K2_LONG_N, an input one element off its allocation (not aligned to
+    the row branch's vectors) at n = 24 and 13, and batches mixing SPD with
+    indefinite and non-finite matrices at n = 4, 13, 24, whose bad
+    matrices fall in every position of a warp's groups (up to 8).
+    Raises at the first batch that differs."""
+    import torch
+    from acados_tpu_torch.ops.batched_chol import chol_factor_plain
+    for dtype in (torch.float32, torch.float64):
+        def spd(B, n):
+            return torch.as_tensor(spd_batch(rng, B, n), dtype=dtype,
+                                   device=dev)
+        batches = [] if Hb is None else [
+            (f"barrier Hessians {tuple(Hb.shape)}", Hb.to(dtype), None)]
+        batches += [(f"n={n} B={K2_SWEEP_B}", spd(K2_SWEEP_B, n), None)
+                    for n in range(1, 33)]
+        batches += [(f"n={n} B={B}", spd(B, n), None) for n in K2_ROW_N
+                    for B in K2_EDGE_B]
+        batches += [(f"long n={n} B={K2_LONG_B}", spd(K2_LONG_B, n), None)
+                    for n in K2_LONG_N]
+        for n in (24, 13):
+            B = 1023
+            H = torch.empty(B * n * n + 1, dtype=dtype,
+                            device=dev)[1:].view(B, n, n)
+            H.copy_(spd(B, n))
+            batches.append((f"misaligned n={n} B={B}", H, None))
+        for n in (4, 13, 24):
+            H, bad = indefinite_batch(rng, 1001, n)
+            if set(np.flatnonzero(bad) % 8) != set(range(8)):
+                raise SystemExit("the bad matrices miss a group position")
+            batches.append((f"indefinite/non-finite n={n} B=1001",
+                            torch.as_tensor(H, dtype=dtype, device=dev),
+                            torch.as_tensor(bad, device=dev)))
+        for name, H, bad in batches:
+            Lk, Lp = kern(H), chol_factor_plain(H)
+            nan_p = torch.isnan(Lp).flatten(1).all(1)
+            if not (same_bits(Lk, Lp) and (bad is None
+                                           or torch.equal(nan_p, bad))):
+                raise SystemExit(f"K2 is not bit for bit its plain version: "
+                                 f"{name} {dtype}")
+        log(f"  K2 bit for bit, {str(dtype):<14} {len(batches)} batches "
+            f"(n = 1..32 at B = {K2_SWEEP_B}; n in {K2_ROW_N} at B in "
+            f"{K2_EDGE_B}; n in {K2_LONG_N} at B = {K2_LONG_B}; misaligned "
+            f"n = 24, 13; indefinite/non-finite n = 4, 13, 24): equal, NaN "
+            f"in the same matrices")
+
+
+def k2_bound(H):
+    """K2's bound (ms, what bounds it) at the shape and type of H: the
+    lower triangle read, every entry written, chol_flops(n) a matrix."""
+    import torch
+    B, n = H.shape[0], H.shape[-1]
+    peak = FP32_FLOPS if H.dtype == torch.float32 else FP64_FLOPS
+    return bound_of(B * (n * (n + 1) // 2 + n * n) * H.element_size(),
+                    B * chol_flops(n), peak)
+
+
+def k2_grid(kerns: dict, parent=None, order=None) -> list:
+    """Device ms back to back of each K2 wrapper in kerns ({label: fn}),
+    called in turns (order: labels, default each once), over K2's grid
+    (n in K2_GRID_N x B in K2_GRID_B and n in K2_WIDE_N at B = 4096
+    float32, (4096, 24, 24) float64) on SPD X X' / n + I, beside
+    torch.linalg.cholesky_ex (CUDA events around one call: it waits for
+    the host) and the bound. parent: device ms of an earlier build by
+    (n, B, dtype name), logged beside."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    order = list(kerns) if order is None else order
+    cells = [(n, B, torch.float32) for n in K2_GRID_N for B in K2_GRID_B]
+    cells.append((24, 4096, torch.float64))
+    cells += [(n, 4096, torch.float32) for n in K2_WIDE_N]
+    log("K2 grid (device ms back to back; torch.linalg.cholesky_ex CUDA "
+        "events around one call; X X' / n + I):")
+    rows = []
+    for n, B, dtype in cells:
+        X = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype)
+        H = X @ X.transpose(1, 2) / n + torch.eye(n, device=dev, dtype=dtype)
+        times = {label: [] for label in kerns}
+        for label in order:
+            times[label].append(device_ms(lambda: kerns[label](H)))
+        lib = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=10)
+        b_ms, b_by = k2_bound(H)
+        dt = str(dtype).split(".")[-1]
+        rows.append(dict(n=n, B=B, dtype=dt, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lib, **{k: float(np.median(v))
+                                            for k, v in times.items()}))
+        old = (parent or {}).get((n, B, dt))
+        log(f"  n={n:2d} B={B:6d} {dt:<7} " + "  ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+            for k, v in times.items())
+            + (f"  (before: {old:.4f})" if old is not None else "")
+            + f"  cholesky_ex {lib:.4f}  bound {b_ms:.4f} ({b_by})")
+    return rows
 
 
 def riccati_free_x0(dev) -> None:
@@ -1273,7 +1406,9 @@ def main() -> int:
                                        dtype=dtype, device=dev),
                        bound, bad=torch.as_tensor(bad, device=dev))
 
-    # times at the dense IPM's shape
+    k2_bit_checks(dev, rng, batched_chol.chol_factor_batched, Hb)
+
+    # times at the dense IPM's shape, then over K2's grid
     n, Bm, sz = nv, B_MAIN, Hb.element_size()
     tri = n * (n + 1) // 2    # the kernels read only a lower triangle
     bf = b_hb.float()
@@ -1319,6 +1454,8 @@ def main() -> int:
             "device_ms": k_dev_ms,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
             "library_ms": l_ms})
+    k2_grid({"K2": batched_chol.chol_factor_batched},
+            parent=K2_PARENT_DEVICE_MS)
 
     # ---- 8. the public ops entry points ----------------------------------------------
     from acados_tpu_torch.ops import (chol_factor_batched,

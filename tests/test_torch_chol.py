@@ -61,9 +61,10 @@ def test_plain_solve_and_fused_match_pallas(n):
         x, np.linalg.solve(H, b[..., None])[..., 0], atol=1e-12)
 
 
-@pytest.mark.parametrize("n", [24, 39, 64, 70])
+@pytest.mark.parametrize("n", [16, 24, 32, 39, 64, 70])
 def test_chol_any_matches_jax_at_larger_n(n):
-    """n = 24 is the dense IPM's nv on the pendulum; 70 is past the
+    """n = 24 is the dense IPM's nv on the pendulum, 16 and 32 are the
+    ends of the kernel's row branch (n <= 32); 70 is past the
     kernel's limit (the library's Cholesky, as the JAX package's XLA
     one). Solve and fused solve against LAPACK at n <= 64."""
     rng = np.random.default_rng(n)
@@ -194,3 +195,135 @@ def test_wrappers_refuse_instead_of_falling_back(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         cuda_build.build_all(["batched_chol"])
+
+
+def test_launch_passes_its_source_to_the_build(monkeypatch):
+    """_launch(..., source=path) loads the library built from that path
+    (a copy of the kernels' source), and the wrappers default to the
+    package's own."""
+    asked = []
+
+    class Loaded(Exception):
+        pass
+
+    def load(name):
+        asked.append(name)
+        raise Loaded
+
+    class OnCard:  # reaches the build without a card
+        device = torch.device("cuda")
+        dtype = torch.float32
+        shape = (3, 4, 4)
+
+    monkeypatch.setattr(cuda_build, "load", load)
+    for source in ("/some/copy/batched_chol.cu", "batched_chol"):
+        with pytest.raises(Loaded):
+            batched_chol._launch("chol_factor", (OnCard(),), (OnCard(),), 4,
+                                 source=source)
+    with pytest.raises(Loaded):
+        batched_chol._launch("chol_solve", (OnCard(), OnCard()), (OnCard(),),
+                             4)
+    assert asked == ["/some/copy/batched_chol.cu", "batched_chol",
+                     "batched_chol"]
+
+
+def _row_branch_schedule(H: torch.Tensor) -> torch.Tensor:
+    """A PyTorch model of K2's row branch (csrc/batched_chol.cu,
+    chol_factor_rows) as a warp of 32 lanes runs it. n is padded with the
+    identity to its band NP (4, 8, 16, 24, 32) and the batch with identity
+    matrices to whole warps; a group of W lanes (the power of two at or
+    above NP) holds a matrix, lane l row l % W of matrix l // W, rows past
+    NP zero. Each lane starts from its whole row (upper triangle
+    included, which the kernel may read and must not use). At step j the
+    group's diagonal comes from lane j; every lane takes d = sqrt and
+    1 / d, scales its entry j (lane j keeps d), publishes it in the
+    group's column slot and subtracts L[i][j] L[c][j] from every entry
+    c > j. A lane's failure flag falls at a pivot <= 0 or not finite and
+    its group stores NaN throughout."""
+    B, n, _ = H.shape
+    NP = next(b for b in (4, 8, 16, 24, 32) if n <= b)
+    W = 1 << (NP - 1).bit_length()
+    G = 32 // W
+    warps = -(-B // G)
+    Hp = torch.eye(NP, dtype=H.dtype).repeat(warps * G, 1, 1)
+    Hp[:B, :n, :n] = H
+    lane = torch.arange(32)
+    gl, grp = lane % W, lane // W
+    row = gl < NP
+    S = torch.zeros((warps, 32, NP), dtype=H.dtype)
+    S[:, row] = Hp.reshape(warps, G, NP, NP)[:, grp[row], gl[row]]
+    ok = torch.ones((warps, 32), dtype=torch.bool)
+    for j in range(NP):
+        piv = S[:, grp * W + j, j]            # __shfl_sync from lane j
+        ok = ok & (piv > 0) & torch.isfinite(piv)
+        d = torch.sqrt(piv)
+        S[:, :, j] = torch.where(gl == j, d, S[:, :, j] * (1.0 / d))
+        slot = S[:, :, j]                     # the group's column slot
+        Lc = slot[:, grp[:, None] * W + torch.arange(j + 1, NP)]
+        S[:, :, j + 1:] = S[:, :, j + 1:] - slot[..., None] * Lc
+    lower = torch.where(torch.arange(NP) <= gl[:, None], S, 0.0)
+    L = torch.where(ok[..., None], lower, float("nan"))
+    L = L[:, row].reshape(warps * G, NP, NP)
+    return L[:B, :n, :n]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 13, 16, 21, 24, 31, 32])
+def test_row_branch_schedule_is_bit_for_bit_plain(n, dtype):
+    """The row branch's schedule (right-looking order, identity padding to
+    the band, groups of matrices a warp, a failure flag a group) equals
+    chol_factor_plain to the last bit, NaN in exactly the same matrices:
+    SPD ones, indefinite ones, ones with NaN or inf in the lower triangle,
+    and SPD ones with NaN or inf above the diagonal (never read), in a
+    batch that ends inside a warp."""
+    rng = np.random.default_rng(700 + n)
+    B = 37
+    H = _spd(rng, B, n) / n
+    H[1::5, n // 2, n // 2] = -1.0
+    H[2::7, n - 1, 0] = np.nan
+    H[3::11, n // 3, n // 3] = np.inf
+    if n > 1:
+        H[4::6, 0, n - 1] = np.nan
+        H[5::9, 0, 1] = -np.inf
+    Ht = torch.as_tensor(H, dtype=dtype)
+    ours = _row_branch_schedule(Ht)
+    plain = batched_chol.chol_factor_plain(Ht)
+    bad = torch.isnan(plain).flatten(1).all(1)
+    assert bool(bad.any()) and not bool(bad.all())
+    assert torch.equal(torch.isnan(ours), torch.isnan(plain))
+    assert torch.equal(ours[~bad], plain[~bad])
+
+
+def test_k2_step_mix_reads_the_row_branch():
+    """k2_compare.step_mix on a listing holding a band of the row branch
+    and another kernel: a step is the span between the first and the last
+    pivot shuffle over NP - 1, other functions are skipped; step_listing
+    gives one step's instructions, shuffle to shuffle."""
+    import k2_compare
+
+    def function(name, ops):
+        return "\n".join(
+            [f"\t\tFunction : {name}"]
+            + [f"        /*{16 * i:04x}*/                   {op} ;"
+               f"   /* 0x000000000000000000000000000000 */"
+               for i, op in enumerate(ops)])
+
+    step = (["SHFL.IDX PT, R3, R2, 0x1, 0x1f", "MUFU.RSQ R4, R3"]
+            + ["FMUL R5, R6, R7", "FADD R8, R8, -R5"] * 10
+            + ["STS [R9], R5", "LDS.128 R12, [R10]", "@!P0 BRA 0x10"])
+    rows = ["LDG.E.128 R12, [R2.64]"] + step * 4 + [
+        "SHFL.IDX PT, R3, R2, 0x1, 0x1f", "STG.E [R2.64], R3", "EXIT"]
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        function("_ZN12_GLOBAL__N_116chol_factor_rowsIfLi4EEEvPKT_PS1_xib",
+                 rows),
+        function("_ZN12_GLOBAL__N_111chol_kernelIfLNS_2OpE0EEEvPKT_S4_PS2_"
+                 "S5_xi", ["SHFL.IDX PT, R3, R2, 0x1, 0x1f"] * 3)])
+    (row,) = k2_compare.step_mix(sass)
+    assert row["band"] == "f4" and row["instructions"] == len(rows)
+    assert row["per_step"] == len(step) * 4 / 3
+    assert (row["mul_add"], row["mufu"], row["shuffle"]) == (
+        80 / 3, 4 / 3, 4 / 3)
+    assert row["shared"] == 8 / 3 and row["branch"] == 4 / 3
+    listing = k2_compare.step_listing(sass, band="f4", step=1)
+    assert listing == [op.strip() for op in step] + [step[0]]
