@@ -34,18 +34,22 @@
 // so every launch is bound by bytes (a few microseconds), and by the
 // latency of its n-step dependent recurrence at this batch.
 //
-// The factor at n <= 32 (every K2 launch of the solvers: the dense IPM's
+// Every op at n <= 32 (every K2 launch of the solvers: the dense IPM's
 // barrier Hessians, nv = 24 on the pendulum, and the Riccati P_0 at
-// nx = 16): the row branch chol_factor_rows<T, NP>.
+// nx = 16; K3 and K4 at the same n) runs the row branch
+// chol_rows<T, NP, OP>: one body for the three ops, whose factor steps
+// (factor_rows) and substitutions (solve_rows) work on the same rows in
+// registers.
 //   - Bands NP = 4, 8, 16, 24, 32 (a template each); n is padded to its
 //     band with the identity ([[H, 0], [0, I]]), which adds pivots of 1
 //     and leaves every entry of the factor's n x n block as it was, so
 //     n = 24 runs no padding step. A group of W = 4, 8, 16, 32, 32 lanes
 //     holds one matrix, a warp 32 / W of them (8, 4, 2, 1, 1).
 //   - Lane i of a group owns row i as NP registers with compile-time
-//     indices; the step loop and every loop inside it unroll fully.
-//   - Right-looking order: at step j the group's diagonal s_jj comes from
-//     lane j by one __shfl_sync; every lane takes d = sqrt(s_jj) and
+//     indices (H's for K2 and K4, L's for K3), and b[i] (0 past n); the
+//     step loops and every loop inside them unroll fully.
+//   - Factor, right-looking: at step j the group's diagonal s_jj comes
+//     from lane j by one __shfl_sync; every lane takes d = sqrt(s_jj) and
 //     1 / d itself (IEEE results, the same in every lane), scales its
 //     entry j to L[i][j] (lane j keeps d), and writes it to the group's
 //     column slot in shared memory (two slots, used in turn, so one
@@ -55,42 +59,74 @@
 //     so receives the plain version's products in the plain version's
 //     order (ascending j), one rounding each, and the updates of a step
 //     are independent: the chain a step is the pivot alone.
+//   - Forward substitution, right-looking (the plain version's order): at
+//     step i two shuffles bring r_i and L[i][i] from lane i, every lane of
+//     the group divides (the same operands, so no lane diverges into the
+//     division's slow path alone), lanes c > i subtract L[c][i] y_i and
+//     lane i keeps y_i. A chain of NP steps.
+//   - Back substitution: x_i's terms are subtracted in ascending k, as the
+//     plain version does, so x_i's first term needs x_{i+1}, the value
+//     solved just before, and the subtractions form one chain of
+//     n (n - 1) / 2 whatever the layout (a descending, right-looking
+//     order would cut the chain to n steps but round differently). The
+//     products come off the chain instead: at step i every lane k forms
+//     L[k][i] x_k from its own row and writes it to the group's slot (+0
+//     for a row past n, which leaves any difference as it was, so padded
+//     rows never enter x even where a zero, inf or NaN diagonal of a K3
+//     input makes their x NaN), and after one __syncwarp every lane of
+//     the group reads the slot back as 16-byte broadcast loads, subtracts
+//     from y_i (shuffled from lane i) in ascending k and divides by
+//     L[i][i] (shuffled too). Lane i keeps x_i for the products of the
+//     steps below. Only the subtractions and the division stay serial.
+//   - Only entries at or below the diagonal of a row reach a result: the
+//     substitutions read S[c] for c <= i alone, and the products of lanes
+//     k <= i land in slot entries no lane reads. So a K3 input's upper
+//     triangle is never used, and K4 solves on the factor's registers as
+//     they stand, garbage above the diagonal included.
 //   - Entries above the diagonal, the padding lanes (NP = 24) and a
-//     group past the batch (which factors the identity and stores
+//     group past the batch (which works on the identity and stores
 //     nothing) compute values that are never read; no lane leaves early,
 //     so every lane takes part in every shuffle and __syncwarp.
 //   - The pivot test sets the lane's failure flag and does not return; a
-//     failed group stores NaN in every entry.
-//   - Float32 bands up to NP = 24 are held to 64 registers (NP = 24 takes
-//     76 otherwise, and NP = 32 would spill), so 32 warps fit on an SM
-//     and the dense IPM's 4096 matrices, a warp each, run in one wave on
-//     132 SMs.
+//     failed group stores NaN in every entry of L and of x.
+//   - Float32 bands up to NP = 24 are held to 64 registers (K2's NP = 24
+//     takes 76 otherwise, and NP = 32 would spill), so 32 warps fit on an
+//     SM and the dense IPM's 4096 matrices, a warp each, run in one wave
+//     on 132 SMs.
 //   - Loads and stores: where a row is a whole number of 16-byte vectors
-//     (n % 4 == 0 in float32, n % 2 == 0 in float64) and both tensors are
-//     16-byte aligned, lane i reads row i as 16-byte vectors, only those
-//     that start at or below the diagonal, and writes it the same way
-//     (zeros above the diagonal). Otherwise the warp's matrices, which
+//     (n % 4 == 0 in float32, n % 2 == 0 in float64) and both matrices
+//     are 16-byte aligned, lane i reads row i as 16-byte vectors, only
+//     those that start at or below the diagonal, and writes L's the same
+//     way (zeros above the diagonal). Otherwise the warp's matrices, which
 //     are contiguous, pass through shared memory in one coalesced copy
 //     each way (n = 13, or an input one element off its allocation).
-//     No index is split by an integer division.
-//   Counts at (4096, 24, 24) float32, a step j: one shuffle, the pivot
-//   test, sqrt and the division 1 / d with their range checks and
-//   slow-path branches (about 25 instructions), a multiply, one shared
-//   store, a __syncwarp, (24 - j) / 4 broadcast loads and 23 - j
-//   multiply-subtract pairs (unfused: 46 - 2j instructions, interleaved by
-//   ptxas with the shuffle's and the sqrt's latency): 64 warp
+//     b and x move as one element a lane: a warp's lanes cover its
+//     matrices' G n contiguous entries, so that is coalesced whatever the
+//     alignment. No index is split by an integer division.
+//   Counts at (4096, 24, 24) float32, one matrix a warp. A factor step j:
+//   one shuffle, the pivot test, sqrt and the division 1 / d with their
+//   range checks and slow-path branches (about 25 instructions), a
+//   multiply, one shared store, a __syncwarp, (24 - j) / 4 broadcast
+//   loads and 23 - j multiply-subtract pairs (unfused): 64 warp
 //   instructions a step in the SASS, about 1.6 k a matrix with the
-//   staging, 6.6 M over the batch, one matrix a warp: about 6-7 us of
-//   issue across 132 SMs, beside the 4.3 us byte bound. Measured
-//   (k2_compare.py, H100 SXM at 700 W): 0.0154-0.0160 ms back to back;
-//   the steady state at B = 65536 takes about 8.4 us a wave of 4224
-//   matrices (issue bound), and one wave adds about 5 us for the launch,
-//   its first loads and its last stores, which n = 4 alone takes.
+//   staging; measured (k2_compare.py, H100 SXM at 700 W) 0.0154-0.0160 ms
+//   back to back for K2, issue-bound in the steady state (about 8.4 us a
+//   wave of 4224 matrices at B = 65536), and one wave adds about 5 us for
+//   the launch, its first loads and its last stores, which n = 4 alone
+//   takes. A forward step: two shuffles, the division (about 10 issued
+//   with its check and branch), a multiply, a subtraction and the lane
+//   tests: 15 issued. A back step i: two shuffles, a multiply, a select,
+//   the slot store, (23 - i) / 4 + 1 broadcast loads, 23 - i
+//   subtractions, the division and a select: about 35 at i = 11. The
+//   solve alone (K3) is 1,872 warp instructions in the SASS, at most
+//   1.73 k issued a matrix, against a chain of about 5 k cycles a warp;
+//   at 31 warps an SM (8 a scheduler) issue takes more (about 13 k
+//   cycles). Measured (k2_compare.py, H100 SXM at 700 W): K3 0.0128 ms,
+//   K4 0.0213 ms back to back, K4 being K2's factor plus the same solve.
 //
-// The factor at n = 33..64, the solve (K3) and the fused factor and
-// solve (K4): chol_kernel, one warp per matrix, the matrix in shared
-// memory for the whole recurrence (one coalesced read of the lower
-// triangle, one coalesced write):
+// At n = 33..64 every op runs chol_kernel, one warp per matrix, the matrix
+// in shared memory for the whole recurrence (one coalesced read of the
+// lower triangle, one coalesced write):
 //   - factor: column by column, lanes own the rows i >= j (a second row
 //     when n > 32) and run their sums serially in k; the pivot is
 //     broadcast with __shfl_sync and its test is warp-uniform, so a bad
@@ -103,6 +139,9 @@
 //     hit 32 different banks.
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
+#include <utility>
 
 namespace {
 
@@ -272,12 +311,12 @@ int launch(const T* M, const T* b, T* x, T* L, long long batch, int n,
 }
 
 
-// ---- the row branch: the factor at n <= 32 ----------------------------------
+// ---- the row branch: every op at n <= 32 ------------------------------------
 
 // Band NP: W lanes a matrix (the power of two at or above NP), G matrices
 // a warp, V elements a 16-byte vector, 4 warps a block. Per warp in
-// shared memory: two column slots of 32 entries (group g's at g W), and
-// on the staged route the warp's G matrices as they lie in memory.
+// shared memory: two slots of 32 entries (group g's at g W), and on the
+// staged route the warp's G matrices as they lie in memory.
 template <typename T, int NP>
 struct RowCfg {
   static constexpr int kLanes = NP <= 4 ? 4 : NP <= 8 ? 8 : NP <= 16 ? 16 : 32;
@@ -320,11 +359,92 @@ __device__ __forceinline__ void store16(T* p, int q, const T (&R)[NP]) {
   }
 }
 
+// Factor the padded rows in place: lane gl of group g owns row gl in S,
+// col is the warp's two slots. Returns false, the same in every lane of
+// the group, if a pivot is <= 0 or not finite.
 template <typename T, int NP>
+__device__ __forceinline__ bool factor_rows(T (&S)[NP], T* col, int g,
+                                            int gl) {
+  constexpr int W = RowCfg<T, NP>::kLanes, V = RowCfg<T, NP>::kVec;
+  bool ok = true;
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    const T piv = __shfl_sync(kFull, S[j], j, W);  // s_jj, from lane j
+    ok = ok && pivot_ok(piv);  // false for NaN too
+    const T d = sqrt_rn(piv);
+    const T inv = dvd(T(1), d);
+    S[j] = gl == j ? d : mul(S[j], inv);
+    T* slot = col + (j & 1) * 32 + g * W;
+    slot[gl] = S[j];
+    __syncwarp();
+    T Lc[NP];  // L[c][j] for c > j
+#pragma unroll
+    for (int q = (j + 1) / V; q < NP / V; ++q) load16(Lc, q, slot + q * V);
+#pragma unroll
+    for (int c = j + 1; c < NP; ++c) S[c] = sub(S[c], mul(S[j], Lc[c]));
+  }
+  return ok;
+}
+
+// f(std::integral_constant<int, I>()) for I = 0, 1, ..., N - 1: a loop
+// whose index is a compile-time constant in every step whatever the
+// unroller decides, so the register arrays it indexes stay registers
+template <typename F, int... I>
+__device__ __forceinline__ void each(F&& f,
+                                     std::integer_sequence<int, I...>) {
+  (f(std::integral_constant<int, I>()), ...);
+}
+template <int N, typename F>
+__device__ __forceinline__ void each(F&& f) {
+  each(f, std::make_integer_sequence<int, N>());
+}
+
+// Solve L L' x = b on the padded rows of L in S (lane gl owns row gl and
+// r = b[gl], 0 from n on); returns x[gl]. Reads S[c] for c <= gl only.
+template <typename T, int NP>
+__device__ __forceinline__ T solve_rows(const T (&S)[NP], T r, T* col,
+                                        int g, int gl, int n) {
+  constexpr int W = RowCfg<T, NP>::kLanes, V = RowCfg<T, NP>::kVec;
+  each<NP>([&](auto step) {  // forward: L y = b, y in lane i's r
+    constexpr int i = decltype(step)::value;
+    const T y = dvd(__shfl_sync(kFull, r, i, W),
+                    __shfl_sync(kFull, S[i], i, W));
+    if (gl > i) r = sub(r, mul(S[i], y));
+    if (gl == i) r = y;
+  });
+  __syncwarp();  // a factor's last reads of the slots, before the stores
+  const bool real = gl < n;
+  T x = T(0);
+  each<NP>([&](auto step) {  // back: L' x = y, i = NP - 1 down to 0
+    constexpr int i = NP - 1 - decltype(step)::value;
+    T* slot = col + (i & 1) * 32 + g * W;
+    slot[gl] = real ? mul(S[i], x) : T(0);  // L[k][i] x_k from lanes k > i
+    const T y = __shfl_sync(kFull, r, i, W);
+    const T d = __shfl_sync(kFull, S[i], i, W);
+    __syncwarp();
+    T P[NP];  // the slot's vectors from the one holding k = i + 1
+    constexpr int q0 = (i + 1) / V;
+    each<NP / V - q0>([&](auto q) {
+      load16(P, q0 + decltype(q)::value, slot + (q0 + decltype(q)::value) * V);
+    });
+    T s = y;
+    each<NP - 1 - i>([&](auto k) {
+      s = sub(s, P[i + 1 + decltype(k)::value]);
+    });
+    const T xi = dvd(s, d);
+    if (gl == i) x = xi;
+  });
+  return x;
+}
+
+// K2 (OP = kFactor: M = H -> L), K3 (kSolve: M = L, b -> x) and K4
+// (kFactorSolve: M = H, b -> x, L) at n <= NP.
+template <typename T, int NP, Op OP>
 __global__ void __launch_bounds__(RowCfg<T, NP>::kWarps * 32,
                                   RowCfg<T, NP>::kMinBlocks)
-    chol_factor_rows(const T* __restrict__ H, T* __restrict__ L,
-                     long long batch, int n, bool vec) {
+    chol_rows(const T* __restrict__ M, const T* __restrict__ b,
+              T* __restrict__ x, T* __restrict__ L, long long batch, int n,
+              bool vec) {
   using C = RowCfg<T, NP>;
   constexpr int W = C::kLanes, G = C::kMats, V = C::kVec;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -343,19 +463,19 @@ __global__ void __launch_bounds__(RowCfg<T, NP>::kWarps * 32,
   T* tile = col + 64;               // staged route only
   T* row = tile + g * nn + gl * n;  // staged route: this lane's row
 
-  // row gl of the padded matrix: the identity's, then H's lower part
+  // row gl of the padded matrix: the identity's, then M's lower part
   T S[NP];
 #pragma unroll
   for (int c = 0; c < NP; ++c) S[c] = T(c == gl);
   const bool mine = live && gl < n;
   if (vec) {
-    const T* src = H + (m0 + g) * nn + gl * n;
+    const T* src = M + (m0 + g) * nn + gl * n;
 #pragma unroll
     for (int q = 0; q < NP / V; ++q) {
       if (mine && q * V < n && q * V <= gl) load16(S, q, src + q * V);
     }
   } else {
-    const T* src = H + m0 * nn;
+    const T* src = M + m0 * nn;
     for (int e = lane; e < span; e += 32) tile[e] = src[e];
     __syncwarp();
 #pragma unroll
@@ -364,113 +484,106 @@ __global__ void __launch_bounds__(RowCfg<T, NP>::kWarps * 32,
     }
   }
 
-  bool ok = true;
-#pragma unroll
-  for (int j = 0; j < NP; ++j) {
-    const T piv = __shfl_sync(kFull, S[j], j, W);  // s_jj, from lane j
-    ok = ok && pivot_ok(piv);  // false for NaN too
-    const T d = sqrt_rn(piv);
-    const T inv = dvd(T(1), d);
-    S[j] = gl == j ? d : mul(S[j], inv);
-    T* slot = col + (j & 1) * 32 + g * W;
-    slot[gl] = S[j];
-    // the next pivot, from lane j + 1's own L[j + 1][j] (the product and
-    // difference its update below repeats), shuffled before this step's
-    // slot round trip and updates, which then hide its latency
-    __syncwarp();
-    T Lc[NP];  // L[c][j] for c > j
-#pragma unroll
-    for (int q = (j + 1) / V; q < NP / V; ++q) load16(Lc, q, slot + q * V);
-#pragma unroll
-    for (int c = j + 1; c < NP; ++c) S[c] = sub(S[c], mul(S[j], Lc[c]));
-  }
-
-  // row gl of L: the lower triangle, 0 above; NaN throughout if a pivot
-  // failed
   const T nan = quiet_nan<T>();
+  T r = T(0);  // b[gl], 0 from n on
+  if constexpr (OP != Op::kFactor) {
+    if (mine) r = b[(m0 + g) * n + gl];
+  }
+  bool ok = true;
+  if constexpr (OP != Op::kSolve) ok = factor_rows<T, NP>(S, col, g, gl);
+  if constexpr (OP != Op::kFactor) {
+    const T xs = solve_rows<T, NP>(S, r, col, g, gl, n);
+    if (mine) x[(m0 + g) * n + gl] = ok ? xs : nan;
+  }
+  if constexpr (OP != Op::kSolve) {
+    // row gl of L: the lower triangle, 0 above; NaN throughout if a pivot
+    // failed
 #pragma unroll
-  for (int c = 0; c < NP; ++c) S[c] = !ok ? nan : (c <= gl ? S[c] : T(0));
-  if (vec) {
-    T* dst = L + (m0 + g) * nn + gl * n;
+    for (int c = 0; c < NP; ++c) S[c] = !ok ? nan : (c <= gl ? S[c] : T(0));
+    if (vec) {
+      T* dst = L + (m0 + g) * nn + gl * n;
 #pragma unroll
-    for (int q = 0; q < NP / V; ++q) {
-      if (mine && q * V < n) store16(dst + q * V, q, S);
+      for (int q = 0; q < NP / V; ++q) {
+        if (mine && q * V < n) store16(dst + q * V, q, S);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NP; ++c) {
+        if (mine && c < n) row[c] = S[c];
+      }
+      __syncwarp();
+      T* dst = L + m0 * nn;
+      for (int e = lane; e < span; e += 32) dst[e] = tile[e];
     }
-  } else {
-#pragma unroll
-    for (int c = 0; c < NP; ++c) {
-      if (mine && c < n) row[c] = S[c];
-    }
-    __syncwarp();
-    T* dst = L + m0 * nn;
-    for (int e = lane; e < span; e += 32) dst[e] = tile[e];
   }
 }
 
-template <typename T, int NP>
-int launch_rows(const T* H, T* L, long long batch, int n,
+template <typename T, int NP, Op OP>
+int launch_rows(const T* M, const T* b, T* x, T* L, long long batch, int n,
                 cudaStream_t stream) {
   using C = RowCfg<T, NP>;
   const long long warps = (batch + C::kMats - 1) / C::kMats;
   const long long blocks = (warps + C::kWarps - 1) / C::kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
   // rows move as 16-byte vectors where they are whole vectors and both
-  // tensors are aligned to them (fresh tensors are)
+  // matrices are aligned to them (fresh tensors are; K3 has no L)
   const bool vec = n * sizeof(T) % 16 == 0 &&
-                   reinterpret_cast<unsigned long long>(H) % 16 == 0 &&
+                   reinterpret_cast<unsigned long long>(M) % 16 == 0 &&
                    reinterpret_cast<unsigned long long>(L) % 16 == 0;
-  chol_factor_rows<T, NP>
+  chol_rows<T, NP, OP>
       <<<static_cast<unsigned>(blocks), C::kWarps * 32,
-         C::kWarps * C::warp_bytes(n, vec), stream>>>(H, L, batch, n, vec);
+         C::kWarps * C::warp_bytes(n, vec), stream>>>(M, b, x, L, batch, n,
+                                                      vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-// K2: the row branch at n <= 32, chol_kernel above.
-template <typename T>
-int launch_factor(const T* H, T* L, long long batch, int n,
-                  void* stream_ptr) {
+// Every op: the row branch at n <= 32, chol_kernel above.
+template <typename T, Op OP>
+int dispatch(const T* M, const T* b, T* x, T* L, long long batch, int n,
+             void* stream_ptr) {
   if (n < 1 || n > 32 || batch <= 0) {
-    return launch<T, Op::kFactor>(H, nullptr, nullptr, L, batch, n,
-                                  stream_ptr);
+    return launch<T, OP>(M, b, x, L, batch, n, stream_ptr);
   }
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  if (n <= 4) return launch_rows<T, 4>(H, L, batch, n, stream);
-  if (n <= 8) return launch_rows<T, 8>(H, L, batch, n, stream);
-  if (n <= 16) return launch_rows<T, 16>(H, L, batch, n, stream);
-  if (n <= 24) return launch_rows<T, 24>(H, L, batch, n, stream);
-  return launch_rows<T, 32>(H, L, batch, n, stream);
+  if (n <= 4) return launch_rows<T, 4, OP>(M, b, x, L, batch, n, stream);
+  if (n <= 8) return launch_rows<T, 8, OP>(M, b, x, L, batch, n, stream);
+  if (n <= 16) return launch_rows<T, 16, OP>(M, b, x, L, batch, n, stream);
+  if (n <= 24) return launch_rows<T, 24, OP>(M, b, x, L, batch, n, stream);
+  return launch_rows<T, 32, OP>(M, b, x, L, batch, n, stream);
 }
 
 }  // namespace
 
 extern "C" int chol_factor_f32(const float* H, float* L, long long batch,
                                int n, void* stream) {
-  return launch_factor<float>(H, L, batch, n, stream);
+  return dispatch<float, Op::kFactor>(H, nullptr, nullptr, L, batch, n,
+                                      stream);
 }
 
 extern "C" int chol_factor_f64(const double* H, double* L, long long batch,
                                int n, void* stream) {
-  return launch_factor<double>(H, L, batch, n, stream);
+  return dispatch<double, Op::kFactor>(H, nullptr, nullptr, L, batch, n,
+                                       stream);
 }
 
 extern "C" int chol_solve_f32(const float* L, const float* b, float* x,
                               long long batch, int n, void* stream) {
-  return launch<float, Op::kSolve>(L, b, x, nullptr, batch, n, stream);
+  return dispatch<float, Op::kSolve>(L, b, x, nullptr, batch, n, stream);
 }
 
 extern "C" int chol_solve_f64(const double* L, const double* b, double* x,
                               long long batch, int n, void* stream) {
-  return launch<double, Op::kSolve>(L, b, x, nullptr, batch, n, stream);
+  return dispatch<double, Op::kSolve>(L, b, x, nullptr, batch, n, stream);
 }
 
 extern "C" int chol_factor_solve_f32(const float* H, const float* b, float* x,
                                      float* L, long long batch, int n,
                                      void* stream) {
-  return launch<float, Op::kFactorSolve>(H, b, x, L, batch, n, stream);
+  return dispatch<float, Op::kFactorSolve>(H, b, x, L, batch, n, stream);
 }
 
 extern "C" int chol_factor_solve_f64(const double* H, const double* b,
                                      double* x, double* L, long long batch,
                                      int n, void* stream) {
-  return launch<double, Op::kFactorSolve>(H, b, x, L, batch, n, stream);
+  return dispatch<double, Op::kFactorSolve>(H, b, x, L, batch, n, stream);
 }

@@ -15,11 +15,13 @@ depends only on where the tensor lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. The Pallas `tile_b`
 argument, which sizes TPU VMEM blocks, has no counterpart.
 
-K2 at n <= 32 (every solver's launch) runs the kernel's row branch: lanes
-own rows, in the right-looking order, which subtracts the plain version's
-products in the plain version's order, so it equals `chol_factor_plain`
-bit for bit (tests/test_torch_chol.py holds a PyTorch model of that
-schedule against it).
+K2, K3 and K4 at n <= 32 (every solver's launch) run the kernel's row
+branch: lanes own rows; the factor and the forward substitution go
+right-looking, and the back substitution subtracts each entry's products
+in ascending k. Each subtracts the plain version's products in the plain
+version's order, so the kernels equal the plain versions bit for bit
+(tests/test_torch_chol.py holds a PyTorch model of that schedule against
+them).
 
 A matrix that is not positive definite (a pivot that is <= 0 or not
 finite) comes back NaN in every entry, from kernel and plain version

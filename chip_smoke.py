@@ -47,16 +47,18 @@ failure exits non-zero:
     first dense-IPM round (4096 x 24 x 24), seeded SPD batches at n = 1,
     4, 13, 24, 39, 64 with a ragged B = 1001, in float32 and float64, and
     a batch mixing SPD with indefinite and non-finite matrices, which
-    must come back NaN throughout; K2 bit for bit (NaN in the same
-    matrices), float32 and float64, on the barrier Hessians, every
+    must come back NaN throughout; K2, K3 and K4 bit for bit (NaN in the
+    same matrices), float32 and float64, on the barrier Hessians, every
     n = 1..32 at B = 7, B = 1, 2, 3, 5, 33, 1023 at n = 4, 8, 16, 24, 32,
-    B = 200,003 at n = 4 and 24, a misaligned input at n = 24 and 13, and
+    B = 200,003 at n = 4 and 24, misaligned inputs at n = 24 and 13, and
     the indefinite and non-finite batches at n = 4, 13, 24 with a bad
-    matrix in every group position; then their times at (4096, 24, 24)
-    float32 beside their bounds, the plain versions and the library's
-    Cholesky calls, and K2's grid (n = 4, 8, 13, 16, 24, 32 x B = 4096,
-    65536 float32, (4096, 24, 24) float64, n = 39, 64 at B = 4096)
-    beside the replaced kernel's figures and torch.linalg.cholesky_ex;
+    matrix in every group position (K3 also on factors with NaN and inf
+    above the diagonal and with a zero or NaN diagonal); then their times
+    at (4096, 24, 24) float32 beside their bounds, the plain versions and
+    the library's Cholesky calls (CUDA events around one call, and the
+    device time of the call's kernels), and the grid of each (n = 4, 8, 13, 16, 24, 32 x
+    B = 4096, 65536 float32, (4096, 24, 24) float64, n = 39, 64 at
+    B = 4096) beside the replaced kernels' figures and the library call;
  8. the public ops entry points (chol_factor_batched, chol_solve_batched,
     chol_factor_solve_batched: K3 and K4 have no solver caller) on the
     barrier Hessians of phase 6 in float64, one launch each, against the
@@ -195,7 +197,7 @@ K2_GRID_N = (4, 8, 13, 16, 24, 32)
 K2_GRID_B = (4096, 65536)
 K2_WIDE_N = (39, 64)
 # the K2 the row branch replaced (one warp a matrix, left-looking, in
-# shared memory): device ms back to back over k2_grid's cells, by (n, B,
+# shared memory): device ms back to back over chol_grid's cells, by (n, B,
 # type), from k2_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
 # lines only
 K2_PARENT_DEVICE_MS = {
@@ -207,6 +209,28 @@ K2_PARENT_DEVICE_MS = {
     (32, 4096, "float32"): 0.0423, (32, 65536, "float32"): 0.4870,
     (24, 4096, "float64"): 0.0329, (39, 4096, "float32"): 0.0645,
     (64, 4096, "float32"): 0.2332}
+# the K3 and K4 the row branch replaced (one warp a matrix in shared
+# memory, the back substitution on one lane): device ms back to back over
+# chol_grid's cells, by (n, B, type), from k2_compare.py (NVIDIA H100 80GB
+# HBM3, 700.00 W), for the log lines only
+K3_PARENT_DEVICE_MS = {
+    (4, 4096, "float32"): 0.0087, (4, 65536, "float32"): 0.0491,
+    (8, 4096, "float32"): 0.0119, (8, 65536, "float32"): 0.0907,
+    (13, 4096, "float32"): 0.0169, (13, 65536, "float32"): 0.1590,
+    (16, 4096, "float32"): 0.0198, (16, 65536, "float32"): 0.1993,
+    (24, 4096, "float32"): 0.0304, (24, 65536, "float32"): 0.3438,
+    (32, 4096, "float32"): 0.0373, (32, 65536, "float32"): 0.4440,
+    (24, 4096, "float64"): 0.0389, (39, 4096, "float32"): 0.0514,
+    (64, 4096, "float32"): 0.1576}
+K4_PARENT_DEVICE_MS = {
+    (4, 4096, "float32"): 0.0110, (4, 65536, "float32"): 0.0794,
+    (8, 4096, "float32"): 0.0168, (8, 65536, "float32"): 0.1586,
+    (13, 4096, "float32"): 0.0261, (13, 65536, "float32"): 0.2840,
+    (16, 4096, "float32"): 0.0318, (16, 65536, "float32"): 0.3576,
+    (24, 4096, "float32"): 0.0520, (24, 65536, "float32"): 0.6260,
+    (32, 4096, "float32"): 0.0703, (32, 65536, "float32"): 0.8669,
+    (24, 4096, "float64"): 0.0650, (39, 4096, "float32"): 0.1041,
+    (64, 4096, "float32"): 0.3214}
 # K5 at (10240, 39, 39) float32, device ms back to back, before the
 # register-tiled design (one output a thread; NVIDIA H100 80GB HBM3,
 # 700.00 W), for the log line only
@@ -270,6 +294,23 @@ def device_ms(fn, reps: int = 20) -> float:
             raise SystemExit("device_ms: the host could not queue "
                              f"{reps} calls ahead of the card")
         cycles *= 2
+
+
+def kernel_busy_ms(fn, calls: int = 10) -> float:
+    """Device time (ms) of one fn() call as the sum of the CUDA kernels it
+    launches (torch.profiler, mean over `calls` calls): for a library
+    call that waits for the host inside, which device_ms cannot queue."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / 1e3 / calls
 
 
 def bound_of(bytes_moved: float, flops: float, peak: float = FP32_FLOPS):
@@ -708,24 +749,140 @@ def k2_bit_checks(dev, rng, kern, Hb=None) -> None:
             f"in the same matrices")
 
 
-def k2_bound(H):
-    """K2's bound (ms, what bounds it) at the shape and type of H: the
-    lower triangle read, every entry written, chol_flops(n) a matrix."""
+def k3_k4_bit_checks(dev, rng, kern, Hb=None) -> None:
+    """K3 and K4 (kern: {"chol_solve": fn, "chol_factor_solve": fn}, the
+    wrappers or the same on a copy's build) against chol_solve_plain and
+    chol_factor_solve_plain bit for bit, NaN in the same entries, in
+    float32 and float64, with b ~ N(0, 1), on k2_bit_checks' batches: the
+    barrier Hessians Hb (where given), every n = 1..32 at B = K2_SWEEP_B,
+    the batches of K2_EDGE_B at each band's n, B = K2_LONG_B at K2_LONG_N,
+    H, L and b each one element off its allocation at n = 24 and 13, and
+    for K4 the indefinite and non-finite batches at n = 4, 13, 24 (x and L
+    NaN throughout in exactly the bad matrices). K3 solves with each
+    batch's plain factor (the identity in place of a failed one), and at
+    n = 4, 13, 24 also with factors holding NaN and inf above the diagonal
+    (never read) and with a zero or a NaN on the diagonal (x as the plain
+    version's, NaN where it is NaN). Raises at the first batch that
+    differs."""
     import torch
-    B, n = H.shape[0], H.shape[-1]
-    peak = FP32_FLOPS if H.dtype == torch.float32 else FP64_FLOPS
-    return bound_of(B * (n * (n + 1) // 2 + n * n) * H.element_size(),
-                    B * chol_flops(n), peak)
+    from acados_tpu_torch.ops import batched_chol as bc
+    solve, factor_solve = kern["chol_solve"], kern["chol_factor_solve"]
+
+    def off_by_one(t):
+        out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        return out[1:].view(t.shape).copy_(t)
+
+    for dtype in (torch.float32, torch.float64):
+        def spd(B, n):
+            return torch.as_tensor(spd_batch(rng, B, n), dtype=dtype,
+                                   device=dev)
+        # (name, H, bad matrices or None, one element off)
+        batches = [] if Hb is None else [
+            (f"barrier Hessians {tuple(Hb.shape)}", Hb.to(dtype), None,
+             False)]
+        batches += [(f"n={n} B={K2_SWEEP_B}", spd(K2_SWEEP_B, n), None,
+                     False) for n in range(1, 33)]
+        batches += [(f"n={n} B={B}", spd(B, n), None, False)
+                    for n in K2_ROW_N for B in K2_EDGE_B]
+        batches += [(f"long n={n} B={K2_LONG_B}", spd(K2_LONG_B, n), None,
+                     False) for n in K2_LONG_N]
+        batches += [(f"misaligned n={n} B=1023", spd(1023, n), None, True)
+                    for n in (24, 13)]
+        for n in (4, 13, 24):
+            H, bad = indefinite_batch(rng, 1001, n)
+            batches.append((f"indefinite/non-finite n={n} B=1001",
+                            torch.as_tensor(H, dtype=dtype, device=dev),
+                            torch.as_tensor(bad, device=dev), False))
+        n3 = 0
+        for name, H, bad, shift in batches:
+            B, n = H.shape[0], H.shape[-1]
+            b = torch.as_tensor(rng.normal(size=(B, n)), dtype=dtype,
+                                device=dev)
+            L = bc.chol_factor_plain(H)
+            L = torch.where(torch.isnan(L).flatten(1).any(1)[:, None, None],
+                            torch.eye(n, dtype=dtype, device=dev), L)
+            if shift:
+                H, L, b = off_by_one(H), off_by_one(L), off_by_one(b)
+            x4, L4 = factor_solve(H, b)
+            xp, Lp = bc.chol_factor_solve_plain(H, b)
+            if not (same_bits(x4, xp) and same_bits(L4, Lp)) or (
+                    bad is not None and not (
+                        torch.equal(torch.isnan(Lp).flatten(1).all(1), bad)
+                        and torch.equal(torch.isnan(x4).all(1), bad))):
+                raise SystemExit(f"K4 is not bit for bit its plain version: "
+                                 f"{name} {dtype}")
+            solves = [(name, L)]
+            if n in (4, 13, 24) and bad is None and not shift \
+                    and B == K2_SWEEP_B:
+                above = torch.ones(n, n, dtype=torch.bool,
+                                   device=dev).triu(1)
+                garbage = L.clone()
+                garbage[0::2, above] = float("nan")
+                garbage[1::2, above] = float("inf")
+                diag = L.clone()
+                diag[0::3, n - 1, n - 1] = 0.0
+                diag[1::3, n // 2, n // 2] = float("nan")
+                solves += [(f"{name}, NaN/inf above the diagonal", garbage),
+                           (f"{name}, zero/NaN on the diagonal", diag)]
+            for sname, Ls in solves:
+                if not same_bits(solve(Ls, b), bc.chol_solve_plain(Ls, b)):
+                    raise SystemExit(f"K3 is not bit for bit its plain "
+                                     f"version: {sname} {dtype}")
+            n3 += len(solves)
+        log(f"  K3/K4 bit for bit, {str(dtype):<14} K4 {len(batches)} "
+            f"batches, K3 {n3} (n = 1..32 at B = {K2_SWEEP_B}; n in "
+            f"{K2_ROW_N} at B in {K2_EDGE_B}; n in {K2_LONG_N} at B = "
+            f"{K2_LONG_B}; H, L, b misaligned at n = 24, 13; indefinite/"
+            f"non-finite n = 4, 13, 24; K3's L with NaN/inf above and zero/"
+            f"NaN on the diagonal at n = 4, 13, 24): equal, NaN in the same "
+            f"entries")
 
 
-def k2_grid(kerns: dict, parent=None, order=None) -> list:
-    """Device ms back to back of each K2 wrapper in kerns ({label: fn}),
-    called in turns (order: labels, default each once), over K2's grid
-    (n in K2_GRID_N x B in K2_GRID_B and n in K2_WIDE_N at B = 4096
-    float32, (4096, 24, 24) float64) on SPD X X' / n + I, beside
-    torch.linalg.cholesky_ex (CUDA events around one call: it waits for
-    the host) and the bound. parent: device ms of an earlier build by
-    (n, B, dtype name), logged beside."""
+def chol_library(kname):
+    """(name, fn(H, L, b)): the library call that computes the function of
+    kernel kname (chol_factor: K2, chol_solve: K3, chol_factor_solve: K4)."""
+    import torch
+    return {
+        "chol_factor": ("torch.linalg.cholesky_ex",
+                        lambda H, L, b: torch.linalg.cholesky_ex(H)),
+        "chol_solve": ("torch.cholesky_solve",
+                       lambda H, L, b: torch.cholesky_solve(b[..., None], L)),
+        "chol_factor_solve": (
+            "cholesky_ex + cholesky_solve",
+            lambda H, L, b: torch.cholesky_solve(
+                b[..., None], torch.linalg.cholesky_ex(H)[0])),
+    }[kname]
+
+
+def chol_args(kname, H, L, b):
+    """The arguments of kernel kname's wrapper."""
+    return {"chol_factor": (H,), "chol_solve": (L, b),
+            "chol_factor_solve": (H, b)}[kname]
+
+
+def chol_bound(kname, B, n, dtype):
+    """Kernel kname's bound (ms, what bounds it) at (B, n, n) of dtype:
+    the lower triangle read, b read and x written, L written (K2, K4);
+    chol_flops(n) a matrix for the factor, 2 n^2 for the solve."""
+    import torch
+    size = torch.empty((), dtype=dtype).element_size()
+    peak = FP32_FLOPS if dtype == torch.float32 else FP64_FLOPS
+    tri = n * (n + 1) // 2
+    factor = kname != "chol_solve"
+    solve = kname != "chol_factor"
+    return bound_of(B * (tri + factor * n * n + solve * 2 * n) * size,
+                    B * (factor * chol_flops(n) + solve * 2 * n * n), peak)
+
+
+def chol_grid(kname, kerns: dict, parent=None, order=None) -> list:
+    """Device ms back to back of each wrapper of kernel kname (chol_factor,
+    chol_solve or chol_factor_solve) in kerns ({label: fn}), called in
+    turns (order: labels, default each once), over K2's grid (n in
+    K2_GRID_N x B in K2_GRID_B and n in K2_WIDE_N at B = 4096 float32,
+    (4096, 24, 24) float64) on SPD X X' / n + I (K3: its library factor)
+    and b ~ N(0, 1), beside the library call (CUDA events around one call:
+    it waits for the host) and the bound. parent: device ms of an earlier
+    build by (n, B, dtype name), logged beside."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -733,27 +890,31 @@ def k2_grid(kerns: dict, parent=None, order=None) -> list:
     cells = [(n, B, torch.float32) for n in K2_GRID_N for B in K2_GRID_B]
     cells.append((24, 4096, torch.float64))
     cells += [(n, 4096, torch.float32) for n in K2_WIDE_N]
-    log("K2 grid (device ms back to back; torch.linalg.cholesky_ex CUDA "
-        "events around one call; X X' / n + I):")
+    lname, lib_fn = chol_library(kname)
+    log(f"{kname} grid (device ms back to back; {lname} CUDA events around "
+        f"one call; X X' / n + I):")
     rows = []
     for n, B, dtype in cells:
         X = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype)
         H = X @ X.transpose(1, 2) / n + torch.eye(n, device=dev, dtype=dtype)
+        b = torch.randn((B, n), generator=gen, device=dev, dtype=dtype)
+        L = torch.linalg.cholesky_ex(H)[0].contiguous()  # row-major
+        args = chol_args(kname, H, L, b)
         times = {label: [] for label in kerns}
         for label in order:
-            times[label].append(device_ms(lambda: kerns[label](H)))
-        lib = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=10)
-        b_ms, b_by = k2_bound(H)
+            times[label].append(device_ms(lambda: kerns[label](*args)))
+        lib = cuda_ms(lambda: lib_fn(H, L, b), reps=10)
+        b_ms, b_by = chol_bound(kname, B, n, dtype)
         dt = str(dtype).split(".")[-1]
-        rows.append(dict(n=n, B=B, dtype=dt, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lib, **{k: float(np.median(v))
-                                            for k, v in times.items()}))
+        rows.append(dict(kernel=kname, n=n, B=B, dtype=dt, bound_ms=b_ms,
+                         bound_by=b_by, library_ms=lib,
+                         **{k: float(np.median(v)) for k, v in times.items()}))
         old = (parent or {}).get((n, B, dt))
         log(f"  n={n:2d} B={B:6d} {dt:<7} " + "  ".join(
             f"{k} {' '.join(f'{t:.4f}' for t in v)}"
             for k, v in times.items())
             + (f"  (before: {old:.4f})" if old is not None else "")
-            + f"  cholesky_ex {lib:.4f}  bound {b_ms:.4f} ({b_by})")
+            + f"  library {lib:.4f}  bound {b_ms:.4f} ({b_by})")
     return rows
 
 
@@ -1407,55 +1568,47 @@ def main() -> int:
                        bound, bad=torch.as_tensor(bad, device=dev))
 
     k2_bit_checks(dev, rng, batched_chol.chol_factor_batched, Hb)
+    k3_k4_bit_checks(dev, rng, dict(
+        chol_solve=batched_chol.chol_solve_batched,
+        chol_factor_solve=batched_chol.chol_factor_solve_batched), Hb)
 
-    # times at the dense IPM's shape, then over K2's grid
-    n, Bm, sz = nv, B_MAIN, Hb.element_size()
-    tri = n * (n + 1) // 2    # the kernels read only a lower triangle
+    # times at the dense IPM's shape, then over the grid
+    n, Bm = nv, B_MAIN
     bf = b_hb.float()
     L32 = batched_chol.chol_factor_plain(Hb)
-    factor_solve_lib = lambda: torch.cholesky_solve(
-        bf[..., None], torch.linalg.cholesky_ex(Hb)[0])
-    specs = [
-        ("chol_factor", ":38", lambda: batched_chol.chol_factor_batched(Hb),
-         lambda: batched_chol.chol_factor_plain(Hb),
-         lambda: torch.linalg.cholesky_ex(Hb), "torch.linalg.cholesky_ex",
-         Bm * (tri + n * n) * sz, Bm * chol_flops(n)),
-        ("chol_solve", ":60",
-         lambda: batched_chol.chol_solve_batched(L32, bf),
-         lambda: batched_chol.chol_solve_plain(L32, bf),
-         lambda: torch.cholesky_solve(bf[..., None], L32),
-         "torch.cholesky_solve", Bm * (tri + 2 * n) * sz,
-         Bm * 2 * n * n),
-        ("chol_factor_solve", ":79",
-         lambda: batched_chol.chol_factor_solve_batched(Hb, bf),
-         lambda: batched_chol.chol_factor_solve_plain(Hb, bf),
-         factor_solve_lib, "cholesky_ex + cholesky_solve",
-         Bm * (tri + n * n + 2 * n) * sz,
-         Bm * (chol_flops(n) + 2 * n * n)),
-    ]
-    for kname, line, kfn, pfn, lfn, lname, nbytes, nflops in specs:
-        k_ms = cuda_ms(kfn, reps=30)
-        k_dev_ms = device_ms(kfn)
-        p_ms = cuda_ms(pfn, reps=10)
-        l_ms = cuda_ms(lfn, reps=20)
-        b_ms, b_by = bound_of(nbytes, nflops)
+    parents = dict(chol_factor=("K2", ":38", K2_PARENT_DEVICE_MS),
+                   chol_solve=("K3", ":60", K3_PARENT_DEVICE_MS),
+                   chol_factor_solve=("K4", ":79", K4_PARENT_DEVICE_MS))
+    for kname, (_, line, parent) in parents.items():
+        kfn = getattr(batched_chol, kname + "_batched")
+        pfn = getattr(batched_chol, kname + "_plain")
+        args = chol_args(kname, Hb, L32, bf)
+        lname, lfn = chol_library(kname)
+        k_ms = cuda_ms(lambda: kfn(*args), reps=30)
+        k_dev_ms = device_ms(lambda: kfn(*args))
+        p_ms = cuda_ms(lambda: pfn(*args), reps=10)
+        l_ms = cuda_ms(lambda: lfn(Hb, L32, bf), reps=20)
+        l_dev_ms = kernel_busy_ms(lambda: lfn(Hb, L32, bf))
+        b_ms, b_by = chol_bound(kname, Bm, n, Hb.dtype)
         log(f"{kname} at ({Bm}, {n}, {n}) float32: kernel {k_ms:.4f} ms "
-            f"(device {k_dev_ms:.4f} ms back to back), "
-            f"plain {p_ms:.4f} ms, {lname} {l_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
-            f"{nflops / 1e6:.2f} MFLOP)")
+            f"(device {k_dev_ms:.4f} ms back to back; the kernel the row "
+            f"branch replaced {parent[(n, Bm, 'float32')]}), plain "
+            f"{p_ms:.4f} ms, {lname} {l_ms:.4f} ms (its kernels' device "
+            f"time {l_dev_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "acados_tpu_torch/csrc/batched_chol.cu",
             "replaces": "acados_tpu/ops/batched_chol.py" + line,
-            "shape": [Bm, n, n], "launches": k2_launches if kname == "chol_factor" else None,
+            "shape": [Bm, n, n],
+            "launches": k2_launches if kname == "chol_factor" else None,
             "max_abs_err": errs32[kname][1],
             "max_rel_err_f32": errs32[kname][0], "ms": k_ms,
-            "device_ms": k_dev_ms,
-            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": l_ms})
-    k2_grid({"K2": batched_chol.chol_factor_batched},
-            parent=K2_PARENT_DEVICE_MS)
+            "device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            "library_device_ms": l_dev_ms})
+    for kname, (label, _, parent) in parents.items():
+        chol_grid(kname, {label: getattr(batched_chol, kname + "_batched")},
+                  parent=parent)
 
     # ---- 8. the public ops entry points ----------------------------------------------
     from acados_tpu_torch.ops import (chol_factor_batched,

@@ -1,10 +1,9 @@
 #!/usr/bin/env python3
 """Build copies of the Cholesky kernels' CUDA source side by side and
-compare them on one GPU: each build's K2 against the plain version bit for
-bit on chip_smoke.py's K2 batches, each later build's K2 against the
-first's bit for bit, each build's K3 and K4 against their plain versions
-bit for bit, then their device times in turns over K2's grid and K3's and
-K4's at the dense IPM's (4096, 24, 24) float32.
+compare them on one GPU: each build's K2, K3 and K4 against their plain
+versions bit for bit on chip_smoke.py's batches, each later build's K2
+against the first's bit for bit, then their device times in turns over
+the grid of each (chip_smoke.chol_grid).
 
 Run from the root of the repository:
 
@@ -26,8 +25,9 @@ fails a check is logged and still timed, and the exit code is then 1. The
 builds are timed in turns (each label, then the labels in reverse), so
 two versions are compared on one card in one run. --sass prints ptxas's
 registers and spills for each kernel and, for each build, the SASS
-instruction mix (cuobjdump) of one step of the row branch at each band.
-Needs one GPU and nvcc; imports nothing of JAX.
+instruction mix (cuobjdump) of one step of each row-branch kernel at each
+band, and the listings of one factor step and one back-substitution step
+at the dense IPM's band. Needs one GPU and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -61,13 +61,12 @@ def build(specs: dict) -> dict:
     for label, path in paths.items():
         kernel = None
         for line in reports.get(path, "").splitlines():
-            m = re.search(r"Compiling entry function '.*?\d(chol_kernel|"
-                          r"chol_factor_rows)I([fd])(?:Li(\d+)E|LN\w+?(\d)E)?",
-                          line)
-            if m:
-                kernel = f"{m.group(1)} {m.group(2)}" + (
-                    f"{m.group(3)}" if m.group(3) else
-                    f" op {m.group(4)}" if m.group(4) else "")
+            entry = "Compiling entry function" in line
+            m = re.search(r"\dchol_kernelI([fd])LN\w*?OpE(\d)E", line)
+            if entry and m:
+                kernel = f"chol_kernel {m.group(1)} op {m.group(2)}"
+            elif entry and _row_kernel(line):
+                kernel = f"row branch {_row_kernel(line)}"
             elif kernel and ("registers" in line or "spill" in line):
                 cs.log(f"  ptxas {label} {kernel}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
@@ -79,29 +78,53 @@ def build(specs: dict) -> dict:
             for label, path in paths.items()}
 
 
-def step_mix(sass: str) -> list:
-    """Per band of the row branch (chol_factor_rows<T, NP>): its SASS
-    instructions, and those of one step and their mix. The step loop
-    unrolls fully and each step starts with the pivot's shuffle (two in
-    float64), so a step is the span from the first shuffle to the last
-    over NP - 1 steps."""
-    rows = []
+def _row_kernel(name: str):
+    """The band of a row-branch kernel named in a line ("f24": K2 at
+    float32 NP = 24, "f24 K3", "f24 K4"; chol_factor_rows, an earlier
+    source's K2, reads as K2), or None."""
+    m = re.search(r"chol_(?:factor_)?rowsI([fd])Li(\d+)E(?:LN\w*?OpE(\d)E)?",
+                  name)
+    if not m:
+        return None
+    return m.group(1) + m.group(2) + {"1": " K3", "2": " K4"}.get(
+        m.group(3), "")
+
+
+def _functions(sass: str):
+    """(band, instruction lines) of each row-branch kernel in a listing."""
     for func in re.split(r"\n\s*Function : ", sass):
-        head = func.split("\n", 1)[0]
-        band = re.search(r"chol_factor_rowsI([fd])Li(\d+)E", head)
-        if not band:
-            continue
-        ops = [mm.group(2) for mm in map(_INSN.search, func.split("\n"))
-               if mm]
-        shfl = [i for i, op in enumerate(ops) if op.startswith("SHFL")]
-        k = int(band.group(2)) - 1
-        if len(shfl) < 2:
+        band = _row_kernel(func.split("\n", 1)[0])
+        if band:
+            yield band, [ln for ln in func.split("\n") if _INSN.search(ln)]
+
+
+def _divisions(ops: list) -> list:
+    """Positions of the divisions' reciprocals before the last EXIT (the
+    slow paths' subroutines follow it)."""
+    ends = [i for i, op in enumerate(ops) if op == "EXIT"] or [len(ops)]
+    return [i for i, op in enumerate(ops[:ends[-1]])
+            if op.startswith("MUFU.RCP")]
+
+
+def step_mix(sass: str) -> list:
+    """Per row-branch kernel and band (chol_rows<T, NP, OP>): its SASS
+    instructions, and those of one step and their mix. Every step (a
+    factor step, a forward or a back substitution step) holds one
+    division, each on the chain of the one before, so a step is the span
+    from the first division's reciprocal (MUFU.RCP, MUFU.RCP64H) to the
+    last before the final EXIT over their count less one."""
+    rows = []
+    for band, lines in _functions(sass):
+        ops = [_INSN.search(ln).group(2) for ln in lines]
+        rcp = _divisions(ops)
+        if len(rcp) < 2:
             continue
         body = collections.Counter(
-            op.split(".")[0] for op in ops[shfl[0]:shfl[-1]])
+            op.split(".")[0] for op in ops[rcp[0]:rcp[-1]])
+        k = len(rcp) - 1
         per = lambda *names: sum(body[x] for x in names) / k
         rows.append(dict(
-            band=f"{band.group(1)}{band.group(2)}", instructions=len(ops),
+            band=band, instructions=len(ops), steps=len(rcp),
             per_step=sum(body.values()) / k,
             mul_add=per("FMUL", "FADD", "DMUL", "DADD"),
             fma=per("FFMA", "DFMA"), mufu=per("MUFU"),
@@ -115,46 +138,17 @@ def step_mix(sass: str) -> list:
 
 
 def step_listing(sass: str, band: str = "f24", step: int = 12) -> list:
-    """The SASS of one step of the row branch at a band (default the
-    dense IPM's, float32 NP = 24): from the pivot shuffle that ends step
-    `step` - 1 (or begins step 0) to the next, one instruction a line."""
-    for func in re.split(r"\n\s*Function : ", sass):
-        head = func.split("\n", 1)[0]
-        m = re.search(r"chol_factor_rowsI([fd])Li(\d+)E", head)
-        if not m or f"{m.group(1)}{m.group(2)}" != band:
+    """The SASS of one step of a row-branch kernel at a band (default K2
+    at the dense IPM's, float32 NP = 24): from the reciprocal of step
+    `step` to the next, one instruction a line. In "f24 K3" steps 0..23
+    are the forward substitution's and 24..47 the back's (x_23 first)."""
+    for name, lines in _functions(sass):
+        if name != band:
             continue
-        lines = [ln.split(";")[0].split("*/", 1)[1].strip()
-                 for ln in func.split("\n") if _INSN.search(ln)]
-        shfl = [i for i, ln in enumerate(lines) if "SHFL" in ln]
-        return lines[shfl[step]:shfl[step + 1] + 1]
+        rcp = _divisions([_INSN.search(ln).group(2) for ln in lines])
+        lines = [ln.split(";")[0].split("*/", 1)[1].strip() for ln in lines]
+        return lines[rcp[step]:rcp[step + 1] + 1]
     return []
-
-
-def k3_k4_checks(dev, label, kern) -> bool:
-    """K3 and K4 of one build against their plain versions bit for bit on
-    SPD batches at n = 24 (B = 4096) and n = 39, 64 (B = 1001), float32
-    and float64."""
-    import torch
-    from acados_tpu_torch.ops import batched_chol as bc
-    rng = np.random.default_rng(cs.SEED)
-    ok = True
-    for n, B in ((24, 4096), (39, 1001), (64, 1001)):
-        for dtype in (torch.float32, torch.float64):
-            H = torch.as_tensor(cs.spd_batch(rng, B, n), dtype=dtype,
-                                device=dev)
-            b = torch.as_tensor(rng.normal(size=(B, n)), dtype=dtype,
-                                device=dev)
-            L = bc.chol_factor_plain(H)
-            x4, L4 = kern["chol_factor_solve"](H, b)
-            x4p, L4p = bc.chol_factor_solve_plain(H, b)
-            same = dict(K3=cs.same_bits(kern["chol_solve"](L, b),
-                                        bc.chol_solve_plain(L, b)),
-                        K4=cs.same_bits(x4, x4p) and cs.same_bits(L4, L4p))
-            ok = ok and all(same.values())
-            cs.log(f"  {label} n={n:2d} B={B:4d} {str(dtype):<14} "
-                   + ", ".join(f"{k} bit for bit {v}"
-                               for k, v in same.items()))
-    return ok
 
 
 def builds_agree(dev, kerns: dict) -> list:
@@ -191,38 +185,6 @@ def builds_agree(dev, kerns: dict) -> list:
     return differ
 
 
-def k3_k4_times(kerns: dict, order: list) -> list:
-    """Device ms back to back of each build's K3 and K4 at (4096, 24, 24)
-    float32, in turns, beside the bound."""
-    import torch
-    from acados_tpu_torch.ops import batched_chol as bc
-    dev = torch.device("cuda")
-    rng = np.random.default_rng(cs.SEED)
-    n, B = 24, cs.B_MAIN
-    H = torch.as_tensor(cs.spd_batch(rng, B, n), dtype=torch.float32,
-                        device=dev)
-    b = torch.as_tensor(rng.normal(size=(B, n)), dtype=torch.float32,
-                        device=dev)
-    L = bc.chol_factor_plain(H)
-    tri = n * (n + 1) // 2
-    calls = dict(chol_solve=(lambda kern: kern["chol_solve"](L, b),
-                             B * (tri + 2 * n) * 4),
-                 chol_factor_solve=(lambda kern: kern["chol_factor_solve"](
-                     H, b), B * (tri + n * n + 2 * n) * 4))
-    rows = []
-    for name, (call, nbytes) in calls.items():
-        times = {label: [] for label in kerns}
-        for label in order:
-            times[label].append(cs.device_ms(lambda: call(kerns[label])))
-        b_ms, _ = cs.bound_of(nbytes, 0)
-        rows.append(dict(kernel=name, n=n, B=B, bound_ms=b_ms,
-                         **{k: float(np.median(v)) for k, v in times.items()}))
-        cs.log(f"  {name:<18} ({B}, {n}, {n}) float32 " + "  ".join(
-            f"{k} {' '.join(f'{t:.4f}' for t in v)}"
-            for k, v in times.items()) + f"  bound {b_ms:.4f} (bytes)")
-    return rows
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -249,35 +211,41 @@ def main() -> int:
                 capture_output=True, text=True, check=True).stdout
             for row in step_mix(sass):
                 cs.log(f"  sass {label} {row['band']}: {row['instructions']}"
-                       f" instructions, {row['per_step']:.1f} a step: "
+                       f" instructions, {row['steps']} steps, "
+                       f"{row['per_step']:.1f} a step: "
                        f"{row['mul_add']:.1f} mul/add, {row['fma']:.1f} "
                        f"FMA, {row['mufu']:.1f} MUFU, {row['shared']:.1f} "
                        f"shared, {row['shuffle']:.1f} shuffle, "
                        f"{row['compare_select']:.1f} compare/select, "
                        f"{row['integer']:.1f} integer/move, "
                        f"{row['branch']:.1f} branch/sync")
-            for line in step_listing(sass):
-                cs.log(f"  sass {label} f24 step: {line}")
+            for band, step in (("f24", 12), ("f24 K3", 36)):
+                for line in step_listing(sass, band, step):
+                    cs.log(f"  sass {label} {band} step {step}: {line}")
     failed = []
     for label, kern in kerns.items():
         cs.log(f"build {label!r} against the plain versions:")
-        try:
-            cs.k2_bit_checks(dev, np.random.default_rng(cs.SEED),
-                             kern["chol_factor"])
-        except SystemExit as e:
-            cs.log(f"  build {label!r} FAILED: {e}")
-            failed.append(label)
-        if not k3_k4_checks(dev, label, kern) and label not in failed:
-            failed.append(label)
+        for check, arg in ((cs.k2_bit_checks, kern["chol_factor"]),
+                           (cs.k3_k4_bit_checks, kern)):
+            try:
+                check(dev, np.random.default_rng(cs.SEED), arg)
+            except SystemExit as e:
+                cs.log(f"  build {label!r} FAILED: {e}")
+                if label not in failed:
+                    failed.append(label)
     failed += [label for label in builds_agree(dev, kerns)
                if label not in failed]
     labels = list(kerns)
     order = labels + labels[::-1]
-    rows = cs.k2_grid({label: kern["chol_factor"]
-                       for label, kern in kerns.items()}, order=order,
-                      parent=cs.K2_PARENT_DEVICE_MS)
-    rows += k3_k4_times(kerns, order)
-    cs.log(json.dumps({"k2_grid": rows, "card": cs.card_line(),
+    parents = dict(chol_factor=cs.K2_PARENT_DEVICE_MS,
+                   chol_solve=cs.K3_PARENT_DEVICE_MS,
+                   chol_factor_solve=cs.K4_PARENT_DEVICE_MS)
+    rows = []
+    for kname, parent in parents.items():
+        rows += cs.chol_grid(kname, {label: kern[kname]
+                                     for label, kern in kerns.items()},
+                             order=order, parent=parent)
+    cs.log(json.dumps({"grid": rows, "card": cs.card_line(),
                        "failed": failed}))
     return 1 if failed else 0
 

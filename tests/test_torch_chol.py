@@ -6,7 +6,9 @@ the kernels in interpret mode (as tests/test_ops.py runs them) to
 rounding. Interpret mode grows steeply with n here, so larger n are held
 against the JAX package's `chol_any`, which is LAPACK on the CPU. The
 CUDA kernels run only on the card (chip_smoke.py holds them against the
-plain versions there); here the wrappers must refuse, not fall back.
+plain versions there); here the wrappers must refuse, not fall back, and
+PyTorch models of the row branch's schedule (K2, K3, K4 at n <= 32) are
+held bit for bit against the plain versions.
 """
 import numpy as np
 import pytest
@@ -39,7 +41,7 @@ def test_plain_factor_matches_pallas(n, B):
     assert np.all(np.triu(ours, 1) == 0)
 
 
-@pytest.mark.parametrize("n", [2, 5])
+@pytest.mark.parametrize("n", [1, 2, 5, 8, 11])
 def test_plain_solve_and_fused_match_pallas(n):
     rng = np.random.default_rng(n)
     H, b = _spd(rng, 64, n), rng.normal(size=(64, n))
@@ -227,44 +229,116 @@ def test_launch_passes_its_source_to_the_build(monkeypatch):
                      "batched_chol"]
 
 
+class _Warps:
+    """The row branch's lane layout (csrc/batched_chol.cu, chol_rows) for
+    a (B, n, n) batch: n is padded with the identity to its band NP (4, 8,
+    16, 24, 32) and the batch with identity matrices to whole warps; a
+    group of W lanes (the power of two at or above NP) holds a matrix,
+    lane l row l % W of matrix l // W, rows past NP zero. `S` holds each
+    lane's whole row (upper triangle included, which the kernel may read
+    and must not use) as (warps, 32, NP); `r` its entry of b (0 from n
+    on)."""
+
+    def __init__(self, M: torch.Tensor, b: torch.Tensor | None = None):
+        self.B, self.n, _ = M.shape
+        self.NP = next(band for band in (4, 8, 16, 24, 32) if self.n <= band)
+        self.W = 1 << (self.NP - 1).bit_length()
+        G = 32 // self.W
+        self.warps = -(-self.B // G)
+        lane = torch.arange(32)
+        self.gl, self.grp = lane % self.W, lane // self.W
+        self.row = self.gl < self.NP
+        Mp = torch.eye(self.NP, dtype=M.dtype).repeat(self.warps * G, 1, 1)
+        Mp[:self.B, :self.n, :self.n] = M
+        self.S = torch.zeros((self.warps, 32, self.NP), dtype=M.dtype)
+        self.S[:, self.row] = Mp.reshape(self.warps, G, self.NP, self.NP)[
+            :, self.grp[self.row], self.gl[self.row]]
+        bp = torch.zeros((self.warps * G, self.NP), dtype=M.dtype)
+        if b is not None:
+            bp[:self.B, :self.n] = b
+        self.r = torch.zeros((self.warps, 32), dtype=M.dtype)
+        self.r[:, self.row] = bp.reshape(self.warps, G, self.NP)[
+            :, self.grp[self.row], self.gl[self.row]]
+
+    def lane_of(self, i):
+        """Lane i of each lane's group (what __shfl_sync(v, i, W) reads)."""
+        return self.grp * self.W + i
+
+    def factor(self) -> torch.Tensor:
+        """The factor's steps on S in place; returns each lane's failure
+        flag (False where a pivot was <= 0 or not finite). At step j the
+        group's diagonal comes from lane j; every lane takes d = sqrt and
+        1 / d, scales its entry j (lane j keeps d), publishes it in the
+        group's column slot and subtracts L[i][j] L[c][j] from every entry
+        c > j."""
+        S, gl, NP = self.S, self.gl, self.NP
+        ok = torch.ones((self.warps, 32), dtype=torch.bool)
+        for j in range(NP):
+            piv = S[:, self.lane_of(j), j]
+            ok = ok & (piv > 0) & torch.isfinite(piv)
+            d = torch.sqrt(piv)
+            S[:, :, j] = torch.where(gl == j, d, S[:, :, j] * (1.0 / d))
+            slot = S[:, :, j]                     # the group's column slot
+            Lc = slot[:, self.grp[:, None] * self.W + torch.arange(j + 1, NP)]
+            S[:, :, j + 1:] = S[:, :, j + 1:] - slot[..., None] * Lc
+        return ok
+
+    def solve(self) -> torch.Tensor:
+        """The substitutions on the rows of L in S and b in r; returns
+        each lane's x. Forward: at step i every lane divides lane i's r by
+        lane i's L[i][i], lanes below subtract L[c][i] y_i, lane i keeps
+        y_i. Back: at step i every lane k publishes L[k][i] x_k in the
+        group's slot (+0 for a row past n), and every lane subtracts the
+        slot's entries k > i from y_i in ascending k and divides by
+        L[i][i]; lane i keeps x_i."""
+        S, gl, r = self.S, self.gl, self.r.clone()
+        for i in range(self.NP):
+            y = r[:, self.lane_of(i)] / S[:, self.lane_of(i), i]
+            r = torch.where(gl > i, r - S[:, :, i] * y, r)
+            r = torch.where(gl == i, y, r)
+        x = torch.zeros_like(r)
+        for i in reversed(range(self.NP)):
+            slot = torch.where(gl < self.n, S[:, :, i] * x, 0.0)
+            s = r[:, self.lane_of(i)]
+            for k in range(i + 1, self.NP):
+                s = s - slot[:, self.lane_of(k)]
+            x = torch.where(gl == i, s / S[:, self.lane_of(i), i], x)
+        return x
+
+    def rows(self, R: torch.Tensor) -> torch.Tensor:
+        """A value a lane, (warps, 32, ...) -> the batch's (B, n, ...)."""
+        out = R[:, self.row].reshape((-1, self.NP) + R.shape[2:])
+        return out[:self.B, :self.n]
+
+    def stored(self, ok: torch.Tensor) -> torch.Tensor:
+        """L as the kernel stores it: each row's lower triangle, 0 above,
+        NaN throughout where the group's failure flag fell."""
+        lower = torch.where(torch.arange(self.NP) <= self.gl[:, None],
+                            self.S, 0.0)
+        L = torch.where(ok[..., None], lower, float("nan"))
+        return self.rows(L)[..., :self.n]
+
+
 def _row_branch_schedule(H: torch.Tensor) -> torch.Tensor:
-    """A PyTorch model of K2's row branch (csrc/batched_chol.cu,
-    chol_factor_rows) as a warp of 32 lanes runs it. n is padded with the
-    identity to its band NP (4, 8, 16, 24, 32) and the batch with identity
-    matrices to whole warps; a group of W lanes (the power of two at or
-    above NP) holds a matrix, lane l row l % W of matrix l // W, rows past
-    NP zero. Each lane starts from its whole row (upper triangle
-    included, which the kernel may read and must not use). At step j the
-    group's diagonal comes from lane j; every lane takes d = sqrt and
-    1 / d, scales its entry j (lane j keeps d), publishes it in the
-    group's column slot and subtracts L[i][j] L[c][j] from every entry
-    c > j. A lane's failure flag falls at a pivot <= 0 or not finite and
-    its group stores NaN throughout."""
-    B, n, _ = H.shape
-    NP = next(b for b in (4, 8, 16, 24, 32) if n <= b)
-    W = 1 << (NP - 1).bit_length()
-    G = 32 // W
-    warps = -(-B // G)
-    Hp = torch.eye(NP, dtype=H.dtype).repeat(warps * G, 1, 1)
-    Hp[:B, :n, :n] = H
-    lane = torch.arange(32)
-    gl, grp = lane % W, lane // W
-    row = gl < NP
-    S = torch.zeros((warps, 32, NP), dtype=H.dtype)
-    S[:, row] = Hp.reshape(warps, G, NP, NP)[:, grp[row], gl[row]]
-    ok = torch.ones((warps, 32), dtype=torch.bool)
-    for j in range(NP):
-        piv = S[:, grp * W + j, j]            # __shfl_sync from lane j
-        ok = ok & (piv > 0) & torch.isfinite(piv)
-        d = torch.sqrt(piv)
-        S[:, :, j] = torch.where(gl == j, d, S[:, :, j] * (1.0 / d))
-        slot = S[:, :, j]                     # the group's column slot
-        Lc = slot[:, grp[:, None] * W + torch.arange(j + 1, NP)]
-        S[:, :, j + 1:] = S[:, :, j + 1:] - slot[..., None] * Lc
-    lower = torch.where(torch.arange(NP) <= gl[:, None], S, 0.0)
-    L = torch.where(ok[..., None], lower, float("nan"))
-    L = L[:, row].reshape(warps * G, NP, NP)
-    return L[:B, :n, :n]
+    """A PyTorch model of K2's row branch as a warp of 32 lanes runs it
+    (_Warps): the factor's steps, then L as stored."""
+    w = _Warps(H)
+    return w.stored(w.factor())
+
+
+def _row_solve_schedule(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """K3's row branch: the substitutions on L's rows as loaded."""
+    w = _Warps(L, b)
+    return w.rows(w.solve())
+
+
+def _row_factor_solve_schedule(H: torch.Tensor, b: torch.Tensor):
+    """K4's row branch: the factor's steps, then the substitutions on the
+    rows the factor leaves in the registers (garbage above the diagonal
+    included); x and L NaN throughout where the failure flag fell."""
+    w = _Warps(H, b)
+    ok = w.factor()
+    return w.rows(torch.where(ok, w.solve(), float("nan"))), w.stored(ok)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -294,11 +368,66 @@ def test_row_branch_schedule_is_bit_for_bit_plain(n, dtype):
     assert torch.equal(ours[~bad], plain[~bad])
 
 
+def _bad_matrices(H, n):
+    """Indefinite matrices, NaN and inf in the lower triangle, NaN and inf
+    above the diagonal (never read), as rows of a batch of 37."""
+    H[1::5, n // 2, n // 2] = -1.0
+    H[2::7, n - 1, 0] = np.nan
+    H[3::11, n // 3, n // 3] = np.inf
+    if n > 1:
+        H[4::6, 0, n - 1] = np.nan
+        H[5::9, 0, 1] = -np.inf
+    return H
+
+
+@pytest.mark.parametrize("kernel", ["K3", "K4"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5, 8, 13, 16, 21, 24, 31, 32])
+def test_row_solve_schedule_is_bit_for_bit_plain(n, dtype, kernel):
+    """The row branch's substitutions (forward: y_i by one broadcast;
+    back: products in the group's slot, +0 from row n on, subtracted in
+    ascending k; identity padding to the band, groups of matrices a warp)
+    equal chol_solve_plain (K3) and chol_factor_solve_plain (K4) to the
+    last bit, NaN in exactly the same entries, in a batch that ends
+    inside a warp. K4 on the bad matrices of the factor's test, which
+    come back NaN in x and L; K3 on factors with NaN and inf above the
+    diagonal (never read) and with a zero or a NaN on the diagonal."""
+    rng = np.random.default_rng(900 + n)
+    B = 37
+    H = _spd(rng, B, n) / n
+    b = torch.as_tensor(rng.normal(size=(B, n)), dtype=dtype)
+    if kernel == "K4":
+        Ht = torch.as_tensor(_bad_matrices(H, n), dtype=dtype)
+        x, L = _row_factor_solve_schedule(Ht, b)
+        xp, Lp = batched_chol.chol_factor_solve_plain(Ht, b)
+        bad = torch.isnan(Lp).flatten(1).all(1)
+        assert bool(bad.any()) and not bool(bad.all())
+        assert torch.equal(torch.isnan(x).all(1), bad)
+        pairs = ((x, xp), (L, Lp))
+    else:
+        L = batched_chol.chol_factor_plain(torch.as_tensor(H, dtype=dtype))
+        above = torch.ones(n, n, dtype=torch.bool).triu(1)
+        L[1::3, above] = float("nan")
+        L[2::3, above] = float("inf")
+        L[3::4, n - 1, n - 1] = 0.0
+        L[4::5, n // 2, n // 2] = float("nan")
+        xp = batched_chol.chol_solve_plain(L, b)
+        assert bool(torch.isnan(xp).any()) and bool(torch.isfinite(xp).any())
+        pairs = ((_row_solve_schedule(L, b), xp),)
+    for ours, plain in pairs:
+        nan = torch.isnan(plain)
+        assert torch.equal(torch.isnan(ours), nan)
+        assert torch.equal(ours[~nan], plain[~nan])
+
+
 def test_k2_step_mix_reads_the_row_branch():
-    """k2_compare.step_mix on a listing holding a band of the row branch
-    and another kernel: a step is the span between the first and the last
-    pivot shuffle over NP - 1, other functions are skipped; step_listing
-    gives one step's instructions, shuffle to shuffle."""
+    """k2_compare.step_mix on a listing holding K2's and K3's kernels of
+    the row branch (and an earlier source's K2 name) beside another
+    kernel: a step is the span between the first and the last division's
+    reciprocal before the final EXIT (the slow paths' subroutines follow
+    it) over their count less one, other functions are skipped;
+    step_listing gives one step's instructions, reciprocal to
+    reciprocal."""
     import k2_compare
 
     def function(name, ops):
@@ -308,22 +437,35 @@ def test_k2_step_mix_reads_the_row_branch():
                f"   /* 0x000000000000000000000000000000 */"
                for i, op in enumerate(ops)])
 
-    step = (["SHFL.IDX PT, R3, R2, 0x1, 0x1f", "MUFU.RSQ R4, R3"]
+    step = (["MUFU.RCP R4, R3", "SHFL.IDX PT, R3, R2, 0x1, 0x1f"]
             + ["FMUL R5, R6, R7", "FADD R8, R8, -R5"] * 10
             + ["STS [R9], R5", "LDS.128 R12, [R10]", "@!P0 BRA 0x10"])
     rows = ["LDG.E.128 R12, [R2.64]"] + step * 4 + [
-        "SHFL.IDX PT, R3, R2, 0x1, 0x1f", "STG.E [R2.64], R3", "EXIT"]
+        "MUFU.RCP R4, R3", "STG.E [R2.64], R3", "EXIT",
+        "MUFU.RCP R4, R3", "RET.REL.NODEC R4 0x0"]  # a slow path's call
+    back = (["SHFL.IDX PT, R3, R2, 0x1, 0x1f", "MUFU.RCP R4, R3",
+             "STS [R9], R5", "LDS.128 R12, [R10]"]
+            + ["FADD R8, R8, -R5"] * 4)
+    solve = ["LDG.E R12, [R2.64]"] + back * 8 + ["STG.E [R2.64], R3", "EXIT"]
     sass = "\n".join([
         "\tcode for sm_90a",
-        function("_ZN12_GLOBAL__N_116chol_factor_rowsIfLi4EEEvPKT_PS1_xib",
+        function("_ZN12_GLOBAL__N_19chol_rowsIfLi4ELNS_2OpE0EEEvPKT_S4_PS2_"
+                 "S5_xib", rows),
+        function("_ZN12_GLOBAL__N_19chol_rowsIfLi4ELNS_2OpE1EEEvPKT_S4_PS2_"
+                 "S5_xib", solve),
+        function("_ZN12_GLOBAL__N_116chol_factor_rowsIdLi8EEEvPKT_PS1_xib",
                  rows),
         function("_ZN12_GLOBAL__N_111chol_kernelIfLNS_2OpE0EEEvPKT_S4_PS2_"
-                 "S5_xi", ["SHFL.IDX PT, R3, R2, 0x1, 0x1f"] * 3)])
-    (row,) = k2_compare.step_mix(sass)
-    assert row["band"] == "f4" and row["instructions"] == len(rows)
-    assert row["per_step"] == len(step) * 4 / 3
-    assert (row["mul_add"], row["mufu"], row["shuffle"]) == (
-        80 / 3, 4 / 3, 4 / 3)
-    assert row["shared"] == 8 / 3 and row["branch"] == 4 / 3
+                 "S5_xi", ["MUFU.RCP R4, R3"] * 3)])
+    k2, k3, d8 = k2_compare.step_mix(sass)
+    assert (k2["band"], k3["band"], d8["band"]) == ("f4", "f4 K3", "d8")
+    assert k2["instructions"] == len(rows) and k2["steps"] == 5
+    assert k2["per_step"] == len(step) and d8 == dict(k2, band="d8")
+    assert (k2["mul_add"], k2["mufu"], k2["shuffle"]) == (20, 1, 1)
+    assert k2["shared"] == 2 and k2["branch"] == 1
+    assert k3["steps"] == 8 and k3["per_step"] == len(back)
+    assert (k3["shared"], k3["mul_add"], k3["shuffle"]) == (2, 4, 1)
     listing = k2_compare.step_listing(sass, band="f4", step=1)
     assert listing == [op.strip() for op in step] + [step[0]]
+    listing = k2_compare.step_listing(sass, band="f4 K3", step=2)
+    assert listing == back[1:] + back[:2]
