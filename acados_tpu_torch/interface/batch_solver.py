@@ -5,23 +5,27 @@ reference batch solver) on a single device: the batch is the leading
 axis of every tensor of one lockstep SQP solve, where the JAX package
 vmaps and shards it.
 
-The data and the iterate stay on the device between solves, so a warm
-RTI loop moves nothing to the host but the statuses; the per-instance
-views `ocp_solvers[i].get/set` work on a host copy that is moved across
-only when it changed. `prepare`/`feedback` and the sensitivities wait
-(ROADMAP.md Queue 1).
+The data and the iterate stay on the device between solves and between
+the RTI phases (`prepare`, `feedback`), so a warm RTI loop moves nothing
+to the host but the statuses (and the measured x0s it is given); the
+per-instance views `ocp_solvers[i].get/set` work on a host copy that is
+moved across only when it changed. The sensitivities wait (ROADMAP.md
+Queue 1).
 """
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import build_ocp, data_to_torch
-from acados_tpu_torch.interface.solver import (_bound_slot, _sqp_opts_from,
-                                               _torch_dtype, iterate_to_numpy,
+from acados_tpu_torch.interface.solver import (_bound_slot, _fence,
+                                               _sqp_opts_from, _torch_dtype,
+                                               iterate_to_numpy,
                                                iterate_to_torch)
+from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
@@ -100,6 +104,10 @@ class AcadosOcpBatchSolver:
         self._status = None
         self._stats = None
         self._time_tot = float("nan")
+        self._rti_fns = None
+        self._rti_cache = None
+        self._time_prep = float("nan")
+        self._time_fb = float("nan")
 
     def _layout(self, stage):
         return self.layouts["0" if stage == 0
@@ -111,27 +119,92 @@ class AcadosOcpBatchSolver:
             self._host_stale = False
         return self._iterate
 
-    def solve(self, n_batch=None):
-        """Solve all instances; returns the (N_batch,) statuses."""
-        del n_batch
-        t0 = time.perf_counter()
+    def _on_device(self):
+        """(data, iterate) on the device, moved across if they changed."""
         if self._data_dev is None:
             self._data_dev = data_to_torch(self._data, self.dtype,
                                            self.device)
         if self._it_dev is None:
             self._it_dev = iterate_to_torch(self._host_iterate(),
                                             self.dtype, self.device)
-        it, stats = self._solve_fn(self._data_dev, self._it_dev)
+        return self._data_dev, self._it_dev
+
+    def _take(self, it, stats):
         self._status = stats.status.cpu().numpy()  # waits for the card
-        self._time_tot = time.perf_counter() - t0
         self._it_dev = it
         self._host_stale = True
         self._stats = stats
         return self._status
 
+    def solve(self, n_batch=None):
+        """Solve all instances; returns the (N_batch,) statuses."""
+        del n_batch
+        t0 = time.perf_counter()
+        it, stats = self._solve_fn(*self._on_device())
+        status = self._take(it, stats)
+        self._time_tot = time.perf_counter() - t0
+        return status
+
+    # -- batched RTI phases ---------------------------------------------------
+    # acados_tpu/interface/batch_solver.py:165-213 (the reference capsule's
+    # batch_setup_qp_matrices_and_factorize): prepare between samples,
+    # give the measured x0s to feedback.
+
+    def prepare(self):
+        """Batched RTI preparation: linearize and solve the QP at the
+        predicted x0 for every instance. AS-RTI levels (as_rti_level in
+        the options) start from the previous preparation's cache."""
+        if self.acados_ocp.solver_options.nlp_solver_type != "SQP_RTI":
+            raise RuntimeError("batched prepare/feedback requires "
+                               "nlp_solver_type == 'SQP_RTI'")
+        if self._rti_fns is None:
+            self._rti_fns = make_rti_solver(self.form, self.opts)
+        t0 = time.perf_counter()
+        prev = (self._rti_cache if self.opts.as_rti_level != "STANDARD"
+                else None)
+        cache = self._rti_fns[0](*self._on_device(), prev)
+        _fence(cache.g0)
+        self._time_prep = time.perf_counter() - t0
+        self._rti_cache = cache
+
+    # the reference capsule's spelling
+    setup_qp_matrices_and_factorize = prepare
+
+    def feedback(self, x0=None):
+        """Batched RTI feedback: inject the initial states and solve the
+        prepared QPs, warm-started from the predicted solutions.
+
+        x0: optional (N_batch, nbx0) measured initial states; None keeps
+        the bounds already set. Returns the (N_batch,) statuses."""
+        if self._rti_cache is None:
+            raise RuntimeError("call prepare() before feedback()")
+        t0 = time.perf_counter()
+        if x0 is not None:
+            lay = self._layout(0)
+            x0 = np.asarray(x0, np.float64).reshape(self.N_batch, lay.nbx)
+            sl = slice(lay.off_bx, lay.off_bx + lay.nbx)
+            self._data["lb_0"][:, sl] = x0
+            self._data["ub_0"][:, sl] = x0
+            if self._data_dev is not None:
+                # only the stage-0 bounds cross to the device
+                lb_0 = self._data_dev.lb_0.clone()
+                ub_0 = self._data_dev.ub_0.clone()
+                lb_0[:, sl] = ub_0[:, sl] = torch.tensor(
+                    x0, dtype=self.dtype, device=self.device)
+                self._data_dev = self._data_dev.replace(lb_0=lb_0,
+                                                        ub_0=ub_0)
+        it, stats = self._rti_fns[1](self._rti_cache, *self._on_device())
+        status = self._take(it, stats)
+        self._time_fb = self._time_tot = time.perf_counter() - t0
+        return status
+
     def get_stats(self, field):
         if field == "time_tot":
             return self._time_tot
+        if field == "time_preparation":
+            return self._time_prep
+        if field == "time_feedback":
+            return self._time_fb
         if field in ("sqp_iter", "nlp_iter"):
             return self._stats.sqp_iter.cpu().numpy()
         if field == "qp_iter":

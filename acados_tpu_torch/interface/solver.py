@@ -8,10 +8,12 @@ solver.
 
 The solver runs on the card unless `device="cpu"` is passed; with no
 CUDA and no explicit device it raises. Ported: solve, get, set,
-cost_set, constraints_set, get_status, get_stats (sqp_iter, qp_iter,
-residuals, time_tot, statistics), get_residuals, get_cost, reset. The
-RTI phases (rti_phase), sensitivities and phase times wait (ROADMAP.md
-Queue 1).
+cost_set, constraints_set, options_set (rti_phase and the runtime
+options of the ported paths), the RTI phases (solve() after
+options_set("rti_phase", 1 or 2), AS-RTI levels A-D), get_status,
+get_stats (sqp_iter, qp_iter, residuals, time_tot, time_preparation,
+time_feedback, statistics), get_residuals, get_cost, reset. The
+sensitivities and in-loop phase times wait (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import (StageLayout, build_ocp,
                                                 data_to_torch)
 from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
+from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
                                           use_x0_elimination)
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts
@@ -87,6 +90,11 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
         reg_epsilon=so.reg_epsilon,
         globalization=so.globalization if not rti else "FIXED_STEP",
         cond_N=_resolve_cond(ocp), full_cond=_is_full_cond(so),
+        cond_block_size=(tuple(int(b) for b in so.qp_solver_cond_block_size)
+                         if so.qp_solver_cond_block_size else None),
+        as_rti_level=_as_rti_level_str(so.as_rti_level),
+        as_rti_iter=so.as_rti_iter,
+        as_rti_advancement=so.as_rti_advancement_strategy,
         step_length=(so.globalization_fixed_step_length
                      if so.globalization_fixed_step_length is not None
                      else so.nlp_solver_step_length),
@@ -112,6 +120,36 @@ def _resolve_cond(ocp: AcadosOcp) -> int | None:
     if so.qp_solver_cond_N is None or _is_full_cond(so):
         return None
     return resolve_cond_N(so.N_horizon or ocp.dims.N, so.qp_solver_cond_N)
+
+
+def _as_rti_level_str(level) -> str:
+    """The reference's int encoding (0..4 = A, B, C, D, STANDARD,
+    ocp_nlp_sqp_rti.h:70-77) or a string."""
+    if isinstance(level, str):
+        return level
+    return {0: "A", 1: "B", 2: "C", 3: "D", 4: "STANDARD"}[int(level)]
+
+
+# runtime options of acados_tpu's options_set whose paths wait, with
+# their ROADMAP.md Queue 1 item
+_OPTIONS_NOT_PORTED = {
+    "print_level": "item 20, interface utilities (print_statistics)",
+    "store_iterates": "item 20, interface utilities (stored iterates)",
+    **dict.fromkeys(("timeout_max_time", "timeout_heuristic"),
+                    "item 20, interface utilities (in-loop timeouts)"),
+    **dict.fromkeys(("alpha_min", "globalization_alpha_min",
+                     "alpha_reduction", "globalization_alpha_reduction"),
+                    "item 16, NLP breadth (MERIT/FUNNEL globalization)"),
+    **dict.fromkeys(("anderson_activation_threshold",
+                     "with_anderson_acceleration"),
+                    "item 16, NLP breadth (Anderson acceleration)"),
+}
+
+
+def _fence(t: torch.Tensor):
+    """Wait until the card has computed t (a no-op on the CPU)."""
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
 
 
 def _torch_dtype(ocp: AcadosOcp):
@@ -145,11 +183,17 @@ class AcadosOcpSolver:
         self.dtype = _torch_dtype(ocp)
         self._solve_fn = make_sqp_solver(self.form, self.opts)
         self._solve_fn_noelim = None  # lazy barrier-x0 fallback (solve())
+        self._rti_fns = None  # built on first rti_phase use
+        self._rti_phase = 0
+        self._rti_cache = None
+        self._rti_prev_cache = None
         self.N = self.form.N
         self._iterate = self._zero_iterate()
         self._default_init = True
         self._last_stats = None
         self._time_tot = float("nan")
+        self._time_prep = float("nan")
+        self._time_fb = float("nan")
 
     # -- iterate management -------------------------------------------------
     def _zero_iterate(self):
@@ -165,6 +209,70 @@ class AcadosOcpSolver:
         del reset_qp_solver_mem
         self._iterate = self._zero_iterate()
         self._default_init = True
+        self._rti_cache = None
+        self._rti_prev_cache = None
+
+    # -- options ------------------------------------------------------------
+    def options_set(self, field: str, value):
+        """Reference: acados_ocp_solver.py options_set, as
+        acados_tpu/interface/solver.py:233-309 takes it: rti_phase and
+        the runtime options. An option whose path is not ported raises
+        NotImplementedError naming its ROADMAP.md item."""
+        if field == "rti_phase":
+            value = int(value)
+            if value not in (0, 1, 2):
+                raise ValueError("rti_phase must be 0, 1 or 2")
+            if value and self.acados_ocp.solver_options.nlp_solver_type \
+                    != "SQP_RTI":
+                raise ValueError("rti_phase requires SQP_RTI")
+            self._rti_phase = value
+            return
+        if field in _OPTIONS_NOT_PORTED:
+            raise NotImplementedError(
+                f"options_set({field!r}) is not ported yet (ROADMAP.md "
+                f"Queue 1, {_OPTIONS_NOT_PORTED[field]})")
+        if field == "warm_start_first_qp":
+            return  # as acados_tpu: warm starting is explicit here
+        opts, qp_opts = self.opts, self.opts.qp_opts
+        so = self.acados_ocp.solver_options
+        from_so = False
+        if field == "levenberg_marquardt":
+            opts = opts.replace(levenberg_marquardt=float(value))
+        elif field in ("tol_stat", "tol_eq", "tol_ineq", "tol_comp"):
+            opts = opts.replace(**{field: float(value)})
+        elif field in ("qp_tol_stat", "qp_tol_eq", "qp_tol_ineq",
+                       "qp_tol_comp"):
+            opts = opts.replace(qp_opts=qp_opts.replace(
+                **{field[3:]: float(value)}))
+        elif field in ("step_length", "nlp_solver_step_length"):
+            opts = opts.replace(step_length=float(value))
+        elif field == "qp_mu0":
+            opts = opts.replace(qp_opts=qp_opts.replace(mu0=float(value)))
+        elif field == "qp_iter_max":
+            opts = opts.replace(qp_opts=qp_opts.replace(iter_max=int(value)))
+        elif hasattr(opts, field):
+            # string-keyed fallback over SqpOpts (make_sqp_solver refuses
+            # the values of paths not ported yet)
+            cur = getattr(opts, field)
+            cast = type(cur) if cur is not None else (lambda v: v)
+            opts = opts.replace(**{field: cast(value)})
+        elif hasattr(so, field):
+            from_so, old = True, getattr(so, field)
+            setattr(so, field, value)
+        else:
+            raise ValueError(f"options_set: unsupported field {field!r}")
+        try:
+            if from_so:
+                opts = _sqp_opts_from(self.acados_ocp)
+            solve_fn = make_sqp_solver(self.form, opts)
+        except Exception:
+            # an option that is refused leaves the solver as it was
+            if from_so:
+                setattr(so, field, old)
+            raise
+        self._solve_fn, self.opts = solve_fn, opts
+        self._solve_fn_noelim = None
+        self._rti_fns = None
 
     # -- solve ----------------------------------------------------------------
     def _maybe_default_init(self):
@@ -189,8 +297,60 @@ class AcadosOcpSolver:
         return not np.array_equal(self._data["lb_0"][off:off + nx],
                                   self._data["ub_0"][off:off + nx])
 
+    def _data_and_iterate(self):
+        data = data_to_torch(self._data, self.dtype, self.device, batch=1)
+        init = iterate_to_torch({k: v[None] for k, v in
+                                 self._iterate.items()},
+                                self.dtype, self.device)
+        return data, init
+
+    def _solve_rti_phase(self) -> int:
+        """One RTI phase (acados_tpu/interface/solver.py:329-373): 1 is
+        the preparation, 2 the feedback (after an implicit preparation
+        if none is pending)."""
+        if self._rti_fns is None:
+            self._rti_fns = make_rti_solver(self.form, self.opts)
+        prepare, feedback = self._rti_fns
+        self._maybe_default_init()
+
+        def _prepare():
+            # AS-RTI levels start from the previous cycle's cache
+            prev = (self._rti_prev_cache
+                    if self.opts.as_rti_level != "STANDARD" else None)
+            cache = prepare(*self._data_and_iterate(), prev)
+            _fence(cache.g0)
+            return cache
+
+        if self._rti_phase == 1:
+            t0 = time.perf_counter()
+            self._rti_cache = _prepare()
+            self._time_prep = self._time_tot = time.perf_counter() - t0
+            # AS-RTI levels advance the iterate during the preparation
+            if self.opts.as_rti_level != "STANDARD":
+                self._iterate = {k: v[0] for k, v in iterate_to_numpy(
+                    self._rti_cache.it).items()}
+            return 0
+        if self._rti_cache is None:
+            # feedback without a pending preparation: prepare first
+            t0 = time.perf_counter()
+            self._rti_cache = _prepare()
+            self._time_prep = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        data, init = self._data_and_iterate()
+        it, stats = feedback(self._rti_cache, data, init)
+        status = int(stats.status[0])  # host transfer: waits for the card
+        self._time_fb = self._time_tot = time.perf_counter() - t0
+        self._iterate = {k: v[0] for k, v in iterate_to_numpy(it).items()}
+        self._last_stats = stats
+        self._rti_prev_cache, self._rti_cache = self._rti_cache, None
+        self._default_init = False
+        return status
+
     def solve(self) -> int:
-        """Solve; returns the acados status (0 success)."""
+        """Solve; returns the acados status (0 success). With rti_phase
+        1 or 2 set by options_set, runs only that RTI phase."""
+        if self._rti_phase in (1, 2):
+            return self._solve_rti_phase()
         self._maybe_default_init()
         solve_fn = self._solve_fn
         if self._x0_bounds_asymmetric():
@@ -199,11 +359,7 @@ class AcadosOcpSolver:
                     self.form, self.opts.replace(eliminate_x0=False))
             solve_fn = self._solve_fn_noelim
         t0 = time.perf_counter()
-        data = data_to_torch(self._data, self.dtype, self.device, batch=1)
-        init = iterate_to_torch({k: v[None] for k, v in
-                                 self._iterate.items()},
-                                self.dtype, self.device)
-        it, stats = solve_fn(data, init)
+        it, stats = solve_fn(*self._data_and_iterate())
         status = int(stats.status[0])  # host transfer: waits for the card
         self._time_tot = time.perf_counter() - t0
         self._iterate = {k: v[0] for k, v in iterate_to_numpy(it).items()}
@@ -326,6 +482,10 @@ class AcadosOcpSolver:
             return np.concatenate([np.arange(n)[:, None], tab], axis=1).T
         if field == "time_tot":
             return self._time_tot
+        if field == "time_preparation":
+            return self._time_prep
+        if field == "time_feedback":
+            return self._time_fb
         if field == "residuals":
             return self.get_residuals()
         if field == "cost_value":

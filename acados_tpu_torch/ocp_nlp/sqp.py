@@ -1,11 +1,13 @@
 """SQP solver: linearize -> residuals -> regularize -> QP -> step, batch-first.
 
 Counterpart of `acados_tpu/ocp_nlp/sqp.py` for SQP and SQP_RTI with the
-FIXED_STEP globalization, on the Riccati IPM or, with full condensing,
-the dense IPM. The JAX package runs one `lax.while_loop` per
-instance and vmaps it; the port runs the whole batch in lockstep and
-freezes each instance that has stopped with `where(active, new, old)`, so
-per-instance iteration counts and statuses are those of the vmapped loop.
+FIXED_STEP globalization. Each QP goes through the JAX package's
+front-end order: QP scaling, then condensing (none, partial or full),
+then the Riccati IPM or, with full condensing, the dense IPM. The JAX
+package runs one `lax.while_loop` per instance and vmaps it; the port
+runs the whole batch in lockstep and freezes each instance that has
+stopped with `where(active, new, old)`, so per-instance iteration counts
+and statuses are those of the vmapped loop.
 
 Multiplier update rule follows ocp_nlp_update_variables_sqp
 (reference ocp_nlp_common.c:3292): duals blend (1-alpha)*old + alpha*new.
@@ -24,6 +26,7 @@ from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bmax, _bsum,
                                          solve_ocp_qp)
+from acados_tpu_torch.ocp_qp.qpscaling import scale_qp, unscale_sol
 from acados_tpu_torch.ocp_qp.riccati import _mTv
 from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
 from acados_tpu_torch.utils.device import full_precision_matmul
@@ -57,7 +60,12 @@ class SqpOpts:
     full_step_dual: bool = False
     rti: bool = False
     cond_N: int | None = None
+    cond_block_size: tuple | None = None
     full_cond: bool = False
+    # AS-RTI (used by ocp_nlp/rti.py only): STANDARD | A | B | C | D
+    as_rti_level: str = "STANDARD"
+    as_rti_iter: int = 1
+    as_rti_advancement: str = "SIMULATE"  # SHIFT | NONE
     step_length: float = 1.0
     collect_phase_times: bool = False
     timeout_max_time: float = 0.0
@@ -83,8 +91,6 @@ _NOT_PORTED = {
     "globalization": ("FIXED_STEP", "MERIT/FUNNEL globalization"),
     "with_anderson_acceleration": (False, "Anderson acceleration"),
     "with_adaptive_levenberg_marquardt": (False, "adaptive LM"),
-    "qpscaling": ("NO_SCALING", "QP front-ends (qpscaling)"),
-    "cond_N": (None, "QP front-ends (partial condensing)"),
     "qp_solver_name": ("RICCATI_IPM", "QP breadth (registry backends)"),
     "collect_phase_times": (False, "phase times"),
     "timeout_max_time": (0.0, "in-loop timeout"),
@@ -168,6 +174,13 @@ def use_x0_elimination(form: OcpNlpFormulation, opts: SqpOpts) -> bool:
         and opts.qp_solver_name == "RICCATI_IPM")
 
 
+def keep_rows_of(form: OcpNlpFormulation):
+    """Static real-row counts of the stage classes (con_0, con, con_e):
+    partial condensing prunes the padding rows beyond them instead of
+    carrying all nc rows of every eliminated stage."""
+    return (form.con_0.nrows, form.con.nrows, form.con_e.nrows)
+
+
 def _set_at(stat, k, col, value):
     """stat[b, k[b], col] = value[b] for every instance b."""
     idx = torch.arange(stat.shape[0], device=stat.device)
@@ -184,13 +197,32 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     _check_ported(opts)
     full_precision_matmul()
     x0_fixed = use_x0_elimination(form, opts)
+    keep_rows = keep_rows_of(form)
 
     def solve_qp(qp, warm=None):
-        """QP backend dispatch (acados_tpu/ocp_nlp/sqp.py:482-500): full
-        condensing -> the dense IPM, cold; else the Riccati IPM."""
+        """QP dispatch (acados_tpu/ocp_nlp/sqp.py:469-500): scaling, then
+        full condensing (the dense IPM, cold), partial condensing or
+        none (the Riccati IPM)."""
+        scales = None
+        if opts.qpscaling != "NO_SCALING":
+            # x0 rows keep unit scales: the eliminated path reads dx0
+            # from lg on those rows
+            qp, scales = scale_qp(qp,
+                                  unit_rows_0=form.nx if x0_fixed else 0)
+            warm = None  # the warm point is in unscaled units
         if opts.full_cond:
-            return solve_ocp_qp_xcond(qp, opts.qp_opts, full_cond=True)
-        return solve_ocp_qp(qp, opts.qp_opts, warm=warm, x0_fixed=x0_fixed)
+            sol, info = solve_ocp_qp_xcond(qp, opts.qp_opts, full_cond=True)
+        elif opts.cond_N is not None:
+            sol, info = solve_ocp_qp_xcond(
+                qp, opts.qp_opts, cond_N=opts.cond_N, warm=warm,
+                keep_rows=keep_rows, cond_block_size=opts.cond_block_size,
+                x0_fixed=x0_fixed)
+        else:
+            sol, info = solve_ocp_qp(qp, opts.qp_opts, warm=warm,
+                                     x0_fixed=x0_fixed)
+        if scales is not None:
+            sol = unscale_sol(sol, scales)
+        return sol, info
 
     def solve(data: NlpData, init: NlpIterate):
         dtype, dev = init.x.dtype, init.x.device

@@ -94,7 +94,34 @@ failure exits non-zero:
     rounding step of the x0s;
 15. the quadrotor (N = 20) and race car (N = 30, Tf = 0.6) ERK RTI batches
     at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 20 warm calls; every
-    status 0, within stat 5e-3 and eq 1e-4, no kernel launches.
+    status 0, within stat 5e-3 and eq 1e-4, no kernel launches;
+16. RTI phases on the main path's config (pendulum IRK, N = 20, float32,
+    B = 4096): 1 cold + 11 warm + 8 timed prepare() / feedback(x0)
+    cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
+    launches in each prepare() and none in each feedback(); the medians
+    of time_preparation and time_feedback beside the solve() call's;
+17. long-horizon pendulum (bench.py's bench_long_horizon_rti, plain and
+    cond_N16): make_pendulum_ocp(N=128, Tf=1.0), ERK, SQP_RTI, float32,
+    B = 1024, x0 = [0, pi, 0, 0] + N(0, 0.02), both variants in one
+    process: 1 cold + 12 warm calls each (bench.py warms 25: cut for the
+    plain variant's seconds a call), then 3 interleaved rounds of 2
+    timed calls; every status 0, within stat 1e-1 and eq 1e-4
+    (bench.py's _LONGH_TOLS), no kernel launches (nu = 1, condensed
+    nu = 8 <= 12); for each: solves/s, median call with p10/p90, Riccati
+    stages a sweep, kernel launches a call and device busy share
+    (torch.profiler), the QP's share of a call;
+18. chain at qp_solver_cond_N = 8 (n_mass = 8, N = 40, B = 256,
+    float32; blocks of M = 5, condensed nu = 15 > 12, so each condensed
+    stage's Huu goes through K2): 1 cold + 15 warm calls, then 3
+    interleaved rounds of 4 timed calls beside phase 11's plain chain;
+    every status 0 and in tolerance, K1 2 launches a call, K2 exactly 8
+    a lockstep IPM round (8 stages x 1 factorization x the rounds), K2 on
+    the captured (256, 15, 15) Huu batches of the cold call's first round
+    bit for bit against chol_factor_plain, and its time there;
+19. float64 card against CPU of the new paths: the long-horizon
+    pendulum at cond_N = 16 (B = 4), the chain at cond_N = 8 (B = 4) and
+    three prepare() / feedback() cycles of the main path's config
+    (B = 8), each within 1e-9.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -134,6 +161,17 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
               ("race_car", 0.01, dict(N=30, Tf=0.6)))
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
+# the RTI phases on the main path: warm and timed prepare/feedback cycles
+RTI_WARM, RTI_TIMED = 11, 8
+# bench.py's bench_long_horizon_rti: N, B, x0 spread, its float32
+# tolerances (_LONGH_TOLS: stat, eq) and the condensed horizon of its
+# cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
+N_LONG, B_LONG, LONG_SIGMA, COND_LONG = 128, 1024, 0.02, 16
+LONG_TOLS = (1e-1, 1e-4, np.inf, np.inf)
+LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 12, 3, 2
+# the chain at qp_solver_cond_N = 8: condensed nu = 5 * 3 = 15
+COND_CHAIN = 8
+CHAIN_ROUNDS, CHAIN_PER_ROUND = 3, 4
 # K5's edge cases: n at the start, inside and at the end of a band of the
 # kernel's padded sizes (one n in each band: 4, 8, 16, ..., 64), batches
 # that end inside a pair group (4 k + 3 among them), a long batch with
@@ -395,13 +433,16 @@ def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None):
     return batch_at(ocp, x0s, device), ocp
 
 
-def chain_batch(n_mass, B, dtype, device, seed=SEED, moved=False):
+def chain_batch(n_mass, B, dtype, device, seed=SEED, moved=False,
+                cond_N=None):
     """bench_chain_rti's set-up: the chain OCP at N = N_CHAIN, x0 per
     instance = steady state + N(0, CHAIN_SIGMA). moved: every x0 entry
-    moved by one rounding step, up or down at random."""
+    moved by one rounding step, up or down at random. cond_N: the
+    solver's qp_solver_cond_N."""
     from acados_tpu_torch.models.chain_mass import make_chain_mass_ocp
     from acados_tpu_torch.testing import rti_batch as batch_at
     ocp, xrest = make_chain_mass_ocp(n_mass=n_mass, N=N_CHAIN, dtype=dtype)
+    ocp.solver_options.qp_solver_cond_N = cond_N
     rng = np.random.default_rng(seed)
     x0s = xrest + rng.normal(0.0, CHAIN_SIGMA, (B, len(xrest)))
     if moved:
@@ -522,20 +563,33 @@ def linearized(solver):
     return lin, lin()
 
 
-def time_split(solver) -> dict:
+def qp_solve(solver, qp, warm=None):
+    """The SQP's QP dispatch for the solver's options (no scaling, no
+    full condensing): the Riccati IPM, through partial condensing where
+    cond_N is set."""
+    from acados_tpu_torch.ocp_nlp.sqp import keep_rows_of, use_x0_elimination
+    from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
+    form, opts = solver.form, solver.opts
+    return solve_ocp_qp_xcond(
+        qp, opts.qp_opts, cond_N=opts.cond_N, warm=warm,
+        keep_rows=keep_rows_of(form), cond_block_size=opts.cond_block_size,
+        x0_fixed=use_x0_elimination(form, opts))
+
+
+def time_split(solver, reps: int = 5, profiled: int = 3) -> dict:
     """Where the time of one warm RTI call goes: its layers on the host
-    clock (each synchronised, medians), then a torch.profiler trace of a
-    few calls for the device's busy share and kernel launches per call.
-    The QP is warm-started from the NLP multipliers where the
-    configuration asks for it, as the SQP loop does."""
+    clock (each synchronised, medians of `reps`), then a torch.profiler
+    trace of a few calls for the device's busy share and kernel launches
+    per call (`profiled` calls: the profiler's bookkeeping grows with the
+    launches). The QP goes through the solver's dispatch (partial
+    condensing where cond_N is set) and is warm-started from the NLP
+    multipliers where the configuration asks for it, as the SQP loop
+    does."""
     import torch
-    from acados_tpu_torch.ocp_nlp.sqp import (_nlp_residuals,
-                                              use_x0_elimination)
+    from acados_tpu_torch.ocp_nlp.sqp import _nlp_residuals
     from acados_tpu_torch.ocp_qp.data import OcpQpSol
-    from acados_tpu_torch.ocp_qp.ipm import solve_ocp_qp
     form, opts = solver.form, solver.opts
     data, it = solver._data_dev, solver._it_dev
-    x0f = use_x0_elimination(form, opts)
     M = it.u.shape[0] * it.u.shape[1]
     flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
     step_args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
@@ -547,16 +601,18 @@ def time_split(solver) -> dict:
                         pi=it.pi, lam_lg=it.lam_l, lam_ug=it.lam_u,
                         t_lg=torch.ones_like(it.lam_l),
                         t_ug=torch.ones_like(it.lam_u), sl=it.sl, su=it.su)
-    _, info = solve_ocp_qp(qp, opts.qp_opts, warm=warm, x0_fixed=x0f)
-    out = dict(call_ms=host_ms(solver.solve),
-               linearize_ms=host_ms(lin),
-               irk_step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args)),
-               qp_ms=host_ms(lambda: solve_ocp_qp(qp, opts.qp_opts,
-                                                  warm=warm, x0_fixed=x0f)),
+    _, info = qp_solve(solver, qp, warm)
+    out = dict(call_ms=host_ms(solver.solve, reps),
+               linearize_ms=host_ms(lin, reps),
+               step_jac_ms=host_ms(lambda: form.step_jac_fn(*step_args),
+                                   reps),
+               qp_ms=host_ms(lambda: qp_solve(solver, qp, warm), reps),
                qp_rounds=int(info.num_iter.max()),
-               residuals_ms=host_ms(lambda: _nlp_residuals(qp, it)))
+               riccati_stages=opts.cond_N or form.N,
+               residuals_ms=host_ms(lambda: _nlp_residuals(qp, it), reps))
     out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
-    out.update(profile_calls(solver, out["call_ms"]))
+    out["qp_share"] = out["qp_ms"] / out["call_ms"]
+    out.update(profile_calls(solver, out["call_ms"], profiled))
     return out
 
 
@@ -583,17 +639,19 @@ def fc_time_split(solver) -> dict:
     return out
 
 
-def card_vs_cpu(label, make, moved=None, calls=3):
+def card_vs_cpu(label, make, moved=None, calls=3, step=None):
     """The same float64 batch (make(device) -> solver) on the card and on
-    the CPU, `calls` RTI calls: equal statuses and qp_iter, and
-    max |d|/(1 + |ref|) over x, u, pi within 1e-9, naming the worst
-    instance. moved, if given, makes the CPU batch again from inputs
-    moved by one rounding step (moved() -> solver), to log the CPU's own
-    spread beside the card's gap."""
+    the CPU, `calls` RTI calls (step(solver) -> statuses, default
+    solver.solve()): equal statuses and qp_iter, and max |d|/(1 + |ref|)
+    over x, u, pi within 1e-9, naming the worst instance. moved, if
+    given, makes the CPU batch again from inputs moved by one rounding
+    step (moved() -> solver), to log the CPU's own spread beside the
+    card's gap."""
     import torch
+    step = step or (lambda s: s.solve())
     gpu, cpu = make(torch.device("cuda")), make("cpu")
     for _ in range(calls):
-        st_g, st_c = gpu.solve(), cpu.solve()
+        st_g, st_c = step(gpu), step(cpu)
         if not (np.array_equal(st_g, st_c) and np.array_equal(
                 gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
             raise SystemExit(f"{label}: card and CPU disagree on "
@@ -618,7 +676,7 @@ def card_vs_cpu(label, make, moved=None, calls=3):
     if moved is not None:
         cpu_moved = moved()
         for _ in range(calls):
-            cpu_moved.solve()
+            step(cpu_moved)
         gm = gaps(cpu_moved)
         log(f"  CPU against the CPU on x0s moved by one rounding step: "
             f"worst instance {int(np.argmax(gm))} ({gm.max():.3e}; "
@@ -1197,8 +1255,8 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
 
 def chain_path(dev):
     """Phase 11: the chain RTI batch at full width. Returns K1's kernels
-    entry at the chain's shape and the dynamics Jacobians A of one
-    linearisation, (B * N, nx, nx)."""
+    entry at the chain's shape, the dynamics Jacobians A of one
+    linearisation, (B * N, nx, nx), and the warm solver."""
     from acados_tpu_torch.ops import batched_inv
     solver = chain_batch(N_MASS, B_CHAIN, "float32", dev)
     nx = solver.form.nx
@@ -1230,7 +1288,7 @@ def chain_path(dev):
     entry = k1_entry("gj_inverse_chain", D, counts["gj_inverse"], rel,
                      abs_err, before=K1_PARENT_CHAIN_DEVICE_MS)
     _, qp = linearized(solver)
-    return entry, qp.A.reshape(M, nx, nx).contiguous()
+    return entry, qp.A.reshape(M, nx, nx).contiguous(), solver
 
 
 def chain_sweep(dev):
@@ -1383,6 +1441,242 @@ def erk_models(dev):
             raise SystemExit(f"{name}: unexpected kernel launches {counts}")
 
 
+def rti_phases(dev, call_med_ms: float) -> None:
+    """Phase 16: prepare() / feedback(x0) cycles on the main path's
+    config at STANDARD. call_med_ms: the main path's median solve() call
+    in this run, logged beside."""
+    solver, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                               nlp_solver_type="SQP_RTI",
+                               integrator_type="IRK"), B_MAIN, dev)
+    x0s = solver._data["lb_0"][:, :4].copy()
+    prep, fb, bad = [], [], []
+    t_prep, t_fb = [], []
+    for c in range(1 + RTI_WARM + RTI_TIMED):
+        reset_counts()
+        solver.prepare()
+        prep.append(read_counts())
+        reset_counts()
+        st = solver.feedback(x0=x0s)
+        fb.append(read_counts())
+        if np.any(st != 0):
+            bad.append(c)
+        if c > RTI_WARM:
+            t_prep.append(solver.get_stats("time_preparation") * 1e3)
+            t_fb.append(solver.get_stats("time_feedback") * 1e3)
+    ok_tol, res, tols = in_tolerance(solver)
+    want_prep = dict(gj_inverse=LAUNCHES_PER_RTI)
+    prep_ok = all(c == {**{k: 0 for k in c}, **want_prep} for c in prep)
+    fb_ok = not any(v for c in fb for v in c.values())
+    spread = lambda t: (f"median {np.median(t):.2f} ms (p10 "
+                        f"{np.percentile(t, 10):.2f}, p90 "
+                        f"{np.percentile(t, 90):.2f})")
+    log(f"RTI phases: pendulum IRK, B={B_MAIN}, N={N_HORIZON}, float32, "
+        f"STANDARD, {len(prep)} prepare()/feedback(x0) cycles; launches in "
+        f"each prepare() {prep[-1]} (8 K1 in every one: {prep_ok}), in "
+        f"each feedback() {fb[-1]} (none in every one: {fb_ok}); last "
+        f"qp_iter max {int(solver.get_stats('qp_iter').max())}")
+    log(f"  residual maxima {res.tolist()} vs tolerances {list(tols)}: "
+        f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
+    log(f"  time_preparation {spread(t_prep)}, time_feedback "
+        f"{spread(t_fb)} over {len(t_fb)} cycles; the solve() call "
+        f"{call_med_ms:.2f} ms (phase 4)")
+    if bad or not (ok_tol and prep_ok and fb_ok):
+        raise SystemExit(f"RTI phases failed: non-zero statuses in cycles "
+                         f"{bad}, in tolerance {ok_tol}, launches "
+                         f"{prep_ok} {fb_ok}")
+
+
+def long_batch(B, dtype, device, cond_N=None, seed=SEED):
+    """bench_long_horizon_rti's set-up: the pendulum ERK SQP-RTI OCP at
+    N = N_LONG, Tf = 1, x0 per instance = [0, pi, 0, 0] +
+    N(0, LONG_SIGMA), with qp_solver_cond_N = cond_N."""
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    ocp = make_pendulum_ocp(N=N_LONG, Tf=1.0, nlp_solver_type="SQP_RTI",
+                            dtype=dtype)
+    ocp.solver_options.qp_solver_cond_N = cond_N
+    rng = np.random.default_rng(seed)
+    x0s = np.asarray(X0_CENTER) + rng.normal(0.0, LONG_SIGMA, (B, 4))
+    return batch_at(ocp, x0s, device)
+
+
+def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
+                warmed=()) -> dict:
+    """Each solver of {name: solver} but those named in `warmed`: 1 cold
+    + `warm` calls; then `rounds` rounds in which every solver takes
+    `per_round` timed calls in turn. Every status must be 0 and each
+    solver's last call in tolerance. Counts are set to 0 before and read
+    after each call and summed per solver. Returns {name: (timed call
+    ms, largest qp_iter per call, launch counts)}."""
+    import torch
+    out = {name: ([], [], {}) for name in solvers}
+
+    def call(name, timed):
+        s = solvers[name]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = s.solve()
+        torch.cuda.synchronize()
+        dt = (time.perf_counter() - t0) * 1e3
+        for k, v in read_counts().items():
+            out[name][2][k] = out[name][2].get(k, 0) + v
+        out[name][1].append(int(s.get_stats("qp_iter").max()))
+        if timed:
+            out[name][0].append(dt)
+        if np.any(st != 0):
+            raise SystemExit(f"{label} {name}: non-zero statuses "
+                             f"{np.unique(st, return_counts=True)}")
+
+    for name in solvers:
+        for _ in range(0 if name in warmed else 1 + warm):
+            call(name, False)
+    for _ in range(rounds):
+        for name in solvers:
+            for _ in range(per_round):
+                call(name, True)
+    for name, s in solvers.items():
+        ok_tol, res, tl = in_tolerance(s, tols)
+        log(f"  {label} {name}: residual maxima {res.tolist()} vs "
+            f"tolerances {list(tl)}: "
+            f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
+        if not ok_tol:
+            raise SystemExit(f"{label} {name} not in tolerance")
+    return out
+
+
+def long_horizon(dev) -> None:
+    """Phase 17: bench_long_horizon_rti's plain and cond_N16 variants at
+    full width, in one process."""
+    solvers = {"plain": long_batch(B_LONG, "float32", dev),
+               f"cond_N{COND_LONG}": long_batch(B_LONG, "float32", dev,
+                                                cond_N=COND_LONG)}
+    runs = interleaved(solvers, "long horizon", LONG_TOLS, LONG_WARM,
+                       LONG_ROUNDS, LONG_PER_ROUND)
+    log(f"long horizon: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LONG}, "
+        f"float32, 1 cold + {LONG_WARM} warm calls a variant (bench.py "
+        f"warms 25; cut for the plain variant's call time), then "
+        f"{LONG_ROUNDS} interleaved rounds of {LONG_PER_ROUND} timed calls")
+    for name, s in solvers.items():
+        call_ms, qp_max, counts = runs[name]
+        split = time_split(s, reps=3 if name == "plain" else 5, profiled=1)
+        log(f"  {name}: {call_stats(call_ms, B_LONG)}; Riccati stages a "
+            f"sweep {split['riccati_stages']}; kernel launches a call "
+            f"{split['kernel_launches_per_call']:.0f} (device busy "
+            f"{split['device_busy_share'] * 100:.1f} %); QP "
+            f"{split['qp_ms']:.2f} of {split['call_ms']:.2f} ms a call "
+            f"({split['qp_share'] * 100:.1f} %); largest qp_iter per call "
+            f"{qp_max}; launches of the repo's kernels {counts}")
+        log(f"    time split: {json.dumps(split)}")
+        if any(counts.values()):
+            raise SystemExit(f"long horizon {name}: unexpected kernel "
+                             f"launches {counts}")
+
+
+def chain_cond(dev, plain) -> dict:
+    """Phase 18: the chain at qp_solver_cond_N = COND_CHAIN beside phase
+    11's warm plain chain, interleaved. Returns K2's kernels entry at the
+    condensed stages' (B, 15, 15) Huu."""
+    import torch
+    from acados_tpu_torch.ocp_qp import riccati
+    from acados_tpu_torch.ops import batched_chol
+    solver = chain_batch(N_MASS, B_CHAIN, "float32", dev, cond_N=COND_CHAIN)
+    nu_c = (N_CHAIN // COND_CHAIN) * solver.form.nu
+    huu = []
+    orig = riccati.chol_any
+
+    def capture(H):
+        if len(huu) < COND_CHAIN:   # the cold call's first round
+            huu.append(H.detach().clone())
+        return orig(H)
+
+    riccati.chol_any = capture
+    try:
+        runs = interleaved({"plain": plain, "cond": solver}, "chain",
+                           CHAIN_TOLS, WARM_CALLS, CHAIN_ROUNDS,
+                           CHAIN_PER_ROUND, warmed=("plain",))
+    finally:
+        riccati.chol_any = orig
+    cond_ms, qp_max, counts = runs["cond"]
+    plain_ms = runs["plain"][0]
+    calls = len(qp_max)
+    want_k2 = COND_CHAIN * 1 * sum(qp_max)
+    log(f"chain at cond_N={COND_CHAIN}: n_mass={N_MASS}, N={N_CHAIN}, "
+        f"B={B_CHAIN}, float32, {calls} solve() calls, blocks of "
+        f"{N_CHAIN // COND_CHAIN} stages, condensed nu={nu_c}; launches "
+        f"{counts}; largest qp_iter per call {qp_max} (sum "
+        f"{sum(qp_max)}: K2 expected {COND_CHAIN} stages x 1 factorization "
+        f"a round x {sum(qp_max)} rounds = {want_k2})")
+    log(f"  interleaved, {CHAIN_ROUNDS} rounds of {CHAIN_PER_ROUND}: "
+        f"cond_N={COND_CHAIN} {call_stats(cond_ms, B_CHAIN)}; plain "
+        f"{call_stats(plain_ms, B_CHAIN)}")
+    if counts["chol_factor"] != want_k2 or \
+            counts["gj_inverse"] != K1_PER_CHAIN_CALL * calls or any(
+                counts[k] for k in ("chol_solve", "chol_factor_solve",
+                                    "small_mm")):
+        raise SystemExit(f"chain cond: expected {want_k2} K2 and "
+                         f"{K1_PER_CHAIN_CALL * calls} K1 launches, "
+                         f"counted {counts}")
+    split = time_split(solver)
+    log(f"  cond_N={COND_CHAIN}: Riccati stages a sweep "
+        f"{split['riccati_stages']}; kernel launches a call "
+        f"{split['kernel_launches_per_call']:.0f} (device busy "
+        f"{split['device_busy_share'] * 100:.1f} %); QP {split['qp_ms']:.2f} "
+        f"of {split['call_ms']:.2f} ms ({split['qp_share'] * 100:.1f} %)")
+    log(f"    time split: {json.dumps(split)}")
+    # K2 on the path's own Huu batches against its plain version
+    if len(huu) != COND_CHAIN or any(H.shape != (B_CHAIN, nu_c, nu_c)
+                                     for H in huu):
+        raise SystemExit(f"captured {len(huu)} Huu batches "
+                         f"{[tuple(H.shape) for H in huu]}")
+    kern = batched_chol.chol_factor_batched
+    abs_err = 0.0
+    for H in huu:
+        Lk, Lp = kern(H), batched_chol.chol_factor_plain(H)
+        torch.cuda.synchronize()
+        if not same_bits(Lk, Lp) or not bool(torch.isfinite(Lk).all()):
+            raise SystemExit("K2 disagrees with its plain version on the "
+                             "chain's condensed Huu")
+        abs_err = max(abs_err, float((Lk - Lp).abs().max()))
+    H = huu[0]
+    k_ms = cuda_ms(lambda: kern(H), reps=30)
+    k_dev = device_ms(lambda: kern(H))
+    p_ms = cuda_ms(lambda: batched_chol.chol_factor_plain(H), reps=10)
+    l_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=20)
+    l_dev = kernel_busy_ms(lambda: torch.linalg.cholesky_ex(H))
+    b_ms, b_by = chol_bound("chol_factor", B_CHAIN, nu_c, H.dtype)
+    log(f"K2 on the chain's {len(huu)} condensed Huu batches "
+        f"{tuple(H.shape)} float32: bit for bit with chol_factor_plain; "
+        f"kernel {k_ms:.4f} ms (device {k_dev:.4f} ms back to back), plain "
+        f"{p_ms:.4f} ms, torch.linalg.cholesky_ex {l_ms:.4f} ms (its "
+        f"kernels {l_dev:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+    return {"name": "chol_factor_chain_cond8", "route": "cuda",
+            "source": "acados_tpu_torch/csrc/batched_chol.cu",
+            "replaces": "acados_tpu/ops/batched_chol.py:38",
+            "shape": list(H.shape), "launches": counts["chol_factor"],
+            "max_abs_err": abs_err, "ms": k_ms, "device_ms": k_dev,
+            "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": l_ms, "library_device_ms": l_dev}
+
+
+def new_paths_vs_cpu() -> None:
+    """Phase 19: float64 card against CPU of the long-horizon pendulum
+    at cond_N = 16, the chain at cond_N = 8 and the RTI phases."""
+    card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
+                f"cond_N={COND_LONG})",
+                lambda where: long_batch(4, "float64", where,
+                                         cond_N=COND_LONG, seed=1))
+    card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN}, "
+                f"cond_N={COND_CHAIN})",
+                lambda where: chain_batch(N_MASS, 4, "float64", where,
+                                          cond_N=COND_CHAIN))
+    kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
+                integrator_type="IRK")
+    card_vs_cpu("RTI phases reference check (prepare/feedback)",
+                lambda where: rti_batch(kw64, 8, where, seed=1)[0],
+                step=lambda s: (s.prepare(), s.feedback())[1])
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1393,8 +1687,13 @@ def main() -> int:
     from acados_tpu_torch.ops import batched_chol, batched_inv, cuda_build
     from acados_tpu_torch.ops.linsolve import linsolve
     from acados_tpu_torch.utils.device import full_precision_matmul
+    t_run = time.perf_counter()
+
+    def at(phase):
+        log(f"-- phase {phase} from {time.perf_counter() - t_run:.1f} s")
 
     # ---- 1. device ---------------------------------------------------------
+    at(1)
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -1404,6 +1703,7 @@ def main() -> int:
     dev = torch.device("cuda")
 
     # ---- 2. build ------------------------------------------------------------
+    at(2)
     t0 = time.perf_counter()
     reports = cuda_build.build_all()
     log(f"build: {sorted(cuda_build.SOURCES)} in "
@@ -1414,6 +1714,7 @@ def main() -> int:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- 3. K1 against its plain version --------------------------------------
+    at(3)
     log("K1 gj_inverse: kernel vs plain version on the card")
     solver, ocp = rti_batch(dict(N=N_HORIZON, dtype="float32",
                                  nlp_solver_type="SQP_RTI",
@@ -1474,6 +1775,7 @@ def main() -> int:
     k1_ms = kernels[0]["ms"]
 
     # ---- 4. main path ----------------------------------------------------------
+    at(4)
     n_calls = 1 + WARM_CALLS + TIMED_CALLS
     reset_counts()
     call_ms, qp_max = run_calls(solver, "main path")
@@ -1494,12 +1796,14 @@ def main() -> int:
     log(f"  time split: {json.dumps(time_split(solver))}")
 
     # ---- 5. reference check at a small input --------------------------------------
+    at(5)
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
     card_vs_cpu("reference check",
                 lambda where: rti_batch(kw64, 8, where, seed=1)[0])
 
     # ---- 6. full-condensing path ----------------------------------------------------
+    at(6)
     fc, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
                            nlp_solver_type="SQP_RTI", integrator_type="IRK"),
                       B_MAIN, dev, qp_solver=FULL_COND)
@@ -1545,6 +1849,7 @@ def main() -> int:
     log(f"  time split: {json.dumps(fc_time_split(fc))}")
 
     # ---- 7. K2, K3, K4 against their plain versions ---------------------------------
+    at(7)
     log("K2/K3/K4 batched Cholesky: kernels vs plain versions on the card")
     b_hb = torch.as_tensor(rng.normal(size=(B_MAIN, nv)), device=dev)
     errs32 = check_chol(f"barrier Hessians {tuple(Hb.shape)}", Hb,
@@ -1611,6 +1916,7 @@ def main() -> int:
                   parent=parent)
 
     # ---- 8. the public ops entry points ----------------------------------------------
+    at(8)
     from acados_tpu_torch.ops import (chol_factor_batched,
                                       chol_factor_solve_batched,
                                       chol_solve_batched)
@@ -1639,32 +1945,56 @@ def main() -> int:
         kd["launches"] = counts[kd["name"]]
 
     # ---- 9. full-condensing reference check ------------------------------------------
+    at(9)
     card_vs_cpu("full-condensing reference check",
                 lambda where: rti_batch(kw64, 8, where, seed=1,
                                         qp_solver=FULL_COND)[0])
 
     # ---- 10. Riccati IPM with a free initial state at nx = 16 -----------------------------
+    at(10)
     riccati_free_x0(dev)
 
     # ---- 11. chain path at full width (the Kronecker IRK path) -----------------------------
-    k1_chain, A_chain = chain_path(dev)
+    at(11)
+    k1_chain, A_chain, chain_plain = chain_path(dev)
     kernels.append(k1_chain)
 
     # ---- 12. chain sweep -------------------------------------------------------------------
+    at(12)
     chain_sweep(dev)
 
     # ---- 13. K5 against its plain version, its times -----------------------------------------
+    at(13)
     kernels.append(small_mm_phase(dev, A_chain))
 
     # ---- 14. chain reference check -----------------------------------------------------------
+    at(14)
     card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN})",
                 lambda where: chain_batch(N_MASS, 4, "float64", where),
                 moved=lambda: chain_batch(N_MASS, 4, "float64", "cpu",
                                           moved=True))
 
     # ---- 15. quadrotor and race car ------------------------------------------------------------
+    at(15)
     erk_models(dev)
 
+    # ---- 16. RTI phases on the main path's config ---------------------------
+    at(16)
+    rti_phases(dev, med)
+
+    # ---- 17. long-horizon pendulum, plain and cond_N16 ----------------------
+    at(17)
+    long_horizon(dev)
+
+    # ---- 18. chain at cond_N = 8 (K2 on the condensed Huu) ------------------
+    at(18)
+    kernels.append(chain_cond(dev, chain_plain))
+
+    # ---- 19. float64 card against CPU of the new paths ----------------------
+    at(19)
+    new_paths_vs_cpu()
+
+    log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {card_line()}")
     log(json.dumps({"ok": True, "device": {

@@ -192,9 +192,12 @@ def test_xcond_full_cond_matches_jax_barrier_x0_rows(soft):
 
 def test_xcond_dispatch():
     """cond_N None or >= N is the Riccati IPM on the QP as it is; a
-    smaller cond_N is partial condensing, which raises; x0_fixed does not
-    combine with full condensing (as in the JAX package)."""
-    qp = to_torch(qp_batch(61))
+    smaller cond_N is partial condensing, which agrees with the JAX
+    package's front-end (x0 eliminated through the condensing: equal
+    iteration counts and statuses, every field within 1e-9); x0_fixed
+    does not combine with full condensing (as in the JAX package)."""
+    d = qp_batch(61)
+    qp = to_torch(d)
     opts = IpmOpts(iter_max=50)
     ref, ref_info = solve_ocp_qp(qp, opts, x0_fixed=True)
     for cond_N in (None, N, N + 3):
@@ -202,8 +205,16 @@ def test_xcond_dispatch():
                                        x0_fixed=True)
         np.testing.assert_array_equal(info.num_iter, ref_info.num_iter)
         np.testing.assert_array_equal(sol.u.numpy(), ref.u.numpy())
-    with pytest.raises(NotImplementedError, match="partial condensing"):
-        solve_ocp_qp_xcond(qp, opts, cond_N=N // 2)
+    sol, info = solve_ocp_qp_xcond(qp, opts, cond_N=N // 2, x0_fixed=True)
+    jsol, jinfo = jax.jit(jax.vmap(lambda q: jax_xcond(
+        q, JIpmOpts(iter_max=50), cond_N=N // 2, x0_fixed=True)))(to_jax(d))
+    np.testing.assert_array_equal(info.num_iter.numpy(),
+                                  np.asarray(jinfo.num_iter))
+    np.testing.assert_array_equal(info.status.numpy(),
+                                  np.asarray(jinfo.status))
+    assert np.all(info.status.numpy() == 0)
+    for f in tdata.OcpQpSol.__dataclass_fields__:
+        _close(getattr(sol, f).numpy(), getattr(jsol, f), 1e-9, f)
     with pytest.raises(ValueError, match="x0_fixed"):
         solve_ocp_qp_xcond(qp, opts, full_cond=True, x0_fixed=True)
 

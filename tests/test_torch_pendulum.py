@@ -337,8 +337,9 @@ def test_cond_N_mapping(monkeypatch):
     """qp_solver_cond_N as the JAX interface maps it: cond_N = N is
     HPIPM's "no condensing" and solves like the default, with the JAX
     package's iterates; a FULL_CONDENSING_* qp_solver ignores cond_N and
-    runs the dense IPM; a cond_N < N is partial condensing, which is not
-    ported and raises."""
+    runs the dense IPM; a cond_N < N is partial condensing, which solves
+    like the JAX package's (equal iteration counts, iterates within
+    1e-9)."""
     def with_cond(make_ocp, cond_N, full=False):
         ocp = (_full_cond(make_ocp) if full else make_ocp)(N=N,
                                                            dtype="float64")
@@ -369,5 +370,11 @@ def test_cond_N_mapping(monkeypatch):
     assert dense.solve() == 0
     assert len(calls) == dense.get_stats("sqp_iter") + 1
 
-    with pytest.raises(NotImplementedError, match="partial condensing"):
-        AcadosOcpSolver(with_cond(make_pendulum_ocp, N // 4), device="cpu")
+    part = AcadosOcpSolver(with_cond(make_pendulum_ocp, N // 4),
+                           device="cpu")
+    part_ref = JaxOcpSolver(with_cond(jax_pendulum_ocp, N // 4))
+    assert part.opts.cond_N == part_ref.opts.cond_N == N // 4
+    assert part.solve() == part_ref.solve() == 0
+    for field in ("sqp_iter", "qp_iter"):
+        assert part.get_stats(field) == part_ref.get_stats(field)
+    _assert_stages_agree(part, part_ref, ("x", "u", "pi"))
