@@ -23,6 +23,10 @@ from acados_tpu_torch.interface.acados_ocp import (AcadosModel, AcadosOcp,
                                                    AcadosOcpDims,
                                                    AcadosOcpOptions)
 from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+from acados_tpu_torch.interface.sim_solver import (AcadosSim,
+                                                   AcadosSimBatchSolver,
+                                                   AcadosSimOpts,
+                                                   AcadosSimSolver)
 from acados_tpu_torch.interface.solver import AcadosOcpSolver
 from acados_tpu_torch.utils.types import ACADOS_INFTY, AcadosStatus
 
@@ -31,5 +35,7 @@ __version__ = "0.1.0"
 __all__ = [
     "AcadosModel", "AcadosOcp", "AcadosOcpConstraints", "AcadosOcpCost",
     "AcadosOcpDims", "AcadosOcpOptions", "AcadosOcpSolver",
-    "AcadosOcpBatchSolver", "ACADOS_INFTY", "AcadosStatus",
+    "AcadosOcpBatchSolver", "AcadosSim", "AcadosSimOpts",
+    "AcadosSimSolver", "AcadosSimBatchSolver", "ACADOS_INFTY",
+    "AcadosStatus",
 ]

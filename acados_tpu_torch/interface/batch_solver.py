@@ -9,8 +9,9 @@ The data and the iterate stay on the device between solves and between
 the RTI phases (`prepare`, `feedback`), so a warm RTI loop moves nothing
 to the host but the statuses (and the measured x0s it is given); the
 per-instance views `ocp_solvers[i].get/set` work on a host copy that is
-moved across only when it changed. The sensitivities wait (ROADMAP.md
-Queue 1).
+moved across only when it changed. The solution sensitivities work on
+the same device-resident data and iterate: one KKT factor of the whole
+batch, the seed directions a vmapped axis.
 """
 from __future__ import annotations
 
@@ -21,11 +22,14 @@ import torch
 
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import build_ocp, data_to_torch
-from acados_tpu_torch.interface.solver import (_bound_slot, _fence,
-                                               _sqp_opts_from, _torch_dtype,
-                                               iterate_to_numpy,
+from acados_tpu_torch.interface.solver import (_adjoint_wrt, _bound_slot,
+                                               _fence, _forward_over_seeds,
+                                               _seeds, _sqp_opts_from,
+                                               _torch_dtype, iterate_to_numpy,
                                                iterate_to_torch)
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
+from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
+                                                  adjoint_sensitivity)
 from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
@@ -108,6 +112,7 @@ class AcadosOcpBatchSolver:
         self._rti_cache = None
         self._time_prep = float("nan")
         self._time_fb = float("nan")
+        self._kf = None  # (data, iterate, KktFactor) of the last factor
 
     def _layout(self, stage):
         return self.layouts["0" if stage == 0
@@ -197,6 +202,72 @@ class AcadosOcpBatchSolver:
         status = self._take(it, stats)
         self._time_fb = self._time_tot = time.perf_counter() - t0
         return status
+
+    # -- batched solution sensitivities ---------------------------------------
+    # acados_tpu/interface/batch_solver.py:250-357: one KktFactor of the
+    # whole batch at the device-resident data and iterate; the seed
+    # directions are a torch.func.vmap axis, folded into the kernels'
+    # batch by their vmap rules
+
+    def _kkt_factor(self) -> KktFactor:
+        """The KKT factor at the current data and iterate, kept until
+        either changes (a solve, a feedback or a set)."""
+        data, it = self._on_device()
+        if self._kf is None or self._kf[0] is not data \
+                or self._kf[1] is not it:
+            self._kf = (data, it, KktFactor(self.form, SensOpts(), data,
+                                            it))
+        return self._kf[2]
+
+    def eval_solution_sensitivity(self, stages, with_respect_to,
+                                  return_sens_x=True, return_sens_u=True,
+                                  sanity_checks=True):
+        """Batched forward solution sensitivities (reference
+        acados_ocp_batch_solver.py:342) with respect to every entry of
+        'initial_state' or 'params_global'.
+
+        Returns arrays of shape (N_batch, len(stages), dim, n_seeds)."""
+        del sanity_checks
+        if isinstance(stages, int):
+            stages = [stages]
+        dxs, dus = _forward_over_seeds(self._kkt_factor(),
+                                       self._layout(0), with_respect_to)
+        dxs, dus = dxs.cpu().numpy(), dus.cpu().numpy()
+        sens_x = np.stack([dxs[:, s] for s in stages], axis=1)
+        sens_u = np.stack([dus[:, s] if s < self.N
+                           else np.zeros_like(dus[:, 0]) for s in stages],
+                          axis=1)
+        out = []
+        if return_sens_x:
+            out.append(sens_x)
+        if return_sens_u:
+            out.append(sens_u)
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def eval_adjoint_solution_sensitivity(self, seed_x, seed_u,
+                                          with_respect_to="params_global",
+                                          sanity_checks=True):
+        """Batched adjoint solution sensitivities, the RL policy-gradient
+        path (reference acados_ocp_batch_solver.py:227 ->
+        ocp_nlp_eval_solution_sens_adj_p): one Riccati-factored IFT solve
+        of the whole batch.
+
+        seed_x/seed_u: arrays (N_batch, N+1, nx) / (N_batch, N, nu), or
+        lists of (stage, (N_batch, dim) array) pairs ((N_batch, dim,
+        n_seeds) arrays are summed over the seeds), or None. Returns
+        (N_batch, np) for 'params_global', (N_batch, N+1, np) for
+        'p_stagewise', (N_batch, nbx0) for 'initial_state', or the
+        batch's NlpData of gradients for 'all'."""
+        del sanity_checks
+        B, N, nx, nu = self.N_batch, self.N, self.form.nx, self.form.nu
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.device)
+        grad = adjoint_sensitivity(self._kkt_factor(),
+                                   as_t(_seeds((B, N + 1, nx), seed_x)),
+                                   as_t(_seeds((B, N, nu), seed_u)))
+        if with_respect_to == "all":
+            return grad
+        return _adjoint_wrt(grad, self._layout(0), with_respect_to)
 
     def get_stats(self, field):
         if field == "time_tot":

@@ -12,8 +12,10 @@ cost_set, constraints_set, options_set (rti_phase and the runtime
 options of the ported paths), the RTI phases (solve() after
 options_set("rti_phase", 1 or 2), AS-RTI levels A-D), get_status,
 get_stats (sqp_iter, qp_iter, residuals, time_tot, time_preparation,
-time_feedback, statistics), get_residuals, get_cost, reset. The
-sensitivities and in-loop phase times wait (ROADMAP.md Queue 1).
+time_feedback, statistics), get_residuals, get_cost, reset, and the
+solution sensitivities (eval_param_sens, eval_solution_sensitivity,
+eval_adjoint_solution_sensitivity, eval_and_get_optimal_value_gradient).
+p_global and the in-loop phase times wait (ROADMAP.md Queue 1).
 """
 from __future__ import annotations
 
@@ -25,8 +27,14 @@ import torch
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import (StageLayout, build_ocp,
                                                 data_to_torch)
+from acados_tpu_torch.ocp_nlp.formulation import NlpData
 from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
+from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
+                                                  adjoint_sensitivity,
+                                                  eval_lagrange_grad_p,
+                                                  forward_sensitivity,
+                                                  optimal_value_grad_x0)
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
                                           use_x0_elimination)
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts
@@ -456,6 +464,102 @@ class AcadosOcpSolver:
         else:
             self._data[key][stage - 1][off:off + n] = value
 
+    # -- solution sensitivities ----------------------------------------------
+    # acados_tpu/interface/solver.py:613-760, on a batch of one
+
+    def _kkt_factor(self) -> KktFactor:
+        so = self.acados_ocp.solver_options
+        return KktFactor(self.form,
+                         SensOpts(t_lam_min=so.solution_sens_qp_t_lam_min),
+                         *self._data_and_iterate())
+
+    def eval_param_sens(self, index: int, stage=None):
+        """Forward solution sensitivity with respect to one parameter
+        entry (reference eval_param_sens -> ocp_nlp_common_eval_param_sens,
+        ocp_nlp_common.c:4039). stage=None seeds the parameter at every
+        stage (the global-parameter convention), an int only that stage.
+
+        Returns a dict with 'sens_x' (N+1, nx) and 'sens_u' (N, nu)."""
+        kf = self._kkt_factor()
+        dp = torch.zeros_like(kf.data.p)
+        dp[:, slice(None) if stage is None else stage, index] = 1.0
+        dx, du, _, _, _ = forward_sensitivity(kf, _seed_data(p=dp))
+        return {"sens_x": dx[0].cpu().numpy(),
+                "sens_u": du[0].cpu().numpy()}
+
+    def set_p_global_and_precompute_dependencies(self, p_global_values):
+        raise NotImplementedError(
+            "model.p_global is not ported yet (ROADMAP.md Queue 1, item "
+            "17, p_global)")
+
+    def eval_and_get_optimal_value_gradient(self,
+                                            with_respect_to="p_global"):
+        """Gradient of the optimal objective with respect to 'p_global'
+        (the parameter shared by every stage) or 'initial_state', by the
+        envelope theorem at the converged KKT point (reference
+        eval_lagr_grad_p, ocp_nlp_common.c:4181)."""
+        data, it = self._data_and_iterate()
+        if with_respect_to in ("p_global", "params_global"):
+            g = eval_lagrange_grad_p(self.form, data, it)
+            return g[0].sum(dim=0).cpu().numpy()
+        if with_respect_to == "initial_state":
+            return optimal_value_grad_x0(self.form, data,
+                                         it)[0].cpu().numpy()
+        raise ValueError(f"with_respect_to {with_respect_to!r}")
+
+    def eval_solution_sensitivity(self, stages, with_respect_to,
+                                  return_sens_x=True, return_sens_u=True,
+                                  sanity_checks=True):
+        """Forward sensitivities of (x_stage, u_stage) with respect to every
+        entry of 'initial_state' or 'params_global'/'p_global' (reference
+        acados_ocp_solver.py eval_solution_sensitivity): the seed
+        directions go through one vmapped forward_sensitivity.
+
+        Returns (sens_x, sens_u): lists over the stages of arrays whose
+        last axis runs over the seed directions (one array each when one
+        stage is asked for)."""
+        del sanity_checks
+        if isinstance(stages, int):
+            stages = [stages]
+        kf = self._kkt_factor()
+        dxs, dus = _forward_over_seeds(kf, self.layouts["0"],
+                                       with_respect_to)
+        dxs = dxs[0].cpu().numpy()
+        dus = dus[0].cpu().numpy()
+        n_wrt = dxs.shape[-1]
+        sens_x = [dxs[s] for s in stages]
+        sens_u = [dus[s] if s < self.N
+                  else np.zeros((self.form.nu, n_wrt)) for s in stages]
+        out = []
+        if return_sens_x:
+            out.append(sens_x if len(stages) > 1 else sens_x[0])
+        if return_sens_u:
+            out.append(sens_u if len(stages) > 1 else sens_u[0])
+        return tuple(out) if len(out) > 1 else out[0]
+
+    def eval_adjoint_solution_sensitivity(self, seed_x, seed_u,
+                                          with_respect_to="params_global",
+                                          sanity_checks=True):
+        """Adjoint solution sensitivity: the gradient of the seeded
+        solution entries with respect to the parameters (reference
+        eval_adjoint_solution_sensitivity -> eval_solution_sens_adj_p,
+        ocp_nlp_common.c:4108). seed_x/seed_u: lists of (stage, vector)
+        pairs, full (N+1, nx)/(N, nu) arrays, or None.
+
+        Returns (np,) for 'params_global', (N+1, np) for 'p_stagewise',
+        (nbx0,) for 'initial_state', or the NlpData of gradients (batch of
+        one) for 'all'."""
+        del sanity_checks
+        as_t = lambda a: torch.as_tensor(a, dtype=self.dtype,
+                                         device=self.device)
+        grad = adjoint_sensitivity(
+            self._kkt_factor(),
+            as_t(_seeds((1, self.N + 1, self.form.nx), seed_x)),
+            as_t(_seeds((1, self.N, self.form.nu), seed_u)))
+        if with_respect_to == "all":
+            return grad
+        return _adjoint_wrt(grad, self.layouts["0"], with_respect_to)[0]
+
     # -- stats ----------------------------------------------------------------
     def get_status(self) -> int:
         return int(self._last_stats.status[0])
@@ -504,3 +608,70 @@ def _bound_slot(lay: StageLayout, stage: int, N: int, field: str):
     side = "lb" if lower else "ub"
     key = side + ("_0" if stage == 0 else "_e" if stage == N else "")
     return key, off, n
+
+
+def _seeds(shape, seeds) -> np.ndarray:
+    """Adjoint seeds as one (B, stages, dim) array: `seeds` is None, a
+    full array, or a list of (stage, vector) pairs whose vectors are
+    (dim,), (B, dim) or (B, dim, n_seeds) (the seed columns summed)."""
+    tgt = np.zeros(shape)
+    if seeds is None:
+        return tgt
+    if isinstance(seeds, (list, tuple)):
+        for stage, vec in seeds:
+            v = np.asarray(vec)
+            if v.ndim == 3:
+                v = v.sum(axis=-1)
+            tgt[:, stage] += v.reshape(tgt[:, stage].shape)
+    else:
+        tgt[:] = np.asarray(seeds).reshape(shape)
+    return tgt
+
+
+def _seed_data(**fields) -> NlpData:
+    """An NlpData tangent that is zero (None) but in `fields`."""
+    return NlpData(**{f: fields.get(f) for f in NlpData.__dataclass_fields__})
+
+
+def _forward_over_seeds(kf: KktFactor, lay0: StageLayout, with_respect_to):
+    """forward_sensitivity along every unit direction of 'initial_state'
+    (the stage-0 state rows' bounds, both sides) or of the parameters
+    (every stage at once), the directions as one torch.func.vmap axis:
+    returns (dx (B, N+1, nx, n_wrt), du (B, N, nu, n_wrt))."""
+    data = kf.data
+    if with_respect_to in ("params_global", "p_global", "p"):
+        n_wrt = data.p.shape[-1]
+        eye = torch.eye(n_wrt, dtype=data.p.dtype, device=data.p.device)
+        seeds = eye[:, None, None, :].expand((n_wrt,) + data.p.shape)
+
+        def one(dp):
+            return forward_sensitivity(kf, _seed_data(p=dp))[:2]
+    elif with_respect_to == "initial_state":
+        n_wrt = lay0.nbx
+        nc = data.lb_0.shape[-1]
+        eye = torch.zeros((n_wrt, nc), dtype=data.p.dtype,
+                          device=data.p.device)
+        eye[:, lay0.off_bx:lay0.off_bx + n_wrt] = torch.eye(
+            n_wrt, dtype=data.p.dtype, device=data.p.device)
+        seeds = eye[:, None, :].expand((n_wrt,) + data.lb_0.shape)
+
+        def one(e):
+            return forward_sensitivity(kf, _seed_data(lb_0=e, ub_0=e))[:2]
+    else:
+        raise ValueError(with_respect_to)
+    dxs, dus = torch.func.vmap(one)(seeds)
+    return dxs.movedim(0, -1), dus.movedim(0, -1)
+
+
+def _adjoint_wrt(grad: NlpData, lay0: StageLayout, with_respect_to):
+    """The slice of an adjoint gradient the caller asked for, per
+    instance: (B, np) for the global parameters, (B, N+1, np) stagewise,
+    (B, nbx0) for the initial state."""
+    if with_respect_to in ("params_global", "p_global", "p"):
+        return grad.p.sum(dim=1).cpu().numpy()
+    if with_respect_to == "p_stagewise":
+        return grad.p.cpu().numpy()
+    if with_respect_to == "initial_state":
+        g = grad.lb_0 + grad.ub_0
+        return g[:, lay0.off_bx:lay0.off_bx + lay0.nbx].cpu().numpy()
+    raise ValueError(with_respect_to)

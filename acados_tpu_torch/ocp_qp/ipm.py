@@ -12,6 +12,9 @@ instance that has stopped is frozen by `where(active, new, old)`, which is
 what a vmapped while_loop does. Iteration counts and statuses are per
 instance.
 
+`solve_ocp_qp_sens_frw` and `solve_ocp_qp_sens_adj` give the forward and
+adjoint solution sensitivities at a converged solution (HPIPM's seed API).
+
 Sign conventions: multiplier pi_k on (A x_k + B u_k + b_k - x_{k+1});
 Lagrangian L = f - lam_lg'(g + sl - lg) - lam_ug'(ug - g + su)
               - lam_sl'sl - lam_su'su.
@@ -25,8 +28,9 @@ import torch
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv, riccati_factor,
                                              riccati_solve)
-from acados_tpu_torch.utils.struct import (map_fields, select_fields,
-                                           tensor_dataclass, where_batch)
+from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
+                                           select_fields, tensor_dataclass,
+                                           vjp_fields, where_batch)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -472,3 +476,77 @@ def solve_ocp_qp(qp: OcpQp, opts: IpmOpts = None,
     info = IpmInfo(num_iter=k, mu=mu, res_stat=rs, res_eq=re, res_ineq=ri,
                    status=status)
     return sol, info
+
+
+# ---------------------------------------------------------------------------
+# QP-level solution sensitivities (seed API)
+# ---------------------------------------------------------------------------
+
+_MASKS = ("mask_l", "mask_u", "soft_mask")
+
+
+def _iterate_at_solution(qp: OcpQp, sol: OcpQpSol,
+                         floor: float = 1e-12) -> _Iterate:
+    """Converged solution -> strictly positive iterate without the warm
+    start's t0_min centering floor, which would corrupt the barrier
+    weights lam/t the implicit differentiation relies on
+    (acados_tpu/ocp_qp/ipm.py:606-628)."""
+    ml, mu_ = qp.mask_l, qp.mask_u
+    sml, smu = qp.soft_mask * ml, qp.soft_mask * mu_
+    f = torch.tensor(floor, dtype=qp.q.dtype, device=qp.q.device)
+    lam_l = torch.where(ml > 0, torch.maximum(sol.lam_lg, f), 0.0)
+    lam_u = torch.where(mu_ > 0, torch.maximum(sol.lam_ug, f), 0.0)
+    t_l = torch.where(ml > 0, torch.maximum(sol.t_lg, f), 1.0)
+    t_u = torch.where(mu_ > 0, torch.maximum(sol.t_ug, f), 1.0)
+    sl = torch.where(sml > 0, torch.maximum(sol.sl, f), 1.0)
+    su = torch.where(smu > 0, torch.maximum(sol.su, f), 1.0)
+    lam_sl = torch.where(sml > 0,
+                         torch.maximum(qp.zl + qp.Zl * sl - lam_l, f), 1.0)
+    lam_su = torch.where(smu > 0,
+                         torch.maximum(qp.zu + qp.Zu * su - lam_u, f), 1.0)
+    return _Iterate(x=sol.x, u=sol.u, pi=sol.pi, lam_l=lam_l, lam_u=lam_u,
+                    t_l=t_l, t_u=t_u, sl=sl, su=su, lam_sl=lam_sl,
+                    lam_su=lam_su)
+
+
+def solve_ocp_qp_sens_frw(qp: OcpQp, sol: OcpQpSol, d_qp: OcpQp,
+                          opts: IpmOpts = None):
+    """Forward QP solution sensitivity in the data direction d_qp, for
+    every instance of the batch (acados_tpu/ocp_qp/ipm.py:631-655, HPIPM's
+    d_ocp_qp_ipm_sens_frw): implicit differentiation of the barrier KKT
+    system at the converged solution, K d(sol) = -d(res). d_qp is an OcpQp
+    tangent; its masks are ignored, and a field that is None carries a
+    zero tangent.
+
+    Returns (dx, du, dpi)."""
+    if opts is None:
+        opts = IpmOpts()
+    it = _iterate_at_solution(qp, sol)
+    d_qp = d_qp.replace(**dict.fromkeys(_MASKS))
+    _, d_res = jvp_fields(lambda q: _residuals(q, it)[0], qp, d_qp)
+    weights = _row_weights(qp, it)
+    Qb, Rb, Sb = _barrier_hessian(qp, weights[0])
+    fact = riccati_factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps)
+    zl = torch.zeros_like(qp.lg)
+    d = _newton_step(qp, fact, it, d_res, weights, zl, zl, zl, zl)
+    return d.x, d.u, d.pi
+
+
+def solve_ocp_qp_sens_adj(qp: OcpQp, sol: OcpQpSol, seed_x, seed_u,
+                          opts: IpmOpts = None) -> OcpQp:
+    """Adjoint QP solution sensitivity: the gradient of <seed, (x, u)>
+    with respect to the QP data of every instance, as the exact transpose
+    of the forward map (torch.func.vjp of solve_ocp_qp_sens_frw, as
+    acados_tpu/ocp_qp/ipm.py:658-674 takes jax.vjp; HPIPM's
+    d_ocp_qp_ipm_sens_adj). Returns an OcpQp of gradients, zero in the
+    masks."""
+    zero = map_fields(torch.zeros_like, qp)
+    names = [f.name for f in dataclasses.fields(qp) if f.name not in _MASKS]
+    grad = vjp_fields(lambda d: solve_ocp_qp_sens_frw(qp, sol, d, opts),
+                      zero, (torch.as_tensor(seed_x, dtype=qp.q.dtype,
+                                             device=qp.q.device),
+                             torch.as_tensor(seed_u, dtype=qp.q.dtype,
+                                             device=qp.q.device),
+                             torch.zeros_like(qp.b)), names=names)
+    return grad.replace(**{m: torch.zeros_like(getattr(qp, m))
+                           for m in _MASKS})

@@ -27,8 +27,9 @@ A matrix that is not positive definite (a pivot that is <= 0 or not
 finite) comes back NaN in every entry, from kernel and plain version
 alike, as `jnp.linalg.cholesky` returns it.
 
-`chol_any` takes (..., n, n), flattens every leading axis into one launch
-(the JAX package's `custom_vmap` collapse) and is differentiable.
+`chol_any` takes (..., n, n), flattens every leading axis and every
+vmapped axis into one launch (the JAX package's `custom_vmap` collapse)
+and is differentiable in forward and reverse mode.
 """
 from __future__ import annotations
 
@@ -37,6 +38,7 @@ import ctypes
 import torch
 
 from acados_tpu_torch.ops import cuda_build
+from acados_tpu_torch.utils.autodiff import fold_vmap
 
 CHOL_MAX_N = 64  # the kernels' limit, as the JAX package's _CHOL_MAX_N
 
@@ -212,12 +214,16 @@ def _chol_flat(H: torch.Tensor) -> torch.Tensor:
 
 
 class _CholAny(torch.autograd.Function):
-    """L = chol(H) with the closed-form gradient of the JAX package's JVP
-    (acados_tpu/ops/batched_chol.py:233-247), dL = L phi(L^-1 dH L^-T),
-    transposed: with P = phi(L' Lbar) (lower triangle, halved diagonal)
-    and S = L^-T P L^-1, Hbar = (S + S') / 2, the gradient for a
-    symmetric H. The triangular solves are torch.linalg's, as the JAX
-    tangent takes jax.scipy's."""
+    """L = chol(H) with the closed-form derivatives of the JAX package's
+    JVP (acados_tpu/ops/batched_chol.py:233-247):
+    - jvp: dL = L phi(L^-1 dH L^-T), phi = lower triangle with the
+      diagonal halved;
+    - backward: its transpose, with P = phi(L' Lbar) and
+      S = L^-T P L^-1, Hbar = (S + S') / 2, the gradient for a symmetric
+      H; in torch ops on the saved output, so it is exact to any order;
+    - vmap: every vmapped axis folds into one launch.
+    The triangular solves are torch.linalg's, as the JAX tangent takes
+    jax.scipy's."""
 
     @staticmethod
     def forward(H):
@@ -226,6 +232,7 @@ class _CholAny(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
 
     @staticmethod
     def backward(ctx, Lbar):
@@ -237,6 +244,20 @@ class _CholAny(torch.autograd.Function):
         S = torch.linalg.solve_triangular(L, Y, upper=False,
                                           left=False)          # .. L^-1
         return 0.5 * (S + S.transpose(-1, -2))
+
+    @staticmethod
+    def jvp(ctx, dH):
+        (L,) = ctx.saved_tensors
+        Li_dH = torch.linalg.solve_triangular(L, dH, upper=False)
+        M = torch.linalg.solve_triangular(
+            L, Li_dH.transpose(-1, -2), upper=False).transpose(-1, -2)
+        phi = M.tril(-1) + 0.5 * torch.diag_embed(
+            M.diagonal(dim1=-2, dim2=-1))
+        return L @ phi
+
+    @staticmethod
+    def vmap(info, in_dims, H):
+        return fold_vmap(_CholAny.apply, info, in_dims, H)
 
 
 def chol_any(H: torch.Tensor) -> torch.Tensor:

@@ -19,8 +19,11 @@ of that schedule against `gj_inverse_plain` bit for bit). Both branches
 differ from the plain version only by fused multiply-adds.
 
 `gj_inverse_any` takes (..., n, n) and flattens every leading axis into
-one launch, which is what the JAX package's `custom_vmap` collapse does:
-the kernel sees the whole (B*N, n, n) batch at once. Which version runs
+one launch, and under `torch.func.vmap` folds every vmapped axis in as
+well, which is what the JAX package's `custom_vmap` collapse does: the
+kernel sees the whole (B*N, n, n) batch at once. It has the JAX
+package's forward-mode rule too, so `torch.func.jvp`, `jacfwd` and
+`hessian` pass through it. Which version runs
 depends only on where the tensor lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises.
 """
@@ -31,6 +34,7 @@ import ctypes
 import torch
 
 from acados_tpu_torch.ops import cuda_build
+from acados_tpu_torch.utils.autodiff import fold_vmap
 
 _GJ_MAX_N = 48  # the kernel's limit; above it _schur_inverse recurses
 
@@ -153,23 +157,43 @@ def _inv_impl(A: torch.Tensor) -> torch.Tensor:
 
 
 class _GjInverse(torch.autograd.Function):
-    """A^-1 with the closed-form gradient d(A^-1) = -A^-1 dA A^-1
-    (reference batched_inv.py:199-205), so autograd never traces the
-    kernel: grad_A = -A^-T grad A^-T, through torch.matmul."""
+    """A^-1 with the closed-form derivative d(A^-1) = -A^-1 dA A^-1 of
+    the JAX package's custom_jvp (reference batched_inv.py:199-205), so
+    no transform ever traces the kernel:
+    - jvp: dAi = -Ai dA Ai;
+    - backward: grad_A = -Ai' grad Ai', in torch.matmul, and with Ai the
+      saved output its own derivatives follow through this Function
+      again, so backward is exact to any order (jacfwd of vjp, hessian);
+    - vmap: every vmapped axis folds into the kernel's batch, so a vmap
+      over any number of axes is one launch.
+    On the CPU the forward is the plain version, on the card the kernel.
+    """
 
     @staticmethod
     def forward(A):
-        return _inv_impl(A)
+        # a fresh tensor, not a view of the plain version's [A | I]:
+        # forward-mode AD refuses a Function output that is a view
+        return _inv_impl(A).contiguous()
 
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_backward(output)
+        ctx.save_for_forward(output)
 
     @staticmethod
     def backward(ctx, grad):
         (Ai,) = ctx.saved_tensors
         AiT = Ai.transpose(-1, -2)
         return -(AiT @ grad @ AiT)
+
+    @staticmethod
+    def jvp(ctx, dA):
+        (Ai,) = ctx.saved_tensors
+        return -(Ai @ dA @ Ai)
+
+    @staticmethod
+    def vmap(info, in_dims, A):
+        return fold_vmap(_GjInverse.apply, info, in_dims, A)
 
 
 def gj_inverse_any(A: torch.Tensor) -> torch.Tensor:

@@ -2,7 +2,9 @@
 
 Counterpart of `acados_tpu/sim/integrator.py`: builds the batch-first
 one-interval step function, and the fused step + Jacobian function the
-SQP linearization uses, from model functions and options.
+SQP linearization uses, from model functions and options, and evaluates
+the reference's `sim_out` surface (xn, S_forw, S_adj, S_hess, zn) with
+`torch.func` on the batch-first step (`simulate`).
 
 Model functions are per-instance torch callables (x (nx,), u (nu,), ...);
 every step function here is batch-first: step(x (M, nx), u (M, nu),
@@ -20,6 +22,7 @@ from acados_tpu_torch.sim.erk import make_erk_step, make_erk_step_one
 from acados_tpu_torch.sim.irk import (implicit_from_explicit, make_irk_step,
                                       make_irk_step_jac)
 from acados_tpu_torch.utils.autodiff import jacfwd
+from acados_tpu_torch.utils.struct import tensor_dataclass
 
 
 def normalize_dynamics(f):
@@ -54,7 +57,7 @@ def normalize_implicit_dynamics(f):
 class SimOpts:
     """Integrator options (reference sim opts, sim_common.h:120-158)."""
 
-    integrator_type: str = "ERK"   # ERK | IRK (GNSF, LIFTED_IRK wait)
+    integrator_type: str = "ERK"   # ERK | IRK (GNSF, LIFTED_IRK: item 17)
     num_stages: int = 4
     num_steps: int = 1
     newton_iter: int = 3
@@ -64,7 +67,7 @@ class SimOpts:
 def _not_ported(itype: str):
     return NotImplementedError(
         f"integrator_type {itype!r} is not ported yet (ROADMAP.md Queue 1, "
-        "integrator breadth)")
+        "item 17, integrator breadth)")
 
 
 def _implicit(f_expl, f_impl):
@@ -127,7 +130,85 @@ def make_step_jac_fn(f_expl=None, f_impl=None, nx=None, nz=0,
     raise _not_ported(opts.integrator_type)
 
 
-def simulate(*args, **kwargs):
-    raise NotImplementedError(
-        "the standalone simulator with S_forw/S_adj/S_hess is not ported "
-        "yet (ROADMAP.md Queue 1, integrator breadth)")
+@tensor_dataclass
+class SimOut:
+    """The reference's sim_out (sim_common.h:102-117), batch-first."""
+
+    xn: torch.Tensor      # (M, nx)
+    S_forw: torch.Tensor  # (M, nx, nx+nu) forward sens. [dx/dx0, dx/du]
+    S_adj: torch.Tensor   # (M, nx+nu)     seed_adj' S_forw
+    S_hess: torch.Tensor  # (M, nx+nu, nx+nu) second-order adjoint sensitivity
+    zn: torch.Tensor      # (M, nz)
+
+
+def _per_instance(v, M: int, like: torch.Tensor) -> torch.Tensor:
+    """A scalar or (M,) value as an (M,) tensor of like's dtype/device."""
+    v = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    return v.expand(M) if v.dim() == 0 else v
+
+
+def simulate(step, x, u, p=None, t0=0.0, dt=1.0, seed_adj=None,
+             sens_forw=True, sens_adj=False, sens_hess=False,
+             nz=0) -> SimOut:
+    """One integration interval of a batch and the sensitivities asked
+    for (reference sim_in seeds, sim_common.h:71-88; opts sens_*,
+    sim_common.h:129-133), as acados_tpu/sim/integrator.py:169-201 takes
+    them with `jax.jacfwd` and `jax.vjp`, here batch-first.
+
+    step: a batch-first step (make_step_fn); x (M, nx), u (M, nu), p
+    (M, np) or None, t0 and dt scalars or (M,), seed_adj (M, nx) or
+    (nx,). S_forw is the jvp of the step along each of the nx + nu unit
+    directions, vmapped over them (one batched pass: the IRK's Newton
+    loop runs once); S_adj the vjp with seed_adj; S_hess the jvp of that
+    vjp along the same directions (forward over reverse), which yields
+    xn, S_forw and S_adj on the way.
+    """
+    if nz > 0:
+        raise NotImplementedError(
+            "simulate with algebraic variables (nz > 0) is not ported yet "
+            "(ROADMAP.md Queue 1, item 17, integrator breadth)")
+    M, nx, nu = x.shape[0], x.shape[-1], u.shape[-1]
+    dt_, dev = x.dtype, x.device
+    nxu = nx + nu
+    if p is None:
+        p = torch.zeros((M, 0), dtype=dt_, device=dev)
+    t0 = _per_instance(t0, M, x)
+    dt = _per_instance(dt, M, x)
+    if seed_adj is None:
+        seed_adj = torch.zeros((M, nx), dtype=dt_, device=dev)
+    seed_adj = torch.as_tensor(seed_adj, dtype=dt_, device=dev).expand(
+        M, nx)
+
+    def fwd(xu):
+        out = step(xu[:, :nx], xu[:, nx:], p, t0, dt)
+        return out[0] if isinstance(out, tuple) else out
+
+    def adj(xu):
+        xn_, pull = torch.func.vjp(fwd, xu)
+        return pull(seed_adj)[0], xn_
+
+    xu = torch.cat([x, u], dim=-1)
+    # direction j: the unit vector e_j for every instance, (nxu, M, nxu)
+    E = torch.eye(nxu, dtype=dt_, device=dev)[:, None].expand(nxu, M, nxu)
+    cols = lambda d: d.to(dt_).permute(1, 2, 0)  # (nxu, M, n) -> (M, n, nxu)
+    zeros = lambda *s: torch.zeros((M,) + s, dtype=dt_, device=dev)
+    S_forw, S_adj, S_hess = zeros(nx, nxu), zeros(nxu), zeros(nxu, nxu)
+    if sens_hess:
+        (S_adj, xn), (dadj, dxn) = torch.func.vmap(
+            lambda e: torch.func.jvp(adj, (xu,), (e,)),
+            out_dims=((None, None), (0, 0)))(E)
+        S_hess = cols(dadj)
+        if sens_forw:
+            S_forw = cols(dxn)
+    else:
+        if sens_forw:
+            xn, dxn = torch.func.vmap(
+                lambda e: torch.func.jvp(fwd, (xu,), (e,)),
+                out_dims=(None, 0))(E)
+            S_forw = cols(dxn)
+        if sens_adj:
+            S_adj, xn = adj(xu)
+        elif not sens_forw:
+            xn = fwd(xu)
+    return SimOut(xn=xn, S_forw=S_forw, S_adj=S_adj.to(dt_),
+                  S_hess=S_hess, zn=zeros(0))

@@ -2,7 +2,10 @@
 
 Counterpart of `acados_tpu/sim/irk.py` for ODEs (nz == 0): Gauss-Legendre
 or Radau IIA collocation with a fixed number of Newton iterations over
-the stacked stage equations.
+the stacked stage equations. `make_irk_step` differentiates through its
+stage solves by the implicit function theorem (`_stage_root`, the
+reference's custom_root); `make_irk_step_jac` builds the step Jacobians
+itself for the SQP linearization.
 
 The stage residual of one instance is a plain torch function; its
 Jacobians come from `torch.func.vmap(torch.func.jacfwd(...))`. The
@@ -23,7 +26,7 @@ from acados_tpu_torch.ops.batched_inv import gj_inverse_any
 from acados_tpu_torch.ops.linsolve import linsolve
 from acados_tpu_torch.sim.butcher import (gauss_legendre_tableau,
                                           radau_iia_tableau)
-from acados_tpu_torch.utils.autodiff import jacfwd
+from acados_tpu_torch.utils.autodiff import fold_vmap, jacfwd
 
 
 def _tableau(collocation: str, num_stages: int):
@@ -38,7 +41,7 @@ def _require_ode(nz: int, what: str):
     if nz:
         raise NotImplementedError(
             f"{what} with algebraic variables (nz > 0) is not ported yet "
-            "(ROADMAP.md Queue 1, integrator breadth)")
+            "(ROADMAP.md Queue 1, item 17, integrator breadth)")
 
 
 def _stage_residual(f_impl, A_t, c_t, nx: int, nz: int):
@@ -58,23 +61,175 @@ def _stage_residual(f_impl, A_t, c_t, nx: int, nz: int):
     return res
 
 
+def _stage_root(res_one, newton_iter: int):
+    """The stage solve of one substep as an autograd Function with the
+    implicit gradient of the reference's `jax.lax.custom_root`
+    (acados_tpu/sim/irk.py:84-107).
+
+    root(x, u, p, t, h, w0) -> w* runs `newton_iter` Newton iterations
+    on res(w, x, u, p, t, h) = 0 from w0 (batch-first: every argument
+    leads with the batch). Its derivatives are those of the implicit
+    function theorem at the final iterate, never of the iterations, with
+    theta = (x, u, p, t, h) and J = d res / dw at w*:
+    - jvp: dw = -J^-1 (d res / d theta) dtheta, one solve for every
+      tangent column;
+    - backward: grad_theta = -(d res / d theta)' J^-T grad (the Function
+      `theta_vjp` below, whose own jvp makes backward differentiable in
+      forward mode: jacfwd of vjp, as S_hess and hessian take it, is
+      exact);
+    - vmap: every vmapped axis folds into the batch, so the Newton loop
+      runs once however many axes or tangent columns are vmapped.
+    The Newton start w0 carries no derivative. The solves are `linsolve`:
+    the Gauss-Jordan kernel K1 on the card, LAPACK on the CPU.
+
+    A reverse-mode transform (torch.func.vjp) cannot run inside a
+    Function's backward under torch.func, so every reverse product of
+    the residual runs in a Function's forward or jvp, where it can.
+    """
+    res_b = vmap(res_one)
+    jac_w = vmap(jacfwd(res_one, argnums=0))
+
+    def zeros_for(tangents, primals):
+        return tuple(torch.zeros_like(p) if d is None else d.to(p.dtype)
+                     for d, p in zip(tangents, primals))
+
+    def pull_theta(w, theta, cot):
+        """(d res / d theta)' cot at (w, theta), one tensor per theta."""
+        _, pull = torch.func.vjp(lambda *a: res_b(w, *a), *theta)
+        return tuple(g.to(p.dtype) for g, p in zip(pull(cot), theta))
+
+    class second(torch.autograd.Function):
+        """The gradient of theta_vjp's output along its cotangents
+        (double backward): with lam = J^-T g, v = (d res / d theta) obar
+        and mu = J^-1 v, grad_g = -mu and grad_(w, theta) = d/d(w, theta)
+        of lam' (d res) . (mu, -obar) at fixed lam, mu."""
+
+        @staticmethod
+        def forward(g, w, *args):
+            theta, obar = args[:5], args[5:]
+            J = jac_w(w, *theta)
+            lam = linsolve(J.transpose(-1, -2), g)
+            _, v = torch.func.jvp(lambda *a: res_b(w, *a), theta, obar)
+            mu = linsolve(J, v.to(w.dtype))
+
+            def s(w_, *a):
+                _, r = torch.func.jvp(
+                    res_b, (w_, *a), (mu, *(-o for o in obar)))
+                return (lam * r).sum()
+
+            grads = torch.func.grad(s, argnums=tuple(range(6)))(w, *theta)
+            return (-mu, *(gr.to(p.dtype)
+                           for gr, p in zip(grads, (w, *theta))))
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            pass
+
+        @staticmethod
+        def vmap(info, in_dims, *args):
+            return fold_vmap(second.apply, info, in_dims, *args)
+
+    class theta_vjp(torch.autograd.Function):
+        """(g, w, *theta) -> -(d res / d theta)' lam, lam = J^-T g: the
+        root's backward. jvp: with phi(w, theta) = (d res / d(w,
+        theta))' lam, a forward-over-reverse product of the residual (no
+        derivative of J is formed), dlam = J^-T (dg - dphi_w) and the
+        output's tangent is -(dphi_theta + (d res / d theta)' dlam)."""
+
+        @staticmethod
+        def forward(g, w, *theta):
+            J = jac_w(w, *theta)
+            lam = linsolve(J.transpose(-1, -2), g)
+            return pull_theta(w, theta, -lam)
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs)
+            ctx.save_for_forward(*inputs)
+
+        @staticmethod
+        def jvp(ctx, dg, dw, *dtheta):
+            g, w, *theta = ctx.saved_tensors
+            theta = tuple(theta)
+            J = jac_w(w, *theta)
+            lam = linsolve(J.transpose(-1, -2), g)
+
+            def phi(w_, *a):
+                _, pull = torch.func.vjp(res_b, w_, *a)
+                return pull(lam)
+
+            _, dphi = torch.func.jvp(phi, (w, *theta),
+                                     zeros_for((dw, *dtheta), (w, *theta)))
+            dg = torch.zeros_like(g) if dg is None else dg
+            dlam = linsolve(J.transpose(-1, -2), dg - dphi[0].to(g.dtype))
+            pulled = pull_theta(w, theta, dlam)
+            return tuple(-(d.to(p.dtype) + q)
+                         for d, q, p in zip(dphi[1:], pulled, theta))
+
+        @staticmethod
+        def backward(ctx, *obar):
+            g, w, *theta = ctx.saved_tensors
+            obar = zeros_for(obar, theta)
+            return second.apply(g, w, *theta, *obar)
+
+        @staticmethod
+        def vmap(info, in_dims, *args):
+            return fold_vmap(theta_vjp.apply, info, in_dims, *args)
+
+    class root(torch.autograd.Function):
+        @staticmethod
+        def forward(x, u, p, t, h, w0):
+            w = w0
+            for _ in range(newton_iter):
+                J = jac_w(w, x, u, p, t, h)
+                w = w - linsolve(J, res_b(w, x, u, p, t, h))
+            return w
+
+        @staticmethod
+        def setup_context(ctx, inputs, output):
+            ctx.save_for_backward(*inputs[:5], output)
+            ctx.save_for_forward(*inputs[:5], output)
+
+        @staticmethod
+        def jvp(ctx, dx, du, dp, dt, dh, dw0):
+            *theta, w = ctx.saved_tensors
+            theta = tuple(theta)
+            _, r_dot = torch.func.jvp(
+                lambda *a: res_b(w, *a), theta,
+                zeros_for((dx, du, dp, dt, dh), theta))
+            J = jac_w(w, *theta)
+            return -linsolve(J, r_dot.to(w.dtype))
+
+        @staticmethod
+        def backward(ctx, grad):
+            *theta, w = ctx.saved_tensors
+            return (*theta_vjp.apply(grad, w, *theta), None)
+
+        @staticmethod
+        def vmap(info, in_dims, *args):
+            return fold_vmap(root.apply, info, in_dims, *args)
+
+    return root.apply
+
+
 def make_irk_step(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
                   num_steps: int = 1, newton_iter: int = 3,
                   collocation: str = "GAUSS_LEGENDRE"):
-    """Batch-first IRK step (forward only): step(x (M, nx), u, p, t0 (M,),
-    dt (M,)) -> (x_next (M, nx), z_out (M, nz)).
+    """Batch-first IRK step: step(x (M, nx), u, p, t0 (M,), dt (M,)) ->
+    (x_next (M, nx), z_out (M, nz)).
 
-    The Newton start of each substep is the previous substep's stage
-    solution, as in the reference's custom_root carry. Its implicit
-    gradient (custom_root's tangent solve) waits for the sensitivity
-    slice (ROADMAP.md Queue 1)."""
+    Each substep's stage solve is `_stage_root`: a fixed `newton_iter`
+    Newton iterations from the previous substep's stage solution, as in
+    the reference's custom_root carry, with the implicit gradient at the
+    final iterate, so `torch.func` transforms (jvp, vjp, jacfwd, hessian,
+    vmap) differentiate the step as `jax` differentiates the reference's
+    (acados_tpu/sim/irk.py:84-107)."""
     _require_ode(nz, "make_irk_step")
     A_t, b_t, c_t = _tableau(collocation, num_stages)
     ns = num_stages
     nw = ns * (nx + nz)
-    res_one = _stage_residual(f_impl, A_t, c_t, nx, nz)
-    res_b = vmap(res_one)
-    jac_w = vmap(jacfwd(res_one, argnums=0))
+    root = _stage_root(_stage_residual(f_impl, A_t, c_t, nx, nz),
+                       newton_iter)
 
     def step(x, u, p, t0, dt):
         M = x.shape[0]
@@ -84,9 +239,7 @@ def make_irk_step(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
         x_k = x
         for i in range(num_steps):
             t = t0 + i * h
-            for _ in range(newton_iter):
-                J = jac_w(w, x_k, u, p, t, h)
-                w = w - linsolve(J, res_b(w, x_k, u, p, t, h))
+            w = root(x_k, u, p, t, h, w)
             K = w[:, : ns * nx].reshape(M, ns, nx)
             x_k = x_k + h[:, None] * (b_ @ K)
         return x_k, torch.zeros((M, nz), dtype=x.dtype, device=x.device)
@@ -276,7 +429,7 @@ def make_irk_stage_points(*args, **kwargs):
 def make_irk_z0_fun(*args, **kwargs):
     raise NotImplementedError(
         "the DAE z(t0) evaluator is not ported yet (ROADMAP.md Queue 1, "
-        "integrator breadth)")
+        "item 17, integrator breadth)")
 
 
 def implicit_from_explicit(f_expl):

@@ -1,5 +1,6 @@
 """Seeded test inputs: matrices for the Gauss-Jordan inverse (K1),
-batches of OCP-QPs, and RTI batches set up from per-instance x0s.
+batches of OCP-QPs, RTI batches set up from per-instance x0s, and the
+parametric pendulum of the sensitivity tests.
 
 Shared by the CPU tests (tests/test_torch_*.py) and the card's check
 (chip_smoke.py), so both hold the port to the same cases. Nothing here
@@ -9,8 +10,17 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["pivot_tie_batch", "random_qp_batch", "row_permuted_batch",
-           "rti_batch"]
+__all__ = ["JAX_SENS_F32_GAP", "param_pendulum_ocp", "pivot_tie_batch",
+           "random_qp_batch", "row_permuted_batch", "rti_batch"]
+
+# The JAX package's forward-adjoint gap in float32: max over instances of
+# max|adj - fwd| / max|fwd|, fwd = d u_0 / d x0 from its forward
+# sensitivities, adj from its adjoint seeded on u_0, on bench.py's
+# bench_pendulum_irk_sqp config at the first 4 of chip_smoke.py's x0s
+# (tests/test_torch_sens_f32.py measures it and holds it between half
+# this value and this value).
+# chip_smoke.py holds the port's gap on the card to 10 x this.
+JAX_SENS_F32_GAP = 1.01e-7
 
 
 def rti_batch(ocp, x0s: np.ndarray, device):
@@ -116,3 +126,71 @@ def random_qp_batch(seed, B=8, N=8, nx=4, nu=2, nc=3, soft=False,
     d.update(C=C, D=D, lg=lg, ug=ug, mask_l=mask, mask_u=mask.copy(),
              Zl=Zl, Zu=Zl.copy(), zl=zl, zu=zl.copy(), soft_mask=soft_mask)
     return d
+
+
+def param_pendulum_ode(x, u, p, t=None):
+    """The pendulum with parametric pendulum mass m = p[0] and length
+    l = p[1] (tests/test_sensitivity.py:12-24)."""
+    import torch
+    theta, v, dtheta = x[1], x[2], x[3]
+    F = u[0]
+    s, c = torch.sin(theta), torch.cos(theta)
+    m, l = p[0], p[1]
+    M, g = 1.0, 9.81
+    denom = M + m - m * c * c
+    a = (-m * l * s * dtheta * dtheta + m * g * c * s + F) / denom
+    dd = (-m * l * c * s * dtheta * dtheta + F * c + (M + m) * g * s) \
+        / (l * denom)
+    return torch.stack([v, dtheta, a, dd])
+
+
+def param_pendulum_ocp(soft=False, N=20, dtype="float64",
+                       integrator_type="ERK"):
+    """The parametric pendulum OCP of tests/test_sensitivity.py:27-72:
+    NONLINEAR_LS on (x, u), |F| <= 50, x0 = [0, pi/2, 0, 0], p = [0.1,
+    0.8], SQP to tol 1e-11; soft: a softened bound |x_0| <= 0.9."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    ocp = AcadosOcp()
+    m = AcadosModel()
+    m.name = "param_pendulum"
+    m.x, m.u, m.p = 4, 1, 2
+    m.f_expl_expr = lambda x, u, p: param_pendulum_ode(x, u, p)
+    ocp.model = m
+    nx, nu = 4, 1
+    ocp.solver_options.N_horizon = N
+    ocp.solver_options.tf = 1.0
+    Q = 2 * np.diag([1e3, 1e3, 1e-2, 1e-2])
+    R = 2 * np.diag([1e-2])
+    ocp.cost.cost_type = "NONLINEAR_LS"
+    m.cost_y_expr = lambda x, u: torch.cat([x, u])
+    ocp.cost.yref = np.zeros(nx + nu)
+    ocp.cost.W = np.block([[Q, np.zeros((nx, nu))],
+                           [np.zeros((nu, nx)), R]])
+    ocp.cost.cost_type_e = "NONLINEAR_LS"
+    m.cost_y_expr_e = lambda x: x
+    ocp.cost.yref_e = np.zeros(nx)
+    ocp.cost.W_e = Q
+    ocp.constraints.lbu = np.array([-50.0])
+    ocp.constraints.ubu = np.array([50.0])
+    ocp.constraints.idxbu = np.array([0])
+    if soft:
+        ocp.constraints.idxbx = np.array([0])
+        ocp.constraints.lbx = np.array([-0.9])
+        ocp.constraints.ubx = np.array([0.9])
+        ocp.constraints.idxsbx = np.array([0])
+        ocp.cost.Zl = np.array([1e3])
+        ocp.cost.Zu = np.array([1e3])
+        ocp.cost.zl = np.array([1e2])
+        ocp.cost.zu = np.array([1e2])
+    ocp.constraints.x0 = np.array([0.0, np.pi / 2, 0.0, 0.0])
+    ocp.parameter_values = np.array([0.1, 0.8])
+    so = ocp.solver_options
+    so.integrator_type = integrator_type
+    so.sim_method_num_steps = 1
+    so.nlp_solver_type = "SQP"
+    so.nlp_solver_max_iter = 200
+    so.tol = 1e-11
+    so.dtype = dtype
+    return ocp

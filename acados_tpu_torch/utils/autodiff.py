@@ -1,4 +1,5 @@
-"""Forward-mode Jacobians for per-instance model functions.
+"""Forward-mode Jacobians for per-instance model functions, and the vmap
+rule of the batch-first autograd Functions.
 
 `torch.func.jacfwd` returns float64 Jacobians for float32 functions that
 multiply a 0-dim tensor by a Python float (e.g. `0.1 * x[1]` in a model):
@@ -9,6 +10,7 @@ float32 model keeps float32 derivatives downstream.
 """
 from __future__ import annotations
 
+import torch
 import torch.func
 
 
@@ -24,3 +26,33 @@ def jacfwd(f, argnums=0):
         return J.to(dt)
 
     return jac
+
+
+def fold_vmap(apply, info, in_dims, *args):
+    """The vmap rule of a batch-first `torch.autograd.Function`: every
+    vmapped axis folds into the leading batch axis, so `apply` (the
+    Function's own `apply`) runs once on the whole batch, as the JAX
+    package's `custom_vmap` collapse does.
+
+    Arguments that are not vmapped are expanded to the vmap size; every
+    output comes back with the vmapped axis in front (out_dims 0). The
+    rows of a batch-first Function are independent, so the folded call
+    computes what the vmap would.
+    """
+    V = info.batch_size
+
+    def fold(a, d):
+        if not torch.is_tensor(a):
+            return a
+        a = a.movedim(d, 0) if d is not None else a.expand(
+            (V,) + tuple(a.shape))
+        return a.reshape((V * a.shape[1],) + tuple(a.shape[2:]))
+
+    out = apply(*(fold(a, d) for a, d in zip(args, in_dims)))
+
+    def unfold(o):
+        return o.reshape((V, o.shape[0] // V) + tuple(o.shape[1:]))
+
+    if isinstance(out, tuple):
+        return tuple(unfold(o) for o in out), (0,) * len(out)
+    return unfold(out), 0

@@ -121,7 +121,34 @@ failure exits non-zero:
 19. float64 card against CPU of the new paths: the long-horizon
     pendulum at cond_N = 16 (B = 4), the chain at cond_N = 8 (B = 4) and
     three prepare() / feedback() cycles of the main path's config
-    (B = 8), each within 1e-9.
+    (B = 8), each within 1e-9;
+20. the batch simulator (AcadosSimBatchSolver) with the main path's
+    integrator (pendulum, IRK Gauss-Legendre 4 stages, 2 substeps,
+    dt = Tf / N = 0.05) at B = 4096 float32 with sens_forw, and RK4
+    beside it: 3 warm + 10 timed calls, median (p10, p90), sims/s, K1
+    exactly 8 launches a call (3 Newton inverses and 1 tangent solve a
+    substep), none for RK4; K1 on one captured stage-Jacobian batch
+    against its plain version (the bits that differ counted, the error
+    bounded), and its times there;
+21. the batched sensitivities: bench.py's bench_pendulum_irk_sqp config
+    (SQP, IRK, N = 20, float32, B = 4096) solved until every status is
+    0, then eval_solution_sensitivity (every stage, initial_state) and
+    eval_adjoint_solution_sensitivity seeded on u_0: K1 exactly 44 + 8
+    launches, the forward-adjoint gap of every instance within 10 x the
+    JAX package's float32 gap, dx_0/dx0 = I; a time split of the layer;
+    then the chain (n_mass = 8, N = 40, B = 256, float64, after 6 RTI
+    calls): K1 60 + 2 launches, K2 exactly 1 (P_0, (256, 39, 39)), K2
+    bit for bit against its plain version on the captured P_0 (float64
+    and float32), and its times beside torch.linalg.cholesky_ex;
+22. the differentiable solver: make_diff_solver on the parametric
+    pendulum (ERK, float64, B = 1024), the gradient of 0.5 |u_0|^2 with
+    respect to every stage's p through its backward against
+    eval_adjoint_solution_sensitivity within 1e-9, no kernel launch;
+23. float64 card against CPU of phases 20-22 at B = 8: the simulator's
+    xn, S_forw, S_adj, S_hess (IRK and RK4), the forward and adjoint
+    sensitivities and the differentiable solver's gradient within 1e-9;
+    the chain's sensitivities (B = 4) within the CPU's own spread on x0s
+    moved by one rounding step, where that exceeds 1e-9.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -1677,6 +1704,424 @@ def new_paths_vs_cpu() -> None:
                 step=lambda s: (s.prepare(), s.feedback())[1])
 
 
+# the simulator (phase 20): the main path's integrator, dt = Tf / N, and
+# K1's launches a call with sens_forw: per substep 3 Newton inverses and
+# one for the implicit gradient's tangent solve, 2 substeps
+B_SIM, SIM_DT, SIM_WARM, SIM_TIMED = 4096, 1.0 / 20, 3, 10
+K1_PER_SIM = 8
+# the sensitivities (phase 21): bench.py's bench_pendulum_irk_sqp config,
+# solved in at most this many solve() calls; the forward-adjoint gap is
+# held to 10 x the largest gap the JAX package shows between its own
+# forward and adjoint float32 sensitivities on the same config and seeds
+# (acados_tpu_torch.testing.JAX_SENS_F32_GAP)
+SQP_SOLVES_MAX = 8
+# K1 and K2 launches an eval_solution_sensitivity call on the main path
+# (KktFactor: linearize 8, the stage-0 and path Hessians 2 x 14; the
+# forward sensitivities' linearize 8) and on the chain (linearize 2, the
+# Hessians 2 x 28 through the Schur split of nw = 78, the forward
+# linearize 2; K2 once, P_0); the adjoint reuses the factor: one
+# linearize under vjp (8 main, 2 chain)
+K1_PER_FWD_SENS, K1_PER_ADJ_SENS = 44, 8
+K1_PER_FWD_SENS_CHAIN, K1_PER_ADJ_SENS_CHAIN = 60, 2
+# the chain's x0 rows are barrier rows (not eliminated) whose weights
+# lam / t are finite, so its dx_0 / dx0 is the identity only to ~1e-4
+CHAIN_EYE_BOUND = 1e-3
+# the differentiable solver (phase 22): the parametric pendulum's swing-up
+# from pi / 2 with x0 and p spread per instance (at spreads of 0.05 and
+# 0.01 a full-step SQP instance can stop at its 200 iterations)
+B_DIFF, DIFF_X0_SIGMA, DIFF_P_SIGMA = 1024, 0.01, 0.005
+# float64 card against CPU of the new paths (phase 23)
+B_CHECK = 8
+
+
+def sim_solver(integrator_type, B, dtype, dev, sens_hess=False):
+    """AcadosSimBatchSolver on the pendulum with the main path's
+    integrator settings (IRK: Gauss-Legendre 4 stages; ERK: RK4; both 2
+    substeps over SIM_DT), float32 unless dtype says otherwise."""
+    from acados_tpu_torch import AcadosSim, AcadosSimBatchSolver
+    from acados_tpu_torch.models.pendulum import export_pendulum_model
+    sim = AcadosSim()
+    sim.model = export_pendulum_model()
+    so = sim.solver_options
+    so.T, so.integrator_type, so.num_stages, so.num_steps = \
+        SIM_DT, integrator_type, 4, 2
+    so.dtype, so.sens_forw = dtype, True
+    so.sens_adj = so.sens_hess = sens_hess
+    return AcadosSimBatchSolver(sim, B, device=dev)
+
+
+def sim_inputs(B, seed=SEED):
+    rng = np.random.default_rng(seed)
+    x = np.asarray(X0_CENTER) + rng.normal(0.0, X0_SIGMA, (B, 4))
+    u = rng.normal(0.0, 10.0, (B, 1))
+    return x, u
+
+
+def simulator(dev) -> dict:
+    """Phase 20: the batch simulator at B_SIM, IRK and ERK. Returns K1's
+    kernels entry at the simulator's stage Jacobians."""
+    import torch
+    x, u = sim_inputs(B_SIM)
+    entry = None
+    for itype in ("IRK", "ERK"):
+        sim = sim_solver(itype, B_SIM, "float32", dev)
+        for _ in range(SIM_WARM):
+            sim.simulate(x, u)
+        reset_counts()
+        times = []
+        for _ in range(SIM_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            xn = sim.simulate(x, u)   # ends in a host copy of xn
+            times.append((time.perf_counter() - t0) * 1e3)
+        counts = read_counts()
+        S = sim.get("S_forw")
+        ok = (np.isfinite(xn).all() and np.isfinite(S).all()
+              and xn.shape == (B_SIM, 4) and S.shape == (B_SIM, 4, 5))
+        want = K1_PER_SIM if itype == "IRK" else 0
+        med = float(np.median(times))
+        log(f"simulator {itype}: B={B_SIM}, float32, sens_forw, "
+            f"{SIM_TIMED} calls: median {med:.2f} ms (p10 "
+            f"{np.percentile(times, 10):.2f}, p90 "
+            f"{np.percentile(times, 90):.2f}) -> "
+            f"{B_SIM / med * 1e3:.1f} sims/s; K1 launches a call "
+            f"{counts['gj_inverse'] / SIM_TIMED:g} (expected {want}); "
+            f"launches {counts}")
+        if not ok or counts["gj_inverse"] != want * SIM_TIMED or any(
+                v for k, v in counts.items() if k != "gj_inverse"):
+            raise SystemExit(f"simulator {itype}: bad output or launches "
+                             f"{counts}")
+        if itype == "IRK":
+            with K1Shapes() as k1:
+                sim.simulate(x, u)
+            J = k1.first
+            if J.shape != (B_SIM, 16, 16) or len(k1.shapes) != want:
+                raise SystemExit(f"simulator K1 shapes {k1.shapes}")
+            from acados_tpu_torch.ops import batched_inv
+            Jk = batched_inv._gj_inverse_cuda(J)
+            Jp = batched_inv.gj_inverse_plain(J)
+            torch.cuda.synchronize()
+            differ = int((Jk != Jp).sum())
+            log(f"  K1 on the captured stage Jacobians {tuple(J.shape)}: "
+                f"{differ} of {Jk.numel()} entries differ in their bits "
+                f"from the plain version (the kernel fuses multiply-adds)")
+            rel, abs_err, _ = check_inverse(
+                f"simulator stage Jacobians {tuple(J.shape)}", J,
+                batched_inv._gj_inverse_cuda, F32_BOUND)
+            entry = k1_entry("gj_inverse_sim", J,
+                             counts["gj_inverse"], rel, abs_err)
+            entry["bits_differing"] = differ
+    return entry
+
+
+def sens_batch(B, dtype, dev, seed=SEED):
+    """bench_pendulum_irk_sqp's batch (SQP, IRK, N = 20), solved until
+    every status is 0 (at most SQP_SOLVES_MAX solve() calls, each from
+    the last one's iterate). Returns the solver and the calls taken."""
+    kw = dict(N=N_HORIZON, dtype=dtype, nlp_solver_type="SQP",
+              integrator_type="IRK")
+    solver, _ = rti_batch(kw, B, dev, seed=seed)
+    for calls in range(1, SQP_SOLVES_MAX + 1):
+        if np.all(solver.solve() == 0):
+            return solver, calls
+    raise SystemExit(f"SQP batch B={B} {dtype}: statuses not all 0 after "
+                     f"{SQP_SOLVES_MAX} solve() calls")
+
+
+def consistency(solver, dev=None):
+    """Forward sensitivities of every stage to the initial state, the
+    adjoint seeded on u_0, and their per-instance gap max|adj - fwd| /
+    max|fwd| (fwd = d u_0 / d x0 summed over u's entries)."""
+    B, nu = solver.N_batch, solver.form.nu
+    sx, su = solver.eval_solution_sensitivity(list(range(solver.N + 1)),
+                                              "initial_state")
+    adj = solver.eval_adjoint_solution_sensitivity(
+        None, [(0, np.ones((B, nu)))], with_respect_to="initial_state")
+    fwd = su[:, 0].sum(axis=1)
+    gap = np.abs(adj - fwd).max(axis=1) / np.abs(fwd).max(axis=1)
+    return sx, su, adj, gap
+
+
+def timed_sens(solver) -> dict:
+    """Host-clock ms of the sensitivity layer's parts on a warm solver:
+    the KKT factor (linearize, the Lagrangian Hessian, the Riccati
+    factor), the forward sensitivities over the seeds and the adjoint."""
+    import torch
+    from acados_tpu_torch.interface.solver import _forward_over_seeds
+    from acados_tpu_torch.ocp_nlp import sensitivity as sens
+    from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
+    data, it = solver._on_device()
+    form = solver.form
+    rows = build_static_rows(form, it.x.dtype, it.x.device)
+    zero = torch.zeros((), dtype=it.x.dtype, device=it.x.device)
+    kf = sens.KktFactor(form, sens.SensOpts(), data, it)
+    B, N, nx, nu = solver.N_batch, solver.N, form.nx, form.nu
+    sx = torch.zeros((B, N + 1, nx), dtype=it.x.dtype, device=it.x.device)
+    su = torch.zeros((B, N, nu), dtype=it.x.dtype, device=it.x.device)
+    su[:, 0] = 1.0
+    return dict(
+        kkt_factor_ms=host_ms(lambda: sens.KktFactor(
+            form, sens.SensOpts(), data, it), reps=3),
+        linearize_ms=host_ms(lambda: sens.linearize(form, rows, data, it,
+                                                    zero), reps=3),
+        lagrangian_hessian_ms=host_ms(
+            lambda: sens.lagrangian_hessian(form, data, it), reps=3),
+        forward_ms=host_ms(lambda: _forward_over_seeds(
+            kf, solver._layout(0), "initial_state"), reps=3),
+        adjoint_ms=host_ms(lambda: sens.adjoint_sensitivity(kf, sx, su),
+                           reps=3))
+
+
+def sensitivities(dev) -> dict:
+    """Phase 21: the batched sensitivities on the main path's width, then
+    the chain's. Returns K2's kernels entry at the chain's P_0."""
+    import torch
+    from acados_tpu_torch.ocp_qp import riccati
+    from acados_tpu_torch.ops import batched_chol
+    from acados_tpu_torch.testing import JAX_SENS_F32_GAP
+    bound = 10 * JAX_SENS_F32_GAP
+    solver, calls = sens_batch(B_MAIN, "float32", dev)
+    ok_tol, res, tols = in_tolerance(solver)
+    log(f"sensitivities: pendulum IRK SQP, B={B_MAIN}, N={N_HORIZON}, "
+        f"float32: every status 0 after {calls} solve() calls, residual "
+        f"maxima {res.tolist()} ({'in' if ok_tol else 'OUT OF'} "
+        f"tolerance), sqp_iter max {int(solver.get_stats('sqp_iter').max())}")
+    reset_counts()
+    t0 = time.perf_counter()
+    sx, su, adj, gap = consistency(solver)
+    ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    worst = int(np.argmax(gap))
+    finite = all(np.isfinite(a).all() for a in (sx, su, adj))
+    eye_gap = float(np.abs(sx[:, 0] - np.eye(4)).max())
+    want = K1_PER_FWD_SENS + K1_PER_ADJ_SENS
+    log(f"  eval_solution_sensitivity (21 stages, initial_state) + "
+        f"eval_adjoint_solution_sensitivity (seed on u_0): {ms:.1f} ms; "
+        f"launches {counts} (K1 expected {K1_PER_FWD_SENS} + "
+        f"{K1_PER_ADJ_SENS}); forward-adjoint gap max {gap[worst]:.3e} "
+        f"(instance {worst}, median {np.median(gap):.3e}; bound "
+        f"{bound:.2e}); max|dx_0/dx0 - I| {eye_gap:.2e}")
+    if not finite or not ok_tol or gap[worst] > bound \
+            or eye_gap > 1e-4 or counts["gj_inverse"] != want \
+            or counts["chol_factor"]:
+        raise SystemExit("sensitivities on the main path failed")
+    split = timed_sens(solver)
+    log(f"  time split (host ms, median of 3): {json.dumps(split)}")
+
+    # the chain: P_0 (nx = 39 > 12) goes through chol_any, K2. In float64:
+    # its active wall rows give barrier weights lam / t up to ~1e10 (t at
+    # the t_lam_min floor, 1e-9), and in float32 Huu or P_0 then loses
+    # positive definiteness in some instances (NaN sensitivities)
+    chain = chain_batch(N_MASS, B_CHAIN, "float64", dev)
+    for _ in range(1 + 5):
+        st = chain.solve()
+    if np.any(st != 0):
+        raise SystemExit("chain: non-zero statuses before the "
+                         "sensitivities")
+    p0s = []
+    orig = riccati.chol_any
+
+    def capture(H):
+        p0s.append(H.detach().clone())
+        return orig(H)
+
+    riccati.chol_any = capture
+    reset_counts()
+    try:
+        t0 = time.perf_counter()
+        csx, csu, cadj, cgap = consistency(chain)
+        cms = (time.perf_counter() - t0) * 1e3
+    finally:
+        riccati.chol_any = orig
+    counts = read_counts()
+    want = K1_PER_FWD_SENS_CHAIN + K1_PER_ADJ_SENS_CHAIN
+    ceye = float(np.abs(csx[:, 0] - np.eye(csx.shape[-1])).max())
+    log(f"chain sensitivities: n_mass={N_MASS}, N={N_CHAIN}, "
+        f"B={B_CHAIN}, float64, after 6 RTI calls: {cms:.1f} ms; launches "
+        f"{counts} (K1 expected {want}, K2 1); forward-adjoint gap max "
+        f"{cgap.max():.3e} (median {np.median(cgap):.3e}); max|dx_0/dx0 "
+        f"- I| {ceye:.2e}; captured P_0 {[tuple(H.shape) for H in p0s]}")
+    if len(p0s) != 1 or p0s[0].shape != (B_CHAIN, 39, 39) or \
+            counts["chol_factor"] != 1 or counts["gj_inverse"] != want or \
+            not all(np.isfinite(a).all() for a in (csx, csu, cadj)) or \
+            ceye > CHAIN_EYE_BOUND or cgap.max() > 1e-9:
+        raise SystemExit("chain sensitivities failed")
+    log(f"  time split (host ms, median of 3): "
+        f"{json.dumps(timed_sens(chain))}")
+    H = p0s[0]
+    kern = batched_chol.chol_factor_batched
+    Lk, Lp = kern(H), batched_chol.chol_factor_plain(H)
+    torch.cuda.synchronize()
+    if not same_bits(Lk, Lp) or not bool(torch.isfinite(Lk).all()):
+        raise SystemExit("K2 disagrees with its plain version on the "
+                         "chain's P_0")
+    k_ms = cuda_ms(lambda: kern(H), reps=30)
+    k_dev = device_ms(lambda: kern(H))
+    p_ms = cuda_ms(lambda: batched_chol.chol_factor_plain(H), reps=10)
+    l_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=20)
+    l_dev = kernel_busy_ms(lambda: torch.linalg.cholesky_ex(H))
+    b_ms, b_by = chol_bound("chol_factor", B_CHAIN, 39, H.dtype)
+    log(f"K2 on the chain's P_0 {tuple(H.shape)} float64: bit for bit "
+        f"with chol_factor_plain; kernel {k_ms:.4f} ms (device "
+        f"{k_dev:.4f} ms back to back), plain {p_ms:.4f} ms, "
+        f"torch.linalg.cholesky_ex {l_ms:.4f} ms (its kernels "
+        f"{l_dev:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+    # the same matrices in float32, for the kernel table's float32 rows
+    H32 = H.float()
+    if not same_bits(kern(H32), batched_chol.chol_factor_plain(H32)):
+        raise SystemExit("K2 disagrees with its plain version on the "
+                         "chain's P_0 in float32")
+    f32 = dict(ms_f32=cuda_ms(lambda: kern(H32), reps=30),
+               device_ms_f32=device_ms(lambda: kern(H32)),
+               plain_ms_f32=cuda_ms(
+                   lambda: batched_chol.chol_factor_plain(H32), reps=10),
+               library_ms_f32=cuda_ms(lambda: torch.linalg.cholesky_ex(H32),
+                                      reps=20),
+               library_device_ms_f32=kernel_busy_ms(
+                   lambda: torch.linalg.cholesky_ex(H32)),
+               bound_ms_f32=chol_bound("chol_factor", B_CHAIN, 39,
+                                       H32.dtype)[0])
+    log(f"  the same P_0 as float32 (bit for bit too): {json.dumps(f32)}")
+    return {"name": "chol_factor_chain_p0", "route": "cuda",
+            "source": "acados_tpu_torch/csrc/batched_chol.cu",
+            "replaces": "acados_tpu/ops/batched_chol.py:38",
+            "shape": list(H.shape), "launches": counts["chol_factor"],
+            "max_abs_err": float((Lk - Lp).abs().max()), "ms": k_ms,
+            "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            "library_device_ms": l_dev, "dtype": "float64", **f32}
+
+
+def diff_batch(B, dev, seed=SEED):
+    """The parametric pendulum of the sensitivity tests (float64, SQP to
+    1e-11) at B instances, x0 and p spread per instance, solved."""
+    from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+    from acados_tpu_torch.testing import param_pendulum_ocp
+    ocp = param_pendulum_ocp(N=N_HORIZON)
+    solver = AcadosOcpBatchSolver(ocp, B, device=dev)
+    rng = np.random.default_rng(seed)
+    x0s = np.array([0.0, np.pi / 2, 0.0, 0.0]) + rng.normal(
+        0, DIFF_X0_SIGMA, (B, 4))
+    ps = np.array([0.1, 0.8]) + rng.normal(0, DIFF_P_SIGMA, (B, 2))
+    for i, view in enumerate(solver.ocp_solvers):
+        view.set(0, "lbx", x0s[i])
+        view.set(0, "ubx", x0s[i])
+        for k in range(N_HORIZON + 1):
+            view.set(k, "x", x0s[i])
+            view.set(k, "p", ps[i])
+    st = solver.solve()
+    if np.any(st != 0):
+        raise SystemExit(f"parametric pendulum B={B}: statuses "
+                         f"{np.unique(st, return_counts=True)}")
+    return solver
+
+
+def diff_grad(solver):
+    """The gradient of 0.5 |u_0|^2 with respect to every stage's p,
+    through make_diff_solver (forward: the SQP solve from the solver's
+    iterate; backward: KktFactor + adjoint_sensitivity), beside
+    eval_adjoint_solution_sensitivity's. Returns (grad, reference,
+    forward ms, backward ms)."""
+    import torch
+    from acados_tpu_torch.interface.solver import _sqp_opts_from
+    from acados_tpu_torch.ocp_nlp.sensitivity import make_diff_solver
+    data, it = solver._on_device()
+    solve_diff = make_diff_solver(solver.form,
+                                  _sqp_opts_from(solver.acados_ocp))
+    p = data.p.clone().requires_grad_()
+    sync = (torch.cuda.synchronize if p.is_cuda else lambda: None)
+    t0 = time.perf_counter()
+    _, us = solve_diff(data.replace(p=p), it)
+    sync()
+    t1 = time.perf_counter()
+    (g,) = torch.autograd.grad(0.5 * (us[:, 0] ** 2).sum(), p)
+    sync()
+    t2 = time.perf_counter()
+    u0 = us[:, 0].detach().cpu().numpy()
+    ref = solver.eval_adjoint_solution_sensitivity(
+        None, [(0, u0)], with_respect_to="p_stagewise")
+    return g.cpu().numpy(), ref, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def diff_solver(dev) -> None:
+    """Phase 22: make_diff_solver's backward on the card."""
+    solver = diff_batch(B_DIFF, dev)
+    reset_counts()
+    g, ref, f_ms, b_ms = diff_grad(solver)
+    counts = read_counts()
+    gap = float(np.abs(g - ref).max() / np.abs(ref).max())
+    log(f"differentiable solver: parametric pendulum ERK, B={B_DIFF}, "
+        f"N={N_HORIZON}, float64: forward (SQP from the solution) "
+        f"{f_ms:.1f} ms, backward (KktFactor + adjoint) {b_ms:.1f} ms; "
+        f"d(0.5 |u_0|^2)/dp against eval_adjoint_solution_sensitivity "
+        f"max|d|/max|ref| {gap:.3e} (bound 1e-9); launches {counts}")
+    if not np.isfinite(g).all() or gap > 1e-9 or any(counts.values()):
+        raise SystemExit("differentiable solver failed")
+
+
+def rel_gap(a, b) -> float:
+    """max |a - b| / (1 + |b|)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b) / (1 + np.abs(b))))
+
+
+def sens_vs_cpu() -> None:
+    """Phase 23: float64 card against CPU of phases 20-22 at B_CHECK."""
+    import torch
+    gpu, cpu = torch.device("cuda"), "cpu"
+    x, u = sim_inputs(B_CHECK, seed=1)
+    seed = np.random.default_rng(2).normal(size=(B_CHECK, 4))
+    gaps = {}
+    for itype in ("IRK", "ERK"):
+        outs = []
+        for where in (gpu, cpu):
+            sim = sim_solver(itype, B_CHECK, "float64", where,
+                             sens_hess=True)
+            one = sim._one
+            out = one._run(x, u, np.zeros((B_CHECK, 0)), seed)
+            outs.append(out)
+        for f in ("xn", "S_forw", "S_adj", "S_hess"):
+            gaps[f"sim {itype} {f}"] = rel_gap(
+                getattr(outs[0], f).cpu().numpy(),
+                getattr(outs[1], f).numpy())
+    def chain_sens(where, moved=False):
+        c = chain_batch(N_MASS, 4, "float64", where, moved=moved)
+        for _ in range(3):
+            c.solve()
+        return consistency(c)[:3]
+
+    res = {}
+    for where in (gpu, cpu):
+        s, _ = sens_batch(B_CHECK, "float64", where, seed=1)
+        sx, su, adj, _ = consistency(s)
+        d = diff_batch(B_CHECK, where, seed=1)
+        g, _, _, _ = diff_grad(d)
+        res[str(where)] = (sx, su, adj, g)
+    for n, a, b in zip(("sens x", "sens u", "adjoint", "diff solver grad"),
+                       res["cuda"], res["cpu"]):
+        gaps[n] = rel_gap(a, b)
+    worst = max(gaps, key=gaps.get)
+    log(f"new paths, float64 card against CPU (B={B_CHECK}): max "
+        f"|d|/(1+|ref|) by output {json.dumps(gaps)}; worst {worst} "
+        f"{gaps[worst]:.3e} (bound 1e-9)")
+    if not gaps[worst] <= 1e-9:
+        raise SystemExit("new paths: card and CPU disagree")
+    # the chain's sensitivities are ill-conditioned (barrier weights up to
+    # ~1e10 on its active wall rows): the CPU's own results move by more
+    # than 1e-9 when x0 moves by one rounding step, so the card's gap is
+    # held to that spread where it exceeds 1e-9
+    ref = chain_sens(cpu)
+    card = [rel_gap(a, b) for a, b in zip(chain_sens(gpu), ref)]
+    spread = [rel_gap(a, b) for a, b in zip(chain_sens(cpu, True), ref)]
+    log(f"chain sensitivities (n_mass={N_MASS}, B=4, 3 RTI calls), "
+        f"float64 card against CPU: sens x, sens u, adjoint "
+        f"{['%.3e' % g for g in card]}; the CPU against itself on x0s "
+        f"moved by one rounding step {['%.3e' % g for g in spread]}")
+    if not all(g <= max(1e-9, sp) for g, sp in zip(card, spread)):
+        raise SystemExit("chain sensitivities: card and CPU disagree "
+                         "beyond the CPU's own spread")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1993,6 +2438,22 @@ def main() -> int:
     # ---- 19. float64 card against CPU of the new paths ----------------------
     at(19)
     new_paths_vs_cpu()
+
+    # ---- 20. the batch simulator at full width ------------------------------
+    at(20)
+    kernels.append(simulator(dev))
+
+    # ---- 21. the batched sensitivities, main path and chain -----------------
+    at(21)
+    kernels.append(sensitivities(dev))
+
+    # ---- 22. the differentiable solver --------------------------------------
+    at(22)
+    diff_solver(dev)
+
+    # ---- 23. float64 card against CPU of phases 20-22 -----------------------
+    at(23)
+    sens_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

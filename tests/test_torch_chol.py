@@ -469,3 +469,85 @@ def test_k2_step_mix_reads_the_row_branch():
     assert listing == [op.strip() for op in step] + [step[0]]
     listing = k2_compare.step_listing(sass, band="f4 K3", step=2)
     assert listing == back[1:] + back[:2]
+
+
+# ---------------------------------------------------------------------------
+# K2's forward-mode and vmap rules (the JAX package's custom_jvp and
+# custom_vmap of chol_any)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [5, 24])
+def test_chol_any_jvp_matches_jax_custom_jvp(n):
+    """torch.func.jvp through the port's rule (dL = L phi(L^-1 dH L^-T))
+    against jax.jvp through the JAX custom_jvp, symmetric tangents."""
+    rng = np.random.default_rng(30 + n)
+    H = _spd(rng, 3, n)
+    dH = rng.normal(size=(3, n, n))
+    dH = dH + np.swapaxes(dH, 1, 2)
+    ref_p, ref_t = jax.jvp(jchol.chol_any, (jnp.asarray(H),),
+                           (jnp.asarray(dH),))
+    out_p, out_t = torch.func.jvp(batched_chol.chol_any,
+                                  (torch.as_tensor(H),),
+                                  (torch.as_tensor(dH),))
+    for o, r in ((out_p, ref_p), (out_t, ref_t)):
+        r = np.asarray(r)
+        assert np.max(np.abs(o.numpy() - r)) <= 1e-11 * np.max(np.abs(r))
+
+
+def test_chol_any_hessian_matches_jax():
+    """torch.func.hessian of a scalar of chol(X X' + n I) against
+    jax.hessian through the JAX custom_jvp."""
+    n = 3
+    rng = np.random.default_rng(33)
+    X, W = rng.normal(size=(n, n)), rng.normal(size=(n, n))
+    ref = np.asarray(jax.hessian(
+        lambda X: jnp.sum(jnp.asarray(W) * jchol.chol_any(
+            _sym_input(X, n))) ** 2)(jnp.asarray(X)))
+    out = torch.func.hessian(
+        lambda X: (torch.as_tensor(W) * batched_chol.chol_any(
+            _sym_input(X, n))).sum() ** 2)(torch.as_tensor(X))
+    assert np.max(np.abs(out.numpy() - ref)) <= 1e-10 * np.max(np.abs(ref))
+
+
+def test_chol_any_vmap_matches_unbatched():
+    H = torch.as_tensor(_spd(np.random.default_rng(34), 24, 5)).reshape(
+        2, 3, 4, 5, 5)
+    out = torch.func.vmap(torch.func.vmap(torch.func.vmap(
+        batched_chol.chol_any)))(H)
+    np.testing.assert_array_equal(
+        out.reshape(24, 5, 5).numpy(),
+        chol_factor_batched(H.reshape(24, 5, 5)).numpy())
+
+
+def test_chol_any_forward_ad_gradcheck():
+    """Forward and reverse mode, batched, and second order, through a
+    symmetric input."""
+    X = torch.tensor(np.random.default_rng(35).normal(size=(2, 4, 4)),
+                     requires_grad=True)
+    f = lambda X: batched_chol.chol_any(_sym_input(X, 4))
+    assert torch.autograd.gradcheck(f, (X,), check_forward_ad=True,
+                                    check_batched_grad=True,
+                                    check_batched_forward_grad=True)
+    assert torch.autograd.gradgradcheck(f, (X,), check_fwd_over_rev=True,
+                                        check_batched_grad=True)
+
+
+def test_vmap_over_three_axes_is_one_kernel_call(monkeypatch):
+    """A vmap over 3 axes, and a jacfwd's tangent axis, reach K2's
+    wrapper once each."""
+    calls = []
+    orig = batched_chol.chol_factor_batched
+
+    def counting(H, source="batched_chol"):
+        calls.append(tuple(H.shape))
+        return orig(H, source)
+
+    monkeypatch.setattr(batched_chol, "chol_factor_batched", counting)
+    H = torch.as_tensor(_spd(np.random.default_rng(36), 24, 5)).reshape(
+        2, 3, 4, 5, 5)
+    torch.func.vmap(torch.func.vmap(torch.func.vmap(
+        batched_chol.chol_any)))(H)
+    assert calls == [(24, 5, 5)]
+    calls.clear()
+    torch.func.vmap(torch.func.jacfwd(batched_chol.chol_any))(H[0, 0])
+    assert calls == [(4, 5, 5)]

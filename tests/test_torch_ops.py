@@ -355,3 +355,88 @@ def test_step_mix_reads_both_branches():
     assert (w["per_step"], w["fma"], w["reduce"], w["shared"]) == (53, 40, 3,
                                                                    10)
     assert w["shuffle"] == 0
+
+
+# ---------------------------------------------------------------------------
+# K1's forward-mode and vmap rules (the JAX package's custom_jvp and
+# custom_vmap of gj_inverse_any)
+# ---------------------------------------------------------------------------
+
+def _k1_input(seed, shape, n):
+    rng = np.random.default_rng(seed)
+    return rng.normal(size=shape + (n, n)) + n * np.eye(n)
+
+
+def test_gj_inverse_jvp_matches_jax_custom_jvp():
+    """torch.func.jvp through the port's rule against jax.jvp through the
+    JAX custom_jvp, at 1e-12 relative."""
+    import jax
+
+    from acados_tpu.ops.batched_inv import gj_inverse_any as jax_inv_any
+    A, dA = _k1_input(20, (3,), 6), np.random.default_rng(21).normal(
+        size=(3, 6, 6))
+    ref_p, ref_t = jax.jvp(jax_inv_any, (jnp.asarray(A),),
+                           (jnp.asarray(dA),))
+    out_p, out_t = torch.func.jvp(batched_inv.gj_inverse_any,
+                                  (torch.as_tensor(A),),
+                                  (torch.as_tensor(dA),))
+    for o, r in ((out_p, ref_p), (out_t, ref_t)):
+        r = np.asarray(r)
+        assert np.max(np.abs(o.numpy() - r)) <= 1e-12 * np.max(np.abs(r))
+
+
+def test_gj_inverse_hessian_matches_jax():
+    """torch.func.hessian (forward over reverse) of a scalar of A^-1
+    against jax.hessian through the JAX custom_jvp."""
+    import jax
+
+    from acados_tpu.ops.batched_inv import gj_inverse_any as jax_inv_any
+    A = _k1_input(22, (), 4)
+    W = np.random.default_rng(23).normal(size=(4, 4))
+    ref = jax.hessian(lambda a: jnp.sum(jnp.asarray(W) * jax_inv_any(a))
+                      ** 2)(jnp.asarray(A))
+    out = torch.func.hessian(lambda a: (torch.as_tensor(W) *
+                                        batched_inv.gj_inverse_any(a)
+                                        ).sum() ** 2)(torch.as_tensor(A))
+    ref = np.asarray(ref)
+    assert np.max(np.abs(out.numpy() - ref)) <= 1e-10 * np.max(np.abs(ref))
+
+
+def test_gj_inverse_vmap_matches_unbatched():
+    A = torch.as_tensor(_k1_input(24, (2, 3, 4), 5))
+    out = torch.func.vmap(torch.func.vmap(torch.func.vmap(
+        batched_inv.gj_inverse_any)))(A)
+    ref = batched_inv.gj_inverse_any(A.reshape(24, 5, 5)).reshape(A.shape)
+    np.testing.assert_array_equal(out.numpy(), ref.numpy())
+
+
+def test_gj_inverse_forward_ad_gradcheck():
+    """Forward and reverse mode, batched, and second order."""
+    A = torch.tensor(_k1_input(25, (2,), 4), requires_grad=True)
+    assert torch.autograd.gradcheck(
+        batched_inv.gj_inverse_any, (A,), check_forward_ad=True,
+        check_batched_grad=True, check_batched_forward_grad=True)
+    assert torch.autograd.gradgradcheck(
+        batched_inv.gj_inverse_any, (A,), check_fwd_over_rev=True,
+        check_batched_grad=True)
+
+
+def test_vmap_over_three_axes_is_one_kernel_call(monkeypatch):
+    """A vmap over 3 axes (and a jacfwd's tangent axis beside them)
+    reaches the kernel wrapper once: the vmap rule folds every axis into
+    its batch, as the JAX package's custom_vmap collapse does."""
+    calls = []
+    orig = batched_inv._gj_inverse_kernel
+
+    def counting(A):
+        calls.append(tuple(A.shape))
+        return orig(A)
+
+    monkeypatch.setattr(batched_inv, "_gj_inverse_kernel", counting)
+    A = torch.as_tensor(_k1_input(26, (2, 3, 4), 5))
+    torch.func.vmap(torch.func.vmap(torch.func.vmap(
+        batched_inv.gj_inverse_any)))(A)
+    assert calls == [(24, 5, 5)]
+    calls.clear()
+    torch.func.vmap(torch.func.jacfwd(batched_inv.gj_inverse_any))(A[0, 0])
+    assert calls == [(4, 5, 5)]
