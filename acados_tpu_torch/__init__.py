@@ -23,6 +23,8 @@ from acados_tpu_torch.interface.acados_ocp import (AcadosModel, AcadosOcp,
                                                    AcadosOcpDims,
                                                    AcadosOcpOptions)
 from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+from acados_tpu_torch.interface.ocp_qp_solver import (AcadosOcpQp,
+                                                      AcadosOcpQpSolver)
 from acados_tpu_torch.interface.sim_solver import (AcadosSim,
                                                    AcadosSimBatchSolver,
                                                    AcadosSimOpts,
@@ -36,6 +38,6 @@ __all__ = [
     "AcadosModel", "AcadosOcp", "AcadosOcpConstraints", "AcadosOcpCost",
     "AcadosOcpDims", "AcadosOcpOptions", "AcadosOcpSolver",
     "AcadosOcpBatchSolver", "AcadosSim", "AcadosSimOpts",
-    "AcadosSimSolver", "AcadosSimBatchSolver", "ACADOS_INFTY",
-    "AcadosStatus",
+    "AcadosSimSolver", "AcadosSimBatchSolver", "AcadosOcpQp",
+    "AcadosOcpQpSolver", "ACADOS_INFTY", "AcadosStatus",
 ]

@@ -3,11 +3,12 @@
 Counterpart of `acados_tpu/ocp_nlp/sqp.py` for SQP and SQP_RTI with the
 FIXED_STEP globalization. Each QP goes through the JAX package's
 front-end order: QP scaling, then condensing (none, partial or full),
-then the Riccati IPM or, with full condensing, the dense IPM. The JAX
-package runs one `lax.while_loop` per instance and vmaps it; the port
-runs the whole batch in lockstep and freezes each instance that has
-stopped with `where(active, new, old)`, so per-instance iteration counts
-and statuses are those of the vmapped loop.
+then the Riccati IPM, the registry's backend named by qp_solver_name
+or, with full condensing, the dense IPM. The JAX package runs one
+`lax.while_loop` per instance and vmaps it; the port runs the whole
+batch in lockstep and freezes each instance that has stopped with
+`where(active, new, old)`, so per-instance iteration counts and
+statuses are those of the vmapped loop.
 
 Multiplier update rule follows ocp_nlp_update_variables_sqp
 (reference ocp_nlp_common.c:3292): duals blend (1-alpha)*old + alpha*new.
@@ -27,6 +28,7 @@ from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bmax, _bsum,
                                          solve_ocp_qp)
 from acados_tpu_torch.ocp_qp.qpscaling import scale_qp, unscale_sol
+from acados_tpu_torch.ocp_qp.registry import get_qp_backend
 from acados_tpu_torch.ocp_qp.riccati import _mTv
 from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
 from acados_tpu_torch.utils.device import full_precision_matmul
@@ -91,7 +93,6 @@ _NOT_PORTED = {
     "globalization": ("FIXED_STEP", "MERIT/FUNNEL globalization"),
     "with_anderson_acceleration": (False, "Anderson acceleration"),
     "with_adaptive_levenberg_marquardt": (False, "adaptive LM"),
-    "qp_solver_name": ("RICCATI_IPM", "QP breadth (registry backends)"),
     "collect_phase_times": (False, "phase times"),
     "timeout_max_time": (0.0, "in-loop timeout"),
     "store_iterates": (False, "stored iterates"),
@@ -201,8 +202,9 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
 
     def solve_qp(qp, warm=None):
         """QP dispatch (acados_tpu/ocp_nlp/sqp.py:469-500): scaling, then
-        full condensing (the dense IPM, cold), partial condensing or
-        none (the Riccati IPM)."""
+        full condensing (the dense IPM, cold), partial condensing (the
+        Riccati IPM), the registry's backend where qp_solver_name names
+        another, or the Riccati IPM."""
         scales = None
         if opts.qpscaling != "NO_SCALING":
             # x0 rows keep unit scales: the eliminated path reads dx0
@@ -217,6 +219,9 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                 qp, opts.qp_opts, cond_N=opts.cond_N, warm=warm,
                 keep_rows=keep_rows, cond_block_size=opts.cond_block_size,
                 x0_fixed=x0_fixed)
+        elif opts.qp_solver_name != "RICCATI_IPM":
+            sol, info = get_qp_backend(opts.qp_solver_name)(
+                qp, opts.qp_opts, warm=warm)
         else:
             sol, info = solve_ocp_qp(qp, opts.qp_opts, warm=warm,
                                      x0_fixed=x0_fixed)

@@ -3,7 +3,8 @@
 Counterpart of `acados_tpu/ocp_qp/ipm.py`: the same infeasible-start
 Mehrotra predictor-corrector, stage-wise reduced Newton systems (soft
 slacks eliminated in closed form) solved by one backward Riccati
-factorization and two solves per iteration.
+factorization and two solves per iteration (one with `abs_form`, HPIPM's
+SPEED_ABS), sequential or parallel in time (`parallel_riccati`).
 
 The JAX package runs one `lax.while_loop` per instance and vmaps it. The
 port keeps the batch as the leading axis and loops in lockstep: an
@@ -26,8 +27,10 @@ import dataclasses
 import torch
 
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
-from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv, riccati_factor,
-                                             riccati_solve)
+from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv,
+                                             parallel_riccati_factor,
+                                             parallel_riccati_solve,
+                                             riccati_factor, riccati_solve)
 from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
                                            select_fields, tensor_dataclass,
                                            vjp_fields, where_batch)
@@ -36,8 +39,11 @@ from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
 @dataclasses.dataclass(frozen=True)
 class IpmOpts:
     """IPM options; names and defaults as acados_tpu.ocp_qp.ipm.IpmOpts
-    (see there for the reasoning behind each). The SPEED_ABS single-solve
-    variant (abs_form) waits (ROADMAP.md Queue 1, QP breadth)."""
+    (see there for the reasoning behind each). The JAX package's
+    `matmul_precision` and `riccati_unroll` (the TPU's MXU passes and a
+    lax.scan unroll factor) have no counterpart: float32 matmuls stay in
+    full float32 through `utils.device.full_precision_matmul`, and the
+    stage loops are Python loops."""
 
     iter_max: int = 30
     mu0: float = 1e2
@@ -53,6 +59,13 @@ class IpmOpts:
     warm_comp_cap: float = -1.0  # -1: auto cap from the warm point
     stall_max: int = 4          # float32 only (lockstep stall exit)
     stall_alpha: float = 0.5
+    # log-depth associative-scan Riccati (riccati.py parallel_*): about
+    # 2 log2(N) combine levels a sweep in place of N stage steps
+    parallel_riccati: bool = False
+    # HPIPM SPEED_ABS: no affine predictor, one Newton solve an iteration
+    # toward the fixed centering target sigma_abs * mu
+    abs_form: bool = False
+    sigma_abs: float = 0.1
 
     def replace(self, **changes):
         return dataclasses.replace(self, **changes)
@@ -205,7 +218,8 @@ def _barrier_hessian(qp: OcpQp, W):
 
 
 def _newton_step(qp: OcpQp, fact, it: _Iterate, res, weights,
-                 rhs_cl, rhs_cu, rhs_csl, rhs_csu, dx0=None):
+                 rhs_cl, rhs_cu, rhs_csl, rhs_csu, parallel=False,
+                 dx0=None):
     """One reduced Newton solve for given complementarity right-hand
     sides."""
     rx, ru, r_dyn, r_l, r_u, r_sl, r_su = res
@@ -223,8 +237,8 @@ def _newton_step(qp: OcpQp, fact, it: _Iterate, res, weights,
     gamma = ml * gamma_l - mu_ * gamma_u
 
     cg, dg_ = _ct_vec(qp, gamma)
-    dx, du, dpi = riccati_solve(fact, qp.A, qp.B, rx - cg, ru - dg_, r_dyn,
-                                dx0=dx0)
+    solve = parallel_riccati_solve if parallel else riccati_solve
+    dx, du, dpi = solve(fact, qp.A, qp.B, rx - cg, ru - dg_, r_dyn, dx0=dx0)
     dg = _stage_g(qp, dx, du)
 
     dsl = sml * (a_l + c_l - wl * dg) / denom_l
@@ -397,26 +411,43 @@ def solve_ocp_qp(qp: OcpQp, opts: IpmOpts = None,
             break
         weights = _row_weights(qp, it)
         Qb, Rb, Sb = _barrier_hessian(qp, weights[0])
-        fact = riccati_factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps,
-                              factor_p0=dx0_zero is None)
-        # affine (predictor) step: rc = 0 -> rhs = -lam*t
-        d_aff = _newton_step(qp, fact, it, res, weights,
-                             -ml * it.lam_l * it.t_l,
-                             -mu_2 * it.lam_u * it.t_u,
-                             -sml * it.lam_sl * it.sl,
-                             -smu * it.lam_su * it.su, dx0=dx0_zero)
-        alpha_aff = _max_alpha(qp, it, d_aff, opts.tau)
-        mu_aff = _mu_of(qp, _apply(it, d_aff, alpha_aff))
-        sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3,
-                            0.0, 1.0)
-        # corrector: rc = sigma*mu - dlam_aff*dt_aff
-        cmu = _bc(sigma * mu, ml)
-        rhs_cl = ml * (cmu - it.lam_l * it.t_l - d_aff.lam_l * d_aff.t_l)
-        rhs_cu = mu_2 * (cmu - it.lam_u * it.t_u - d_aff.lam_u * d_aff.t_u)
-        rhs_csl = sml * (cmu - it.lam_sl * it.sl - d_aff.lam_sl * d_aff.sl)
-        rhs_csu = smu * (cmu - it.lam_su * it.su - d_aff.lam_su * d_aff.su)
+        factor = (parallel_riccati_factor if opts.parallel_riccati
+                  else riccati_factor)
+        fact = factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps,
+                      factor_p0=dx0_zero is None)
+        if opts.abs_form:
+            # SPEED_ABS: one centered Newton solve toward sigma_abs*mu
+            cmu = _bc(opts.sigma_abs * mu, ml)
+            rhs_cl = ml * (cmu - it.lam_l * it.t_l)
+            rhs_cu = mu_2 * (cmu - it.lam_u * it.t_u)
+            rhs_csl = sml * (cmu - it.lam_sl * it.sl)
+            rhs_csu = smu * (cmu - it.lam_su * it.su)
+        else:
+            # affine (predictor) step: rc = 0 -> rhs = -lam*t
+            d_aff = _newton_step(qp, fact, it, res, weights,
+                                 -ml * it.lam_l * it.t_l,
+                                 -mu_2 * it.lam_u * it.t_u,
+                                 -sml * it.lam_sl * it.sl,
+                                 -smu * it.lam_su * it.su,
+                                 parallel=opts.parallel_riccati,
+                                 dx0=dx0_zero)
+            alpha_aff = _max_alpha(qp, it, d_aff, opts.tau)
+            mu_aff = _mu_of(qp, _apply(it, d_aff, alpha_aff))
+            sigma = torch.clamp((mu_aff / torch.clamp(mu, min=1e-30)) ** 3,
+                                0.0, 1.0)
+            # corrector: rc = sigma*mu - dlam_aff*dt_aff
+            cmu = _bc(sigma * mu, ml)
+            rhs_cl = ml * (cmu - it.lam_l * it.t_l
+                           - d_aff.lam_l * d_aff.t_l)
+            rhs_cu = mu_2 * (cmu - it.lam_u * it.t_u
+                             - d_aff.lam_u * d_aff.t_u)
+            rhs_csl = sml * (cmu - it.lam_sl * it.sl
+                             - d_aff.lam_sl * d_aff.sl)
+            rhs_csu = smu * (cmu - it.lam_su * it.su
+                             - d_aff.lam_su * d_aff.su)
         d = _newton_step(qp, fact, it, res, weights, rhs_cl, rhs_cu,
-                         rhs_csl, rhs_csu, dx0=dx0_zero)
+                         rhs_csl, rhs_csu, parallel=opts.parallel_riccati,
+                         dx0=dx0_zero)
         alpha = _max_alpha(qp, it, d, opts.tau)
         it_new = _apply(it, d, alpha)
 
@@ -526,6 +557,8 @@ def solve_ocp_qp_sens_frw(qp: OcpQp, sol: OcpQpSol, d_qp: OcpQp,
     _, d_res = jvp_fields(lambda q: _residuals(q, it)[0], qp, d_qp)
     weights = _row_weights(qp, it)
     Qb, Rb, Sb = _barrier_hessian(qp, weights[0])
+    # the sequential factor whatever opts.parallel_riccati says, as the
+    # JAX package does
     fact = riccati_factor(Qb, Rb, Sb, qp.A, qp.B, reg_eps=opts.reg_eps)
     zl = torch.zeros_like(qp.lg)
     d = _newton_step(qp, fact, it, d_res, weights, zl, zl, zl, zl)

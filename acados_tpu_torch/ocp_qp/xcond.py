@@ -2,10 +2,9 @@
 
 Counterpart of `acados_tpu/ocp_qp/xcond.py`: the one QP entry the NLP
 layer calls, wrapping condense -> solve -> expand. No condensing and
-partial condensing solve with the Riccati IPM, full condensing with the
-dense IPM. The JAX package's `backend=` (an OCP-QP solver from its
-registry in place of the Riccati IPM) waits for the registry backends
-(ROADMAP.md Queue 1, item 18).
+partial condensing solve with an OCP-QP backend (the Riccati IPM unless
+`backend=` names another, e.g. one of the registry's), full condensing
+with the dense IPM.
 """
 from __future__ import annotations
 
@@ -59,25 +58,28 @@ def solve_ocp_qp_xcond(qp: OcpQp, opts: IpmOpts = None, cond_N: int = None,
       blocks to the widest with inert stages.
     keep_rows: static real-row counts (n0, npath[, nterm]) of the stage
       classes; rows beyond them are pruned before condensing.
+    backend: the OCP-QP solver callable (qp, opts, warm=) for the
+      (partially condensed) QPs, e.g. registry.get_qp_backend("ADMM");
+      None is the Riccati IPM (the reference's xcond composes
+      {condensing} x {any backend}).
     x0_fixed: eliminate the initial state through the condensing: the
       condensed block-0 entry state is x0, so its identity rows survive
       at known positions (cond_x0_rows) and the condensed QP is solved
-      on the eliminated-x0 Riccati path.
+      on the eliminated-x0 Riccati path. Requires the Riccati IPM.
     Returns (OcpQpSol in the original coordinates, IpmInfo).
     """
-    if backend is not None:
-        raise NotImplementedError(
-            "an OCP-QP backend other than the Riccati IPM is not ported "
-            "yet (ROADMAP.md Queue 1, item 18: QP breadth, registry "
-            "backends)")
     if opts is None:
         opts = IpmOpts()
+    if backend is None:
+        backend = solve_ocp_qp
+    if x0_fixed and backend is not solve_ocp_qp:
+        raise ValueError("x0_fixed requires the Riccati IPM backend")
 
     def run(qp_c, warm_c, x0_rows=None):
         if x0_fixed:
-            return solve_ocp_qp(qp_c, opts, warm=warm_c, x0_fixed=True,
-                                x0_rows=x0_rows)
-        return solve_ocp_qp(qp_c, opts, warm=warm_c)
+            return backend(qp_c, opts, warm=warm_c, x0_fixed=True,
+                           x0_rows=x0_rows)
+        return backend(qp_c, opts, warm=warm_c)
 
     if full_cond:
         if x0_fixed:

@@ -23,13 +23,26 @@ __all__ = ["JAX_SENS_F32_GAP", "param_pendulum_ocp", "pivot_tie_batch",
 JAX_SENS_F32_GAP = 1.01e-7
 
 
-def rti_batch(ocp, x0s: np.ndarray, device):
+def rti_batch(ocp, x0s: np.ndarray, device, opts_update=None,
+              qp_opts_update=None):
     """AcadosOcpBatchSolver of len(x0s) instances of `ocp`, set up as
     bench.py's _build_rti sets up the JAX package's batch: each
     instance's x0 as lbx = ubx at stage 0 and as its initial x at every
-    stage, through the per-instance views as a user would."""
+    stage, through the per-instance views as a user would.
+
+    opts_update / qp_opts_update: SqpOpts and IpmOpts fields that
+    replace those the solver derived from the OCP (bench.py's keywords
+    of the same names, e.g. qp_solver_name="ADMM" or
+    parallel_riccati=True); the solve function is rebuilt with them."""
     from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+    from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
     solver = AcadosOcpBatchSolver(ocp, len(x0s), device=device)
+    if opts_update or qp_opts_update:
+        opts = solver.opts.replace(**(opts_update or {}))
+        opts = opts.replace(qp_opts=opts.qp_opts.replace(
+            **(qp_opts_update or {})))
+        solver.opts = opts
+        solver._solve_fn = make_sqp_solver(solver.form, opts)
     for i, view in enumerate(solver.ocp_solvers):
         view.set(0, "lbx", x0s[i])
         view.set(0, "ubx", x0s[i])

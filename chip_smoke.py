@@ -100,16 +100,22 @@ failure exits non-zero:
     cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
     launches in each prepare() and none in each feedback(); the medians
     of time_preparation and time_feedback beside the solve() call's;
-17. long-horizon pendulum (bench.py's bench_long_horizon_rti, plain and
-    cond_N16): make_pendulum_ocp(N=128, Tf=1.0), ERK, SQP_RTI, float32,
-    B = 1024, x0 = [0, pi, 0, 0] + N(0, 0.02), both variants in one
-    process: 1 cold + 12 warm calls each (bench.py warms 25: cut for the
-    plain variant's seconds a call), then 3 interleaved rounds of 2
-    timed calls; every status 0, within stat 1e-1 and eq 1e-4
-    (bench.py's _LONGH_TOLS), no kernel launches (nu = 1, condensed
-    nu = 8 <= 12); for each: solves/s, median call with p10/p90, Riccati
-    stages a sweep, kernel launches a call and device busy share
-    (torch.profiler), the QP's share of a call;
+17. long-horizon pendulum (bench.py's bench_long_horizon_rti, plain,
+    cond_N16 and parallel_riccati): make_pendulum_ocp(N=128, Tf=1.0),
+    ERK, SQP_RTI, float32, B = 1024, x0 = [0, pi, 0, 0] + N(0, 0.02),
+    the three variants in one process: 1 cold + 10 warm calls each
+    (bench.py warms 25: cut for the plain variant's seconds a call), then
+    2 interleaved rounds of 2 timed calls; every status 0, within stat
+    1e-1 and eq 1e-4 (bench.py's _LONGH_TOLS); no kernel launches in
+    plain and cond_N16 (nu = 1, condensed nu = 8 <= 12), and in
+    parallel_riccati K1 exactly 13 launches a lockstep IPM round (one a
+    non-empty combine of the associative scan over 129 stages); for
+    each: solves/s, median call with p10/p90, Riccati stages a sweep (or
+    combine levels a factor), kernel launches a call and device busy
+    share (torch.profiler), the QP's share of a call; then K1 on the
+    largest combine, (65536, 4, 4) captured in the parallel variant's
+    first timed call, against its plain version (the bits that differ
+    counted), and its times there;
 18. chain at qp_solver_cond_N = 8 (n_mass = 8, N = 40, B = 256,
     float32; blocks of M = 5, condensed nu = 15 > 12, so each condensed
     stage's Huu goes through K2): 1 cold + 15 warm calls, then 3
@@ -148,7 +154,29 @@ failure exits non-zero:
     xn, S_forw, S_adj, S_hess (IRK and RK4), the forward and adjoint
     sensitivities and the differentiable solver's gradient within 1e-9;
     the chain's sensitivities (B = 4) within the CPU's own spread on x0s
-    moved by one rounding step, where that exceeds 1e-9.
+    moved by one rounding step, where that exceeds 1e-9;
+24. latency (bench.py's bench_latency): phase 17's three variants at
+    B = 8 (cond_N = 32), 1 cold + 12 warm calls each (bench.py warms
+    25), then 2 interleaved rounds of 2 timed calls; the median call with
+    p10/p90, every status 0, _LONGH_TOLS met, K1 only in
+    parallel_riccati, 13 a lockstep IPM round;
+25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
+    ERK SQP-RTI, N = 20, float32, B = 4096, x0 spread 0.05, the Riccati
+    IPM beside qp_solver_name="ADMM": the IPM 1 cold + 15 warm calls,
+    ADMM 1 + 3 calls from the IPM's iterate after its 6th call (not yet
+    in tolerance: ADMM's own steps bring the batch there), then 2
+    interleaved rounds of 1 timed call (bench.py: 15 warm calls each, 3
+    rounds of 10; an ADMM call runs up to 500 lockstep iterations);
+    every status 0, the OCP's nlp tolerances (stat, eq) met, no launch
+    of the repo's kernels; solves/s, the largest ADMM iteration count a
+    call, ADMM's residual maxima call by call, launches a call (the
+    IPM's by torch.profiler; ADMM's ~2e5 are not profiled);
+26. float64 card against CPU of the QP-breadth paths, each within 1e-9:
+    the long horizon with parallel_riccati, the main path's config with
+    abs_form and the ADMM RTI batch (B = 8, 3 RTI calls each), and
+    AcadosOcpQpSolver on a random QP (N = 20, x0 free) with the Riccati
+    IPM, ADMM and ADMM through partial condensing (cond_N = 4), with its
+    forward and adjoint sensitivities.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -195,7 +223,29 @@ RTI_WARM, RTI_TIMED = 11, 8
 # cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
 N_LONG, B_LONG, LONG_SIGMA, COND_LONG = 128, 1024, 0.02, 16
 LONG_TOLS = (1e-1, 1e-4, np.inf, np.inf)
-LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 12, 3, 2
+LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 2, 2
+# the parallel-in-time Riccati: K1 launches a factor, one a non-empty
+# combine of the associative scan over N + 1 elements (7 reduce + 7 even
+# combines at N = 128, the even one at 2 elements empty; 4 + 4 at N = 20)
+K1_PER_PAR_FACTOR = {128: 13, 20: 7}
+# the largest combine: 64 pairs of each of the B_LONG instances
+PAR_COMBINE_B = 64 * 1024
+# bench.py's bench_latency: B, the condensed horizon of its cond_N32
+# variant, and the warm calls (bench.py: 25; 3 leave cond_N32 out of
+# _LONGH_TOLS at B = 8), rounds and calls a round
+B_LAT, COND_LAT = 8, 32
+LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 12, 2, 2
+# bench.py's bench_admm_backend: B, N, x0 spread, the IPM's warm calls
+# (bench.py: 15 for each variant), the IPM call whose iterate the ADMM
+# variant starts from (the RTI iteration still far from tolerance there:
+# a converged instance keeps its iterate, so ADMM's steps must be what
+# brings the batch into tolerance), the ADMM variant's warm calls and
+# the interleaved rounds (bench.py: 3 rounds of 10 calls). Cut to keep
+# the phase near a minute: an ADMM call runs up to 500 lockstep
+# iterations, ~6 s at B = 4096
+B_ADMM, N_ADMM, ADMM_SIGMA = 4096, 20, 0.05
+ADMM_IPM_WARM, ADMM_FROM_IPM_CALL = 15, 6
+ADMM_WARM, ADMM_ROUNDS, ADMM_PER_ROUND = 3, 2, 1
 # the chain at qp_solver_cond_N = 8: condensed nu = 5 * 3 = 15
 COND_CHAIN = 8
 CHAIN_ROUNDS, CHAIN_PER_ROUND = 3, 4
@@ -445,19 +495,25 @@ def check_inverse(name, A, inv_kernel, bound, quiet=False):
     return rel, abs_err, resid
 
 
-def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None):
+def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None,
+              sigma=X0_SIGMA, moved=False, **updates):
     """The main path's batch solver with bench.py's _build_rti set-up:
-    x0 per instance = X0_CENTER + N(0, X0_SIGMA), set as lbx/ubx at stage
+    x0 per instance = X0_CENTER + N(0, sigma), set as lbx/ubx at stage
     0, and the x trajectory initialised at x0. qp_solver, if given, is
-    set in the solver options."""
+    set in the solver options; moved: every x0 entry moved by one
+    rounding step, up or down at random; updates (opts_update,
+    qp_opts_update) go to acados_tpu_torch.testing.rti_batch."""
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.testing import rti_batch as batch_at
     ocp = make_pendulum_ocp(**ocp_kw)
     if qp_solver is not None:
         ocp.solver_options.qp_solver = qp_solver
     rng = np.random.default_rng(seed)
-    x0s = np.asarray(X0_CENTER) + rng.normal(0.0, X0_SIGMA, (B, 4))
-    return batch_at(ocp, x0s, device), ocp
+    x0s = np.asarray(X0_CENTER) + rng.normal(0.0, sigma, (B, 4))
+    if moved:
+        x0s = x0s * (1 + np.finfo(np.float64).eps * rng.choice(
+            (-1.0, 1.0), x0s.shape))
+    return batch_at(ocp, x0s, device, **updates), ocp
 
 
 def chain_batch(n_mass, B, dtype, device, seed=SEED, moved=False,
@@ -666,14 +722,17 @@ def fc_time_split(solver) -> dict:
     return out
 
 
-def card_vs_cpu(label, make, moved=None, calls=3, step=None):
+def card_vs_cpu(label, make, moved=None, calls=3, step=None,
+                spread_bound=False):
     """The same float64 batch (make(device) -> solver) on the card and on
     the CPU, `calls` RTI calls (step(solver) -> statuses, default
     solver.solve()): equal statuses and qp_iter, and max |d|/(1 + |ref|)
     over x, u, pi within 1e-9, naming the worst instance. moved, if
     given, makes the CPU batch again from inputs moved by one rounding
     step (moved() -> solver), to log the CPU's own spread beside the
-    card's gap."""
+    card's gap; with spread_bound the bound is 4 x that spread where
+    it exceeds 1e-9 (as tests/test_torch_sens_models.py holds stiff
+    cases to the JAX package's spread)."""
     import torch
     step = step or (lambda s: s.solve())
     gpu, cpu = make(torch.device("cuda")), make("cpu")
@@ -700,15 +759,19 @@ def card_vs_cpu(label, make, moved=None, calls=3, step=None):
         f"max |d|/(1+|ref|) {g[worst]:.3e} (bound 1e-9, worst instance "
         f"{worst}), statuses {st_g.tolist()}, qp_iter "
         f"{gpu.get_stats('qp_iter').tolist()}")
+    bound = 1e-9
     if moved is not None:
         cpu_moved = moved()
         for _ in range(calls):
             step(cpu_moved)
         gm = gaps(cpu_moved)
+        if spread_bound:
+            bound = max(bound, 4 * float(gm.max()))
         log(f"  CPU against the CPU on x0s moved by one rounding step: "
             f"worst instance {int(np.argmax(gm))} ({gm.max():.3e}; "
-            f"instance {worst} {gm[worst]:.3e})")
-    if not g[worst] <= 1e-9:
+            f"instance {worst} {gm[worst]:.3e}); the card held to "
+            f"{bound:.3e}")
+    if not g[worst] <= bound:
         raise SystemExit(f"{label}: card and CPU disagree")
 
 
@@ -1513,10 +1576,11 @@ def rti_phases(dev, call_med_ms: float) -> None:
                          f"{prep_ok} {fb_ok}")
 
 
-def long_batch(B, dtype, device, cond_N=None, seed=SEED):
+def long_batch(B, dtype, device, cond_N=None, seed=SEED, parallel=False):
     """bench_long_horizon_rti's set-up: the pendulum ERK SQP-RTI OCP at
     N = N_LONG, Tf = 1, x0 per instance = [0, pi, 0, 0] +
-    N(0, LONG_SIGMA), with qp_solver_cond_N = cond_N."""
+    N(0, LONG_SIGMA), with qp_solver_cond_N = cond_N; parallel: the IPM's
+    parallel_riccati (bench.py's qp_opts_update)."""
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.testing import rti_batch as batch_at
     ocp = make_pendulum_ocp(N=N_LONG, Tf=1.0, nlp_solver_type="SQP_RTI",
@@ -1524,22 +1588,47 @@ def long_batch(B, dtype, device, cond_N=None, seed=SEED):
     ocp.solver_options.qp_solver_cond_N = cond_N
     rng = np.random.default_rng(seed)
     x0s = np.asarray(X0_CENTER) + rng.normal(0.0, LONG_SIGMA, (B, 4))
-    return batch_at(ocp, x0s, device)
+    return batch_at(ocp, x0s, device, qp_opts_update=dict(
+        parallel_riccati=True) if parallel else None)
+
+
+def long_variants(B, dtype, dev, cond_N) -> dict:
+    """bench.py's three long-horizon variants: plain, cond_N and
+    parallel_riccati."""
+    return {"plain": long_batch(B, dtype, dev),
+            f"cond_N{cond_N}": long_batch(B, dtype, dev, cond_N=cond_N),
+            "parallel_riccati": long_batch(B, dtype, dev, parallel=True)}
+
+
+def check_launches(label, runs: dict) -> None:
+    """Of the repo's kernels only K1, and only in the parallel_riccati
+    variant: exactly K1_PER_PAR_FACTOR[N_LONG] a lockstep IPM round, i.e.
+    times the sum over calls of the batch's largest qp_iter."""
+    for name, (_, qp_max, counts) in runs.items():
+        want = dict.fromkeys(counts, 0)
+        if name == "parallel_riccati":
+            want["gj_inverse"] = K1_PER_PAR_FACTOR[N_LONG] * sum(qp_max)
+        if counts != want:
+            raise SystemExit(f"{label} {name}: expected launches {want}, "
+                             f"counted {counts}")
 
 
 def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
-                warmed=()) -> dict:
+                warmed=(), before_call=None) -> dict:
     """Each solver of {name: solver} but those named in `warmed`: 1 cold
     + `warm` calls; then `rounds` rounds in which every solver takes
     `per_round` timed calls in turn. Every status must be 0 and each
     solver's last call in tolerance. Counts are set to 0 before and read
-    after each call and summed per solver. Returns {name: (timed call
-    ms, largest qp_iter per call, launch counts)}."""
+    after each call and summed per solver. before_call(name, timed), if
+    given, runs before each call. Returns {name: (timed call ms, largest
+    qp_iter per call, launch counts)}."""
     import torch
     out = {name: ([], [], {}) for name in solvers}
 
     def call(name, timed):
         s = solvers[name]
+        if before_call is not None:
+            before_call(name, timed)
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1572,14 +1661,32 @@ def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
     return out
 
 
-def long_horizon(dev) -> None:
-    """Phase 17: bench_long_horizon_rti's plain and cond_N16 variants at
-    full width, in one process."""
-    solvers = {"plain": long_batch(B_LONG, "float32", dev),
-               f"cond_N{COND_LONG}": long_batch(B_LONG, "float32", dev,
-                                                cond_N=COND_LONG)}
-    runs = interleaved(solvers, "long horizon", LONG_TOLS, LONG_WARM,
-                       LONG_ROUNDS, LONG_PER_ROUND)
+def long_horizon(dev) -> dict:
+    """Phase 17: bench_long_horizon_rti's three variants at full width,
+    in one process; K1 on the largest combine of the parallel Riccati
+    (captured in the variant's first timed call). Returns K1's kernels
+    entry there."""
+    import torch
+    from acados_tpu_torch.ops import batched_inv
+    solvers = long_variants(B_LONG, "float32", dev, COND_LONG)
+    orig = batched_inv._gj_inverse_cuda
+    grab = {"armed": False, "M": None}
+
+    def record(A, *args, **kw):
+        if grab["armed"] and grab["M"] is None \
+                and A.shape[0] == PAR_COMBINE_B:
+            grab["M"] = A.detach().clone()
+        return orig(A, *args, **kw)
+
+    def arm(name, timed):
+        grab["armed"] = name == "parallel_riccati" and timed
+
+    batched_inv._gj_inverse_cuda = record
+    try:
+        runs = interleaved(solvers, "long horizon", LONG_TOLS, LONG_WARM,
+                           LONG_ROUNDS, LONG_PER_ROUND, before_call=arm)
+    finally:
+        batched_inv._gj_inverse_cuda = orig
     log(f"long horizon: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LONG}, "
         f"float32, 1 cold + {LONG_WARM} warm calls a variant (bench.py "
         f"warms 25; cut for the plain variant's call time), then "
@@ -1587,17 +1694,50 @@ def long_horizon(dev) -> None:
     for name, s in solvers.items():
         call_ms, qp_max, counts = runs[name]
         split = time_split(s, reps=3 if name == "plain" else 5, profiled=1)
-        log(f"  {name}: {call_stats(call_ms, B_LONG)}; Riccati stages a "
-            f"sweep {split['riccati_stages']}; kernel launches a call "
-            f"{split['kernel_launches_per_call']:.0f} (device busy "
-            f"{split['device_busy_share'] * 100:.1f} %); QP "
+        depth = (f"combine levels a factor {K1_PER_PAR_FACTOR[N_LONG]} "
+                 f"(the {N_LONG} stages in log depth)"
+                 if name == "parallel_riccati" else
+                 f"Riccati stages a sweep {split['riccati_stages']}")
+        log(f"  {name}: {call_stats(call_ms, B_LONG)}; {depth}; kernel "
+            f"launches a call {split['kernel_launches_per_call']:.0f} "
+            f"(device busy {split['device_busy_share'] * 100:.1f} %); QP "
             f"{split['qp_ms']:.2f} of {split['call_ms']:.2f} ms a call "
             f"({split['qp_share'] * 100:.1f} %); largest qp_iter per call "
             f"{qp_max}; launches of the repo's kernels {counts}")
         log(f"    time split: {json.dumps(split)}")
-        if any(counts.values()):
-            raise SystemExit(f"long horizon {name}: unexpected kernel "
-                             f"launches {counts}")
+    check_launches("long horizon", runs)
+    qp_max = runs["parallel_riccati"][1]
+    launches = runs["parallel_riccati"][2]["gj_inverse"]
+    log(f"  parallel_riccati: K1 {launches} launches = "
+        f"{K1_PER_PAR_FACTOR[N_LONG]} a factor x {sum(qp_max)} lockstep IPM "
+        f"rounds over {len(qp_max)} calls")
+
+    # K1 on the largest combine level against its plain version
+    M = grab["M"]
+    if M is None or M.shape != (PAR_COMBINE_B, 4, 4):
+        raise SystemExit("no (65536, 4, 4) combine captured")
+    Mk = batched_inv._gj_inverse_cuda(M)
+    torch.cuda.synchronize()
+    Mp = batched_inv.gj_inverse_plain(M)
+    abs_err = float((Mk - Mp).abs().max())
+    rel = abs_err / float(Mp.abs().max())
+    eye = torch.eye(4, dtype=M.dtype, device=dev)
+    resid = float((M @ Mk - eye).abs().max())
+    bits = int((Mk != Mp).sum())
+    cond = float(torch.linalg.cond(M.double()).max())
+    ok = rel <= F32_BOUND and bool(torch.isfinite(Mk).all())
+    log(f"  K1 on the captured combine {tuple(M.shape)} float32 "
+        f"(I + C_i J_j, largest condition number {cond:.3e}): "
+        f"max|k-p|/max|p| {rel:.3e} (bound {F32_BOUND:g}), "
+        f"max|M Minv - I| {resid:.3e}, {bits} of {Mk.numel()} entries "
+        f"differ in their bits from the plain version: "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("K1 disagrees with its plain version on the "
+                         "parallel Riccati's combine")
+    entry = k1_entry("gj_inverse_par_riccati", M, launches, rel, abs_err)
+    entry["bits_differing"] = bits
+    return entry
 
 
 def chain_cond(dev, plain) -> dict:
@@ -2122,6 +2262,198 @@ def sens_vs_cpu() -> None:
                          "beyond the CPU's own spread")
 
 
+def latency(dev) -> None:
+    """Phase 24: bench_latency, the three long-horizon variants at
+    B = B_LAT (one controller's batch), interleaved: the median call with
+    p10/p90 beside each other, every status 0, _LONGH_TOLS met, K1 only
+    in the parallel variant at 13 a lockstep IPM round."""
+    solvers = long_variants(B_LAT, "float32", dev, COND_LAT)
+    runs = interleaved(solvers, "latency", LONG_TOLS, LAT_WARM, LAT_ROUNDS,
+                       LAT_PER_ROUND)
+    log(f"latency: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LAT}, float32, "
+        f"1 cold + {LAT_WARM} warm calls a variant (bench.py warms 25), "
+        f"then {LAT_ROUNDS} interleaved rounds of {LAT_PER_ROUND} timed "
+        f"calls")
+    for name, (call_ms, qp_max, counts) in runs.items():
+        med = float(np.median(call_ms))
+        p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
+        log(f"  latency {name}: median {med:.2f} ms (p10 {p10:.2f}, p90 "
+            f"{p90:.2f}) over {len(call_ms)} calls; largest qp_iter per "
+            f"call {qp_max}; launches {counts}")
+    check_launches("latency", runs)
+
+
+def admm_phase(dev) -> None:
+    """Phase 25: bench_admm_backend, the pendulum ERK SQP-RTI (N = 20) at
+    B = B_ADMM with the Riccati IPM beside qp_solver_name="ADMM": the IPM
+    warms up from the swing-up start, the ADMM variant starts from the
+    IPM's iterate after ADMM_FROM_IPM_CALL calls, then interleaved
+    rounds; every status 0, the OCP's own nlp tolerances (stat, eq) met,
+    no launch of the repo's kernels."""
+    from acados_tpu_torch.utils.struct import map_fields
+    kw = dict(N=N_ADMM, dtype="float32", nlp_solver_type="SQP_RTI")
+    ipm = rti_batch(kw, B_ADMM, dev, sigma=ADMM_SIGMA)[0]
+    admm = rti_batch(kw, B_ADMM, dev, sigma=ADMM_SIGMA,
+                     opts_update=dict(qp_solver_name="ADMM"))[0]
+    so = ipm.acados_ocp.solver_options
+    tols = (so.nlp_solver_tol_stat, so.nlp_solver_tol_eq, np.inf, np.inf)
+    calls, start, res = [0], {}, []
+
+    def snapshot(name, timed):
+        if calls[0] == ADMM_FROM_IPM_CALL:
+            start["it"] = map_fields(lambda t: t.clone(), ipm._it_dev)
+        calls[0] += 1
+
+    warm = interleaved({"ipm": ipm}, "ADMM", tols, ADMM_IPM_WARM, 0, 0,
+                       before_call=snapshot)
+    if any(warm["ipm"][2].values()):
+        raise SystemExit(f"ADMM phase ipm: unexpected kernel launches "
+                         f"{warm['ipm'][2]}")
+    admm._it_dev = start["it"]
+    admm._host_stale = True
+
+    def residuals(name, timed):
+        if name == "admm" and admm._stats is not None:
+            res.append(float(admm.get_stats("residuals")[:, 0].max()))
+
+    solvers = {"ipm": ipm, "admm": admm}
+    runs = interleaved(solvers, "ADMM", tols, ADMM_WARM, ADMM_ROUNDS,
+                       ADMM_PER_ROUND, warmed=("ipm",),
+                       before_call=residuals)
+    log(f"ADMM backend: pendulum ERK SQP-RTI, N={N_ADMM}, B={B_ADMM}, "
+        f"float32, x0 spread {ADMM_SIGMA}; the IPM 1 cold + "
+        f"{ADMM_IPM_WARM} warm calls (largest qp_iter {warm['ipm'][1]}); "
+        f"ADMM from the IPM's iterate after {ADMM_FROM_IPM_CALL} calls, 1 "
+        f"+ {ADMM_WARM} warm calls, then {ADMM_ROUNDS} interleaved rounds of "
+        f"{ADMM_PER_ROUND} timed call (bench.py: 15 warm calls each, 3 "
+        f"rounds of 10); ADMM's res_stat maxima call by call "
+        f"{res + [float(admm.get_stats('residuals')[:, 0].max())]}")
+    for name, s in solvers.items():
+        call_ms, qp_max, counts = runs[name]
+        launches = ""
+        if name == "ipm":
+            split = profile_calls(s, float(np.median(call_ms)), calls=1)
+            launches = (f"kernel launches a call "
+                        f"{split['kernel_launches_per_call']:.0f} (device "
+                        f"busy {split['device_busy_share'] * 100:.1f} %); ")
+        log(f"  ADMM phase {name}: {call_stats(call_ms, B_ADMM)}; largest "
+            f"{'ADMM num_iter' if name == 'admm' else 'qp_iter'} per call "
+            f"{qp_max}; {launches}launches of the repo's kernels {counts}")
+        if any(counts.values()):
+            raise SystemExit(f"ADMM phase {name}: unexpected kernel "
+                             f"launches {counts}")
+
+
+def qp_solver_pair(where, solver, cond_N, seed=SEED, moved=0):
+    """AcadosOcpQpSolver on one seeded random QP (x0 free, 3 general
+    rows a stage, N = 20), float64, on `where`; moved > 0: every entry
+    of the data but the masks moved by one rounding step, up or down at
+    random (the draw seeded by `moved`)."""
+    from acados_tpu_torch import AcadosOcpQp, AcadosOcpQpSolver
+    from acados_tpu_torch.testing import random_qp_batch
+    d = random_qp_batch(seed, B=1, N=20, x0_rows=False)
+    if moved:
+        rng = np.random.default_rng(seed + moved)
+        d = {f: v if f.startswith(("mask", "soft")) else v * (
+            1 + np.finfo(np.float64).eps * rng.choice((-1.0, 1.0), v.shape))
+            for f, v in d.items()}
+    N, nx, nu = 20, d["q"].shape[-1], d["r"].shape[-1]
+    desc = AcadosOcpQp(N, nx, nu, d["lg"].shape[-1], device=where)
+    for f, v in d.items():
+        for k in range(v.shape[1]):
+            desc.set(k, f, v[0, k])
+    return AcadosOcpQpSolver(desc, solver=solver, cond_N=cond_N)
+
+
+def qp_paths_vs_cpu() -> None:
+    """Phase 26: float64 card against CPU of this slice's paths: the
+    long horizon with parallel_riccati (B = 8), the main path's config
+    with abs_form (B = 8), the ADMM RTI batch (B = 8), and
+    AcadosOcpQpSolver with the Riccati IPM, ADMM and ADMM through
+    partial condensing, with its forward and adjoint sensitivities."""
+    import torch
+    card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
+                f"parallel_riccati)",
+                lambda where: long_batch(8, "float64", where, seed=1,
+                                         parallel=True))
+    kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
+                integrator_type="IRK")
+    # SPEED_ABS stops at iter_max (50) on most instances here: their
+    # unconverged iterates are held to 4 x the CPU's own spread (one
+    # draw read 1.881e-8 beside the card's 3.059e-8)
+    abs_form = dict(qp_opts_update=dict(abs_form=True))
+    card_vs_cpu("main path reference check (abs_form)",
+                lambda where: rti_batch(kw64, 8, where, seed=1,
+                                        **abs_form)[0],
+                moved=lambda: rti_batch(kw64, 8, "cpu", seed=1, moved=True,
+                                        **abs_form)[0], spread_bound=True)
+    kwa = dict(N=N_ADMM, dtype="float64", nlp_solver_type="SQP_RTI")
+    card_vs_cpu("ADMM RTI reference check",
+                lambda where: rti_batch(kwa, 8, where, seed=1,
+                                        sigma=ADMM_SIGMA,
+                                        opts_update=dict(
+                                            qp_solver_name="ADMM"))[0],
+                calls=2)
+    ok = [qp_solver_gaps(solver + (f" cond_N={cond_N}" if cond_N else ""),
+                         solver, cond_N, torch.device("cuda"), "cpu")
+          for solver, cond_N in (("RICCATI_IPM", None), ("ADMM", None),
+                                 ("ADMM", 4))]
+    if not all(ok):
+        raise SystemExit("AcadosOcpQpSolver: card and CPU disagree")
+
+
+def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
+    """AcadosOcpQpSolver on `where` against `ref_where` (qp_solver_pair):
+    equal statuses (0) and iterations, the solution within 1e-9; its
+    eval_sens_forw in a direction of q and eval_sens_adj seeded on x and
+    u within 1e-9, or within 4 x their spread on `ref_where` under one
+    rounding step of the data (the larger of two draws) where that is
+    larger (at the active rows the seeds' barrier weights lam / t reach
+    ~1e12). Returns whether all hold."""
+    import torch
+    rel = lambda a, b: float(np.max(np.abs(a - b) / (1 + np.abs(b)),
+                                    initial=0.0))
+    cpu = lambda t: t.detach().cpu().numpy()
+    runs = [qp_solver_pair(w, solver, cond_N, moved=m)
+            for w, m in ((where, 0), (ref_where, 0), (ref_where, 1),
+                         (ref_where, 2))]
+    st = [s.solve() for s in runs]
+    it = [int(s.get_stats("num_iter")) for s in runs]
+    if any(st) or it[0] != it[1]:
+        raise SystemExit(f"QP solver {label}: statuses {st}, iterations "
+                         f"{it}")
+    dims = runs[0].qp_desc.dims
+    rng = np.random.default_rng(1)
+    dq = rng.normal(size=(1, dims.N + 1, dims.nx))
+    sx = rng.normal(size=(dims.N + 1, dims.nx))
+    su = rng.normal(size=(dims.N, dims.nu))
+    out = []
+    for s in runs:
+        qp = s.qp_desc.qp
+        d = qp.replace(**{f: None for f in qp.__dataclass_fields__})
+        d = d.replace(q=torch.as_tensor(dq, device=qp.q.device))
+        grad = s.eval_sens_adj(sx, su)
+        out.append(dict(
+            **{f: cpu(getattr(s.sol, f)) for f in ("x", "u", "pi", "lam_lg",
+                                                   "lam_ug", "sl", "su")},
+            sens_forw=np.concatenate([cpu(t).ravel()
+                                      for t in s.eval_sens_forw(d)]),
+            sens_adj=np.concatenate([cpu(getattr(grad, f)).ravel() for f in
+                                     ("Q", "q", "A", "b", "C", "lg", "ug")])))
+    gaps = {f: rel(out[0][f], out[1][f]) for f in out[1]}
+    spread = {f: max(rel(o[f], out[1][f]) for o in out[2:])
+              for f in ("sens_forw", "sens_adj")}
+    bound = {f: 1e-9 if f not in spread else max(1e-9, 4 * spread[f])
+             for f in gaps}
+    ok = all(gaps[f] <= bound[f] for f in gaps)
+    log(f"AcadosOcpQpSolver {label} float64 (N={dims.N}, x0 free, {it[0]} "
+        f"iterations): {where} vs {ref_where} max |d|/(1+|ref|) "
+        f"{json.dumps(gaps)}; the seeds' spread on {ref_where} under one "
+        f"rounding step of the data {json.dumps(spread)} (iterations "
+        f"{it[2:]}): {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2427,9 +2759,9 @@ def main() -> int:
     at(16)
     rti_phases(dev, med)
 
-    # ---- 17. long-horizon pendulum, plain and cond_N16 ----------------------
+    # ---- 17. long-horizon pendulum: plain, cond_N16, parallel_riccati ------
     at(17)
-    long_horizon(dev)
+    kernels.append(long_horizon(dev))
 
     # ---- 18. chain at cond_N = 8 (K2 on the condensed Huu) ------------------
     at(18)
@@ -2454,6 +2786,18 @@ def main() -> int:
     # ---- 23. float64 card against CPU of phases 20-22 -----------------------
     at(23)
     sens_vs_cpu()
+
+    # ---- 24. latency: the long-horizon variants at B = 8 --------------------
+    at(24)
+    latency(dev)
+
+    # ---- 25. the ADMM QP backend beside the IPM -----------------------------
+    at(25)
+    admm_phase(dev)
+
+    # ---- 26. float64 card against CPU of the QP-breadth paths ---------------
+    at(26)
+    qp_paths_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -214,13 +214,32 @@ def test_xcond_partial_warm_start_matches_jax(cond_N):
 
 def test_cond_x0_rows_and_backend():
     """The x0 rows' positions after condensing, as the JAX package's
-    function gives them; a registry backend waits for item 18."""
+    function gives them; the condensed QPs (N = 12, cond_N = 3, x0 rows
+    kept as equality rows) solved by the registry's ADMM backend, against
+    the JAX package's front-end with its ADMM (the undecorated function
+    under jax.jit with the backend closed over: the JAX package's jit
+    does not mark `backend` static): equal iteration counts and
+    statuses, every field within 1e-9; x0_fixed needs the Riccati IPM,
+    as in the JAX package."""
+    from acados_tpu.ocp_qp.registry import get_qp_backend as jax_backend
     from acados_tpu.ocp_qp.xcond import cond_x0_rows as jax_rows
+    from acados_tpu_torch.ocp_qp.registry import get_qp_backend
     for args in ((7, 3, 4, None), (7, 3, 4, (7, 2)), (7, 3, 5, (7, 5, 4))):
         assert cond_x0_rows(*args) == jax_rows(*args)
-    d = to_torch(qp_batch(1))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        solve_ocp_qp_xcond(d, cond_N=3, backend=lambda *a, **k: None)
+    d = qp_batch(1)
+    jadmm = jax_backend("ADMM")
+    jsol, jinfo = jax.jit(jax.vmap(lambda q: jax_xcond.__wrapped__(
+        q, JIpmOpts(), cond_N=3, backend=jadmm)))(to_jax(d))
+    sol, info = solve_ocp_qp_xcond(to_torch(d), IpmOpts(), cond_N=3,
+                                   backend=get_qp_backend("ADMM"))
+    assert np.all(np.asarray(jinfo.status) == 0)
+    for f in ("num_iter", "status"):
+        np.testing.assert_array_equal(getattr(info, f).numpy(),
+                                      np.asarray(getattr(jinfo, f)))
+    _fields_close(sol, jsol, SOL_FIELDS)
+    with pytest.raises(ValueError, match="x0_fixed"):
+        solve_ocp_qp_xcond(to_torch(d), cond_N=3, x0_fixed=True,
+                           backend=get_qp_backend("ADMM"))
 
 
 @pytest.mark.parametrize("soft,unit_rows_0,large", [
