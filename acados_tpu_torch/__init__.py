@@ -17,7 +17,9 @@ acados_tpu:
     u0 = solver.get(0, "u")
 """
 
-from acados_tpu_torch.interface.acados_ocp import (AcadosModel, AcadosOcp,
+from acados_tpu_torch.interface.acados_ocp import (AcadosModel,
+                                                   AcadosMultiphaseOcp,
+                                                   AcadosOcp,
                                                    AcadosOcpConstraints,
                                                    AcadosOcpCost,
                                                    AcadosOcpDims,
@@ -35,7 +37,8 @@ from acados_tpu_torch.utils.types import ACADOS_INFTY, AcadosStatus
 __version__ = "0.1.0"
 
 __all__ = [
-    "AcadosModel", "AcadosOcp", "AcadosOcpConstraints", "AcadosOcpCost",
+    "AcadosModel", "AcadosMultiphaseOcp", "AcadosOcp",
+    "AcadosOcpConstraints", "AcadosOcpCost",
     "AcadosOcpDims", "AcadosOcpOptions", "AcadosOcpSolver",
     "AcadosOcpBatchSolver", "AcadosSim", "AcadosSimOpts",
     "AcadosSimSolver", "AcadosSimBatchSolver", "AcadosOcpQp",

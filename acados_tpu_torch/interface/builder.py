@@ -6,9 +6,11 @@ out the runtime data. `build_ocp` returns the same numpy data dict (same
 keys, same shapes) as the JAX package's, so either package's dict can be
 turned into the port's batch-first `NlpData` by `data_to_torch`.
 
-Ported: ERK and IRK dynamics, LINEAR_LS / NONLINEAR_LS / EXTERNAL costs
-with the Gauss-Newton Hessian, BGH constraints with soft rows. The rest
-raises NotImplementedError naming its ROADMAP.md item.
+Ported: ERK and IRK dynamics, LINEAR_LS / NONLINEAR_LS / CONL / EXTERNAL
+costs and AUTO cost detection, the Gauss-Newton and the exact Hessian
+(with the exact_hess_cost/dyn/constr switches), BGH constraints with
+soft rows. The rest raises NotImplementedError naming its ROADMAP.md
+item.
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ from acados_tpu_torch.sim.integrator import (SimOpts, make_step_fn,
 from acados_tpu_torch.utils.types import ACADOS_INFTY
 
 
-def _not_ported(what: str, item: str = "NLP breadth"):
+def _not_ported(what: str, item: str = "item 16b, NLP breadth"):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
@@ -38,7 +40,7 @@ def _norm4(f):
     params = list(inspect.signature(f).parameters)
     if "z" in params:
         raise _not_ported("a cost/constraint expression of z",
-                          "integrator breadth")
+                          "item 17, integrator breadth")
     n = len(params)
     if n == 2:
         return lambda x, u, p, t: f(x, u)
@@ -91,6 +93,86 @@ def _zero_cost(x, u, p, t):
     return torch.zeros((), dtype=x.dtype, device=x.device)
 
 
+def _resolve_auto_cost(ocp: AcadosOcp) -> None:
+    """'AUTO' cost detection (reference acados_ocp.py:2399
+    detect_cost_type; acados_tpu/interface/builder.py:117-194): a stage
+    cost declared AUTO whose EXTERNAL expression has a constant Hessian
+    over (x, u) (checked at zero and three seeded random probes, float64)
+    and a linear term in the Hessian's range is rewritten as LINEAR_LS
+    (Vx/Vu/W/yref, checked by reconstructing the cost at a random point);
+    otherwise it stays EXTERNAL."""
+    c, m = ocp.cost, ocp.model
+    nx, nu = _dim_of(m.x), _dim_of(m.u)
+    rng = np.random.default_rng(0)
+    f64 = dict(dtype=torch.float64)
+
+    def detect(which):
+        sfx = {"0": "_0", "path": "", "e": "_e"}[which]
+        ext = getattr(m, "cost_expr_ext_cost" + sfx, None)
+        if ext is None and which in ("0", "e"):
+            ext = m.cost_expr_ext_cost
+        if ext is None:
+            raise ValueError(
+                "AUTO cost detection requires cost_expr_ext_cost"
+                f"{sfx} (reference acados_ocp.py:2427)")
+        f4 = _norm4(ext)
+        nu_eff = 0 if which == "e" else nu
+        nw = nx + nu_eff
+        p0 = torch.zeros((_dim_of(m.p),), **f64)
+        t0 = torch.zeros((), **f64)
+
+        def fw(w):
+            return f4(w[:nx], torch.cat(
+                [w[nx:], torch.zeros((nu - nu_eff,), **f64)]), p0, t0)
+
+        hess = lambda w: torch.func.hessian(fw)(
+            torch.as_tensor(w, **f64)).numpy()
+        H0 = hess(np.zeros(nw))
+        for _ in range(3):
+            Hp = hess(rng.normal(size=nw))
+            if not np.allclose(Hp, H0, rtol=1e-8, atol=1e-10):
+                return "EXTERNAL", None
+        g0 = torch.func.grad(fw)(torch.zeros(nw, **f64)).numpy()
+        idx = [i for i in range(nw) if np.any(np.abs(H0[i]) > 1e-12)]
+        if not idx:
+            return "EXTERNAL", None  # zero/linear cost: keep as-is
+        Hs = H0[np.ix_(idx, idx)]
+        gs = g0[idx]
+        try:
+            yref = -np.linalg.solve(Hs, gs)
+        except np.linalg.LinAlgError:
+            return "EXTERNAL", None
+        if np.any(np.abs(np.delete(g0, idx)) > 1e-10):
+            return "EXTERNAL", None  # linear term outside Hessian range
+        V = np.zeros((len(idx), nw))
+        for r, i in enumerate(idx):
+            V[r, i] = 1.0
+        # reconstruction check incl. the constant offset
+        w = rng.normal(size=nw)
+        ls_val = 0.5 * (V @ w - yref) @ Hs @ (V @ w - yref)
+        f_val = float(fw(torch.as_tensor(w, **f64))) \
+            - float(fw(torch.zeros(nw, **f64))) + 0.5 * yref @ Hs @ yref
+        if not np.isclose(ls_val, f_val, rtol=1e-8, atol=1e-8):
+            return "EXTERNAL", None
+        return "LINEAR_LS", (V[:, :nx], V[:, nx:] if nu_eff else None,
+                             Hs, yref)
+
+    for which, attr in (("0", "cost_type_0"), ("path", "cost_type"),
+                        ("e", "cost_type_e")):
+        if getattr(c, attr, None) != "AUTO":
+            continue
+        kind, ls = detect(which)
+        sfx = {"0": "_0", "path": "", "e": "_e"}[which]
+        setattr(c, attr, kind)
+        if kind == "LINEAR_LS":
+            Vx, Vu, W, yref = ls
+            setattr(c, "Vx" + sfx, Vx)
+            if which != "e":
+                setattr(c, "Vu" + sfx, Vu)
+            setattr(c, "W" + sfx, W)
+            setattr(c, "yref" + sfx, yref)
+
+
 def _build_cost_spec(ocp: AcadosOcp, which: str):
     """which in {'0', 'path', 'e'}; the _0 variant falls back to the path
     cost (reference make_consistent behavior)."""
@@ -103,10 +185,11 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
         yref = c.yref_0 if c.yref_0 is not None else c.yref
         ext = m.cost_expr_ext_cost_0 or m.cost_expr_ext_cost
         Vz = c.Vz_0 if c.Vz_0 is not None else c.Vz
+        psi = m.cost_psi_expr_0 or m.cost_psi_expr
     elif which == "path":
         kind = c.cost_type
         Vx, Vu, y_expr, yref = c.Vx, c.Vu, m.cost_y_expr, c.yref
-        ext, Vz = m.cost_expr_ext_cost, c.Vz
+        ext, Vz, psi = m.cost_expr_ext_cost, c.Vz, m.cost_psi_expr
     else:
         kind = c.cost_type_e or c.cost_type
         if kind == "LINEAR_LS":
@@ -123,9 +206,14 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
             f = m.cost_expr_ext_cost_e
             return CostSpec(kind="EXTERNAL", ext_fun=(
                 _zero_cost if f is None else _norm_term(f)))
-        raise _not_ported(f"cost type {kind!r}")
+        if kind == "CONL":
+            return CostSpec(kind=kind, ny=_dim_of(c.yref_e),
+                            y_fun=_norm_term(m.cost_y_expr_e),
+                            psi_fun=m.cost_psi_expr_e)
+        raise ValueError(f"unsupported cost type {kind!r}")
     if Vz is not None:
-        raise _not_ported("LINEAR_LS with a Vz block", "integrator breadth")
+        raise _not_ported("LINEAR_LS with a Vz block",
+                          "item 17, integrator breadth")
     if kind == "LINEAR_LS":
         y, ny = _linear_ls_yfun(Vx, Vu)
         return CostSpec(kind=kind, ny=ny, y_fun=y,
@@ -133,9 +221,12 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
                         Vu=None if Vu is None else np.asarray(Vu, np.float64))
     if kind == "NONLINEAR_LS":
         return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=_norm4(y_expr))
+    if kind == "CONL":
+        return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=_norm4(y_expr),
+                        psi_fun=psi)
     if kind == "EXTERNAL":
         return CostSpec(kind=kind, ext_fun=_norm4(ext))
-    raise _not_ported(f"cost type {kind!r}")
+    raise ValueError(f"unsupported cost type {kind!r}")
 
 
 def _idx(v):
@@ -235,28 +326,28 @@ def _class_slack_penalties(spec: ConstraintSpec, nc, Zl, Zu, zl, zu):
 
 
 def _check_ported(ocp: AcadosOcp):
-    m, c, so = ocp.model, ocp.cost, ocp.solver_options
-    if "AUTO" in (c.cost_type, c.cost_type_0, c.cost_type_e):
-        raise _not_ported("AUTO cost detection")
-    if so.hessian_approx != "GAUSS_NEWTON":
-        raise _not_ported(f"hessian_approx {so.hessian_approx!r}")
+    m, so = ocp.model, ocp.solver_options
+    if so.hessian_approx not in ("GAUSS_NEWTON", "EXACT"):
+        raise ValueError(f"hessian_approx {so.hessian_approx!r}")
     if so.cost_discretization != "EULER":
         raise _not_ported("cost_discretization INTEGRATOR")
     if _dim_of(m.z):
         raise _not_ported("algebraic variables (model.z)",
-                          "integrator breadth")
+                          "item 17, integrator breadth")
     if getattr(m, "p_global", None) is not None:
         raise _not_ported("global parameters (model.p_global)",
-                          "interface utilities")
+                          "item 17, p_global")
     if so.integrator_type not in ("ERK", "IRK"):
         raise _not_ported(f"integrator_type {so.integrator_type!r}",
-                          "integrator breadth")
+                          "item 17, integrator breadth")
 
 
 def build_ocp(ocp: AcadosOcp):
     """AcadosOcp -> (OcpNlpFormulation, data (numpy dict), layouts)."""
     _check_ported(ocp)
     m, c, con, so = ocp.model, ocp.cost, ocp.constraints, ocp.solver_options
+    if "AUTO" in (c.cost_type, c.cost_type_0, c.cost_type_e):
+        _resolve_auto_cost(ocp)
     nx = _dim_of(m.x, ocp.dims.nx or 0)
     nu = _dim_of(m.u, ocp.dims.nu or 0)
     np_dim = _dim_of(m.p, ocp.dims.np or 0)
@@ -304,7 +395,12 @@ def build_ocp(ocp: AcadosOcp):
     form = OcpNlpFormulation(
         N=N, nx=nx, nu=nu, np_=np_dim, step_fn=step_fn,
         step_jac_fn=step_jac_fn, cost_0=cost_0, cost=cost_p, cost_e=cost_e,
-        con_0=con_0, con=con_p, con_e=con_e, x0_equality=x0_equality)
+        con_0=con_0, con=con_p, con_e=con_e,
+        exact_hessian=(so.hessian_approx == "EXACT"),
+        exact_hess_cost=bool(so.exact_hess_cost),
+        exact_hess_dyn=bool(so.exact_hess_dyn),
+        exact_hess_constr=bool(so.exact_hess_constr),
+        x0_equality=x0_equality)
     nc = form.nc
     lay_0, lay_p, lay_e = (StageLayout(con_0), StageLayout(con_p),
                            StageLayout(con_e))

@@ -9,8 +9,9 @@ solver.
 The solver runs on the card unless `device="cpu"` is passed; with no
 CUDA and no explicit device it raises. Ported: solve, get, set,
 cost_set, constraints_set, options_set (rti_phase and the runtime
-options of the ported paths), the RTI phases (solve() after
-options_set("rti_phase", 1 or 2), AS-RTI levels A-D), get_status,
+options of the ported paths, the globalization's among them), the RTI
+phases (solve() after options_set("rti_phase", 1 or 2), AS-RTI levels
+A-D), get_status,
 get_stats (sqp_iter, qp_iter, residuals, time_tot, time_preparation,
 time_feedback, statistics), get_residuals, get_cost, reset, and the
 solution sensitivities (eval_param_sens, eval_solution_sensitivity,
@@ -77,7 +78,7 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
     if so.nlp_solver_type not in ("SQP", "SQP_RTI"):
         raise NotImplementedError(
             f"nlp_solver_type {so.nlp_solver_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1, NLP breadth)")
+            "(ROADMAP.md Queue 1, item 16b, NLP breadth)")
     return SqpOpts(
         max_iter=1 if rti else so.nlp_solver_max_iter,
         rti=rti,
@@ -94,9 +95,32 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
         levenberg_marquardt=so.levenberg_marquardt,
         with_adaptive_levenberg_marquardt=(
             so.with_adaptive_levenberg_marquardt),
+        adaptive_levenberg_marquardt_lam=(
+            so.adaptive_levenberg_marquardt_lam),
+        adaptive_levenberg_marquardt_mu_min=(
+            so.adaptive_levenberg_marquardt_mu_min),
+        adaptive_levenberg_marquardt_mu0=(
+            so.adaptive_levenberg_marquardt_mu0),
         regularize_method=so.regularize_method,
         reg_epsilon=so.reg_epsilon,
         globalization=so.globalization if not rti else "FIXED_STEP",
+        alpha_min=so.globalization_alpha_min,
+        alpha_reduction=so.globalization_alpha_reduction,
+        line_search_use_sufficient_descent=(
+            so.globalization_line_search_use_sufficient_descent),
+        eps_sufficient_descent=so.globalization_eps_sufficient_descent,
+        globalization_use_SOC=so.globalization_use_SOC,
+        funnel_initialization_increase_factor=(
+            so.globalization_funnel_init_increase_factor),
+        funnel_initialization_upper_bound=(
+            so.globalization_funnel_init_upper_bound),
+        funnel_sufficient_decrease_factor=(
+            so.globalization_funnel_sufficient_decrease_factor),
+        funnel_kappa=so.globalization_funnel_kappa,
+        funnel_fraction_switching_condition=(
+            so.globalization_funnel_fraction_switching_condition),
+        funnel_initial_penalty_parameter=(
+            so.globalization_funnel_initial_penalty_parameter),
         cond_N=_resolve_cond(ocp), full_cond=_is_full_cond(so),
         cond_block_size=(tuple(int(b) for b in so.qp_solver_cond_block_size)
                          if so.qp_solver_cond_block_size else None),
@@ -108,10 +132,13 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
                      else so.nlp_solver_step_length),
         full_step_dual=so.globalization_full_step_dual,
         with_anderson_acceleration=so.with_anderson_acceleration,
+        anderson_activation_threshold=so.anderson_activation_threshold,
         store_iterates=so.store_iterates,
         qpscaling=so.qpscaling_scale_objective,
         collect_phase_times=so.collect_phase_times,
         nlp_qp_tol_strategy=so.nlp_qp_tol_strategy,
+        nlp_qp_tol_reduction_factor=so.nlp_qp_tol_reduction_factor,
+        nlp_qp_tol_safety_factor=so.nlp_qp_tol_safety_factor,
         qp_opts=qp_opts)
 
 
@@ -145,12 +172,6 @@ _OPTIONS_NOT_PORTED = {
     "store_iterates": "item 20, interface utilities (stored iterates)",
     **dict.fromkeys(("timeout_max_time", "timeout_heuristic"),
                     "item 20, interface utilities (in-loop timeouts)"),
-    **dict.fromkeys(("alpha_min", "globalization_alpha_min",
-                     "alpha_reduction", "globalization_alpha_reduction"),
-                    "item 16, NLP breadth (MERIT/FUNNEL globalization)"),
-    **dict.fromkeys(("anderson_activation_threshold",
-                     "with_anderson_acceleration"),
-                    "item 16, NLP breadth (Anderson acceleration)"),
 }
 
 
@@ -254,6 +275,14 @@ class AcadosOcpSolver:
                 **{field[3:]: float(value)}))
         elif field in ("step_length", "nlp_solver_step_length"):
             opts = opts.replace(step_length=float(value))
+        elif field in ("alpha_min", "globalization_alpha_min"):
+            opts = opts.replace(alpha_min=float(value))
+        elif field in ("alpha_reduction", "globalization_alpha_reduction"):
+            opts = opts.replace(alpha_reduction=float(value))
+        elif field == "anderson_activation_threshold":
+            opts = opts.replace(anderson_activation_threshold=float(value))
+        elif field == "with_anderson_acceleration":
+            opts = opts.replace(with_anderson_acceleration=bool(value))
         elif field == "qp_mu0":
             opts = opts.replace(qp_opts=qp_opts.replace(mu0=float(value)))
         elif field == "qp_iter_max":

@@ -7,10 +7,11 @@ and the linearizer batches them with `torch.func.vmap`. Box bounds,
 general linear rows (C/D) and nonlinear h rows are folded into one
 unified row block per stage class, as in the JAX package.
 
-Ported: cost kinds LINEAR_LS, NONLINEAR_LS (Gauss-Newton) and EXTERNAL;
-BGH constraint rows with soft rows. CONL, exact Hessians, cost
-integration, z-dependent modules and BGP rows wait (ROADMAP.md Queue 1,
-NLP breadth).
+Ported: cost kinds LINEAR_LS, NONLINEAR_LS, CONL (generalized
+Gauss-Newton) and EXTERNAL, with the exact cost Hessian where the JAX
+package takes it; BGH constraint rows with soft rows. Cost integration
+and BGP rows wait (ROADMAP.md Queue 1, item 16b), z-dependent modules
+too (item 17).
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
-from acados_tpu_torch.utils.autodiff import jacfwd
+from acados_tpu_torch.utils.autodiff import hessian, jacfwd
 from acados_tpu_torch.utils.struct import tensor_dataclass
 
 
@@ -33,11 +34,16 @@ def _const(a, like: torch.Tensor) -> torch.Tensor:
 class CostSpec:
     """One stage-class cost module.
 
-    kind: 'LINEAR_LS' | 'NONLINEAR_LS' | 'EXTERNAL'
+    kind: 'LINEAR_LS' | 'NONLINEAR_LS' | 'CONL' | 'EXTERNAL'
       LINEAR_LS / NONLINEAR_LS: 0.5 * ||y(x,u,p,t) - yref||^2_W with the
-        Gauss-Newton Hessian.
-      EXTERNAL: arbitrary scalar cost, Hessian by AD (symmetrized).
-    y_fun: per-instance (x, u, p, t) -> y; ext_fun: (x, u, p, t) -> scalar.
+        Gauss-Newton Hessian (NONLINEAR_LS adds the residual curvature
+        under the exact Hessian).
+      CONL: psi(y(x,u,p,t) - yref, p) with the generalized Gauss-Newton
+        Hessian J' psi'' J.
+      EXTERNAL: arbitrary scalar cost, Hessian by AD (symmetrized unless
+        the exact Hessian is asked for).
+    y_fun: per-instance (x, u, p, t) -> y; psi_fun: (r, p) -> scalar
+      (CONL only); ext_fun: (x, u, p, t) -> scalar.
     Vx/Vu: LINEAR_LS constant Jacobian blocks (numpy); when set the
       Jacobian is a constant and no AD pass runs.
     """
@@ -45,6 +51,7 @@ class CostSpec:
     kind: str
     ny: int = 0
     y_fun: Optional[Callable] = None
+    psi_fun: Optional[Callable] = None
     ext_fun: Optional[Callable] = None
     Vx: Optional[np.ndarray] = None
     Vu: Optional[np.ndarray] = None
@@ -54,13 +61,16 @@ class CostSpec:
         if self.kind in ("LINEAR_LS", "NONLINEAR_LS"):
             r = self.y_fun(x, u, p, t) - data["yref"]
             return 0.5 * r @ data["W"] @ r
+        if self.kind == "CONL":
+            return self.psi_fun(self.y_fun(x, u, p, t) - data["yref"], p)
         if self.kind == "EXTERNAL":
             return self.ext_fun(x, u, p, t)
         raise ValueError(self.kind)
 
-    def quad_approx(self, x, u, p, t, data):
+    def quad_approx(self, x, u, p, t, data, exact_hessian: bool = False):
         """Quadratic approximation of one instance at (x, u): (H, grad)
-        over w = [x; u] (reference cost update_qp_matrices)."""
+        over w = [x; u] (reference cost update_qp_matrices;
+        acados_tpu/ocp_nlp/formulation.py:120-213)."""
         nx = x.shape[-1]
         w = torch.cat([x, u])
         if self.kind == "LINEAR_LS" and self.Vx is not None:
@@ -77,11 +87,27 @@ class CostSpec:
             r = yf(w) - data["yref"]
             J = jacfwd(yf)(w)
             Wr = data["W"] @ r
-            return J.T @ data["W"] @ J, J.T @ Wr
+            H = J.T @ data["W"] @ J
+            if exact_hessian and self.kind == "NONLINEAR_LS":
+                # exact = GN + sum_i (W r)_i hess(y_i): W r is a constant
+                # of the inner transform, as the reference's stop_gradient
+                H = H + hessian(lambda w_: yf(w_) @ Wr)(w)
+            return H, J.T @ Wr
+        if self.kind == "CONL":
+            # generalized Gauss-Newton in both Hessian modes
+            yf = lambda w_: self.y_fun(w_[:nx], w_[nx:], p, t) - data["yref"]
+            r = yf(w)
+            J = jacfwd(yf)(w)
+            psi = lambda r_: self.psi_fun(r_, p)
+            gpsi = jacfwd(psi)(r)
+            Hpsi = hessian(psi)(r)
+            return J.T @ Hpsi @ J, J.T @ gpsi
         if self.kind == "EXTERNAL":
             f = lambda w_: self.ext_fun(w_[:nx], w_[nx:], p, t)
             grad = jacfwd(f)(w)
             H = jacfwd(jacfwd(f))(w)
+            if exact_hessian:
+                return H, grad
             return 0.5 * (H + H.T), grad
         raise ValueError(self.kind)
 
@@ -152,17 +178,32 @@ class ConstraintSpec:
                 gv = gv + _const(self.Dg, x) @ u
             vals.append(gv)
         if self.nh:
-            vals.append(self.h_fun(x, u, p, t))
+            vals.append(self._call_h(x, u, p, t))
         if not vals:
             return torch.zeros((0,), dtype=x.dtype, device=x.device)
         return torch.cat(vals)
 
+    def _call_h(self, x, u, p, t):
+        """The h rows of one instance (acados_tpu/ocp_nlp/formulation.py:
+        283; its z-dependent branch waits, ROADMAP.md Queue 1, item 17)."""
+        return self.h_fun(x, u, p, t)
+
     def h_jac(self, x, u, p, t):
         """(nh, nx), (nh, nu) Jacobians of the nonlinear rows."""
         nx = self.nx
-        J = jacfwd(lambda w_: self.h_fun(w_[:nx], w_[nx:], p, t))(
+        J = jacfwd(lambda w_: self._call_h(w_[:nx], w_[nx:], p, t))(
             torch.cat([x, u]))
         return J[:, :nx], J[:, nx:]
+
+    def h_hess(self, x, u, p, t, lam_d):
+        """Hessian over w = [x; u] of -(lam_l - lam_u)' h at one instance:
+        the constraint term of the exact Lagrangian Hessian
+        (acados_tpu/ocp_nlp/linearize.py:221-230). lam_d: the stage's
+        (nc,) lam_l - lam_u, of which the h rows are read."""
+        nx, off = self.nx, self.nbx + self.nbu + self.ng
+        wh = lam_d[off:off + self.nh]
+        return hessian(lambda w_: -(wh @ self._call_h(w_[:nx], w_[nx:], p,
+                                                      t)))(torch.cat([x, u]))
 
     def soft_row_mask(self, dtype, device):
         m = np.zeros(self.nrows)
@@ -177,7 +218,10 @@ class OcpNlpFormulation:
 
     step_fn / step_jac_fn are batch-first (see sim/integrator.py):
     step_fn(x, u, p, t, dt) -> x_next and step_jac_fn(...) ->
-    (x_next, A, B) on (M, .) tensors.
+    (x_next, A, B) on (M, .) tensors. exact_hessian selects the exact
+    Lagrangian Hessian (hessian_approx EXACT) over Gauss-Newton, with
+    each term's curvature switched by exact_hess_cost/dyn/constr
+    (reference acados_ocp_options.py:96-98; all on by default).
     """
 
     N: int
@@ -192,6 +236,10 @@ class OcpNlpFormulation:
     con_0: ConstraintSpec = None
     con: ConstraintSpec = None
     con_e: ConstraintSpec = None
+    exact_hessian: bool = False
+    exact_hess_cost: bool = True
+    exact_hess_dyn: bool = True
+    exact_hess_constr: bool = True
     # stage-0 box rows are a full-state equality (constraints.x0 /
     # idxbxe_0 == range(nx)): enables initial-state elimination in the QP
     x0_equality: bool = False

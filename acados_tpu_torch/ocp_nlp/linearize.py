@@ -7,6 +7,12 @@ one call of the batch-first fused integrator step (where the IRK stage
 inverses run as one batch), the cost quadratics and constraint rows from
 per-instance module functions under `torch.func.vmap`. The result is the
 delta-form OcpQp consumed by the Riccati IPM.
+
+With the exact Hessian (:198-252) the pi-weighted dynamics Hessian of
+all B*N intervals is one `torch.func.hessian` of the per-interval step,
+vmapped (the IRK step's stage solves and implicit gradient fold the vmap
+back into one batch, so each of their K1 launches serves every
+interval), and the lam-weighted h Hessian one vmap per stage class.
 """
 from __future__ import annotations
 
@@ -17,6 +23,7 @@ from acados_tpu_torch.ocp_nlp.formulation import (NlpData, OcpNlpFormulation,
                                                   cost_data_stage0,
                                                   cost_data_term)
 from acados_tpu_torch.ocp_qp.data import OcpQp
+from acados_tpu_torch.utils.autodiff import hessian
 from acados_tpu_torch.utils.struct import tensor_dataclass
 from acados_tpu_torch.utils.types import ACADOS_INFTY
 
@@ -106,17 +113,43 @@ def _rows(spec, Cb, Db, nc, x, u, p, t):
     return g, C, D
 
 
+def step_one(form: OcpNlpFormulation, x, u, p, t, dt):
+    """The batch-first step on one instance (a batch of one), as the
+    per-instance functions under torch.func transforms call it."""
+    return form.step_fn(x[None], u[None], p[None], t[None], dt[None])[0]
+
+
+def dyn_hessian(form: OcpNlpFormulation, data: NlpData, x, u, pi):
+    """Hessian over w_k = (x_k, u_k) of pi_k' step(x_k, u_k) for every
+    interval, (B, N, nx+nu, nx+nu): one torch.func.hessian of the step,
+    vmapped over the B*N intervals (acados_tpu/ocp_nlp/linearize.py:
+    206-216)."""
+    Bsz, N, nx = x.shape[0], form.N, form.nx
+
+    def f(w, pk, tk, dtk, pik):
+        return pik @ step_one(form, w[:nx], w[nx:], pk, tk, dtk)
+
+    w = torch.cat([x[:, :-1], u], dim=-1)
+    return _path_vmap(hessian(f), Bsz, N, w, data.p[:, :-1],
+                      data.ts[:, :-1], data.dts, pi)
+
+
 def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
               it: NlpIterate, lm) -> OcpQp:
     """Assemble the delta-form QP of every instance at the current
     iterate; lm is the Levenberg-Marquardt diagonal added to the
-    Hessian (reference ocp_nlp_add_levenberg_marquardt_term)."""
+    Hessian (reference ocp_nlp_add_levenberg_marquardt_term), a scalar
+    or one value an instance, (B,) (adaptive LM)."""
     N, nx, nu, nc = form.N, form.nx, form.nu, form.nc
     Bsz = it.x.shape[0]
     dt, dev = it.x.dtype, it.x.device
     x, u = it.x, it.u
     eyeW = torch.eye(nx + nu, dtype=dt, device=dev)
     zu_ = torch.zeros((Bsz, nu), dtype=dt, device=dev)
+    lm_w = lm.reshape(-1, 1, 1, 1) if lm.dim() else lm
+    lm_x = lm.reshape(-1, 1, 1) if lm.dim() else lm
+    exact_cost = form.exact_hessian and form.exact_hess_cost
+    exact_constr = form.exact_hessian and form.exact_hess_constr
 
     # ---- dynamics: A, B, b over all B*N intervals (one batch) ----------
     xnext, A, B = form.step_jac_fn(
@@ -127,28 +160,52 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     b = xnext.reshape(Bsz, N, nx) - x[:, 1:]
 
     # ---- cost quadratics per stage class --------------------------------
-    H0, g0 = vmap(form.cost_0.quad_approx)(
+    def quad(spec):
+        return lambda *a: spec.quad_approx(*a, exact_hessian=exact_cost)
+
+    H0, g0 = vmap(quad(form.cost_0))(
         x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0], cost_data_stage0(data))
     sc = data.cost_scale
     H0, g0 = sc[:, 0, None, None] * H0, sc[:, 0, None] * g0
     if N > 1:
-        Hp, gp = _path_vmap(form.cost.quad_approx, Bsz, N - 1,
+        Hp, gp = _path_vmap(quad(form.cost), Bsz, N - 1,
                             x[:, 1:N], u[:, 1:N], data.p[:, 1:N],
                             data.ts[:, 1:N], {"yref": data.yref, "W": data.W})
         Hp = sc[:, 1:N, None, None] * Hp
         gp = sc[:, 1:N, None] * gp
-        H_path = torch.cat([H0[:, None], Hp], dim=1) + lm * eyeW
-        g_path = torch.cat([g0[:, None], gp], dim=1)
-    else:
-        H_path = H0[:, None] + lm * eyeW
-        g_path = g0[:, None]
-    He, ge = vmap(form.cost_e.quad_approx)(
+    He, ge = vmap(quad(form.cost_e))(
         x[:, N], zu_, data.p[:, N], data.ts[:, N], cost_data_term(data))
     He, ge = sc[:, N, None, None] * He, sc[:, N, None] * ge
 
+    # ---- EXACT mode: dynamics and h curvature (linearize.py:198-252) ----
+    if form.exact_hessian and form.exact_hess_dyn:
+        Hd = dyn_hessian(form, data, x, u, it.pi)
+        H0 = H0 + Hd[:, 0]
+        if N > 1:
+            Hp = Hp + Hd[:, 1:]
+    if exact_constr:
+        lam_d = it.lam_l - it.lam_u
+        if form.con_0.nh:
+            H0 = H0 + vmap(form.con_0.h_hess)(x[:, 0], u[:, 0], data.p[:, 0],
+                                              data.ts[:, 0], lam_d[:, 0])
+        if form.con.nh and N > 1:
+            Hp = Hp + _path_vmap(form.con.h_hess, Bsz, N - 1, x[:, 1:N],
+                                 u[:, 1:N], data.p[:, 1:N], data.ts[:, 1:N],
+                                 lam_d[:, 1:N])
+        if form.con_e.nh:
+            He = He + vmap(form.con_e.h_hess)(x[:, N], zu_, data.p[:, N],
+                                              data.ts[:, N], lam_d[:, N])
+
+    if N > 1:
+        H_path = torch.cat([H0[:, None], Hp], dim=1) + lm_w * eyeW
+        g_path = torch.cat([g0[:, None], gp], dim=1)
+    else:
+        H_path = H0[:, None] + lm_w * eyeW
+        g_path = g0[:, None]
+
     eyeX = torch.eye(nx, dtype=dt, device=dev)
     Q = torch.cat([H_path[:, :, :nx, :nx],
-                   (He[:, :nx, :nx] + lm * eyeX)[:, None]], dim=1)
+                   (He[:, :nx, :nx] + lm_x * eyeX)[:, None]], dim=1)
     S = H_path[:, :, nx:, :nx]
     R = H_path[:, :, nx:, nx:]
     q = torch.cat([g_path[:, :, :nx], ge[:, None, :nx]], dim=1)

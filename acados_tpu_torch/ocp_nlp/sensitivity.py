@@ -36,7 +36,8 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _flat2,
                                                 _stack_stages,
                                                 build_static_rows,
                                                 eval_constraints, eval_cost,
-                                                eval_dyn_gap, linearize)
+                                                eval_dyn_gap, linearize,
+                                                step_one)
 from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv, riccati_factor,
                                              riccati_solve)
 from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
@@ -82,9 +83,7 @@ def lagrangian_hessian(form: OcpNlpFormulation, data: NlpData,
             xk, uk = w[:nx], w[nx:]
             val = scale * cost_spec.value(xk, uk, pk, tk, cdata)
             if with_dyn:
-                xn = form.step_fn(xk[None], uk[None], pk[None], tk[None],
-                                  dtk[None])[0]
-                val = val + pi_k @ xn
+                val = val + pi_k @ step_one(form, xk, uk, pk, tk, dtk)
             g = con_spec.eval_rows(xk, uk, pk, tk)
             if g.shape[0]:
                 val = val - lam_k[:g.shape[0]] @ g

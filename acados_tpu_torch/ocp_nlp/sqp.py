@@ -1,14 +1,24 @@
-"""SQP solver: linearize -> residuals -> regularize -> QP -> step, batch-first.
+"""SQP solver: linearize -> residuals -> regularize -> QP -> globalize ->
+update, batch-first.
 
-Counterpart of `acados_tpu/ocp_nlp/sqp.py` for SQP and SQP_RTI with the
-FIXED_STEP globalization. Each QP goes through the JAX package's
-front-end order: QP scaling, then condensing (none, partial or full),
-then the Riccati IPM, the registry's backend named by qp_solver_name
-or, with full condensing, the dense IPM. The JAX package runs one
-`lax.while_loop` per instance and vmaps it; the port runs the whole
-batch in lockstep and freezes each instance that has stopped with
-`where(active, new, old)`, so per-instance iteration counts and
-statuses are those of the vmapped loop.
+Counterpart of `acados_tpu/ocp_nlp/sqp.py` for SQP and SQP_RTI: the
+FIXED_STEP, MERIT_BACKTRACKING (with the Armijo sufficient-descent test
+and the second-order correction) and FUNNEL_L1PEN_LINESEARCH
+globalizations, Anderson(1) acceleration of the fixed step, adaptive
+Levenberg-Marquardt and the ADAPTIVE_CURRENT_RES_JOINT QP tolerances.
+Each QP goes through the JAX package's front-end order: QP scaling,
+then condensing (none, partial or full), then the Riccati IPM, the
+registry's backend named by qp_solver_name or, with full condensing,
+the dense IPM.
+
+The JAX package runs one `lax.while_loop` per instance and vmaps it; the
+port runs the whole batch in lockstep and freezes each instance that has
+stopped with `where(active, new, old)`, so per-instance iteration counts
+and statuses are those of the vmapped loop. The line searches' inner
+`lax.while_loop`s become inner lockstep loops: each instance keeps its
+own alpha and acceptance and stops on its own condition. Every sum and
+maximum the reference takes of one instance's arrays reduces here over
+all axes but the batch axis (`_bsum`, `_bmax`).
 
 Multiplier update rule follows ocp_nlp_update_variables_sqp
 (reference ocp_nlp_common.c:3292): duals blend (1-alpha)*old + alpha*new.
@@ -20,20 +30,22 @@ import dataclasses
 import torch
 
 from acados_tpu_torch.ocp_nlp.formulation import NlpData, OcpNlpFormulation
-from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate,
-                                                build_static_rows, eval_cost,
-                                                linearize)
+from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _stack_stages,
+                                                build_static_rows,
+                                                eval_constraints, eval_cost,
+                                                eval_dyn_gap, linearize)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
-from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bmax, _bsum,
+from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bc, _bmax, _bsum,
                                          solve_ocp_qp)
 from acados_tpu_torch.ocp_qp.qpscaling import scale_qp, unscale_sol
 from acados_tpu_torch.ocp_qp.registry import get_qp_backend
-from acados_tpu_torch.ocp_qp.riccati import _mTv
+from acados_tpu_torch.ocp_qp.riccati import _mTv, _mv
 from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
 from acados_tpu_torch.utils.device import full_precision_matmul
-from acados_tpu_torch.utils.struct import (select_fields, tensor_dataclass,
-                                           where_batch)
+from acados_tpu_torch.utils.struct import (map_fields, select_fields,
+                                           tensor_dataclass, where_batch)
+from acados_tpu_torch.utils.types import ACADOS_INFTY
 
 # stats matrix columns (reference ocp_nlp_sqp.c:579-585)
 STAT_COLS = ("res_stat", "res_eq", "res_ineq", "res_comp", "qp_status",
@@ -55,11 +67,34 @@ class SqpOpts:
     tol_min_step_norm: float = 1e-12
     tol_unbounded: float = -1e10
     levenberg_marquardt: float = 0.0
+    # adaptive LM: lm /= lam on a stationarity-residual decrease, *= lam
+    # otherwise, floored at mu_min (reference acados_ocp_options.py:136)
     with_adaptive_levenberg_marquardt: bool = False
+    adaptive_levenberg_marquardt_lam: float = 5.0
+    adaptive_levenberg_marquardt_mu_min: float = 1e-16
+    adaptive_levenberg_marquardt_mu0: float = 1e-3
     regularize_method: str = "NO_REGULARIZE"
     reg_epsilon: float = 1e-4
+    # FIXED_STEP | MERIT_BACKTRACKING | FUNNEL_L1PEN_LINESEARCH
     globalization: str = "FIXED_STEP"
+    alpha_min: float = 0.05
+    alpha_reduction: float = 0.7
     full_step_dual: bool = False
+    # Armijo test of the merit line search and the second-order
+    # correction of a rejected full step (reference
+    # globalization_merit_backtracking.c:336-353, ocp_nlp_common.c:4227)
+    line_search_use_sufficient_descent: bool = False
+    eps_sufficient_descent: float = 1e-4
+    globalization_use_SOC: bool = False
+    # funnel method parameters (reference globalization_funnel.c:73-96)
+    funnel_initialization_increase_factor: float = 15.0
+    funnel_initialization_upper_bound: float = 1.0
+    funnel_sufficient_decrease_factor: float = 0.9
+    funnel_kappa: float = 0.9
+    funnel_fraction_switching_condition: float = 1e-3
+    funnel_initial_penalty_parameter: float = 1.0
+    funnel_penalty_contraction: float = 0.5
+    funnel_penalty_eta: float = 1e-6
     rti: bool = False
     cond_N: int | None = None
     cond_block_size: tuple | None = None
@@ -71,12 +106,19 @@ class SqpOpts:
     step_length: float = 1.0
     collect_phase_times: bool = False
     timeout_max_time: float = 0.0
+    # Anderson(1) on the fixed-step update (reference
+    # globalization_fixed_step.c:174-215)
     with_anderson_acceleration: bool = False
+    anderson_activation_threshold: float = 1e1
     store_iterates: bool = False
     qpscaling: str = "NO_SCALING"
     warm_start_first_qp_from_nlp: bool = False
     qp_solver_name: str = "RICCATI_IPM"
+    # FIXED_QP_TOL | ADAPTIVE_CURRENT_RES_JOINT (reference
+    # nlp_qp_tol_strategy, ocp_nlp_common.c:4460)
     nlp_qp_tol_strategy: str = "FIXED_QP_TOL"
+    nlp_qp_tol_reduction_factor: float = 1e-1
+    nlp_qp_tol_safety_factor: float = 0.1
     eliminate_x0: bool = True
     qp_opts: IpmOpts = None
 
@@ -90,13 +132,12 @@ class SqpOpts:
 
 # option -> (default, ROADMAP item) for the paths that wait
 _NOT_PORTED = {
-    "globalization": ("FIXED_STEP", "MERIT/FUNNEL globalization"),
-    "with_anderson_acceleration": (False, "Anderson acceleration"),
-    "with_adaptive_levenberg_marquardt": (False, "adaptive LM"),
-    "collect_phase_times": (False, "phase times"),
-    "timeout_max_time": (0.0, "in-loop timeout"),
-    "store_iterates": (False, "stored iterates"),
-    "nlp_qp_tol_strategy": ("FIXED_QP_TOL", "adaptive QP tolerances"),
+    "collect_phase_times": (False, "item 20, interface utilities "
+                                   "(phase times)"),
+    "timeout_max_time": (0.0, "item 20, interface utilities (in-loop "
+                              "timeouts)"),
+    "store_iterates": (False, "item 20, interface utilities (stored "
+                              "iterates)"),
 }
 
 
@@ -105,7 +146,7 @@ def _check_ported(opts: SqpOpts):
         if getattr(opts, field) != default:
             raise NotImplementedError(
                 f"SqpOpts.{field}={getattr(opts, field)!r} is not ported "
-                f"yet (ROADMAP.md Queue 1: {item})")
+                f"yet (ROADMAP.md Queue 1, {item})")
 
 
 @tensor_dataclass
@@ -161,6 +202,188 @@ def _nlp_residuals(qp: OcpQp, it: NlpIterate):
     return res_stat, res_eq, res_ineq, res_comp
 
 
+def _violations(form, data, soft_mask, x, u, sl, su, lb_all, ub_all):
+    """Slack-relaxed bound violations (lower, upper) of every row."""
+    g = eval_constraints(form, data, x, u)
+    return (torch.clamp(lb_all - g - soft_mask * sl, min=0.0),
+            torch.clamp(g - ub_all - soft_mask * su, min=0.0))
+
+
+def _l1_infeasibility(form, data, soft_mask, x, u, sl, su, lb_all, ub_all):
+    """Unweighted l1 infeasibility of every instance: |dynamics gaps|_1 +
+    bound violations (reference ocp_nlp_get_l1_infeasibility)."""
+    gap = eval_dyn_gap(form, data, x, u)
+    viol_l, viol_u = _violations(form, data, soft_mask, x, u, sl, su,
+                                 lb_all, ub_all)
+    return _bsum(gap.abs()) + _bsum(viol_l + viol_u)
+
+
+def _merit(form, data, soft_mask, x, u, sl, su, w_pi, w_lam, lb_all,
+           ub_all):
+    """l1 merit of every instance: objective + multiplier-weighted
+    infeasibilities (reference merit_fun in
+    globalization_merit_backtracking.c)."""
+    cost = eval_cost(form, data, x, u, sl, su, soft_mask)
+    gap = eval_dyn_gap(form, data, x, u)
+    viol_l, viol_u = _violations(form, data, soft_mask, x, u, sl, su,
+                                 lb_all, ub_all)
+    return (cost + _bsum(w_pi * gap.abs())
+            + _bsum(w_lam * (viol_l + viol_u)))
+
+
+def _row_step(qp: OcpQp, sol):
+    """C_k dx_k + D_k du_k of every stage (D for k < N)."""
+    drow = _mv(qp.C, sol.x)
+    return torch.cat([drow[:, :-1] + _mv(qp.D, sol.u), drow[:, -1:]], dim=1)
+
+
+def _dgap_lin(qp: OcpQp, sol):
+    """The linearized dynamics gap's change along the step."""
+    return _mv(qp.A, sol.x[:, :-1]) + _mv(qp.B, sol.u) - sol.x[:, 1:]
+
+
+def _merit_gradient(form, qp, sol, it, w_pi, w_lam, lb_all, ub_all,
+                    soft_mask, data):
+    """Directional derivative of the l1 merit along the QP step of every
+    instance (reference ocp_nlp_compute_merit_gradient,
+    globalization_merit_backtracking.c:140-280)."""
+    g_cost = _bsum(qp.q * sol.x) + _bsum(qp.r * sol.u)
+    gap = eval_dyn_gap(form, data, it.x, it.u)
+    g_dyn = _bsum(w_pi * torch.sign(gap) * _dgap_lin(qp, sol))
+    g = eval_constraints(form, data, it.x, it.u)
+    drow = _row_step(qp, sol)
+    dsl = sol.sl - it.sl
+    dsu = sol.su - it.su
+    act_l = (lb_all - g - soft_mask * it.sl) > 0
+    act_u = (g - ub_all - soft_mask * it.su) > 0
+    zero = torch.zeros_like(drow)
+    g_ineq = (_bsum(torch.where(act_l, w_lam * (-drow - soft_mask * dsl),
+                                zero))
+              + _bsum(torch.where(act_u, w_lam * (drow - soft_mask * dsu),
+                                  zero)))
+    return g_cost + g_dyn + g_ineq
+
+
+def _trial(it: NlpIterate, sol, alpha):
+    """(x, u, sl, su) of every instance at step length alpha (a float or
+    (B,)) along the QP solution sol."""
+    a = (lambda v: _bc(alpha, v)) if torch.is_tensor(alpha) \
+        else (lambda v: alpha)
+    return (it.x + a(sol.x) * sol.x, it.u + a(sol.u) * sol.u,
+            it.sl + a(sol.sl) * (sol.sl - it.sl),
+            it.su + a(sol.su) * (sol.su - it.su))
+
+
+def _backtrack(run0, accept, opts: SqpOpts, alpha0: float, like):
+    """The line searches' inner `lax.while_loop` in lockstep: each
+    instance where run0 starts at alpha0 and, while it has not accepted
+    and alpha > alpha_min, takes accept(alpha) -> (ok, extras), keeping
+    alpha where ok and shrinking it by alpha_reduction elsewhere. Returns
+    each instance's exit alpha, acceptance and the extras of its last
+    trial (zeros/False where it never ran)."""
+    alpha = torch.full_like(like, alpha0)
+    accepted = torch.zeros_like(run0)
+    extras = None
+    while True:
+        run = run0 & ~accepted & (alpha > opts.alpha_min)
+        if not bool(run.any()):
+            break
+        ok, ex = accept(alpha)
+        if extras is None:
+            extras = tuple(torch.zeros_like(e) for e in ex)
+        extras = tuple(torch.where(run, e, o) for e, o in zip(ex, extras))
+        alpha = torch.where(run, torch.where(ok, alpha,
+                                             alpha * opts.alpha_reduction),
+                            alpha)
+        accepted = torch.where(run, ok, accepted)
+    return alpha, accepted, extras
+
+
+def _funnel_search(form, opts: SqpOpts, data, soft_mask, lb_all, ub_all, qp,
+                   it, sol, gstate, active):
+    """Funnel l1-penalty line search of every active instance (reference
+    globalization_funnel.c: backtracking_line_search +
+    is_trial_iterate_acceptable_to_funnel; acados_tpu/ocp_nlp/sqp.py:
+    319-403). gstate = (funnel width, penalty parameter, penalty mode),
+    each (B,). Returns (alpha, new gstate)."""
+    fw, pen, pmode = gstate
+    eps_sd = opts.eps_sufficient_descent
+    eta = opts.funnel_penalty_eta
+
+    cur_inf = _l1_infeasibility(form, data, soft_mask, it.x, it.u, it.sl,
+                                it.su, lb_all, ub_all)
+    cur_cost = eval_cost(form, data, it.x, it.u, it.sl, it.su, soft_mask)
+    # predicted reductions (ocp_nlp_sqp.c:757-758): the QP removes the
+    # whole linearized infeasibility; objective via grad . step
+    pred_inf = cur_inf
+    pred_obj = -(_bsum(qp.q * sol.x) + _bsum(qp.r * sol.u))
+    pred_obj = torch.where((pred_obj < 0) & (pred_obj > -1e-4),
+                           torch.zeros_like(pred_obj), pred_obj)
+    # penalty parameter update (update_funnel_penalty_parameter)
+    shrink = pen * pred_obj + pred_inf < eta * pred_inf
+    pen_new = torch.clamp(torch.minimum(
+        opts.funnel_penalty_contraction * pen,
+        (1.0 - eta) * pred_inf / (-pred_obj + 1e-9)), min=0.0)
+    pen = torch.where(shrink, pen_new, pen)
+    cur_merit = pen * cur_cost + cur_inf
+    pred_merit = pen * pred_obj + pred_inf
+
+    def classify(alpha):
+        xt, ut, slt, sut = _trial(it, sol, alpha)
+        t_inf = _l1_infeasibility(form, data, soft_mask, xt, ut, slt, sut,
+                                  lb_all, ub_all)
+        t_cost = eval_cost(form, data, xt, ut, slt, sut, soft_mask)
+        inside = t_inf <= fw
+        switching = (alpha * pred_obj
+                     >= opts.funnel_fraction_switching_condition
+                     * pred_inf)
+        armijo_obj = (cur_cost - t_cost
+                      >= eps_sd * alpha
+                      * torch.clamp(pred_obj - 1e-9, min=0.0))
+        h_ok = t_inf <= opts.funnel_sufficient_decrease_factor * fw
+        t_merit = pen * t_cost + t_inf
+        armijo_merit = (cur_merit - t_merit
+                        >= eps_sd * alpha
+                        * torch.clamp(pred_merit - 1e-9, min=0.0))
+        f_type = ~pmode & inside & switching & armijo_obj
+        h_type = ~pmode & inside & ~switching & h_ok
+        b_type = (~pmode & inside & ~switching & ~h_ok
+                  & (t_inf < cur_inf) & armijo_merit)
+        p_type = pmode & inside & armijo_merit
+        ok = f_type | h_type | b_type | p_type
+        ok = ok & torch.isfinite(t_cost) & torch.isfinite(t_inf)
+        return ok, (h_type, b_type, p_type, h_ok, t_inf)
+
+    alpha, ok, (h_t, b_t, p_t, h_ok, t_inf) = _backtrack(
+        active, classify, opts, 1.0, fw)
+    # funnel / mode updates for the accepted step
+    do_decrease = ok & (h_t | (p_t & h_ok))
+    fw = torch.where(do_decrease,
+                     (1.0 - opts.funnel_kappa) * t_inf
+                     + opts.funnel_kappa * fw, fw)
+    pmode = torch.where(ok & b_t, True,
+                        torch.where(ok & p_t & h_ok, False, pmode))
+    return alpha, (fw, pen, pmode)
+
+
+def adaptive_qp_tol(opts: SqpOpts, qp_opts: IpmOpts, rs, re, ri, rc):
+    """ADAPTIVE_CURRENT_RES_JOINT QP tolerances of every instance from its
+    current NLP residuals (reference ocp_nlp_common.c:4460):
+      tmp_tol_* = min(reduction_factor * res_*, 1e-2)
+      joint     = max over tmp_tol_*
+      tol_*     = max(joint, safety_factor * nlp_tol_*),
+    each a (B,) tensor in the returned IpmOpts."""
+    red = opts.nlp_qp_tol_reduction_factor
+    joint = torch.stack([torch.clamp(red * r, max=1e-2)
+                         for r in (rs, re, ri, rc)]).amax(dim=0)
+    saf = opts.nlp_qp_tol_safety_factor
+    return qp_opts.replace(
+        tol_stat=torch.clamp(joint, min=saf * opts.tol_stat),
+        tol_eq=torch.clamp(joint, min=saf * opts.tol_eq),
+        tol_ineq=torch.clamp(joint, min=saf * opts.tol_ineq),
+        tol_comp=torch.clamp(joint, min=saf * opts.tol_comp))
+
+
 def use_x0_elimination(form: OcpNlpFormulation, opts: SqpOpts) -> bool:
     """Static eligibility for initial-state elimination (the HPIPM
     d_ocp_qp_reduce_eq_dof analog): the stage-0 rows start with a
@@ -188,6 +411,11 @@ def _set_at(stat, k, col, value):
     stat[idx, k.long(), col] = value.to(stat.dtype)
 
 
+def _scaled(c, v):
+    """c * v for a float c or a per-instance (B,) c."""
+    return (_bc(c, v) if torch.is_tensor(c) else c) * v
+
+
 def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     """Build the batch-first SQP solve function.
 
@@ -199,12 +427,17 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     full_precision_matmul()
     x0_fixed = use_x0_elimination(form, opts)
     keep_rows = keep_rows_of(form)
+    use_aa = (opts.with_anderson_acceleration
+              and opts.globalization == "FIXED_STEP")
+    adaptive_lm = opts.with_adaptive_levenberg_marquardt
 
-    def solve_qp(qp, warm=None):
-        """QP dispatch (acados_tpu/ocp_nlp/sqp.py:469-500): scaling, then
+    def solve_qp(qp, warm=None, qp_opts=None):
+        """QP dispatch (acados_tpu/ocp_nlp/sqp.py:468-500): scaling, then
         full condensing (the dense IPM, cold), partial condensing (the
         Riccati IPM), the registry's backend where qp_solver_name names
-        another, or the Riccati IPM."""
+        another, or the Riccati IPM. qp_opts overrides opts.qp_opts (the
+        adaptive QP tolerances)."""
+        qp_opts = opts.qp_opts if qp_opts is None else qp_opts
         scales = None
         if opts.qpscaling != "NO_SCALING":
             # x0 rows keep unit scales: the eliminated path reads dx0
@@ -213,21 +446,72 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                                   unit_rows_0=form.nx if x0_fixed else 0)
             warm = None  # the warm point is in unscaled units
         if opts.full_cond:
-            sol, info = solve_ocp_qp_xcond(qp, opts.qp_opts, full_cond=True)
+            sol, info = solve_ocp_qp_xcond(qp, qp_opts, full_cond=True)
         elif opts.cond_N is not None:
             sol, info = solve_ocp_qp_xcond(
-                qp, opts.qp_opts, cond_N=opts.cond_N, warm=warm,
+                qp, qp_opts, cond_N=opts.cond_N, warm=warm,
                 keep_rows=keep_rows, cond_block_size=opts.cond_block_size,
                 x0_fixed=x0_fixed)
         elif opts.qp_solver_name != "RICCATI_IPM":
             sol, info = get_qp_backend(opts.qp_solver_name)(
-                qp, opts.qp_opts, warm=warm)
+                qp, qp_opts, warm=warm)
         else:
-            sol, info = solve_ocp_qp(qp, opts.qp_opts, warm=warm,
+            sol, info = solve_ocp_qp(qp, qp_opts, warm=warm,
                                      x0_fixed=x0_fixed)
         if scales is not None:
             sol = unscale_sol(sol, scales)
         return sol, info
+
+    def merit_search(data, it, qp, sol, qp_opts_k, soft_scaled, mask, lb_m,
+                     ub_m, active):
+        """MERIT_BACKTRACKING of every active instance (acados_tpu/ocp_nlp/
+        sqp.py:608-683). Returns (alpha, the solution stepped along, the
+        SOC QPs' iterations)."""
+        w_pi = torch.maximum(it.pi.abs(), sol.pi.abs()) + 1e-4
+        w_lam = (torch.maximum(torch.maximum(it.lam_l, sol.lam_lg),
+                               torch.maximum(it.lam_u, sol.lam_ug))
+                 + 1e-4) * mask
+        merit = lambda x, u, sl, su: _merit(form, data, soft_scaled, x, u,
+                                            sl, su, w_pi, w_lam, lb_m, ub_m)
+        merit0 = merit(it.x, it.u, it.sl, it.su)
+        if opts.line_search_use_sufficient_descent:
+            dmerit = torch.clamp(_merit_gradient(
+                form, qp, sol, it, w_pi, w_lam, lb_m, ub_m, soft_scaled,
+                data), max=0.0)
+        else:
+            dmerit = torch.zeros_like(merit0)
+        eps_sd = opts.eps_sufficient_descent
+
+        m1 = merit(*_trial(it, sol, 1.0))
+        full_ok = m1 < merit0 + eps_sd * dmerit
+        soc_iter = None
+        soc_ok = torch.zeros_like(full_ok)
+        sol_used = sol
+        if opts.globalization_use_SOC:
+            # second-order correction of the QP rhs at the rejected full
+            # step (ocp_nlp_common.c:4227), solved for every instance
+            x_t, u_t = it.x + sol.x, it.u + sol.u
+            gap_t = eval_dyn_gap(form, data, x_t, u_t)
+            g_t = eval_constraints(form, data, x_t, u_t)
+            g_cur = eval_constraints(form, data, it.x, it.u)
+            delta2 = g_t - g_cur - _row_step(qp, sol)
+            qp_soc = qp.replace(b=gap_t - _dgap_lin(qp, sol),
+                                lg=qp.lg - delta2, ug=qp.ug - delta2)
+            sol_soc, info_soc = solve_qp(qp_soc, qp_opts=qp_opts_k)
+            soc_iter = info_soc.num_iter
+            m_soc = merit(*_trial(it, sol_soc, 1.0))
+            soc_ok = ~full_ok & (m_soc < merit0 + eps_sd * dmerit)
+            sol_used = select_fields(soc_ok, sol_soc, sol)
+
+        def armijo(alpha):
+            mt = merit(*_trial(it, sol, alpha))
+            return mt < merit0 + eps_sd * dmerit * alpha, ()
+
+        alpha_bt, _, _ = _backtrack(active & ~(full_ok | soc_ok), armijo,
+                                    opts, opts.alpha_reduction, merit0)
+        alpha = torch.where(full_ok | soc_ok, torch.ones_like(alpha_bt),
+                            alpha_bt)
+        return alpha, sol_used, soc_iter
 
     def solve(data: NlpData, init: NlpIterate):
         dtype, dev = init.x.dtype, init.x.device
@@ -235,6 +519,16 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
         static_rows = build_static_rows(form, dtype, dev)
         lm = torch.tensor(opts.levenberg_marquardt, dtype=dtype, device=dev)
         soft_scaled = static_rows["soft"] * static_rows["mask"]
+        # bounds with disabled rows and absent sides masked off, for the
+        # merit's violations (acados_tpu/ocp_nlp/sqp.py:507-517)
+        lb_all = _stack_stages(data.lb_0, data.lb, data.lb_e)
+        ub_all = _stack_stages(data.ub_0, data.ub, data.ub_e)
+        big = torch.full_like(lb_all, 1e20)
+        inf_thr = 0.5 * ACADOS_INFTY
+        lb_m = torch.where((static_rows["mask"] > 0) & (lb_all > -inf_thr),
+                           lb_all, -big)
+        ub_m = torch.where((static_rows["mask"] > 0) & (ub_all < inf_thr),
+                           ub_all, big)
 
         it = init
         k = torch.zeros(Bsz, dtype=torch.int32, device=dev)
@@ -244,12 +538,27 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
         stat = torch.zeros((Bsz, opts.max_iter + 1, len(STAT_COLS)),
                            dtype=dtype, device=dev)
         res_last = torch.zeros((4, Bsz), dtype=dtype, device=dev)
+        lm_state = torch.full((Bsz,), opts.adaptive_levenberg_marquardt_mu0,
+                              dtype=dtype, device=dev)
+        zero_step = map_fields(torch.zeros_like, init)
+        aa = (zero_step, zero_step)
+        gstate = None
+        if opts.globalization == "FUNNEL_L1PEN_LINESEARCH":
+            inf0 = _l1_infeasibility(form, data, soft_scaled, init.x,
+                                     init.u, init.sl, init.su, lb_m, ub_m)
+            gstate = (torch.clamp(
+                opts.funnel_initialization_increase_factor * inf0,
+                min=opts.funnel_initialization_upper_bound),
+                torch.full((Bsz,), opts.funnel_initial_penalty_parameter,
+                           dtype=dtype, device=dev),
+                torch.zeros(Bsz, dtype=torch.bool, device=dev))
 
         while True:
             active = (k < opts.max_iter) & ~done
             if not bool(active.any()):
                 break
-            qp = linearize(form, static_rows, data, it, lm)
+            lm_k = lm_state if adaptive_lm else lm
+            qp = linearize(form, static_rows, data, it, lm_k)
             rs, re, ri, rc = _nlp_residuals(qp, it)
             stat_new = stat.clone()
             for col, v in enumerate((rs, re, ri, rc)):
@@ -264,6 +573,11 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             # regularize (sqp.py:568), then the QP backend (sqp.py:468-500)
             qp_solve = regularize_qp(qp, opts.regularize_method,
                                      opts.reg_epsilon)
+            if opts.nlp_qp_tol_strategy == "ADAPTIVE_CURRENT_RES_JOINT":
+                qp_opts_k = adaptive_qp_tol(opts, opts.qp_opts, rs, re, ri,
+                                            rc)
+            else:
+                qp_opts_k = opts.qp_opts
             warm = None
             if opts.warm_start_first_qp_from_nlp:
                 warm = OcpQpSol(
@@ -271,7 +585,7 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                     pi=it.pi, lam_lg=it.lam_l, lam_ug=it.lam_u,
                     t_lg=torch.ones_like(it.lam_l),
                     t_ug=torch.ones_like(it.lam_u), sl=it.sl, su=it.su)
-            sol, info = solve_qp(qp_solve, warm=warm)
+            sol, info = solve_qp(qp_solve, warm=warm, qp_opts=qp_opts_k)
             # a QP at its iteration limit may still be usable; only a NaN
             # QP is fatal (reference ocp_nlp_sqp.c:720-752)
             qp_fatal = info.status == 1
@@ -279,21 +593,68 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             _set_at(stat_new, k, 4, info.status)
             _set_at(stat_new, k, 5, info.num_iter)
 
-            alpha = opts.step_length
-            step_norm = alpha * torch.maximum(_bmax(sol.x.abs()),
-                                              _bmax(sol.u.abs()))
-            _set_at(stat_new, k, 6, torch.full_like(step_norm, alpha))
+            gstate_new = gstate
+            if opts.globalization == "FIXED_STEP":
+                alpha = opts.step_length
+                alpha_col = torch.full((Bsz,), alpha, dtype=dtype,
+                                       device=dev)
+            elif opts.globalization == "FUNNEL_L1PEN_LINESEARCH":
+                alpha, gstate_new = _funnel_search(
+                    form, opts, data, soft_scaled, lb_m, ub_m, qp, it, sol,
+                    gstate, active)
+                alpha_col = alpha
+            else:  # MERIT_BACKTRACKING
+                alpha, sol, soc_iter = merit_search(
+                    data, it, qp, sol, qp_opts_k, soft_scaled,
+                    static_rows["mask"], lb_m, ub_m, active)
+                alpha_col = alpha
+                if soc_iter is not None:
+                    qp_tot_new = qp_tot_new + soc_iter
+
+            step_norm = _scaled(alpha, torch.maximum(_bmax(sol.x.abs()),
+                                                     _bmax(sol.u.abs())))
+            _set_at(stat_new, k, 6, alpha_col)
             _set_at(stat_new, k, 7, step_norm)
 
             beta = alpha if opts.full_step_dual is False else 1.0
-            it_new = NlpIterate(
-                x=it.x + alpha * sol.x,
-                u=it.u + alpha * sol.u,
-                pi=it.pi + beta * (sol.pi - it.pi),
-                lam_l=it.lam_l + beta * (sol.lam_lg - it.lam_l),
-                lam_u=it.lam_u + beta * (sol.lam_ug - it.lam_u),
-                sl=it.sl + beta * (sol.sl - it.sl),
-                su=it.su + beta * (sol.su - it.su))
+            # delta primal-dual step (Anderson works on the delta form,
+            # ocp_nlp_convert_primaldelta_absdual_step_to_delta_step)
+            step = NlpIterate(
+                x=sol.x, u=sol.u, pi=sol.pi - it.pi,
+                lam_l=sol.lam_lg - it.lam_l, lam_u=sol.lam_ug - it.lam_u,
+                sl=sol.sl - it.sl, su=sol.su - it.su)
+            aa_new = aa
+            if use_aa:
+                prev_step, and_step = aa
+                d_diff = map_fields(lambda n, o: n - o, step, prev_step)
+                dots = sum(_bsum(getattr(step, f) * getattr(d_diff, f))
+                           for f in _ITER_FIELDS)
+                nrm2 = sum(_bsum(getattr(d_diff, f) ** 2)
+                           for f in _ITER_FIELDS)
+                gamma = dots / torch.clamp(nrm2, min=1e-30)
+                res_inf = torch.maximum(torch.maximum(rs, re), ri)
+                plain = (k == 0) | (res_inf
+                                    > opts.anderson_activation_threshold)
+
+                def mix(a_s, p_s, n_s):
+                    g = _bc(gamma, n_s)
+                    return where_batch(
+                        plain, alpha * n_s,
+                        -g * a_s + g * alpha * p_s
+                        + (alpha - g * alpha) * n_s)
+
+                and_new = map_fields(mix, and_step, prev_step, step)
+                aa_new = (step, and_new)
+                it_new = map_fields(lambda v, d: v + d, it, and_new)
+            else:
+                it_new = NlpIterate(
+                    x=it.x + _scaled(alpha, step.x),
+                    u=it.u + _scaled(alpha, step.u),
+                    pi=it.pi + _scaled(beta, step.pi),
+                    lam_l=it.lam_l + _scaled(beta, step.lam_l),
+                    lam_u=it.lam_u + _scaled(beta, step.lam_u),
+                    sl=it.sl + _scaled(beta, step.sl),
+                    su=it.su + _scaled(beta, step.su))
             nan = ~torch.isfinite(_bsum(it_new.x) + _bsum(it_new.u))
             it_new = select_fields(nan | converged, it, it_new)
 
@@ -307,6 +668,18 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             done_new = converged | unbounded | nan | qp_fatal | small_step
             # k advances only when a step was taken
             k_new = torch.where(converged, k, k + 1)
+            if adaptive_lm:
+                # shrink on a stationarity-residual decrease, grow
+                # otherwise (acados_tpu/ocp_nlp/sqp.py:749-761)
+                lam_f = torch.full_like(lm_k,
+                                        opts.adaptive_levenberg_marquardt_lam)
+                mu_min = opts.adaptive_levenberg_marquardt_mu_min
+                lm_next = torch.where(
+                    k == 0, lm_k,
+                    torch.where(rs < res_last[0],
+                                torch.clamp(lm_k / lam_f, min=mu_min),
+                                lm_k * lam_f))
+                lm_state = torch.where(active, lm_next, lm_state)
 
             # lockstep freeze of the instances that had stopped
             it = select_fields(active, it_new, it)
@@ -317,6 +690,12 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             stat = where_batch(active, stat_new, stat)
             res_last = torch.where(active, torch.stack([rs, re, ri, rc]),
                                    res_last)
+            if use_aa:
+                aa = tuple(select_fields(active, n, o)
+                           for n, o in zip(aa_new, aa))
+            if gstate is not None:
+                gstate = tuple(torch.where(active, n, o)
+                               for n, o in zip(gstate_new, gstate))
 
         if opts.rti:
             # RTI semantics (reference ocp_nlp_sqp_rti.c): the reported
@@ -341,6 +720,9 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
         return it, stats
 
     return solve
+
+
+_ITER_FIELDS = [f.name for f in dataclasses.fields(NlpIterate)]
 
 
 def init_iterate(form: OcpNlpFormulation, batch: int = 1,

@@ -423,7 +423,7 @@ def _kron_step_jac(f_impl, nx: int, A_t, b_t, c_t, num_steps: int,
 def make_irk_stage_points(*args, **kwargs):
     raise NotImplementedError(
         "cost_discretization INTEGRATOR (IRK stage points) is not ported "
-        "yet (ROADMAP.md Queue 1, NLP breadth)")
+        "yet (ROADMAP.md Queue 1, item 16b, NLP breadth)")
 
 
 def make_irk_z0_fun(*args, **kwargs):

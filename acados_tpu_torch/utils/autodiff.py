@@ -1,12 +1,13 @@
-"""Forward-mode Jacobians for per-instance model functions, and the vmap
-rule of the batch-first autograd Functions.
+"""Forward-mode Jacobians and Hessians for per-instance model functions,
+and the vmap rule of the batch-first autograd Functions.
 
 `torch.func.jacfwd` returns float64 Jacobians for float32 functions that
 multiply a 0-dim tensor by a Python float (e.g. `0.1 * x[1]` in a model):
 the saved scalar loses its wrapped-number status and promotes the
 tangent. JAX's weak types keep such tangents in float32. `jacfwd` here
 casts every Jacobian to the dtype of its differentiated argument, so a
-float32 model keeps float32 derivatives downstream.
+float32 model keeps float32 derivatives downstream; `hessian` does the
+same for `torch.func.hessian`.
 """
 from __future__ import annotations
 
@@ -26,6 +27,17 @@ def jacfwd(f, argnums=0):
         return J.to(dt)
 
     return jac
+
+
+def hessian(f):
+    """torch.func.hessian (forward over reverse, as jax.hessian) of f with
+    respect to its first argument, cast to that argument's dtype."""
+    hf = torch.func.hessian(f)
+
+    def hess(*args):
+        return hf(*args).to(args[0].dtype)
+
+    return hess
 
 
 def fold_vmap(apply, info, in_dims, *args):

@@ -24,11 +24,11 @@ failure exits non-zero:
     linsolve on the card launching K1 for small n too; then K1's time at
     the main-path shape beside its bound, the plain version and
     torch.linalg.inv, and over both branches' grid (n = 9, 21, 29, 39, 48
-    x B = 1024, 10240 and n = 2, 4, 8, 16 x B = 10240, 81920 float32,
+    at B = 10240 and n = 2, 4, 8, 16 at B = 81920 float32,
     (10240, 39, 39) and (81920, 16, 16) float64) beside the branches they
     replaced;
  4. main path: AcadosOcpBatchSolver on the canonical pendulum IRK SQP-RTI
-    config (N = 20, float32) at B = 4096, 1 cold + 15 warm + timed
+    config (N = 20, float32) at B = 4096, 1 cold + 10 warm + 6 timed
     solve() calls; every status 0, the float32 tolerances met, and exactly
     8 kernel launches per RTI call; then where the time of a call goes
     (layers on the host clock, device busy share from torch.profiler);
@@ -38,7 +38,7 @@ failure exits non-zero:
  6. full-condensing path: the same config with qp_solver =
     "FULL_CONDENSING_HPIPM" (full condensing, then the dense IPM, whose
     barrier Hessian is factored by the Cholesky kernel K2 once per
-    lockstep round) at B = 4096 float32, 1 cold + 15 warm + timed calls;
+    lockstep round) at B = 4096 float32, 1 cold + 10 warm + 6 timed calls;
     every status 0, in tolerance, K1 at 8 launches per call and K2 at the
     sum over calls of the batch's largest qp_iter; then where the time
     goes (linearize, condense, dense IPM, expand);
@@ -56,8 +56,9 @@ failure exits non-zero:
     above the diagonal and with a zero or NaN diagonal); then their times
     at (4096, 24, 24) float32 beside their bounds, the plain versions and
     the library's Cholesky calls (CUDA events around one call, and the
-    device time of the call's kernels), and the grid of each (n = 4, 8, 13, 16, 24, 32 x
-    B = 4096, 65536 float32, (4096, 24, 24) float64, n = 39, 64 at
+    device time of the call's kernels), and the grid of each (n = 4, 8,
+    13, 16, 24, 32 at B = 4096 float32,
+    (4096, 24, 24) float64, n = 39, 64 at
     B = 4096) beside the replaced kernels' figures and the library call;
  8. the public ops entry points (chol_factor_batched, chol_solve_batched,
     chol_factor_solve_batched: K3 and K4 have no solver caller) on the
@@ -72,13 +73,13 @@ failure exits non-zero:
     moved by one rounding step, beside it;
 11. chain path: AcadosOcpBatchSolver on make_chain_mass_ocp(n_mass=8,
     N=40) (nx = 39, nu = 3, the Kronecker IRK path) in float32 at B = 256,
-    x0 = steady state + N(0, 0.02), 1 cold + 15 warm + timed calls; every
+    x0 = steady state + N(0, 0.02), 1 cold + 10 warm + 6 timed calls; every
     status 0, bench.py's chain tolerances met, K1 exactly 2 launches a call
     of (10240, 39, 39), K2 and K5 none; K1 on the captured block
     determinants against its plain version, and its time there; then
     where the time of a call goes;
 12. chain sweep: n_mass = 3, 5, 11 (nx = 9, 21, 57) at B = 256, N = 40,
-    1 cold + 15 warm calls; every status 0 and in tolerance, K1 at 2
+    1 cold + 10 warm calls; every status 0 and in tolerance, K1 at 2
     launches a call (4 at nx = 57: two n = 29 inverses of the Schur
     recursion per determinant);
 13. the small-matrix product K5 against its plain version, bit for bit:
@@ -93,7 +94,7 @@ failure exits non-zero:
     calls, card against CPU, beside the CPU's own spread under one
     rounding step of the x0s;
 15. the quadrotor (N = 20) and race car (N = 30, Tf = 0.6) ERK RTI batches
-    at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 20 warm calls; every
+    at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 10 warm calls; every
     status 0, within stat 5e-3 and eq 1e-4, no kernel launches;
 16. RTI phases on the main path's config (pendulum IRK, N = 20, float32,
     B = 4096): 1 cold + 11 warm + 8 timed prepare() / feedback(x0)
@@ -105,20 +106,22 @@ failure exits non-zero:
     ERK, SQP_RTI, float32, B = 1024, x0 = [0, pi, 0, 0] + N(0, 0.02),
     the three variants in one process: 1 cold + 10 warm calls each
     (bench.py warms 25: cut for the plain variant's seconds a call), then
-    2 interleaved rounds of 2 timed calls; every status 0, within stat
-    1e-1 and eq 1e-4 (bench.py's _LONGH_TOLS); no kernel launches in
-    plain and cond_N16 (nu = 1, condensed nu = 8 <= 12), and in
-    parallel_riccati K1 exactly 13 launches a lockstep IPM round (one a
+    1 round of 2 timed calls; every status 0,
+    within stat 1e-1 and eq 1e-4 (bench.py's _LONGH_TOLS); no kernel
+    launches in plain and cond_N16 (nu = 1, condensed nu = 8 <= 12), and
+    in parallel_riccati K1 exactly 13 launches a lockstep IPM round (one a
     non-empty combine of the associative scan over 129 stages); for
     each: solves/s, median call with p10/p90, Riccati stages a sweep (or
-    combine levels a factor), kernel launches a call and device busy
-    share (torch.profiler), the QP's share of a call; then K1 on the
+    combine levels a factor), the QP's share of a call, and for
+    parallel_riccati kernel launches a call and device busy share
+    (torch.profiler; the other two are not profiled: their profiles
+    took most of the phase); then K1 on the
     largest combine, (65536, 4, 4) captured in the parallel variant's
     first timed call, against its plain version (the bits that differ
     counted), and its times there;
 18. chain at qp_solver_cond_N = 8 (n_mass = 8, N = 40, B = 256,
     float32; blocks of M = 5, condensed nu = 15 > 12, so each condensed
-    stage's Huu goes through K2): 1 cold + 15 warm calls, then 3
+    stage's Huu goes through K2): 1 cold + 10 warm calls, then 3
     interleaved rounds of 4 timed calls beside phase 11's plain chain;
     every status 0 and in tolerance, K1 2 launches a call, K2 exactly 8
     a lockstep IPM round (8 stages x 1 factorization x the rounds), K2 on
@@ -150,14 +153,14 @@ failure exits non-zero:
     pendulum (ERK, float64, B = 1024), the gradient of 0.5 |u_0|^2 with
     respect to every stage's p through its backward against
     eval_adjoint_solution_sensitivity within 1e-9, no kernel launch;
-23. float64 card against CPU of phases 20-22 at B = 8: the simulator's
+23. float64 card against CPU of phases 20-22 at B = 4: the simulator's
     xn, S_forw, S_adj, S_hess (IRK and RK4), the forward and adjoint
     sensitivities and the differentiable solver's gradient within 1e-9;
     the chain's sensitivities (B = 4) within the CPU's own spread on x0s
     moved by one rounding step, where that exceeds 1e-9;
 24. latency (bench.py's bench_latency): phase 17's three variants at
-    B = 8 (cond_N = 32), 1 cold + 12 warm calls each (bench.py warms
-    25), then 2 interleaved rounds of 2 timed calls; the median call with
+    B = 8 (cond_N = 32), 1 cold + 10 warm calls each (bench.py warms
+    25), then 1 round of 2 timed calls; the median call with
     p10/p90, every status 0, _LONGH_TOLS met, K1 only in
     parallel_riccati, 13 a lockstep IPM round;
 25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
@@ -169,19 +172,42 @@ failure exits non-zero:
     rounds of 10; an ADMM call runs up to 500 lockstep iterations);
     every status 0, the OCP's nlp tolerances (stat, eq) met, no launch
     of the repo's kernels; solves/s, the largest ADMM iteration count a
-    call, ADMM's residual maxima call by call, launches a call (the
-    IPM's by torch.profiler; ADMM's ~2e5 are not profiled);
+    call, ADMM's residual maxima call by call;
 26. float64 card against CPU of the QP-breadth paths, each within 1e-9:
     the long horizon with parallel_riccati, the main path's config with
     abs_form and the ADMM RTI batch (B = 8, 3 RTI calls each), and
     AcadosOcpQpSolver on a random QP (N = 20, x0 free) with the Riccati
     IPM, ADMM and ADMM through partial condensing (cond_N = 4), with its
-    forward and adjoint sensitivities.
+    forward and adjoint sensitivities;
+27. the Newton SQP at full width: bench_pendulum_irk_sqp's problem (SQP,
+    IRK, N = 20, float32, B = 4096, the main path's x0s) with
+    hessian_approx EXACT, CONVEXIFY and MERIT_BACKTRACKING (MIRROR's
+    solve takes over 100 lockstep rounds there, see NEWTON_SO), beside
+    its Gauss-Newton solve: one EXACT linearization first (K1 exactly
+    K1_PER_EXACT_LINEARIZE = 22 launches) and the time split of a round
+    (the Gauss-Newton linearization and the exact dynamics Hessian
+    apart, CONVEXIFY and MIRROR, the QP, a merit's dynamics gap), then
+    two Gauss-Newton calls with the EXACT call between them, each from
+    the initial iterate (nothing compiles in the port: a first call is
+    timed like any other); every status 0 and in
+    tolerance in both; the EXACT call's K1 launches equal to those
+    worked out from its stat table (newton_k1_expected: 22 a round, 6
+    a dynamics gap of the merit); sqp_iter mean and max of both; K1 on
+    the largest launch of the EXACT linearization against its plain
+    version, and its times there;
+28. float64 card against CPU of the new options, B = 4, each solve cut
+    at 4 iterations: the Newton SQP of phase 27 (2 iterations),
+    EXACT with each of the five
+    regularizations on the nonconvex EXTERNAL-cost double integrator,
+    MERIT with sufficient descent and with SOC, FUNNEL, FIXED_STEP with
+    Anderson, adaptive LM, ADAPTIVE_CURRENT_RES_JOINT and a CONL-cost
+    pendulum, each within 1e-9.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -191,9 +217,16 @@ import numpy as np
 
 B_MAIN = 4096
 N_HORIZON = 20
-WARM_CALLS = 15
-TIMED_CALLS = 12
+WARM_CALLS = 10
+TIMED_CALLS = 6
 LAUNCHES_PER_RTI = 8          # 4 inverses per substep x 2 substeps
+# the Newton SQP (phase 27): K1 launches of an EXACT linearization (the
+# 8 above + 14 of the dynamics Hessian's torch.func.hessian through the
+# IRK step: per substep 3 Newton solves forward, 1 reverse, 1 + 2 in the
+# forward-mode passes of the root and its reverse) and of one dynamics-
+# gap evaluation of the merit (3 Newton solves a substep)
+K1_PER_EXACT_LINEARIZE = 22
+K1_PER_DYN_GAP = 6
 X0_CENTER = (0.0, np.pi, 0.0, 0.0)
 X0_SIGMA = 0.05
 SEED = 0
@@ -223,7 +256,7 @@ RTI_WARM, RTI_TIMED = 11, 8
 # cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
 N_LONG, B_LONG, LONG_SIGMA, COND_LONG = 128, 1024, 0.02, 16
 LONG_TOLS = (1e-1, 1e-4, np.inf, np.inf)
-LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 2, 2
+LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 1, 2
 # the parallel-in-time Riccati: K1 launches a factor, one a non-empty
 # combine of the associative scan over N + 1 elements (7 reduce + 7 even
 # combines at N = 128, the even one at 2 elements empty; 4 + 4 at N = 20)
@@ -234,7 +267,7 @@ PAR_COMBINE_B = 64 * 1024
 # variant, and the warm calls (bench.py: 25; 3 leave cond_N32 out of
 # _LONGH_TOLS at B = 8), rounds and calls a round
 B_LAT, COND_LAT = 8, 32
-LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 12, 2, 2
+LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 10, 1, 2
 # bench.py's bench_admm_backend: B, N, x0 spread, the IPM's warm calls
 # (bench.py: 15 for each variant), the IPM call whose iterate the ADMM
 # variant starts from (the RTI iteration still far from tolerance there:
@@ -266,14 +299,14 @@ K1_EDGE_N = (9, 29, 39, 48)
 K1_EDGE_B = (1, 2, 3, 33)
 K1_LONG_B = 200_003
 K1_SWEEP_B = 7
-K1_GRID_B = (1024, 10240)
+K1_GRID_B = (10240,)
 # K1's group branch (n = 2, 4, 8, 16): batches that end inside a group of
 # lanes, a warp and a block of warps, the n of the long batch beside the
 # warp branch's n = 3, and the batches of its grid
 K1_GROUP_N = (2, 4, 8, 16)
 K1_GROUP_EDGE_B = (1, 2, 3, 33, 65, 1023)
 K1_LONG_N = (2, 3, 16)
-K1_GROUP_GRID_B = (10240, 81920)
+K1_GROUP_GRID_B = (81920,)
 # the branch K1's warp branch replaced (one warp a matrix, [A | I] in
 # shared memory): device ms back to back over k1_grid's cells, by (n, B,
 # type), from k1_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
@@ -309,7 +342,7 @@ K2_LONG_N = (4, 24)
 K2_LONG_B = 200_003
 K2_SWEEP_B = 7
 K2_GRID_N = (4, 8, 13, 16, 24, 32)
-K2_GRID_B = (4096, 65536)
+K2_GRID_B = (4096,)
 K2_WIDE_N = (39, 64)
 # the K2 the row branch replaced (one warp a matrix, left-looking, in
 # shared memory): device ms back to back over chol_grid's cells, by (n, B,
@@ -453,16 +486,18 @@ def read_counts() -> dict:
 
 class K1Shapes:
     """While active, records the shape of every K1 launch and keeps a copy
-    of the first launch's input."""
+    of the first launch's input and of the largest one's."""
 
     def __enter__(self):
         from acados_tpu_torch.ops import batched_inv
         self._mod, self._orig = batched_inv, batched_inv._gj_inverse_cuda
-        self.shapes, self.first = [], None
+        self.shapes, self.first, self.largest = [], None, None
 
         def record(A):
             if self.first is None:
                 self.first = A.detach().clone()
+            if self.largest is None or A.numel() > self.largest.numel():
+                self.largest = A.detach().clone()
             self.shapes.append(tuple(A.shape))
             return self._orig(A)
 
@@ -496,18 +531,21 @@ def check_inverse(name, A, inv_kernel, bound, quiet=False):
 
 
 def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None,
-              sigma=X0_SIGMA, moved=False, **updates):
+              sigma=X0_SIGMA, moved=False, solver_options=None, **updates):
     """The main path's batch solver with bench.py's _build_rti set-up:
     x0 per instance = X0_CENTER + N(0, sigma), set as lbx/ubx at stage
     0, and the x trajectory initialised at x0. qp_solver, if given, is
-    set in the solver options; moved: every x0 entry moved by one
-    rounding step, up or down at random; updates (opts_update,
-    qp_opts_update) go to acados_tpu_torch.testing.rti_batch."""
+    set in the solver options, as are the entries of solver_options;
+    moved: every x0 entry moved by one rounding step, up or down at
+    random; updates (opts_update, qp_opts_update) go to
+    acados_tpu_torch.testing.rti_batch."""
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.testing import rti_batch as batch_at
     ocp = make_pendulum_ocp(**ocp_kw)
     if qp_solver is not None:
         ocp.solver_options.qp_solver = qp_solver
+    for k, v in (solver_options or {}).items():
+        setattr(ocp.solver_options, k, v)
     rng = np.random.default_rng(seed)
     x0s = np.asarray(X0_CENTER) + rng.normal(0.0, sigma, (B, 4))
     if moved:
@@ -546,7 +584,7 @@ def in_tolerance(solver, tols=None):
     return bool(np.all(res <= np.asarray(tols))), res, tols
 
 
-def host_ms(fn, reps: int = 5) -> float:
+def host_ms(fn, reps: int = 3) -> float:
     """Median host-clock time of fn() ending in a synchronize (ms)."""
     import torch
     fn()
@@ -602,7 +640,7 @@ def call_stats(call_ms, B=B_MAIN) -> str:
             f"{len(call_ms)} calls -> {B / med * 1e3:.1f} solves/s")
 
 
-def profile_calls(solver, call_ms: float, calls: int = 3) -> dict:
+def profile_calls(solver, call_ms: float, calls: int = 1) -> dict:
     """A torch.profiler trace of a few solve() calls: the device's busy
     share of the unprofiled call time, launches per call, top kernels."""
     import torch
@@ -659,7 +697,7 @@ def qp_solve(solver, qp, warm=None):
         x0_fixed=use_x0_elimination(form, opts))
 
 
-def time_split(solver, reps: int = 5, profiled: int = 3) -> dict:
+def time_split(solver, reps: int = 3, profiled: int = 0) -> dict:
     """Where the time of one warm RTI call goes: its layers on the host
     clock (each synchronised, medians of `reps`), then a torch.profiler
     trace of a few calls for the device's busy share and kernel launches
@@ -695,7 +733,8 @@ def time_split(solver, reps: int = 5, profiled: int = 3) -> dict:
                residuals_ms=host_ms(lambda: _nlp_residuals(qp, it), reps))
     out["rest_ms"] = out["call_ms"] - out["linearize_ms"] - out["qp_ms"]
     out["qp_share"] = out["qp_ms"] / out["call_ms"]
-    out.update(profile_calls(solver, out["call_ms"], profiled))
+    if profiled:
+        out.update(profile_calls(solver, out["call_ms"], profiled))
     return out
 
 
@@ -718,7 +757,6 @@ def fc_time_split(solver) -> dict:
     out["rest_ms"] = out["call_ms"] - sum(
         out[k] for k in ("linearize_ms", "condense_ms", "dense_ipm_ms",
                          "expand_ms"))
-    out.update(profile_calls(solver, out["call_ms"]))
     return out
 
 
@@ -1521,7 +1559,7 @@ def erk_models(dev):
         x0s = np.random.default_rng(SEED).normal(0.0, sigma, (B_ERK, nx))
         solver = batch_at(ocp, x0s, dev)
         reset_counts()
-        call_ms, qp_max = run_calls(solver, name, tols=ERK_TOLS, warm=19,
+        call_ms, qp_max = run_calls(solver, name, tols=ERK_TOLS, warm=9,
                                     timed=1)
         counts = read_counts()
         log(f"{name}: nx={nx}, N={solver.N}, B={B_ERK}, float32, 21 calls, "
@@ -1693,14 +1731,19 @@ def long_horizon(dev) -> dict:
         f"{LONG_ROUNDS} interleaved rounds of {LONG_PER_ROUND} timed calls")
     for name, s in solvers.items():
         call_ms, qp_max, counts = runs[name]
-        split = time_split(s, reps=3 if name == "plain" else 5, profiled=1)
+        # the profiles' share of the phase grows with the launches (~92,800
+        # a plain call): only the parallel variant is profiled
+        split = time_split(s, reps=1 if name == "plain" else 2,
+                           profiled=int(name == "parallel_riccati"))
         depth = (f"combine levels a factor {K1_PER_PAR_FACTOR[N_LONG]} "
                  f"(the {N_LONG} stages in log depth)"
                  if name == "parallel_riccati" else
                  f"Riccati stages a sweep {split['riccati_stages']}")
         log(f"  {name}: {call_stats(call_ms, B_LONG)}; {depth}; kernel "
-            f"launches a call {split['kernel_launches_per_call']:.0f} "
-            f"(device busy {split['device_busy_share'] * 100:.1f} %); QP "
+            f"launches a call "
+            f"{split.get('kernel_launches_per_call', 'not profiled')} "
+            f"(device busy share "
+            f"{split.get('device_busy_share', 'not profiled')}); QP "
             f"{split['qp_ms']:.2f} of {split['call_ms']:.2f} ms a call "
             f"({split['qp_share'] * 100:.1f} %); largest qp_iter per call "
             f"{qp_max}; launches of the repo's kernels {counts}")
@@ -1786,9 +1829,7 @@ def chain_cond(dev, plain) -> dict:
                          f"counted {counts}")
     split = time_split(solver)
     log(f"  cond_N={COND_CHAIN}: Riccati stages a sweep "
-        f"{split['riccati_stages']}; kernel launches a call "
-        f"{split['kernel_launches_per_call']:.0f} (device busy "
-        f"{split['device_busy_share'] * 100:.1f} %); QP {split['qp_ms']:.2f} "
+        f"{split['riccati_stages']}; QP {split['qp_ms']:.2f} "
         f"of {split['call_ms']:.2f} ms ({split['qp_share'] * 100:.1f} %)")
     log(f"    time split: {json.dumps(split)}")
     # K2 on the path's own Huu batches against its plain version
@@ -1871,7 +1912,7 @@ CHAIN_EYE_BOUND = 1e-3
 # 0.01 a full-step SQP instance can stop at its 200 iterations)
 B_DIFF, DIFF_X0_SIGMA, DIFF_P_SIGMA = 1024, 0.01, 0.005
 # float64 card against CPU of the new paths (phase 23)
-B_CHECK = 8
+B_CHECK = 4
 
 
 def sim_solver(integrator_type, B, dtype, dev, sens_hess=False):
@@ -2001,15 +2042,15 @@ def timed_sens(solver) -> dict:
     su[:, 0] = 1.0
     return dict(
         kkt_factor_ms=host_ms(lambda: sens.KktFactor(
-            form, sens.SensOpts(), data, it), reps=3),
+            form, sens.SensOpts(), data, it), reps=1),
         linearize_ms=host_ms(lambda: sens.linearize(form, rows, data, it,
-                                                    zero), reps=3),
+                                                    zero), reps=1),
         lagrangian_hessian_ms=host_ms(
-            lambda: sens.lagrangian_hessian(form, data, it), reps=3),
+            lambda: sens.lagrangian_hessian(form, data, it), reps=1),
         forward_ms=host_ms(lambda: _forward_over_seeds(
-            kf, solver._layout(0), "initial_state"), reps=3),
+            kf, solver._layout(0), "initial_state"), reps=1),
         adjoint_ms=host_ms(lambda: sens.adjoint_sensitivity(kf, sx, su),
-                           reps=3))
+                           reps=1))
 
 
 def sensitivities(dev) -> dict:
@@ -2046,7 +2087,7 @@ def sensitivities(dev) -> dict:
             or counts["chol_factor"]:
         raise SystemExit("sensitivities on the main path failed")
     split = timed_sens(solver)
-    log(f"  time split (host ms, median of 3): {json.dumps(split)}")
+    log(f"  time split (host ms, one call each): {json.dumps(split)}")
 
     # the chain: P_0 (nx = 39 > 12) goes through chol_any, K2. In float64:
     # its active wall rows give barrier weights lam / t up to ~1e10 (t at
@@ -2086,7 +2127,7 @@ def sensitivities(dev) -> dict:
             not all(np.isfinite(a).all() for a in (csx, csu, cadj)) or \
             ceye > CHAIN_EYE_BOUND or cgap.max() > 1e-9:
         raise SystemExit("chain sensitivities failed")
-    log(f"  time split (host ms, median of 3): "
+    log(f"  time split (host ms, one call each): "
         f"{json.dumps(timed_sens(chain))}")
     H = p0s[0]
     kern = batched_chol.chol_factor_batched
@@ -2330,15 +2371,9 @@ def admm_phase(dev) -> None:
         f"{res + [float(admm.get_stats('residuals')[:, 0].max())]}")
     for name, s in solvers.items():
         call_ms, qp_max, counts = runs[name]
-        launches = ""
-        if name == "ipm":
-            split = profile_calls(s, float(np.median(call_ms)), calls=1)
-            launches = (f"kernel launches a call "
-                        f"{split['kernel_launches_per_call']:.0f} (device "
-                        f"busy {split['device_busy_share'] * 100:.1f} %); ")
         log(f"  ADMM phase {name}: {call_stats(call_ms, B_ADMM)}; largest "
             f"{'ADMM num_iter' if name == 'admm' else 'qp_iter'} per call "
-            f"{qp_max}; {launches}launches of the repo's kernels {counts}")
+            f"{qp_max}; launches of the repo's kernels {counts}")
         if any(counts.values()):
             raise SystemExit(f"ADMM phase {name}: unexpected kernel "
                              f"launches {counts}")
@@ -2452,6 +2487,321 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
         f"rounding step of the data {json.dumps(spread)} (iterations "
         f"{it[2:]}): {'ok' if ok else 'FAIL'}")
     return ok
+
+
+# the Newton SQP (phase 27): bench_pendulum_irk_sqp's problem (SQP, IRK,
+# N = 20, float32, the main path's batch and x0s) with the exact Hessian,
+# CONVEXIFY and the merit line search, beside its Gauss-Newton solve of
+# the same x0s: one EXACT call between two Gauss-Newton calls. MIRROR
+# (newton_batch with regularize_method="MIRROR"), whose solve the port's
+# CPU tests hold, takes 69-92 SQP iterations an instance from these x0s
+# on the CPU (float32, B = 8 and 64) and on the H100 at B = 4096 ran to
+# max_iter 100 with one instance unconverged: its call would not fit the
+# script's time limit. CONVEXIFY leaves the Hessian as it is where the
+# reduced Hessian is convex and keeps Newton's local convergence (16-29
+# iterations on the CPU at B = 8); MIRROR's and CONVEXIFY's times a round
+# are in the phase's time split.
+NEWTON_SO = dict(hessian_approx="EXACT", regularize_method="CONVEXIFY",
+                 globalization="MERIT_BACKTRACKING")
+NEWTON_SPLIT_REPS = 1
+# float64 card against CPU of the new options (phase 28), B = 4, each
+# solve cut at CHECK_ITER iterations (the parity of the same code on the
+# card and on the CPU needs no convergence; the CPU tests hold the
+# converged solves against the JAX package): the exact Newton SQP on the
+# main path's config (NEWTON_CHECK_ITER iterations), the five
+# regularizations on the nonconvex EXTERNAL-cost double integrator of
+# tests/test_regularize.py (N = 10), and the line searches and adaptive
+# options on the ERK pendulum at N = 8 (the line searches with the cost
+# weights scaled by 1e-3, as tests/test_torch_globalization.py runs
+# them: at the pendulum's own weights the merit's last comparisons are
+# between values within a few rounding steps, whose outcome follows the
+# order of the sums)
+B_NEWTON_CHECK, NEWTON_CHECK_ITER, CHECK_ITER = 4, 2, 4
+
+
+def newton_batch(B, dtype, dev, solver_options=NEWTON_SO, seed=SEED):
+    """bench_pendulum_irk_sqp's batch (SQP, IRK, N = 20) with the given
+    solver options (default: EXACT, MIRROR, MERIT_BACKTRACKING)."""
+    kw = dict(N=N_HORIZON, dtype=dtype, nlp_solver_type="SQP",
+              integrator_type="IRK")
+    return rti_batch(kw, B, dev, seed=seed,
+                     solver_options=solver_options)[0]
+
+
+def merit_evaluations(alpha, opts, dtype) -> int:
+    """The merit evaluations of one instance's backtracking loop that
+    ended at alpha < 1 (sqp.py: from alpha_reduction, each tried while
+    above alpha_min, shrunk by alpha_reduction until one passes), in the
+    solver's floating type."""
+    red, a_min = dtype(opts.alpha_reduction), dtype(opts.alpha_min)
+    a, tried = red, 0
+    while a > a_min:
+        tried += 1
+        if a == alpha:
+            return tried
+        a = dtype(a * red)
+    if a != alpha:
+        raise SystemExit(f"alpha {alpha!r} is no exit of the backtracking")
+    return tried
+
+
+def newton_k1_expected(stats, opts) -> int:
+    """K1 launches of one EXACT + MERIT_BACKTRACKING solve() call, worked
+    out from its stat table. Instance b takes sqp_iter[b] rounds, one
+    more where it converged (the round that finds it converged still
+    runs its QP and line search); the batch runs R lockstep rounds, the
+    most of those. Each round is an EXACT linearization
+    (K1_PER_EXACT_LINEARIZE), the merit at the iterate and at the full
+    step (2 dynamics gaps, K1_PER_DYN_GAP each) and one more gap for each
+    round of the lockstep backtracking, whose rounds are the most any
+    instance active in that round took; then the final linearization."""
+    rounds = (stats.sqp_iter + (stats.status == 0)).cpu().numpy()
+    alpha = stats.stat[:, :, 6].cpu().numpy()
+    dtype = alpha.dtype.type
+    R = int(rounds.max())
+    gaps = 0
+    for k in range(R):
+        tried = [merit_evaluations(a, opts, dtype)
+                 for a in alpha[rounds > k, k] if a < 1]
+        gaps += 2 + max(tried, default=0)
+    return K1_PER_EXACT_LINEARIZE * (R + 1) + K1_PER_DYN_GAP * gaps
+
+
+def timed_cold_call(solver, it0):
+    """One solve() from the initial iterate it0 (host ms, synchronised)."""
+    import torch
+    solver._it_dev = it0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    status = solver.solve()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, status
+
+
+def newton_split(solver) -> dict:
+    """Where one EXACT SQP round's time goes, at the initial iterate (host
+    ms, each synchronised, medians of NEWTON_SPLIT_REPS): the Gauss-Newton
+    part of the linearization and the exact dynamics Hessian apart, the
+    whole EXACT linearization, the solver's regularization and MIRROR's,
+    the QP, one merit evaluation's dynamics gap."""
+    import torch
+    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
+                                                    dyn_hessian,
+                                                    eval_dyn_gap, linearize)
+    from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
+    form, opts = solver.form, solver.opts
+    data, it = solver._on_device()
+    rows = build_static_rows(form, it.x.dtype, it.x.device)
+    lm = torch.tensor(opts.levenberg_marquardt, dtype=it.x.dtype,
+                      device=it.x.device)
+    gn_form = dataclasses.replace(form, exact_hessian=False)
+    qp = linearize(form, rows, data, it, lm)
+    qp_reg = regularize_qp(qp, opts.regularize_method, opts.reg_epsilon)
+    reps = NEWTON_SPLIT_REPS
+    return dict(
+        linearize_exact_ms=host_ms(
+            lambda: linearize(form, rows, data, it, lm), reps),
+        linearize_gauss_newton_ms=host_ms(
+            lambda: linearize(gn_form, rows, data, it, lm), reps),
+        exact_dyn_hessian_ms=host_ms(
+            lambda: dyn_hessian(form, data, it.x, it.u, it.pi), reps),
+        regularize_ms=host_ms(
+            lambda: regularize_qp(qp, opts.regularize_method,
+                                  opts.reg_epsilon), reps),
+        regularize_mirror_ms=host_ms(
+            lambda: regularize_qp(qp, "MIRROR", opts.reg_epsilon), reps),
+        qp_ms=host_ms(lambda: qp_solve(solver, qp_reg), reps),
+        merit_dyn_gap_ms=host_ms(
+            lambda: eval_dyn_gap(form, data, it.x, it.u), reps))
+
+
+def newton_sqp(dev) -> dict:
+    """Phase 27: the Newton SQP at full width, beside its Gauss-Newton
+    solve. Returns K1's kernels entry at the largest launch of an EXACT
+    linearization."""
+    import torch
+    from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
+    from acados_tpu_torch.ops import batched_inv
+    exact = newton_batch(B_MAIN, "float32", dev)
+    gn = newton_batch(B_MAIN, "float32", dev, solver_options={})
+    it0_exact, it0_gn = exact._on_device()[1], gn._on_device()[1]
+    so = exact.acados_ocp.solver_options
+    log(f"Newton SQP: pendulum IRK SQP, B={B_MAIN}, N={N_HORIZON}, float32, "
+        f"x0 = {list(X0_CENTER)} + N(0, {X0_SIGMA}); hessian_approx "
+        f"{so.hessian_approx}, regularize_method {so.regularize_method}, "
+        f"globalization {so.globalization} (alpha_min "
+        f"{exact.opts.alpha_min}, alpha_reduction "
+        f"{exact.opts.alpha_reduction}); beside Gauss-Newton, FIXED_STEP")
+
+    # one EXACT linearization at the initial iterate: its K1 launches and
+    # shapes, then where a round's time goes
+    from acados_tpu_torch.ocp_nlp.linearize import linearize
+    data, it = exact._on_device()
+    rows = build_static_rows(exact.form, torch.float32, dev)
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    reset_counts()
+    with K1Shapes() as k1:
+        linearize(exact.form, rows, data, it, zero)
+    torch.cuda.synchronize()
+    lin_counts = read_counts()
+    log(f"  one EXACT linearization: K1 launches {lin_counts['gj_inverse']} "
+        f"(expected {K1_PER_EXACT_LINEARIZE}), shapes "
+        f"{sorted(set(k1.shapes))}")
+    if lin_counts["gj_inverse"] != K1_PER_EXACT_LINEARIZE or any(
+            v for k, v in lin_counts.items() if k != "gj_inverse"):
+        raise SystemExit(f"EXACT linearization launches {lin_counts}")
+    split = newton_split(exact)
+    log(f"  time split of a round at the initial iterate (host ms, median "
+        f"of {NEWTON_SPLIT_REPS}): {json.dumps(split)}")
+
+    # Gauss-Newton, EXACT, Gauss-Newton, each from the initial iterate
+    gn_ms, gn_iter = [], []
+    for c in range(2):
+        if c == 1:
+            reset_counts()
+            ex_ms, st = timed_cold_call(exact, it0_exact)
+            counts = read_counts()
+            ex_stats = exact._stats
+            if np.any(st != 0):
+                raise SystemExit(f"Newton SQP: statuses "
+                                 f"{np.unique(st, return_counts=True)}")
+            ok_tol, res, tols = in_tolerance(exact)
+            if not ok_tol:
+                raise SystemExit(f"Newton SQP out of tolerance: {res}")
+        ms, st = timed_cold_call(gn, it0_gn)
+        if np.any(st != 0) or not in_tolerance(gn)[0]:
+            raise SystemExit("Gauss-Newton SQP beside the Newton SQP failed")
+        gn_ms.append(ms)
+        gn_iter.append(gn.get_stats("sqp_iter"))
+    want = newton_k1_expected(ex_stats, exact.opts)
+    ex_iter = ex_stats.sqp_iter.cpu().numpy()
+    x = exact._it_dev.x
+    if not bool(torch.isfinite(x).all()) or \
+            x.shape != (B_MAIN, N_HORIZON + 1, 4):
+        raise SystemExit("Newton SQP: bad trajectory tensor")
+    alpha = ex_stats.stat[:, :, 6].cpu().numpy()
+    bt = int((alpha[:, :int(ex_iter.max()) + 1] < 1).sum())
+    log(f"  EXACT: 1 call {ex_ms:.2f} ms -> {B_MAIN / ex_ms * 1e3:.1f} "
+        f"solves/s (one call: median = p10 = p90); every status 0, "
+        f"residual maxima {res.tolist()} vs {list(tols)} (in tolerance); "
+        f"sqp_iter mean {ex_iter.mean():.2f} max {ex_iter.max()}, "
+        f"{int(ex_iter.max()) + 1} lockstep rounds, {bt} backtracking "
+        f"line searches over the batch; launches {counts} (K1 expected "
+        f"{want} from the stat table)")
+    gn_iter = np.stack(gn_iter)
+    log(f"  Gauss-Newton: {call_stats(gn_ms)}; sqp_iter mean "
+        f"{gn_iter.mean():.2f} max {gn_iter.max()}; the EXACT call "
+        f"{ex_ms / float(np.median(gn_ms)):.1f}x its median")
+    if counts["gj_inverse"] != want or any(
+            v for k, v in counts.items() if k != "gj_inverse"):
+        raise SystemExit(f"Newton SQP launches {counts}, K1 expected {want}")
+
+    # K1 on the largest launch of the EXACT linearization
+    A = k1.largest
+    rel, abs_err, _ = check_inverse(
+        f"Newton SQP EXACT linearization {tuple(A.shape)}", A,
+        batched_inv._gj_inverse_cuda, F32_BOUND)
+    entry = k1_entry("gj_inverse_newton", A, counts["gj_inverse"], rel,
+                     abs_err)
+    entry["launch_shapes"] = sorted(set(k1.shapes))
+    return entry
+
+
+def nonconvex_ocp(method, u_nonconvex=False, max_iter=100):
+    """The port's copy of tests/test_regularize.py's nonconvex EXTERNAL-
+    cost double integrator (x-nonconvex: 2 cos(3 x_0); u-nonconvex for
+    PROJECT_REDUC_HESS: 4 (1 - cos(2 u))) at N = 10, EXACT, MERIT,
+    float64."""
+    import torch
+    from acados_tpu_torch import AcadosModel, AcadosOcp
+    ocp, m = AcadosOcp(), AcadosModel()
+    m.name, m.x, m.u = "nonconvex", 2, 1
+    m.f_expl_expr = lambda x, u: torch.cat([x[1:2], u])
+    if u_nonconvex:
+        m.cost_expr_ext_cost = lambda x, u: (
+            x @ x + 4.0 * (1.0 - torch.cos(2.0 * u[0])) + 0.05 * u[0] ** 2)
+        m.cost_expr_ext_cost_e = lambda x: 5.0 * (x @ x)
+    else:
+        m.cost_expr_ext_cost = lambda x, u: (
+            x[0] ** 2 + 0.1 * x[1] ** 2 + 1e-2 * u[0] ** 2
+            + 2.0 * torch.cos(3.0 * x[0]))
+        m.cost_expr_ext_cost_e = lambda x: x[0] ** 2 + 0.1 * x[1] ** 2
+        ocp.constraints.idxbu = np.array([0])
+        ocp.constraints.lbu = np.array([-10.0])
+        ocp.constraints.ubu = np.array([10.0])
+    ocp.model = m
+    ocp.cost.cost_type = ocp.cost.cost_type_e = "EXTERNAL"
+    ocp.constraints.x0 = np.array([1.5, 0.0])
+    so = ocp.solver_options
+    so.N_horizon, so.tf, so.dtype = 10, 1.0, "float64"
+    so.hessian_approx, so.nlp_solver_type = "EXACT", "SQP"
+    so.nlp_solver_max_iter, so.globalization = max_iter, "MERIT_BACKTRACKING"
+    so.regularize_method = method
+    return ocp
+
+
+def pendulum_variant(N=8, weight=1.0, conl=False, **so):
+    """The ERK pendulum SQP in float64 with the given solver options, its
+    cost weights scaled by `weight`; conl: the cost as CONL with psi =
+    0.5 r' W r + 0.01 sum(r^4)."""
+    import torch
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    ocp = make_pendulum_ocp(N=N, dtype="float64", nlp_solver_type="SQP")
+    ocp.cost.W = weight * np.asarray(ocp.cost.W)
+    ocp.cost.W_e = weight * np.asarray(ocp.cost.W_e)
+    if conl:
+        W, Q = (torch.as_tensor(ocp.cost.W), torch.as_tensor(ocp.cost.W_e))
+        ocp.model.cost_psi_expr = lambda r, p: (0.5 * r @ W.to(r) @ r
+                                                + 0.01 * (r ** 4).sum())
+        ocp.model.cost_psi_expr_e = lambda r, p: (0.5 * r @ Q.to(r) @ r
+                                                  + 0.01 * (r ** 4).sum())
+        ocp.cost.cost_type = ocp.cost.cost_type_e = "CONL"
+    for k, v in so.items():
+        setattr(ocp.solver_options, k, v)
+    return ocp
+
+
+def newton_vs_cpu() -> None:
+    """Phase 28: float64 card against CPU of the new options, B = 4, one
+    solve() call each: statuses and qp_iter equal, x, u, pi within
+    1e-9."""
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    rng = np.random.default_rng(1)
+    x0_swing = np.asarray(X0_CENTER) + rng.normal(0.0, 0.2,
+                                                  (B_NEWTON_CHECK, 4))
+    x0_dbl = np.array([1.5, 0.0]) + rng.normal(0.0, 0.1,
+                                               (B_NEWTON_CHECK, 2))
+    card_vs_cpu(f"Newton SQP ({NEWTON_CHECK_ITER} iterations, IRK, "
+                f"N={N_HORIZON})",
+                lambda where: newton_batch(
+                    B_NEWTON_CHECK, "float64", where, seed=1,
+                    solver_options=dict(
+                        NEWTON_SO, nlp_solver_max_iter=NEWTON_CHECK_ITER)),
+                calls=1)
+    for method in ("MIRROR", "PROJECT", "GLM", "CONVEXIFY",
+                   "PROJECT_REDUC_HESS"):
+        ocp = lambda: nonconvex_ocp(method, method == "PROJECT_REDUC_HESS",
+                                    max_iter=CHECK_ITER)
+        card_vs_cpu(f"EXACT + {method} (nonconvex EXTERNAL cost)",
+                    lambda where: batch_at(ocp(), x0_dbl, where), calls=1)
+    ls = dict(weight=1e-3)
+    variants = {
+        "MERIT + sufficient descent": dict(
+            globalization="MERIT_BACKTRACKING",
+            globalization_line_search_use_sufficient_descent=True, **ls),
+        "MERIT + SOC": dict(globalization="MERIT_BACKTRACKING",
+                            globalization_use_SOC=True, **ls),
+        "FUNNEL": dict(globalization="FUNNEL_L1PEN_LINESEARCH", **ls),
+        "FIXED_STEP + Anderson": dict(with_anderson_acceleration=True),
+        "adaptive LM": dict(with_adaptive_levenberg_marquardt=True,
+                            adaptive_levenberg_marquardt_mu0=1e-2),
+        "ADAPTIVE_CURRENT_RES_JOINT": dict(
+            nlp_qp_tol_strategy="ADAPTIVE_CURRENT_RES_JOINT"),
+        "CONL cost": dict(conl=True)}
+    for label, so in variants.items():
+        card_vs_cpu(label, lambda where: batch_at(
+            pendulum_variant(nlp_solver_max_iter=CHECK_ITER, **so),
+            x0_swing, where), calls=1)
 
 
 def main() -> int:
@@ -2570,7 +2920,7 @@ def main() -> int:
         f"K1 {LAUNCHES_PER_RTI * k1_ms:.3f} ms per call "
         f"({LAUNCHES_PER_RTI * k1_ms / med * 100:.2f} %); qp_iter max "
         f"{int(qp_iter.max())} mean {float(qp_iter.mean()):.2f}")
-    log(f"  time split: {json.dumps(time_split(solver))}")
+    log(f"  time split: {json.dumps(time_split(solver, profiled=1))}")
 
     # ---- 5. reference check at a small input --------------------------------------
     at(5)
@@ -2798,6 +3148,14 @@ def main() -> int:
     # ---- 26. float64 card against CPU of the QP-breadth paths ---------------
     at(26)
     qp_paths_vs_cpu()
+
+    # ---- 27. the Newton SQP at full width -----------------------------------
+    at(27)
+    kernels.append(newton_sqp(dev))
+
+    # ---- 28. float64 card against CPU of the new options --------------------
+    at(28)
+    newton_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -174,9 +174,11 @@ def test_phase_errors():
 
 def test_options_set_runtime_fields():
     """The runtime options of the ported paths take effect (the solve
-    then agrees with the JAX solver given the same options); the options
-    of paths not ported raise NotImplementedError naming their ROADMAP
-    item; an unknown field raises ValueError."""
+    then agrees with the JAX solver given the same options), the
+    globalization's (alpha_min, alpha_reduction, Anderson and the
+    string-keyed globalization itself) among them; the options of paths
+    not ported raise NotImplementedError naming their ROADMAP item; an
+    unknown field raises ValueError."""
     ours = _single_at(AcadosOcpSolver(_ocp(make_pendulum_ocp),
                                       device="cpu"), X0S[0])
     ref = _single_at(JaxSolver(_ocp(jax_pendulum_ocp)), X0S[0])
@@ -197,14 +199,33 @@ def test_options_set_runtime_fields():
         assert ours.get_stats("qp_iter") == ref.get_stats("qp_iter")
     for k in range(N):
         _close(ours.get(k, "u"), ref.get(k, "u"), f"u {k}")
+    # the globalization's runtime options, as the JAX solver takes them
+    for field, value in (("globalization_alpha_min", 0.1),
+                         ("alpha_reduction", 0.5),
+                         ("anderson_activation_threshold", 1e2),
+                         ("with_anderson_acceleration", True)):
+        ours.options_set(field, value)
+        ref.options_set(field, value)
+    for field in ("alpha_min", "alpha_reduction",
+                  "anderson_activation_threshold",
+                  "with_anderson_acceleration"):
+        assert getattr(ours.opts, field) == getattr(ref.opts, field)
+    for glob in ("FIXED_STEP", "MERIT_BACKTRACKING"):
+        ours.options_set("globalization", glob)
+        ref.options_set("globalization", glob)
+        assert ours.opts.globalization == ref.opts.globalization == glob
+        for _ in range(2):
+            assert ours.solve() == ref.solve() == 0
+            assert ours.get_stats("qp_iter") == ref.get_stats("qp_iter")
+            np.testing.assert_array_equal(
+                ours.get_stats("statistics")[7],
+                np.asarray(ref.get_stats("statistics"))[7])
+        for k in range(N):
+            _close(ours.get(k, "u"), ref.get(k, "u"), f"{glob} u {k}")
     for field, item in (("print_level", "item 20"),
-                        ("globalization_alpha_min", "item 16"),
-                        ("with_anderson_acceleration", "item 16"),
                         ("store_iterates", "item 20"),
                         ("timeout_max_time", "item 20")):
         with pytest.raises(NotImplementedError, match=item):
             ours.options_set(field, 1)
-    with pytest.raises(NotImplementedError, match="globalization"):
-        ours.options_set("globalization", "MERIT_BACKTRACKING")
     with pytest.raises(ValueError, match="unsupported"):
         ours.options_set("no_such_option", 1)
