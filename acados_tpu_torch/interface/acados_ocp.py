@@ -460,4 +460,4 @@ class AcadosMultiphaseOcp:
         del N_list
         raise NotImplementedError(
             "multiphase OCPs (AcadosMultiphaseOcp) are not ported yet "
-            "(ROADMAP.md Queue 1, item 16b, NLP breadth)")
+            "(ROADMAP.md Queue 1, item 16c, multiphase)")

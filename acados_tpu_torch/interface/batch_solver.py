@@ -2,8 +2,10 @@
 
 Counterpart of `acados_tpu/interface/batch_solver.py` (API mirror of the
 reference batch solver) on a single device: the batch is the leading
-axis of every tensor of one lockstep SQP solve, where the JAX package
-vmaps and shards it.
+axis of every tensor of one lockstep solve, where the JAX package
+vmaps and shards it. solve() runs the plan's NLP solver (SQP, SQP_RTI,
+DDP or SQP_WITH_FEASIBLE_QP; the JAX package's batch solver runs its
+SQP for every plan); prepare/feedback are SQP_RTI's.
 
 The data and the iterate stay on the device between solves and between
 the RTI phases (`prepare`, `feedback`), so a warm RTI loop moves nothing
@@ -26,11 +28,11 @@ from acados_tpu_torch.interface.solver import (_adjoint_wrt, _bound_slot,
                                                _fence, _forward_over_seeds,
                                                _seeds, _sqp_opts_from,
                                                _torch_dtype, iterate_to_numpy,
-                                               iterate_to_torch)
+                                               iterate_to_torch,
+                                               make_nlp_solver)
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
                                                   adjoint_sensitivity)
-from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
 
@@ -92,7 +94,8 @@ class AcadosOcpBatchSolver:
         self.opts = _sqp_opts_from(ocp)
         self.dtype = _torch_dtype(ocp)
         self.N = self.form.N
-        self._solve_fn = make_sqp_solver(self.form, self.opts)
+        self._solve_fn = make_nlp_solver(self.form, self.opts,
+                                         ocp.solver_options.nlp_solver_type)
         # batch-tiled host data and iterate; device copies made on demand
         self._data = {k: np.tile(v, (N_batch,) + (1,) * np.ndim(v))
                       for k, v in data1.items()}

@@ -7,13 +7,14 @@ keys, same shapes) as the JAX package's, so either package's dict can be
 turned into the port's batch-first `NlpData` by `data_to_torch`.
 
 Ported: ERK and IRK dynamics, LINEAR_LS / NONLINEAR_LS / CONL / EXTERNAL
-costs and AUTO cost detection, the Gauss-Newton and the exact Hessian
-(with the exact_hess_cost/dyn/constr switches), BGH constraints with
-soft rows. The rest raises NotImplementedError naming its ROADMAP.md
-item.
+costs and AUTO cost detection, cost_discretization EULER and INTEGRATOR
+(ERK and IRK), the Gauss-Newton and the exact Hessian (with the
+exact_hess_cost/dyn/constr switches), BGH and BGP constraints with soft
+rows. The rest raises NotImplementedError naming its ROADMAP.md item.
 """
 from __future__ import annotations
 
+import dataclasses
 import inspect
 
 import numpy as np
@@ -23,12 +24,17 @@ from acados_tpu_torch.interface.acados_ocp import AcadosOcp, _dim_of
 from acados_tpu_torch.ocp_nlp.formulation import (ConstraintSpec, CostSpec,
                                                   NlpData, OcpNlpFormulation,
                                                   _const)
+from acados_tpu_torch.sim.butcher import erk_tableau
 from acados_tpu_torch.sim.integrator import (SimOpts, make_step_fn,
-                                             make_step_jac_fn)
+                                             make_step_jac_fn,
+                                             normalize_dynamics,
+                                             normalize_implicit_dynamics)
+from acados_tpu_torch.sim.irk import (implicit_from_explicit,
+                                      make_irk_stage_points)
 from acados_tpu_torch.utils.types import ACADOS_INFTY
 
 
-def _not_ported(what: str, item: str = "item 16b, NLP breadth"):
+def _not_ported(what: str, item: str = "item 17, integrator breadth"):
     return NotImplementedError(
         f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
@@ -39,8 +45,7 @@ def _norm4(f):
         return None
     params = list(inspect.signature(f).parameters)
     if "z" in params:
-        raise _not_ported("a cost/constraint expression of z",
-                          "item 17, integrator breadth")
+        raise _not_ported("a cost/constraint expression of z")
     n = len(params)
     if n == 2:
         return lambda x, u, p, t: f(x, u)
@@ -67,7 +72,7 @@ class StageLayout:
     def __init__(self, spec: ConstraintSpec):
         self.nbx, self.nbu = spec.nbx, spec.nbu
         self.ng, self.nh = spec.ng, spec.nh
-        self.nphi = 0
+        self.nphi = spec.nphi
         self.off_bx = 0
         self.off_bu = self.nbx
         self.off_g = self.nbx + self.nbu
@@ -212,8 +217,7 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
                             psi_fun=m.cost_psi_expr_e)
         raise ValueError(f"unsupported cost type {kind!r}")
     if Vz is not None:
-        raise _not_ported("LINEAR_LS with a Vz block",
-                          "item 17, integrator breadth")
+        raise _not_ported("LINEAR_LS with a Vz block")
     if kind == "LINEAR_LS":
         y, ny = _linear_ls_yfun(Vx, Vu)
         return CostSpec(kind=kind, ny=ny, y_fun=y,
@@ -229,15 +233,100 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
     raise ValueError(f"unsupported cost type {kind!r}")
 
 
+def _wrap_cost_integrator(spec: CostSpec, points_fn, weights) -> CostSpec:
+    """cost_discretization INTEGRATOR (acados_tpu/interface/builder.py:
+    279-336): the Lagrange cost at the integrator's quadrature points
+    points_fn(x, u, p, t, dt) -> (Xs (nq, nx), None, Ts (nq,)) with the
+    weights (nq,), which sum to 1 (the dt factor is NlpData.cost_scale).
+    The LS family becomes a NONLINEAR_LS over the stacked point
+    residuals, whose Gauss-Newton Hessian is the integrated one; CONL
+    keeps psi at each point (the stacked generalized Gauss-Newton);
+    EXTERNAL is the weighted sum of the cost at the points."""
+    wq = np.asarray(weights, np.float64)
+
+    def call_pt(f0, x, u, p, t, dtk):
+        Xs, _, Ts = points_fn(x, u, p, t, dtk)
+        return torch.stack([f0(Xs[q], u, p, Ts[q])
+                            for q in range(Xs.shape[0])])
+
+    if spec.kind in ("LINEAR_LS", "NONLINEAR_LS", "CONL"):
+        y0 = spec.y_fun
+        return dataclasses.replace(
+            spec, kind="CONL" if spec.kind == "CONL" else "NONLINEAR_LS",
+            y_fun=lambda x, u, p, t, dtk: call_pt(y0, x, u, p, t, dtk),
+            Vx=None, Vu=None, needs_dt=True, quad_weights=wq)
+    if spec.kind == "EXTERNAL":
+        e0 = spec.ext_fun
+
+        def e_int(x, u, p, t, dtk):
+            return (_const(wq, x) * call_pt(e0, x, u, p, t, dtk)).sum()
+
+        return dataclasses.replace(spec, ext_fun=e_int, needs_dt=True)
+    raise ValueError(spec.kind)
+
+
+def _erk_points_fn(f4, num_stages: int, num_steps: int):
+    """The quadrature points of the explicit RK chain (the JAX package's
+    ERK extension of the reference's IRK-only INTEGRATOR,
+    acados_tpu/interface/builder.py:339-366): every stage's evaluation
+    point and time, with the weights b / num_steps."""
+    A_t, b_t, c_t = erk_tableau(num_stages)
+    ns, m = num_stages, num_steps
+
+    def points(x, u, p, t, dtk):
+        h = dtk / m
+        pts_x, pts_t = [], []
+        for s_ in range(m):
+            t0 = t + s_ * h
+            ks = []
+            for si in range(ns):
+                xi = x
+                for sj in range(si):
+                    if A_t[si, sj] != 0.0:
+                        xi = xi + (h * float(A_t[si, sj])) * ks[sj]
+                ks.append(f4(xi, u, p, t0 + float(c_t[si]) * h))
+                pts_x.append(xi)
+                pts_t.append(t0 + float(c_t[si]) * h)
+            for sj in range(ns):
+                x = x + (h * float(b_t[sj])) * ks[sj]
+        return torch.stack(pts_x), None, torch.stack(pts_t)
+
+    return points, np.tile(np.asarray(b_t, np.float64) / m, m)
+
+
+def _integrated_costs(ocp: AcadosOcp, nx: int, cost_0, cost_p):
+    """The stage-0 and path costs of cost_discretization INTEGRATOR at
+    the dynamics integrator's points (acados_tpu/interface/builder.py:
+    562-590); the terminal (Mayer) cost has no integral."""
+    m, so = ocp.model, ocp.solver_options
+    if so.integrator_type == "ERK":
+        pts_fn, wts = _erk_points_fn(normalize_dynamics(m.f_expl_expr),
+                                     so.sim_method_num_stages,
+                                     so.sim_method_num_steps)
+    elif so.integrator_type == "IRK":
+        fi = (normalize_implicit_dynamics(m.f_impl_expr)
+              if m.f_impl_expr is not None
+              else implicit_from_explicit(normalize_dynamics(m.f_expl_expr)))
+        pts_fn, wts = make_irk_stage_points(
+            fi, nx=nx, num_stages=so.sim_method_num_stages,
+            num_steps=so.sim_method_num_steps,
+            newton_iter=so.sim_method_newton_iter,
+            collocation=so.collocation_type)
+    else:
+        raise NotImplementedError(
+            "cost_discretization INTEGRATOR supports ERK and IRK (the "
+            "reference supports IRK only, acados_ocp_options.py:2285); got "
+            f"{so.integrator_type}")
+    return (_wrap_cost_integrator(cost_0, pts_fn, wts),
+            _wrap_cost_integrator(cost_p, pts_fn, wts))
+
+
 def _idx(v):
     return tuple(int(i) for i in np.atleast_1d(v)) if v is not None else ()
 
 
 def _build_con_specs(ocp: AcadosOcp, nx, nu):
     con, m = ocp.constraints, ocp.model
-    if any(getattr(m, f) is not None for f in (
-            "con_phi_expr_0", "con_phi_expr", "con_phi_expr_e")):
-        raise _not_ported("BGP (convex-over-nonlinear) constraints")
 
     idxbx_0 = _idx(con.idxbx_0)
     if con.x0 is not None and not idxbx_0:
@@ -252,44 +341,66 @@ def _build_con_specs(ocp: AcadosOcp, nx, nu):
     nhe = _dim_of(con.lh_e if con.lh_e is not None else con.uh_e) \
         if he is not None else 0
 
+    # BGP phi(r) rows (reference con_phi_expr / con_r_expr with lphi /
+    # uphi; acados_tpu/interface/builder.py:389-405)
+    def bgp(phi_expr, r_expr, lphi, uphi, term=False):
+        if phi_expr is None or r_expr is None:
+            return dict(nphi=0)
+        return dict(nphi=_dim_of(lphi if lphi is not None else uphi),
+                    phi_fun=phi_expr,
+                    r_fun=_norm_term(r_expr) if term else _norm4(r_expr))
+
+    bgp_0 = bgp(m.con_phi_expr_0 or m.con_phi_expr,
+                m.con_r_expr_0 or m.con_r_expr,
+                con.lphi_0 if con.lphi_0 is not None else con.lphi,
+                con.uphi_0 if con.uphi_0 is not None else con.uphi)
+    bgp_p = bgp(m.con_phi_expr, m.con_r_expr, con.lphi, con.uphi)
+    bgp_e = bgp(m.con_phi_expr_e, m.con_r_expr_e, con.lphi_e, con.uphi_e,
+                term=True)
+
     Cg = None if con.C is None else np.atleast_2d(con.C)
     Dg = None if con.D is None else np.atleast_2d(con.D)
     Ce = None if con.C_e is None else np.atleast_2d(con.C_e)
     ng = 0 if Cg is None else Cg.shape[0]
 
-    def soft_rows(nbx, nbu, ng_, idxsbx, idxsbu, idxsg, idxsh):
+    def soft_rows(nbx, nbu, ng_, nh_, idxsbx, idxsbu, idxsg, idxsh,
+                  idxsphi):
         rows = [i for i in _idx(idxsbx)]
         rows += [nbx + i for i in _idx(idxsbu)]
         rows += [nbx + nbu + i for i in _idx(idxsg)]
         rows += [nbx + nbu + ng_ + i for i in _idx(idxsh)]
+        rows += [nbx + nbu + ng_ + nh_ + i for i in _idx(idxsphi)]
         return tuple(rows)
 
     idxbu = _idx(con.idxbu)
     idxbx = _idx(con.idxbx)
     con_0 = ConstraintSpec(
         nx=nx, nu=nu, idxbx=idxbx_0, idxbu=idxbu, Cg=Cg, Dg=Dg,
-        nh=nh0, h_fun=h0,
-        soft_rows=soft_rows(len(idxbx_0), len(idxbu), ng, None,
+        nh=nh0, h_fun=h0, **bgp_0,
+        soft_rows=soft_rows(len(idxbx_0), len(idxbu), ng, nh0, None,
                             con.idxsbu, con.idxsg,
                             con.idxsh_0 if con.idxsh_0 is not None
-                            else con.idxsh))
+                            else con.idxsh,
+                            con.idxsphi_0 if con.idxsphi_0 is not None
+                            else con.idxsphi))
     con_p = ConstraintSpec(
         nx=nx, nu=nu, idxbx=idxbx, idxbu=idxbu, Cg=Cg, Dg=Dg,
-        nh=nhp, h_fun=hp,
-        soft_rows=soft_rows(len(idxbx), len(idxbu), ng, con.idxsbx,
-                            con.idxsbu, con.idxsg, con.idxsh))
+        nh=nhp, h_fun=hp, **bgp_p,
+        soft_rows=soft_rows(len(idxbx), len(idxbu), ng, nhp, con.idxsbx,
+                            con.idxsbu, con.idxsg, con.idxsh, con.idxsphi))
     idxbx_e = _idx(con.idxbx_e)
     con_e = ConstraintSpec(
         nx=nx, nu=nu, idxbx=idxbx_e, idxbu=(), Cg=Ce, Dg=None,
-        nh=nhe, h_fun=he,
+        nh=nhe, h_fun=he, **bgp_e,
         soft_rows=soft_rows(len(idxbx_e), 0,
-                            0 if Ce is None else Ce.shape[0],
-                            con.idxsbx_e, None, None, con.idxsh_e))
+                            0 if Ce is None else Ce.shape[0], nhe,
+                            con.idxsbx_e, None, None, con.idxsh_e,
+                            con.idxsphi_e))
     return con_0, con_p, con_e
 
 
 def _class_bounds(layout: StageLayout, nc, lbx, ubx, lbu, ubu, lg, ug,
-                  lh, uh):
+                  lh, uh, lphi=None, uphi=None):
     """Fold per-kind bound vectors into unified (nc,) lower/upper rows."""
     lb = np.full(nc, -ACADOS_INFTY)
     ub = np.full(nc, ACADOS_INFTY)
@@ -306,6 +417,7 @@ def _class_bounds(layout: StageLayout, nc, lbx, ubx, lbu, ubu, lg, ug,
     put(layout.off_bu, layout.nbu, lbu, ubu)
     put(layout.off_g, layout.ng, lg, ug)
     put(layout.off_h, layout.nh, lh, uh)
+    put(layout.off_phi, layout.nphi, lphi, uphi)
     # disable padded rows entirely
     lb[layout.nrows:] = -ACADOS_INFTY
     ub[layout.nrows:] = ACADOS_INFTY
@@ -329,17 +441,16 @@ def _check_ported(ocp: AcadosOcp):
     m, so = ocp.model, ocp.solver_options
     if so.hessian_approx not in ("GAUSS_NEWTON", "EXACT"):
         raise ValueError(f"hessian_approx {so.hessian_approx!r}")
-    if so.cost_discretization != "EULER":
-        raise _not_ported("cost_discretization INTEGRATOR")
+    if so.cost_discretization not in ("EULER", "INTEGRATOR"):
+        raise ValueError(
+            f"cost_discretization {so.cost_discretization!r}")
     if _dim_of(m.z):
-        raise _not_ported("algebraic variables (model.z)",
-                          "item 17, integrator breadth")
+        raise _not_ported("algebraic variables (model.z)")
     if getattr(m, "p_global", None) is not None:
         raise _not_ported("global parameters (model.p_global)",
                           "item 17, p_global")
     if so.integrator_type not in ("ERK", "IRK"):
-        raise _not_ported(f"integrator_type {so.integrator_type!r}",
-                          "item 17, integrator breadth")
+        raise _not_ported(f"integrator_type {so.integrator_type!r}")
 
 
 def build_ocp(ocp: AcadosOcp):
@@ -383,6 +494,8 @@ def build_ocp(ocp: AcadosOcp):
     cost_0 = _build_cost_spec(ocp, "0")
     cost_p = _build_cost_spec(ocp, "path")
     cost_e = _build_cost_spec(ocp, "e")
+    if so.cost_discretization == "INTEGRATOR":
+        cost_0, cost_p = _integrated_costs(ocp, nx, cost_0, cost_p)
 
     # stage-0 full-state equality (reference idxbxe_0; x0 sugar implies
     # it): the static license for QP initial-state elimination
@@ -411,11 +524,15 @@ def build_ocp(ocp: AcadosOcp):
     lb_0, ub_0 = _class_bounds(
         lay_0, nc, lbx_0, ubx_0, con.lbu, con.ubu, con.lg, con.ug,
         con.lh_0 if con.lh_0 is not None else con.lh,
-        con.uh_0 if con.uh_0 is not None else con.uh)
+        con.uh_0 if con.uh_0 is not None else con.uh,
+        con.lphi_0 if con.lphi_0 is not None else con.lphi,
+        con.uphi_0 if con.uphi_0 is not None else con.uphi)
     lb_p, ub_p = _class_bounds(lay_p, nc, con.lbx, con.ubx, con.lbu,
-                               con.ubu, con.lg, con.ug, con.lh, con.uh)
+                               con.ubu, con.lg, con.ug, con.lh, con.uh,
+                               con.lphi, con.uphi)
     lb_e, ub_e = _class_bounds(lay_e, nc, con.lbx_e, con.ubx_e, None, None,
-                               con.lg_e, con.ug_e, con.lh_e, con.uh_e)
+                               con.lg_e, con.ug_e, con.lh_e, con.uh_e,
+                               con.lphi_e, con.uphi_e)
 
     # ---- slack penalties ----------------------------------------------------
     Zl_0, Zu_0, zl_0, zu_0 = _class_slack_penalties(

@@ -1,7 +1,8 @@
 """AcadosOcpSolver: the user-facing solve/get/set surface.
 
 Counterpart of `acados_tpu/interface/solver.py` (API mirror of the
-reference AcadosOcpSolver): construction builds the SQP solve function;
+reference AcadosOcpSolver): construction builds the solve function of
+the plan's NLP solver (SQP, SQP_RTI, DDP or SQP_WITH_FEASIBLE_QP);
 `set` mutates host-side numpy data that is moved to the device at
 `solve()`. One instance runs as a batch of one through the batch-first
 solver.
@@ -28,6 +29,7 @@ import torch
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import (StageLayout, build_ocp,
                                                 data_to_torch)
+from acados_tpu_torch.ocp_nlp.ddp import make_ddp_solver
 from acados_tpu_torch.ocp_nlp.formulation import NlpData
 from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
@@ -38,6 +40,7 @@ from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
                                                   optimal_value_grad_x0)
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
                                           use_x0_elimination)
+from acados_tpu_torch.ocp_nlp.wfqp import make_wfqp_solver
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts
 from acados_tpu_torch.ocp_qp.xcond import resolve_cond_N
 from acados_tpu_torch.utils.device import (full_precision_matmul,
@@ -75,10 +78,8 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
                       tol_ineq=pick(so.qp_solver_tol_ineq),
                       tol_comp=pick(so.qp_solver_tol_comp))
     rti = so.nlp_solver_type == "SQP_RTI"
-    if so.nlp_solver_type not in ("SQP", "SQP_RTI"):
-        raise NotImplementedError(
-            f"nlp_solver_type {so.nlp_solver_type!r} is not ported yet "
-            "(ROADMAP.md Queue 1, item 16b, NLP breadth)")
+    if so.nlp_solver_type not in NLP_SOLVER_TYPES:
+        raise ValueError(f"nlp_solver_type {so.nlp_solver_type!r}")
     return SqpOpts(
         max_iter=1 if rti else so.nlp_solver_max_iter,
         rti=rti,
@@ -140,6 +141,21 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
         nlp_qp_tol_reduction_factor=so.nlp_qp_tol_reduction_factor,
         nlp_qp_tol_safety_factor=so.nlp_qp_tol_safety_factor,
         qp_opts=qp_opts)
+
+
+# the reference's plan enum (ocp_nlp_interface.h:51-59)
+NLP_SOLVER_TYPES = ("SQP", "SQP_RTI", "DDP", "SQP_WITH_FEASIBLE_QP")
+
+
+def make_nlp_solver(form, opts: SqpOpts, nlp_solver_type: str):
+    """The solve function of the plan's NLP solver (acados_tpu/interface/
+    solver.py:311-322): DDP, SQP with feasible QPs, or the SQP of SQP and
+    SQP_RTI."""
+    if nlp_solver_type == "DDP":
+        return make_ddp_solver(form, opts)
+    if nlp_solver_type == "SQP_WITH_FEASIBLE_QP":
+        return make_wfqp_solver(form, opts)
+    return make_sqp_solver(form, opts)
 
 
 def _is_full_cond(so) -> bool:
@@ -210,7 +226,7 @@ class AcadosOcpSolver:
         self.form, self._data, self.layouts = build_ocp(ocp)
         self.opts = _sqp_opts_from(ocp)
         self.dtype = _torch_dtype(ocp)
-        self._solve_fn = make_sqp_solver(self.form, self.opts)
+        self._solve_fn = self._make_solve_fn(self.opts)
         self._solve_fn_noelim = None  # lazy barrier-x0 fallback (solve())
         self._rti_fns = None  # built on first rti_phase use
         self._rti_phase = 0
@@ -301,7 +317,7 @@ class AcadosOcpSolver:
         try:
             if from_so:
                 opts = _sqp_opts_from(self.acados_ocp)
-            solve_fn = make_sqp_solver(self.form, opts)
+            solve_fn = self._make_solve_fn(opts)
         except Exception:
             # an option that is refused leaves the solver as it was
             if from_so:
@@ -310,6 +326,10 @@ class AcadosOcpSolver:
         self._solve_fn, self.opts = solve_fn, opts
         self._solve_fn_noelim = None
         self._rti_fns = None
+
+    def _make_solve_fn(self, opts: SqpOpts):
+        return make_nlp_solver(
+            self.form, opts, self.acados_ocp.solver_options.nlp_solver_type)
 
     # -- solve ----------------------------------------------------------------
     def _maybe_default_init(self):
@@ -327,8 +347,11 @@ class AcadosOcpSolver:
 
     def _x0_bounds_asymmetric(self) -> bool:
         """True when x0 elimination is active but lb_0 != ub_0 on the
-        state rows (solve() then uses the barrier treatment)."""
-        if not use_x0_elimination(self.form, self.opts):
+        state rows (solve() then uses the barrier treatment). DDP and
+        SQP_WITH_FEASIBLE_QP never eliminate x0."""
+        if self.acados_ocp.solver_options.nlp_solver_type in (
+                "DDP", "SQP_WITH_FEASIBLE_QP") or not use_x0_elimination(
+                    self.form, self.opts):
             return False
         off, nx = self._layout(0).off_bx, self.form.nx
         return not np.array_equal(self._data["lb_0"][off:off + nx],

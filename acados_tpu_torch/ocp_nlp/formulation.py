@@ -9,9 +9,10 @@ unified row block per stage class, as in the JAX package.
 
 Ported: cost kinds LINEAR_LS, NONLINEAR_LS, CONL (generalized
 Gauss-Newton) and EXTERNAL, with the exact cost Hessian where the JAX
-package takes it; BGH constraint rows with soft rows. Cost integration
-and BGP rows wait (ROADMAP.md Queue 1, item 16b), z-dependent modules
-too (item 17).
+package takes it, and their integrated forms over the integrator's
+quadrature points (cost_discretization INTEGRATOR); BGH constraint rows
+and BGP convex-over-nonlinear rows phi(r(x, u)), with soft rows.
+z-dependent modules wait (ROADMAP.md Queue 1, item 17).
 """
 from __future__ import annotations
 
@@ -20,8 +21,9 @@ from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
+from torch.func import vmap
 
-from acados_tpu_torch.utils.autodiff import hessian, jacfwd
+from acados_tpu_torch.utils.autodiff import hessian, jacfwd, value_and_jacfwd
 from acados_tpu_torch.utils.struct import tensor_dataclass
 
 
@@ -44,6 +46,13 @@ class CostSpec:
         the exact Hessian is asked for).
     y_fun: per-instance (x, u, p, t) -> y; psi_fun: (r, p) -> scalar
       (CONL only); ext_fun: (x, u, p, t) -> scalar.
+    needs_dt / quad_weights: cost integration (cost_discretization
+      INTEGRATOR, interface/builder.py:_wrap_cost_integrator): the
+      callables take a trailing interval length dt, and with quad_weights
+      (nq,) y_fun returns the residuals stacked at the integrator's nq
+      quadrature points, (nq, ny), combined with the weights, so the
+      Gauss-Newton Hessian is the integrated sum_q w_q J_q' W J_q
+      (acados_tpu/ocp_nlp/formulation.py:69-77).
     Vx/Vu: LINEAR_LS constant Jacobian blocks (numpy); when set the
       Jacobian is a constant and no AD pass runs.
     """
@@ -53,21 +62,37 @@ class CostSpec:
     y_fun: Optional[Callable] = None
     psi_fun: Optional[Callable] = None
     ext_fun: Optional[Callable] = None
+    needs_dt: bool = False
+    quad_weights: Optional[np.ndarray] = None
     Vx: Optional[np.ndarray] = None
     Vu: Optional[np.ndarray] = None
 
-    def value(self, x, u, p, t, data) -> torch.Tensor:
-        """Stage cost value of one instance (without slack penalties)."""
+    def _call(self, fn, x, u, p, t, dt_):
+        return fn(x, u, p, t, dt_) if self.needs_dt else fn(x, u, p, t)
+
+    def value(self, x, u, p, t, data, dt_=None) -> torch.Tensor:
+        """Stage cost value of one instance (without slack penalties);
+        dt_ is the interval length an integrated cost takes."""
         if self.kind in ("LINEAR_LS", "NONLINEAR_LS"):
-            r = self.y_fun(x, u, p, t) - data["yref"]
+            r = self._call(self.y_fun, x, u, p, t, dt_) - data["yref"]
+            if self.quad_weights is not None:
+                wq = _const(self.quad_weights, x)
+                return 0.5 * torch.einsum("q,qi,ij,qj->", wq, r, data["W"],
+                                          r)
             return 0.5 * r @ data["W"] @ r
         if self.kind == "CONL":
-            return self.psi_fun(self.y_fun(x, u, p, t) - data["yref"], p)
+            r = self._call(self.y_fun, x, u, p, t, dt_) - data["yref"]
+            if self.quad_weights is not None:
+                # psi applied at each quadrature point
+                vals = vmap(lambda r_: self.psi_fun(r_, p))(r)
+                return (_const(self.quad_weights, x) * vals).sum()
+            return self.psi_fun(r, p)
         if self.kind == "EXTERNAL":
-            return self.ext_fun(x, u, p, t)
+            return self._call(self.ext_fun, x, u, p, t, dt_)
         raise ValueError(self.kind)
 
-    def quad_approx(self, x, u, p, t, data, exact_hessian: bool = False):
+    def quad_approx(self, x, u, p, t, data, exact_hessian: bool = False,
+                    dt_=None):
         """Quadratic approximation of one instance at (x, u): (H, grad)
         over w = [x; u] (reference cost update_qp_matrices;
         acados_tpu/ocp_nlp/formulation.py:120-213)."""
@@ -82,8 +107,33 @@ class CostSpec:
             r = Vx @ x + Vu @ u - data["yref"]
             Wr = data["W"] @ r
             return J.T @ data["W"] @ J, J.T @ Wr
+        yf = lambda w_: self._call(self.y_fun, w_[:nx], w_[nx:], p, t, dt_)
+        if self.quad_weights is not None and self.kind in (
+                "LINEAR_LS", "NONLINEAR_LS", "CONL"):
+            # the integrated (generalized) Gauss-Newton over the
+            # quadrature points (formulation.py:138-157, 175-187); the
+            # residuals and their Jacobian come from one forward pass, as
+            # each evaluation runs the integrator's stage solves
+            Y, J = value_and_jacfwd(yf)(w)          # (nq, ny), (nq, ny, nw)
+            R = Y - data["yref"][None, :]
+            wq = _const(self.quad_weights, w)
+            if self.kind == "CONL":
+                psi = lambda r_: self.psi_fun(r_, p)
+                gpsi = vmap(jacfwd(psi))(R)
+                Hpsi = vmap(hessian(psi))(R)
+                grad = torch.einsum("q,qiw,qi->w", wq, J, gpsi)
+                H = torch.einsum("q,qiw,qij,qjv->wv", wq, J, Hpsi, J)
+                return H, grad
+            WR = torch.einsum("ij,qj->qi", data["W"], R)
+            grad = torch.einsum("q,qiw,qi->w", wq, J, WR)
+            H = torch.einsum("q,qiw,ij,qjv->wv", wq, J, data["W"], J)
+            if exact_hessian:
+                # WR is a constant of the inner transform, as the
+                # reference's stop_gradient
+                H = H + hessian(lambda w_: torch.einsum(
+                    "q,qi,qi->", wq, yf(w_), WR))(w)
+            return H, grad
         if self.kind in ("LINEAR_LS", "NONLINEAR_LS"):
-            yf = lambda w_: self.y_fun(w_[:nx], w_[nx:], p, t)
             r = yf(w) - data["yref"]
             J = jacfwd(yf)(w)
             Wr = data["W"] @ r
@@ -95,17 +145,19 @@ class CostSpec:
             return H, J.T @ Wr
         if self.kind == "CONL":
             # generalized Gauss-Newton in both Hessian modes
-            yf = lambda w_: self.y_fun(w_[:nx], w_[nx:], p, t) - data["yref"]
-            r = yf(w)
+            r = yf(w) - data["yref"]
             J = jacfwd(yf)(w)
             psi = lambda r_: self.psi_fun(r_, p)
             gpsi = jacfwd(psi)(r)
             Hpsi = hessian(psi)(r)
             return J.T @ Hpsi @ J, J.T @ gpsi
         if self.kind == "EXTERNAL":
-            f = lambda w_: self.ext_fun(w_[:nx], w_[nx:], p, t)
+            f = lambda w_: self._call(self.ext_fun, w_[:nx], w_[nx:], p, t,
+                                      dt_)
             grad = jacfwd(f)(w)
-            H = jacfwd(jacfwd(f))(w)
+            # an integrated cost's points run the IRK stage solves, whose
+            # implicit gradient takes forward over reverse
+            H = (hessian(f) if self.needs_dt else jacfwd(jacfwd(f)))(w)
             if exact_hessian:
                 return H, grad
             return 0.5 * (H + H.T), grad
@@ -114,12 +166,17 @@ class CostSpec:
 
 @dataclasses.dataclass(frozen=True)
 class ConstraintSpec:
-    """One stage-class BGH constraint block, folded to unified rows.
+    """One stage-class constraint block, folded to unified rows.
 
-    Row layout: [box-x rows | box-u rows | general C/D rows | h rows].
-    idxbx/idxbu: bounded state/input indices; Cg, Dg: general linear rows
-    (numpy); h_fun: per-instance (x, u, p, t) -> (nh,); soft_rows: indices
-    into the unified row block that are softened.
+    Row layout: [box-x rows | box-u rows | general C/D rows | h rows |
+    phi rows]. idxbx/idxbu: bounded state/input indices; Cg, Dg: general
+    linear rows (numpy); h_fun: per-instance (x, u, p, t) -> (nh,);
+    soft_rows: indices into the unified row block that are softened.
+    BGP (convex over nonlinear, reference ocp_nlp_constraints_bgp.c):
+    nphi rows phi(r(x, u, p, t)) with phi_fun: (nr,) -> (nphi,) convex
+    and r_fun: per-instance (x, u, p, t) -> (nr,). The QP rows take the
+    chain-rule Jacobian; the outer curvature enters the stage Hessian
+    through `bgp_hess`.
     """
 
     nx: int
@@ -131,6 +188,9 @@ class ConstraintSpec:
     nh: int = 0
     h_fun: Optional[Callable] = None
     soft_rows: tuple = ()
+    nphi: int = 0
+    phi_fun: Optional[Callable] = None
+    r_fun: Optional[Callable] = None
 
     @property
     def nbx(self):
@@ -146,7 +206,7 @@ class ConstraintSpec:
 
     @property
     def nrows(self):
-        return self.nbx + self.nbu + self.ng + self.nh
+        return self.nbx + self.nbu + self.ng + self.nh + self.nphi
 
     def base_CD(self, dtype, device):
         """Constant part of the unified rows (box selectors + general)."""
@@ -179,6 +239,8 @@ class ConstraintSpec:
             vals.append(gv)
         if self.nh:
             vals.append(self._call_h(x, u, p, t))
+        if self.nphi:
+            vals.append(self.phi_fun(self.r_fun(x, u, p, t)))
         if not vals:
             return torch.zeros((0,), dtype=x.dtype, device=x.device)
         return torch.cat(vals)
@@ -189,10 +251,20 @@ class ConstraintSpec:
         return self.h_fun(x, u, p, t)
 
     def h_jac(self, x, u, p, t):
-        """(nh, nx), (nh, nu) Jacobians of the nonlinear rows."""
+        """(nh + nphi, nx), (nh + nphi, nu) Jacobians of the nonlinear
+        rows: the h block, then the phi(r) block by the chain rule."""
         nx = self.nx
-        J = jacfwd(lambda w_: self._call_h(w_[:nx], w_[nx:], p, t))(
-            torch.cat([x, u]))
+
+        def nl(w_):
+            vals = []
+            if self.nh:
+                vals.append(self._call_h(w_[:nx], w_[nx:], p, t))
+            if self.nphi:
+                vals.append(self.phi_fun(self.r_fun(w_[:nx], w_[nx:], p,
+                                                    t)))
+            return torch.cat(vals)
+
+        J = jacfwd(nl)(torch.cat([x, u]))
         return J[:, :nx], J[:, nx:]
 
     def h_hess(self, x, u, p, t, lam_d):
@@ -204,6 +276,22 @@ class ConstraintSpec:
         wh = lam_d[off:off + self.nh]
         return hessian(lambda w_: -(wh @ self._call_h(w_[:nx], w_[nx:], p,
                                                       t)))(torch.cat([x, u]))
+
+    def bgp_hess(self, x, u, p, t, lam_u):
+        """The BGP rows' outer curvature over w = [x; u] at one instance:
+        Jr' (sum_i w_i phi_i'') Jr, never d2r (reference
+        ocp_nlp_constraints_bgp.c; acados_tpu/ocp_nlp/formulation.py:
+        328-340). The weights w are the phi rows' UPPER multipliers only,
+        read from the stage's (nc,) lam_u (reference bgp.c:1303): with
+        phi convex and lam_u >= 0 the term stays positive semidefinite
+        (acados_tpu/ocp_nlp/linearize.py:173-182)."""
+        nx, off = self.nx, self.nbx + self.nbu + self.ng + self.nh
+        w_phi = lam_u[off:off + self.nphi]
+        r = self.r_fun(x, u, p, t)
+        Hphi = hessian(lambda r_: w_phi @ self.phi_fun(r_))(r)
+        Jr = jacfwd(lambda w_: self.r_fun(w_[:nx], w_[nx:], p, t))(
+            torch.cat([x, u]))
+        return Jr.T @ Hphi @ Jr
 
     def soft_row_mask(self, dtype, device):
         m = np.zeros(self.nrows)

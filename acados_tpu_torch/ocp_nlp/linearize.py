@@ -13,6 +13,9 @@ all B*N intervals is one `torch.func.hessian` of the per-interval step,
 vmapped (the IRK step's stage solves and implicit gradient fold the vmap
 back into one batch, so each of their K1 launches serves every
 interval), and the lam-weighted h Hessian one vmap per stage class.
+BGP rows add their outer curvature Jr' phi'' Jr in both Hessian modes
+(:173-197), and an integrated cost (cost_discretization INTEGRATOR)
+takes its interval's length.
 """
 from __future__ import annotations
 
@@ -104,12 +107,12 @@ def _rows(spec, Cb, Db, nc, x, u, p, t):
     g = _pad_rows(vmap(spec.eval_rows)(x, u, p, t), nc)
     C = Cb.expand((M,) + tuple(Cb.shape))
     D = Db.expand((M,) + tuple(Db.shape))
-    if spec.nh:
+    if spec.nh or spec.nphi:
         Jx, Ju = vmap(spec.h_jac)(x, u, p, t)
-        o = spec.nbx + spec.nbu + spec.ng
+        o, n = spec.nbx + spec.nbu + spec.ng, spec.nh + spec.nphi
         C, D = C.clone(), D.clone()
-        C[:, o:o + spec.nh] = Jx
-        D[:, o:o + spec.nh] = Ju
+        C[:, o:o + n] = Jx
+        D[:, o:o + n] = Ju
     return g, C, D
 
 
@@ -160,22 +163,41 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     b = xnext.reshape(Bsz, N, nx) - x[:, 1:]
 
     # ---- cost quadratics per stage class --------------------------------
+    # (an integrated cost takes its interval's length, :145-166; the
+    # terminal cost has no interval)
     def quad(spec):
-        return lambda *a: spec.quad_approx(*a, exact_hessian=exact_cost)
+        def qa(x_, u_, p_, t_, d_, dt_=None):
+            return spec.quad_approx(x_, u_, p_, t_, d_, exact_cost, dt_)
+        return qa
 
     H0, g0 = vmap(quad(form.cost_0))(
-        x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0], cost_data_stage0(data))
+        x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0], cost_data_stage0(data),
+        data.dts[:, 0])
     sc = data.cost_scale
     H0, g0 = sc[:, 0, None, None] * H0, sc[:, 0, None] * g0
     if N > 1:
         Hp, gp = _path_vmap(quad(form.cost), Bsz, N - 1,
                             x[:, 1:N], u[:, 1:N], data.p[:, 1:N],
-                            data.ts[:, 1:N], {"yref": data.yref, "W": data.W})
+                            data.ts[:, 1:N], {"yref": data.yref, "W": data.W},
+                            data.dts[:, 1:N])
         Hp = sc[:, 1:N, None, None] * Hp
         gp = sc[:, 1:N, None] * gp
     He, ge = vmap(quad(form.cost_e))(
         x[:, N], zu_, data.p[:, N], data.ts[:, N], cost_data_term(data))
     He, ge = sc[:, N, None, None] * He, sc[:, N, None] * ge
+
+    # ---- BGP outer curvature, weighted by the phi rows' upper multipliers
+    # (:173-197), in both Hessian modes ---------------------------------
+    if form.con_0.nphi:
+        H0 = H0 + vmap(form.con_0.bgp_hess)(x[:, 0], u[:, 0], data.p[:, 0],
+                                            data.ts[:, 0], it.lam_u[:, 0])
+    if form.con.nphi and N > 1:
+        Hp = Hp + _path_vmap(form.con.bgp_hess, Bsz, N - 1, x[:, 1:N],
+                             u[:, 1:N], data.p[:, 1:N], data.ts[:, 1:N],
+                             it.lam_u[:, 1:N])
+    if form.con_e.nphi:
+        He = He + vmap(form.con_e.bgp_hess)(x[:, N], zu_, data.p[:, N],
+                                            data.ts[:, N], it.lam_u[:, N])
 
     # ---- EXACT mode: dynamics and h curvature (linearize.py:198-252) ----
     if form.exact_hessian and form.exact_hess_dyn:
@@ -274,11 +296,11 @@ def eval_cost(form: OcpNlpFormulation, data: NlpData, x, u, sl, su,
     Bsz = x.shape[0]
     sc = data.cost_scale
     c0 = vmap(form.cost_0.value)(x[:, 0], u[:, 0], data.p[:, 0],
-                                 data.ts[:, 0], cost_data_stage0(data)) \
-        * sc[:, 0]
+                                 data.ts[:, 0], cost_data_stage0(data),
+                                 data.dts[:, 0]) * sc[:, 0]
     cp = _path_vmap(form.cost.value, Bsz, N - 1, x[:, 1:N], u[:, 1:N],
                     data.p[:, 1:N], data.ts[:, 1:N],
-                    {"yref": data.yref, "W": data.W})
+                    {"yref": data.yref, "W": data.W}, data.dts[:, 1:N])
     cp = (cp * sc[:, 1:N]).sum(dim=1)
     ce = vmap(form.cost_e.value)(x[:, N], x.new_zeros((Bsz, nu)),
                                  data.p[:, N], data.ts[:, N],

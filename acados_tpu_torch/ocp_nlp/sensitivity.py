@@ -157,6 +157,15 @@ class KktFactor:
 
     def __init__(self, form, opts: SensOpts, data: NlpData,
                  it: NlpIterate):
+        if form.cost_0.needs_dt or form.cost.needs_dt:
+            # the JAX package's Lagrangian Hessian evaluates the cost
+            # without the interval length an integrated cost takes
+            # (acados_tpu/ocp_nlp/sensitivity.py:85), so it has no
+            # reference to hold this path to
+            raise NotImplementedError(
+                "solution sensitivities with cost_discretization "
+                "INTEGRATOR are not supported (ROADMAP.md, Queue 3: gaps "
+                "in the JAX package)")
         dt, dev = it.x.dtype, it.x.device
         static_rows = build_static_rows(form, dt, dev)
         self.form, self.data, self.it = form, data, it

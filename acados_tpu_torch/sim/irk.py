@@ -420,10 +420,47 @@ def _kron_step_jac(f_impl, nx: int, A_t, b_t, c_t, num_steps: int,
     return step_jac
 
 
-def make_irk_stage_points(*args, **kwargs):
-    raise NotImplementedError(
-        "cost_discretization INTEGRATOR (IRK stage points) is not ported "
-        "yet (ROADMAP.md Queue 1, item 16b, NLP breadth)")
+def make_irk_stage_points(f_impl, nx: int, nz: int = 0,
+                          num_stages: int = 3, num_steps: int = 1,
+                          newton_iter: int = 3,
+                          collocation: str = "GAUSS_LEGENDRE"):
+    """Collocation stage points for cost_discretization INTEGRATOR
+    (acados_tpu/sim/irk.py:119-190).
+
+    Returns (points, weights): the per-instance points(x, u, p, t0, dt)
+    -> (Xs (nq, nx), None, Ts (nq,)), the stage states and stage times of
+    all num_steps substeps (nq = num_steps * num_stages), and the
+    quadrature weights b / num_steps tiled over the substeps (they sum to
+    1). Each substep's stage solve is `_stage_root` on a batch of one,
+    started from the previous substep's solution as the reference's scan
+    carries it: under torch.func.vmap the instances fold into one batch
+    of Newton solves, and torch.func.jacfwd through the points takes the
+    implicit gradient, as jax.lax.custom_root does."""
+    _require_ode(nz, "make_irk_stage_points")
+    A_t, b_t, c_t = _tableau(collocation, num_stages)
+    ns = num_stages
+    root = _stage_root(_stage_residual(f_impl, A_t, c_t, nx, nz),
+                       newton_iter)
+    weights = np.tile(np.asarray(b_t, np.float64) / num_steps, num_steps)
+
+    def points(x, u, p, t0, dt):
+        A_ = torch.as_tensor(A_t, dtype=x.dtype, device=x.device)
+        c_ = torch.as_tensor(c_t, dtype=x.dtype, device=x.device)
+        b_ = torch.as_tensor(b_t, dtype=x.dtype, device=x.device)
+        h = dt / num_steps
+        w = x.new_zeros((ns * nx,))
+        Xs, Ts = [], []
+        for i in range(num_steps):
+            t = t0 + i * h
+            w = root(x[None], u[None], p[None], t[None], h[None],
+                     w[None])[0]
+            K = w.reshape(ns, nx)
+            Xs.append(x[None, :] + h * (A_ @ K))
+            Ts.append(t + c_ * h)
+            x = x + h * (b_ @ K)
+        return torch.cat(Xs), None, torch.cat(Ts)
+
+    return points, weights
 
 
 def make_irk_z0_fun(*args, **kwargs):

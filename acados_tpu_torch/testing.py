@@ -1,6 +1,7 @@
 """Seeded test inputs: matrices for the Gauss-Jordan inverse (K1),
-batches of OCP-QPs, RTI batches set up from per-instance x0s, and the
-parametric pendulum of the sensitivity tests.
+batches of OCP-QPs, RTI batches set up from per-instance x0s, the
+parametric pendulum of the sensitivity tests, the unconstrained pendulum
+of the DDP tests and the obstacle OCP of the WFQP and BGP tests.
 
 Shared by the CPU tests (tests/test_torch_*.py) and the card's check
 (chip_smoke.py), so both hold the port to the same cases. Nothing here
@@ -10,8 +11,9 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["JAX_SENS_F32_GAP", "param_pendulum_ocp", "pivot_tie_batch",
-           "random_qp_batch", "row_permuted_batch", "rti_batch"]
+__all__ = ["JAX_SENS_F32_GAP", "ddp_pendulum_ocp", "obstacle_ocp",
+           "param_pendulum_ocp", "pivot_tie_batch", "random_qp_batch",
+           "row_permuted_batch", "rti_batch"]
 
 # The JAX package's forward-adjoint gap in float32: max over instances of
 # max|adj - fwd| / max|fwd|, fwd = d u_0 / d x0 from its forward
@@ -35,14 +37,15 @@ def rti_batch(ocp, x0s: np.ndarray, device, opts_update=None,
     of the same names, e.g. qp_solver_name="ADMM" or
     parallel_riccati=True); the solve function is rebuilt with them."""
     from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
-    from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
+    from acados_tpu_torch.interface.solver import make_nlp_solver
     solver = AcadosOcpBatchSolver(ocp, len(x0s), device=device)
     if opts_update or qp_opts_update:
         opts = solver.opts.replace(**(opts_update or {}))
         opts = opts.replace(qp_opts=opts.qp_opts.replace(
             **(qp_opts_update or {})))
         solver.opts = opts
-        solver._solve_fn = make_sqp_solver(solver.form, opts)
+        solver._solve_fn = make_nlp_solver(
+            solver.form, opts, ocp.solver_options.nlp_solver_type)
     for i, view in enumerate(solver.ocp_solvers):
         view.set(0, "lbx", x0s[i])
         view.set(0, "ubx", x0s[i])
@@ -206,4 +209,77 @@ def param_pendulum_ocp(soft=False, N=20, dtype="float64",
     so.nlp_solver_max_iter = 200
     so.tol = 1e-11
     so.dtype = dtype
+    return ocp
+
+
+def ddp_pendulum_ocp(N=10, dtype="float64", integrator_type="ERK",
+                     weight=1.0):
+    """The unconstrained pendulum swing-up of tests/test_ddp.py:41-66 for
+    nlp_solver_type="DDP" (MERIT_BACKTRACKING, 100 iterations):
+    NONLINEAR_LS on (x, u) with Q = 2 diag(1e3, 1e3, 1e-2, 1e-2), a
+    control weight 2, the weights scaled by `weight`; x0 = [0, pi, 0, 0]
+    its only constraint; 2 substeps of ERK or of the main path's IRK."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    from acados_tpu_torch.models.pendulum import pendulum_ode
+    ocp, m = AcadosOcp(), AcadosModel()
+    m.name, m.x, m.u = "pend", 4, 1
+    m.f_expl_expr = lambda x, u: pendulum_ode(x, u, None, 0.0)
+    m.cost_y_expr = lambda x, u: torch.cat([x, u])
+    m.cost_y_expr_e = lambda x: x
+    ocp.model = m
+    Q = 2 * np.diag([1e3, 1e3, 1e-2, 1e-2])
+    W = np.zeros((5, 5))
+    W[:4, :4] = Q
+    W[4, 4] = 2.0
+    ocp.cost.cost_type = ocp.cost.cost_type_e = "NONLINEAR_LS"
+    ocp.cost.yref, ocp.cost.W = np.zeros(5), weight * W
+    ocp.cost.yref_e, ocp.cost.W_e = np.zeros(4), weight * Q
+    ocp.constraints.x0 = np.array([0.0, np.pi, 0.0, 0.0])
+    so = ocp.solver_options
+    so.N_horizon, so.tf, so.dtype = N, 1.0, dtype
+    so.integrator_type, so.sim_method_num_steps = integrator_type, 2
+    so.nlp_solver_type, so.globalization = "DDP", "MERIT_BACKTRACKING"
+    so.nlp_solver_max_iter = 100
+    return ocp
+
+
+def obstacle_ocp(rows="h", N=10, dtype="float64"):
+    """The point mass of tests/test_wfqp.py:24-56 from (-2, 0.01) to
+    (2, 0) outside the unit disc, ||x||^2 >= 1 on the path and at the
+    end, as BGH h rows (rows="h") or as BGP rows phi(r) = r1^2 + r2^2,
+    r = x (rows="bgp", tests/test_formulations.py:35-74), the same NLP;
+    SQP_WITH_FEASIBLE_QP with MERIT_BACKTRACKING, 100 iterations."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    ocp, m = AcadosOcp(), AcadosModel()
+    goal = torch.tensor([2.0, 0.0], dtype=torch.float64)
+    m.name, m.x, m.u = "pt", 2, 2
+    m.f_expl_expr = lambda x, u: u
+    m.cost_y_expr = lambda x, u: torch.cat([x - goal.to(x), 0.3 * u])
+    m.cost_y_expr_e = lambda x: x - goal.to(x)
+    ocp.model = m
+    ocp.cost.cost_type = ocp.cost.cost_type_e = "NONLINEAR_LS"
+    ocp.cost.yref, ocp.cost.W = np.zeros(4), np.eye(4)
+    ocp.cost.yref_e, ocp.cost.W_e = np.zeros(2), 10 * np.eye(2)
+    ocp.constraints.x0 = np.array([-2.0, 0.01])
+    c = ocp.constraints
+    disc = lambda v: torch.stack([v[0] ** 2 + v[1] ** 2])
+    if rows == "bgp":
+        m.con_phi_expr = m.con_phi_expr_e = disc
+        m.con_r_expr = lambda x, u: x
+        m.con_r_expr_e = lambda x: x
+        c.lphi, c.uphi = np.array([1.0]), np.array([1e10])
+        c.lphi_e, c.uphi_e = np.array([1.0]), np.array([1e10])
+    else:
+        m.con_h_expr = lambda x, u: disc(x)
+        m.con_h_expr_e = disc
+        c.lh, c.uh = np.array([1.0]), np.array([1e10])
+        c.lh_e, c.uh_e = np.array([1.0]), np.array([1e10])
+    so = ocp.solver_options
+    so.N_horizon, so.tf, so.dtype = N, 4.0, dtype
+    so.nlp_solver_type = "SQP_WITH_FEASIBLE_QP"
+    so.globalization, so.nlp_solver_max_iter = "MERIT_BACKTRACKING", 100
     return ocp

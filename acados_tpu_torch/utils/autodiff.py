@@ -29,6 +29,22 @@ def jacfwd(f, argnums=0):
     return jac
 
 
+def value_and_jacfwd(f):
+    """(f(x), jacfwd(f)(x)) from one forward pass: the value is the primal
+    of the Jacobian's jvps, so f's work is not done twice."""
+    def twice(x):
+        y = f(x)
+        return y, y
+
+    jf = torch.func.jacfwd(twice, has_aux=True)
+
+    def both(x):
+        J, y = jf(x)
+        return y, J.to(x.dtype)
+
+    return both
+
+
 def hessian(f):
     """torch.func.hessian (forward over reverse, as jax.hessian) of f with
     respect to its first argument, cast to that argument's dtype."""

@@ -187,10 +187,11 @@ failure exits non-zero:
     K1_PER_EXACT_LINEARIZE = 22 launches) and the time split of a round
     (the Gauss-Newton linearization and the exact dynamics Hessian
     apart, CONVEXIFY and MIRROR, the QP, a merit's dynamics gap), then
-    two Gauss-Newton calls with the EXACT call between them, each from
-    the initial iterate (nothing compiles in the port: a first call is
-    timed like any other); every status 0 and in
-    tolerance in both; the EXACT call's K1 launches equal to those
+    the EXACT call, cut at NEWTON_ROUNDS lockstep rounds, and one
+    Gauss-Newton call, each from the initial iterate (nothing compiles
+    in the port: a first call is timed like any other); every status 0
+    and in tolerance in the Gauss-Newton call, the EXACT call's
+    converged or at the cut and finite; its K1 launches equal to those
     worked out from its stat table (newton_k1_expected: 22 a round, 6
     a dynamics gap of the merit); sqp_iter mean and max of both; K1 on
     the largest launch of the EXACT linearization against its plain
@@ -202,6 +203,30 @@ failure exits non-zero:
     MERIT with sufficient descent and with SOC, FUNNEL, FIXED_STEP with
     Anderson, adaptive LM, ADAPTIVE_CURRENT_RES_JOINT and a CONL-cost
     pendulum, each within 1e-9.
+29. DDP at full width (B = 4096, N = 20, float32, the main path's x0s):
+    tests/test_ddp.py's unconstrained pendulum with ERK, DDP_ERK_ROUNDS
+    lockstep rounds (statuses converged, at max_iter or at a vanishing
+    step: DDP cycles from about half these x0s in both packages;
+    every res_eq within 1e-4, the converged in tolerance), and with the
+    main path's IRK cut at 2 iterations: K1 launches equal to
+    ddp_k1_expected from its stat table, K1 on the rollout's (4096, 16,
+    16) launch against its plain version, the split of an iteration
+    (linearize, Riccati, one rollout, the cost);
+30. SQP_WITH_FEASIBLE_QP at full width: the main path's pendulum with
+    MERIT_BACKTRACKING cut at WFQP_ROUNDS rounds (K1 equal to
+    wfqp_k1_expected, the converged instances in tolerance, both QPs'
+    iterations), and the obstacle as BGP rows from the zero iterate,
+    where plain SQP fails on every instance and WFQP converges with
+    every node outside the disc;
+31. the main path with cost_discretization INTEGRATOR beside EULER from
+    the main path's converged iterate, interleaved (1 + 3 warm, 3
+    rounds of 1): every status 0 and in tolerance, K1
+    K1_PER_INTEGRATOR_RTI = 48 a call, K1 on the path stage points'
+    (77,824, 16, 16) launch against its plain version;
+32. float64 card against CPU, B = 4, within 1e-9: DDP on ERK and IRK,
+    WFQP on the pendulum and on the obstacle as BGH, BGP and soft BGP
+    rows, and the INTEGRATOR cost with IRK NONLINEAR_LS, IRK CONL, ERK
+    NONLINEAR_LS and ERK EXTERNAL.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -227,6 +252,15 @@ LAUNCHES_PER_RTI = 8          # 4 inverses per substep x 2 substeps
 # gap evaluation of the merit (3 Newton solves a substep)
 K1_PER_EXACT_LINEARIZE = 22
 K1_PER_DYN_GAP = 6
+# the main path with cost_discretization INTEGRATOR (phase 31): a call's
+# K1 launches are the dynamics' 8 and, for each of the two integrated
+# stage classes (stage 0, the path) and each of the 2 substeps, the
+# stage points' Newton solves (3) once in the linearization (the
+# residuals and their Jacobian from one forward pass), the implicit
+# solve of their forward-mode Jacobian (1), and the Newton solves again
+# in each of the call's two cost evaluations (the unbounded check and
+# the final cost): 8 + 2 * 2 * (3 + 1 + 2 * 3)
+K1_PER_INTEGRATOR_RTI = 48
 X0_CENTER = (0.0, np.pi, 0.0, 0.0)
 X0_SIGMA = 0.05
 SEED = 0
@@ -486,7 +520,11 @@ def read_counts() -> dict:
 
 class K1Shapes:
     """While active, records the shape of every K1 launch and keeps a copy
-    of the first launch's input and of the largest one's."""
+    of the first launch's input and of the largest one's, and of the
+    first for which match(input) holds, where match is given."""
+
+    def __init__(self, match=None):
+        self.match, self.matched = match, None
 
     def __enter__(self):
         from acados_tpu_torch.ops import batched_inv
@@ -494,6 +532,9 @@ class K1Shapes:
         self.shapes, self.first, self.largest = [], None, None
 
         def record(A):
+            if self.matched is None and self.match is not None \
+                    and self.match(A):
+                self.matched = A.detach().clone()
             if self.first is None:
                 self.first = A.detach().clone()
             if self.largest is None or A.numel() > self.largest.numel():
@@ -2504,6 +2545,13 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
 NEWTON_SO = dict(hessian_approx="EXACT", regularize_method="CONVEXIFY",
                  globalization="MERIT_BACKTRACKING")
 NEWTON_SPLIT_REPS = 1
+# the EXACT call runs NEWTON_ROUNDS lockstep rounds (nlp_solver_max_iter):
+# run to convergence it took 52 rounds and 198 s of the script's 1200 s
+# (PERF.md), which phases 29-32 need; its launches are still held to
+# newton_k1_expected and its trajectory to finiteness, its convergence by
+# the CPU tests (tests/test_torch_exact_irk.py and the Newton tests) and
+# phase 28
+NEWTON_ROUNDS = 8
 # float64 card against CPU of the new options (phase 28), B = 4, each
 # solve cut at CHECK_ITER iterations (the parity of the same code on the
 # card and on the CPU needs no convergence; the CPU tests hold the
@@ -2528,34 +2576,43 @@ def newton_batch(B, dtype, dev, solver_options=NEWTON_SO, seed=SEED):
                      solver_options=solver_options)[0]
 
 
-def merit_evaluations(alpha, opts, dtype) -> int:
-    """The merit evaluations of one instance's backtracking loop that
-    ended at alpha < 1 (sqp.py: from alpha_reduction, each tried while
+def backtrack_trials(alpha, opts, dtype, start=1.0):
+    """(trials, accepted) of one instance's backtracking that ended at
+    alpha (sqp.py, ddp.py, wfqp.py: from `start`, each alpha tried while
     above alpha_min, shrunk by alpha_reduction until one passes), in the
-    solver's floating type."""
+    solver's floating type; not accepted: it left under alpha_min, at
+    the alpha after its last trial."""
     red, a_min = dtype(opts.alpha_reduction), dtype(opts.alpha_min)
-    a, tried = red, 0
+    a, tried = dtype(start), 0
     while a > a_min:
         tried += 1
         if a == alpha:
-            return tried
+            return tried, True
         a = dtype(a * red)
     if a != alpha:
         raise SystemExit(f"alpha {alpha!r} is no exit of the backtracking")
-    return tried
+    return tried, False
+
+
+def merit_evaluations(alpha, opts, dtype) -> int:
+    """The merit evaluations of one instance's SQP backtracking loop that
+    ended at alpha < 1 (sqp.py: from alpha_reduction)."""
+    return backtrack_trials(alpha, opts, dtype,
+                            start=opts.alpha_reduction)[0]
 
 
 def newton_k1_expected(stats, opts) -> int:
     """K1 launches of one EXACT + MERIT_BACKTRACKING solve() call, worked
     out from its stat table. Instance b takes sqp_iter[b] rounds, one
-    more where it converged (the round that finds it converged still
-    runs its QP and line search); the batch runs R lockstep rounds, the
-    most of those. Each round is an EXACT linearization
+    more where it converged inside the loop (the round that finds it
+    converged still runs its QP and line search), at most max_iter; the
+    batch runs R lockstep rounds, the most of those. Each round is an EXACT linearization
     (K1_PER_EXACT_LINEARIZE), the merit at the iterate and at the full
     step (2 dynamics gaps, K1_PER_DYN_GAP each) and one more gap for each
     round of the lockstep backtracking, whose rounds are the most any
     instance active in that round took; then the final linearization."""
-    rounds = (stats.sqp_iter + (stats.status == 0)).cpu().numpy()
+    rounds = np.minimum((stats.sqp_iter + (stats.status == 0)).cpu().numpy(),
+                        opts.max_iter)
     alpha = stats.stat[:, :, 6].cpu().numpy()
     dtype = alpha.dtype.type
     R = int(rounds.max())
@@ -2622,7 +2679,8 @@ def newton_sqp(dev) -> dict:
     import torch
     from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
     from acados_tpu_torch.ops import batched_inv
-    exact = newton_batch(B_MAIN, "float32", dev)
+    exact = newton_batch(B_MAIN, "float32", dev, solver_options=dict(
+        NEWTON_SO, nlp_solver_max_iter=NEWTON_ROUNDS))
     gn = newton_batch(B_MAIN, "float32", dev, solver_options={})
     it0_exact, it0_gn = exact._on_device()[1], gn._on_device()[1]
     so = exact.acados_ocp.solver_options
@@ -2654,25 +2712,21 @@ def newton_sqp(dev) -> dict:
     log(f"  time split of a round at the initial iterate (host ms, median "
         f"of {NEWTON_SPLIT_REPS}): {json.dumps(split)}")
 
-    # Gauss-Newton, EXACT, Gauss-Newton, each from the initial iterate
-    gn_ms, gn_iter = [], []
-    for c in range(2):
-        if c == 1:
-            reset_counts()
-            ex_ms, st = timed_cold_call(exact, it0_exact)
-            counts = read_counts()
-            ex_stats = exact._stats
-            if np.any(st != 0):
-                raise SystemExit(f"Newton SQP: statuses "
-                                 f"{np.unique(st, return_counts=True)}")
-            ok_tol, res, tols = in_tolerance(exact)
-            if not ok_tol:
-                raise SystemExit(f"Newton SQP out of tolerance: {res}")
-        ms, st = timed_cold_call(gn, it0_gn)
-        if np.any(st != 0) or not in_tolerance(gn)[0]:
-            raise SystemExit("Gauss-Newton SQP beside the Newton SQP failed")
-        gn_ms.append(ms)
-        gn_iter.append(gn.get_stats("sqp_iter"))
+    # EXACT (cut at NEWTON_ROUNDS), then Gauss-Newton, each from the
+    # initial iterate
+    reset_counts()
+    ex_ms, st = timed_cold_call(exact, it0_exact)
+    counts = read_counts()
+    ex_stats = exact._stats
+    # converged (0) or at the cut (2)
+    if np.any((st != 0) & (st != 2)):
+        raise SystemExit(f"Newton SQP: statuses "
+                         f"{np.unique(st, return_counts=True)}")
+    res = exact.get_stats("residuals").max(axis=0)
+    ms, st = timed_cold_call(gn, it0_gn)
+    if np.any(st != 0) or not in_tolerance(gn)[0]:
+        raise SystemExit("Gauss-Newton SQP beside the Newton SQP failed")
+    gn_ms, gn_iter = [ms], gn.get_stats("sqp_iter")
     want = newton_k1_expected(ex_stats, exact.opts)
     ex_iter = ex_stats.sqp_iter.cpu().numpy()
     x = exact._it_dev.x
@@ -2680,15 +2734,16 @@ def newton_sqp(dev) -> dict:
             x.shape != (B_MAIN, N_HORIZON + 1, 4):
         raise SystemExit("Newton SQP: bad trajectory tensor")
     alpha = ex_stats.stat[:, :, 6].cpu().numpy()
-    bt = int((alpha[:, :int(ex_iter.max()) + 1] < 1).sum())
-    log(f"  EXACT: 1 call {ex_ms:.2f} ms -> {B_MAIN / ex_ms * 1e3:.1f} "
-        f"solves/s (one call: median = p10 = p90); every status 0, "
-        f"residual maxima {res.tolist()} vs {list(tols)} (in tolerance); "
-        f"sqp_iter mean {ex_iter.mean():.2f} max {ex_iter.max()}, "
-        f"{int(ex_iter.max()) + 1} lockstep rounds, {bt} backtracking "
+    ex_status = ex_stats.status.cpu().numpy()
+    rounds = lockstep_rounds(ex_stats, exact.opts)
+    bt = int((alpha[:, :rounds] < 1).sum())
+    log(f"  EXACT cut at {NEWTON_ROUNDS} lockstep rounds: 1 call "
+        f"{ex_ms:.2f} ms; statuses "
+        f"{np.unique(ex_status, return_counts=True)}, residual maxima "
+        f"{res.tolist()}; sqp_iter mean {ex_iter.mean():.2f} max "
+        f"{ex_iter.max()}, {rounds} lockstep rounds, {bt} backtracking "
         f"line searches over the batch; launches {counts} (K1 expected "
         f"{want} from the stat table)")
-    gn_iter = np.stack(gn_iter)
     log(f"  Gauss-Newton: {call_stats(gn_ms)}; sqp_iter mean "
         f"{gn_iter.mean():.2f} max {gn_iter.max()}; the EXACT call "
         f"{ex_ms / float(np.median(gn_ms)):.1f}x its median")
@@ -2802,6 +2857,483 @@ def newton_vs_cpu() -> None:
         card_vs_cpu(label, lambda where: batch_at(
             pendulum_variant(nlp_solver_max_iter=CHECK_ITER, **so),
             x0_swing, where), calls=1)
+
+
+# ---------------------------------------------------------------------------
+# NLP breadth (phases 29-32): DDP, SQP_WITH_FEASIBLE_QP, BGP rows and the
+# INTEGRATOR cost
+# ---------------------------------------------------------------------------
+
+
+def lockstep_rounds(stats, opts) -> int:
+    """The lockstep rounds of a solve: instance b ran sqp_iter[b] rounds
+    and one more where it converged inside the loop (the round that finds
+    it converged); an instance at max_iter may converge at the final
+    linearization, which is no round."""
+    rounds = stats.sqp_iter.cpu().numpy() + (stats.status.cpu().numpy() == 0)
+    return int(np.minimum(rounds, opts.max_iter).max())
+
+
+def _stepping_alphas(stats, opts):
+    """Per lockstep round r, the stat table's alphas of the instances
+    that took a step in it (sqp_iter > r; the round that finds an
+    instance converged takes none)."""
+    sqp_iter = stats.sqp_iter.cpu().numpy()
+    alpha = stats.stat[:, :, 6].cpu().numpy()
+    return [alpha[sqp_iter > r, r]
+            for r in range(lockstep_rounds(stats, opts))]
+
+
+def ddp_k1_expected(stats, opts, N) -> int:
+    """K1 launches of one DDP solve on the IRK pendulum, worked out from
+    its stat table (ddp.py): the initial forward simulation (N steps of
+    K1_PER_DYN_GAP); each lockstep round a linearization
+    (LAUNCHES_PER_RTI) and, where any instance takes a step, one rollout
+    of N steps for each trial alpha of the lockstep backtracking (the
+    most any stepping instance took, from alpha = 1) and one more where
+    an instance left it under alpha_min; the final linearization."""
+    total = K1_PER_DYN_GAP * N + LAUNCHES_PER_RTI
+    for alphas in _stepping_alphas(stats, opts):
+        total += LAUNCHES_PER_RTI
+        if len(alphas):
+            tr = [backtrack_trials(a, opts, alphas.dtype.type)
+                  for a in alphas]
+            total += K1_PER_DYN_GAP * N * (max(t for t, _ in tr)
+                                           + (not all(ok for _, ok in tr)))
+    return total
+
+
+def wfqp_k1_expected(stats, opts) -> int:
+    """K1 launches of one SQP_WITH_FEASIBLE_QP solve on the IRK pendulum
+    (wfqp.py): each lockstep round a linearization and, with
+    MERIT_BACKTRACKING where any instance takes a step, the merit at the
+    iterate and at each trial alpha of the lockstep backtracking (from
+    alpha = 1), one dynamics gap each; the final linearization. Both QPs
+    run without K1 (nx = 4)."""
+    total = LAUNCHES_PER_RTI
+    for alphas in _stepping_alphas(stats, opts):
+        total += LAUNCHES_PER_RTI
+        if len(alphas) and opts.globalization != "FIXED_STEP":
+            trials = max(backtrack_trials(a, opts, alphas.dtype.type)[0]
+                         for a in alphas)
+            total += K1_PER_DYN_GAP * (1 + trials)
+    return total
+
+
+# phases 29-32: the main path's float32 tolerances (models/pendulum.py;
+# the DDP pendulum also takes its Levenberg-Marquardt term), the IRK
+# DDP's cut (phase 29 b), the obstacle's start and its spread, and the
+# float64 checks' batch and horizons (an IRK rollout is N sequential
+# steps, slow on the CPU side of the check; at N = 8 the obstacle's
+# first node clears the disc and its row is inactive, at N = 10 the
+# node sits on the disc)
+F32_TOLS = dict(nlp_solver_tol_stat=2e-3, nlp_solver_tol_eq=1e-4,
+                nlp_solver_tol_ineq=1e-4, nlp_solver_tol_comp=1e-3)
+F32_LM = 1e-4
+DDP_CUT_ITER = 2
+X0_OBSTACLE, OBSTACLE_SIGMA = (-2.0, 0.01), 0.01
+B_NLP_CHECK, N_NLP_CHECK, NLP_CHECK_ITER = 4, 10, 2
+N_IRK_CHECK, IRK_CHECK_ITER = 2, 1
+# depth cuts that keep phases 29-32 near their 180 s: run to its end,
+# the ERK DDP took 100 lockstep rounds and 95.0 s (about half the
+# instances cycle, tests/test_torch_ddp.py::test_cycling_instances_
+# match_jax), the pendulum WFQP 96 rounds and 271.0 s, every status 0
+# (float32 merit ties near the 2e-3 gate stretch its tail; PERF.md).
+# Cut, each keeps its launch count against the stat table, its
+# statuses (converged or at the cut) and a finite trajectory; the
+# converged runs stay held by the CPU tests and phase 32
+DDP_ERK_ROUNDS, WFQP_ROUNDS = 36, 10
+
+
+def nlp_batch(ocp, B, dev, x0_center, sigma, seed=SEED, zero_init=False,
+              **solver_options):
+    """AcadosOcpBatchSolver of `ocp` with the given solver options, x0
+    per instance = x0_center + N(0, sigma), set as bench.py's _build_rti
+    sets it (acados_tpu_torch.testing.rti_batch); zero_init: the
+    iterate 0 instead (tests/test_wfqp.py's init_iterate, where the
+    obstacle rows' gradient vanishes)."""
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    for k, v in solver_options.items():
+        setattr(ocp.solver_options, k, v)
+    rng = np.random.default_rng(seed)
+    x0s = np.asarray(x0_center) + rng.normal(0.0, sigma,
+                                             (B, len(x0_center)))
+    solver = batch_at(ocp, x0s, dev)
+    if zero_init:
+        solver._host_iterate()["x"][:] = 0.0
+        solver._it_dev = None
+    return solver
+
+
+def timed_call(solver):
+    """One solve() call: (host ms, statuses), synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    st = solver.solve()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, st
+
+
+def check_solved(label, solver, st, tols=None):
+    """Every status 0, the residuals in tolerance, a finite trajectory of
+    the batch's shape; returns the residual maxima."""
+    import torch
+    if np.any(st != 0):
+        raise SystemExit(f"{label}: statuses "
+                         f"{np.unique(st, return_counts=True)}")
+    ok_tol, res, tols = in_tolerance(solver, tols)
+    if not ok_tol:
+        raise SystemExit(f"{label} out of tolerance: {res} vs {tols}")
+    x = solver._it_dev.x
+    if x.shape != (solver.N_batch, solver.N + 1, solver.form.nx) or not \
+            bool(torch.isfinite(x).all()):
+        raise SystemExit(f"{label}: bad trajectory tensor")
+    return res
+
+
+def once_ms(fn) -> float:
+    """Host-clock time of one fn() ending in a synchronize (ms): nothing
+    compiles in the port, so a first run is timed like any other."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def ddp_split(solver) -> dict:
+    """Where one DDP iteration's time goes at the solver's iterate (host
+    ms of one run each, synchronised): the linearization, the Riccati
+    factorization + backward sweep, one rollout of the batch (alpha = 1)
+    and one cost evaluation."""
+    import torch
+    from acados_tpu_torch.ocp_nlp.ddp import rollout
+    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
+                                                    eval_cost)
+    from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
+    from acados_tpu_torch.ocp_qp.riccati import (riccati_backward,
+                                                 riccati_factor)
+    form, opts = solver.form, solver.opts
+    data, it = solver._on_device()
+    lin, qp = linearized(solver)
+    qp = regularize_qp(qp, opts.regularize_method, opts.reg_epsilon)
+
+    def riccati():
+        fact = riccati_factor(qp.Q, qp.R, qp.S, qp.A, qp.B,
+                              reg_eps=opts.qp_opts.reg_eps, factor_p0=False)
+        return fact, riccati_backward(fact, qp.A, qp.B, qp.q, qp.r, qp.b)
+
+    fact, (kff, _) = riccati()
+    alpha = torch.ones(it.x.shape[0], dtype=it.x.dtype, device=it.x.device)
+    soft = build_static_rows(form, it.x.dtype, it.x.device)["soft"]
+    return dict(
+        linearize_ms=once_ms(lin), riccati_ms=once_ms(riccati),
+        rollout_ms=once_ms(lambda: rollout(form, data, it.x[:, 0], it.u,
+                                           it.x, fact.K, kff, alpha)),
+        cost_ms=once_ms(lambda: eval_cost(form, data, it.x, it.u, it.sl,
+                                          it.su, soft)))
+
+
+def ddp_first_cost(solver):
+    """Every instance's cost at the DDP solver's first forward simulation:
+    its solve function cut at 0 iterations, on the same data and initial
+    iterate as the solver's next call."""
+    from acados_tpu_torch.interface.solver import make_nlp_solver
+    solve = make_nlp_solver(solver.form, solver.opts.replace(max_iter=0),
+                            "DDP")
+    return solve(*solver._on_device())[1].cost.cpu().numpy()
+
+
+def ddp_descent(solver, first_cost):
+    """What DDP's backtracking guarantees (ddp.py: a trial is accepted
+    only where the cost falls below the iterate's): an instance that
+    stepped and whose every step was accepted (alpha > alpha_min) ends
+    below its first rollout's cost. A step left under alpha_min is
+    taken unchecked. Returns (held, fell, short): the instances the
+    guarantee covers, those whose cost fell, those with an unchecked
+    step."""
+    stats, opts = solver._stats, solver.opts
+    k = stats.sqp_iter.cpu().numpy()
+    alpha = stats.stat[:, :, 6].cpu().numpy()
+    rows = np.arange(alpha.shape[1])[None] < k[:, None]
+    short = np.any(rows & (alpha <= opts.alpha_min), axis=1)
+    fell = stats.cost.cpu().numpy() < first_cost
+    return (k > 0) & ~short, fell, short
+
+
+def ddp_phase(dev) -> dict:
+    """Phase 29: DDP at full width. (a) tests/test_ddp.py's unconstrained
+    pendulum (ERK, 2 substeps, MERIT_BACKTRACKING), DDP_ERK_ROUNDS
+    lockstep rounds;
+    (b) the same OCP with the main path's IRK cut at DDP_CUT_ITER
+    iterations, its K1 launches against ddp_k1_expected, K1 on the
+    rollout's (B, 16, 16) launch against its plain version, and the
+    split of an iteration. Returns K1's kernels entry there."""
+    from acados_tpu_torch.ops import batched_inv
+    from acados_tpu_torch.testing import ddp_pendulum_ocp
+    import torch
+    so = dict(F32_TOLS, levenberg_marquardt=F32_LM)
+    erk = nlp_batch(ddp_pendulum_ocp(N_HORIZON, "float32", "ERK"), B_MAIN,
+                    dev, X0_CENTER, X0_SIGMA,
+                    nlp_solver_max_iter=DDP_ERK_ROUNDS, **so)
+    first_cost = ddp_first_cost(erk)
+    reset_counts()
+    ms, st = timed_call(erk)
+    counts = read_counts()
+    res = erk.get_stats("residuals")
+    it_ = erk.get_stats("sqp_iter")
+    ok = st == 0
+    tols = np.array([so[f"nlp_solver_tol_{k}"]
+                     for k in ("stat", "eq", "ineq", "comp")])
+    log(f"DDP: tests/test_ddp.py's unconstrained pendulum, ERK, B={B_MAIN}, "
+        f"N={N_HORIZON}, float32, x0 = {list(X0_CENTER)} + N(0, "
+        f"{X0_SIGMA}), MERIT_BACKTRACKING, max_iter "
+        f"{erk.opts.max_iter}: 1 call {ms:.2f} ms; statuses "
+        f"{np.unique(st, return_counts=True)}; converged instances' "
+        f"residual maxima {res[ok].max(axis=0).tolist()}, sqp_iter mean "
+        f"{it_[ok].mean():.2f} max {it_[ok].max()}; res_eq of every "
+        f"instance <= {res[:, 1].max():.3e}; launches {counts}")
+    # DDP cycles from part of these x0s in both packages
+    # (tests/test_torch_ddp.py::test_cycling_instances_match_jax), and
+    # most of the rest are still on their way at the cut: those stop at
+    # max_iter (2; DDP_ERK_ROUNDS) or on a vanishing step (3),
+    # dynamically feasible all the same, and each is held to the descent
+    # its line search guarantees
+    held, fell, short = ddp_descent(erk, first_cost)
+    log(f"  descent: {int(held.sum())} instances stepped with every step "
+        f"accepted, {int((held & fell).sum())} of them below their first "
+        f"rollout's cost; {int(short.sum())} took a step under alpha_min "
+        f"(unchecked); {int(fell.sum())} of {B_MAIN} below it in all")
+    x = erk._it_dev.x
+    if np.any((st != 0) & (st != 2) & (st != 3)) or not ok.any() \
+            or np.any(res[ok] > tols) or res[:, 1].max() > tols[1] \
+            or np.any(held & ~fell) \
+            or not bool(torch.isfinite(x).all()) or any(counts.values()):
+        raise SystemExit("DDP ERK failed its checks")
+
+    irk = nlp_batch(ddp_pendulum_ocp(N_HORIZON, "float32", "IRK"), B_MAIN,
+                    dev, X0_CENTER, X0_SIGMA,
+                    nlp_solver_max_iter=DDP_CUT_ITER, **so)
+    reset_counts()
+    with K1Shapes() as k1:
+        ms, st = timed_call(irk)
+    counts = read_counts()
+    want = ddp_k1_expected(irk._stats, irk.opts, N_HORIZON)
+    x = irk._it_dev.x
+    if not bool(torch.isfinite(x).all()) or np.any((st != 0) & (st != 2)):
+        raise SystemExit(f"DDP IRK: statuses {np.unique(st)}, finite "
+                         f"{bool(torch.isfinite(x).all())}")
+    alpha = irk._stats.stat[:, :DDP_CUT_ITER, 6].cpu().numpy()
+    log(f"  DDP, the main path's IRK, cut at {DDP_CUT_ITER} iterations: 1 "
+        f"call {ms:.2f} ms; statuses {np.unique(st, return_counts=True)}; "
+        f"alphas {np.unique(alpha, return_counts=True)}; launches {counts} "
+        f"(K1 expected {want} from the stat table), shapes "
+        f"{sorted(set(k1.shapes))}")
+    if counts["gj_inverse"] != want or any(
+            v for k, v in counts.items() if k != "gj_inverse"):
+        raise SystemExit(f"DDP IRK launches {counts}, K1 expected {want}")
+    A = k1.first
+    if tuple(A.shape) != (B_MAIN, 16, 16):
+        raise SystemExit(f"DDP IRK: first K1 launch {tuple(A.shape)}")
+    log(f"  time split of an iteration at the cut iterate (host ms): "
+        f"{json.dumps(ddp_split(irk))}")
+    rel, abs_err, _ = check_inverse(
+        f"DDP rollout step {tuple(A.shape)}", A,
+        batched_inv._gj_inverse_cuda, F32_BOUND)
+    entry = k1_entry("gj_inverse_ddp_rollout", A, counts["gj_inverse"], rel,
+                     abs_err)
+    entry["launch_shapes"] = sorted(set(k1.shapes))
+    return entry
+
+
+def wfqp_phase(dev) -> None:
+    """Phase 30: SQP_WITH_FEASIBLE_QP at full width. The main path's
+    pendulum (IRK, float32 tolerances) with MERIT_BACKTRACKING, WFQP_ROUNDS
+    lockstep rounds: converged instances in tolerance, K1 against
+    wfqp_k1_expected, both QPs' iterations. The obstacle OCP as BGP rows (ERK) from the zero iterate,
+    x0 spread by N(0, OBSTACLE_SIGMA): plain SQP fails on the batch,
+    WFQP converges with every node outside the disc."""
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import obstacle_ocp
+    pend = nlp_batch(make_pendulum_ocp(
+        N=N_HORIZON, dtype="float32", integrator_type="IRK",
+        nlp_solver_type="SQP_WITH_FEASIBLE_QP"), B_MAIN, dev, X0_CENTER,
+        X0_SIGMA, globalization="MERIT_BACKTRACKING",
+        nlp_solver_max_iter=WFQP_ROUNDS)
+    reset_counts()
+    ms, st = timed_call(pend)
+    counts = read_counts()
+    res = pend.get_stats("residuals")
+    conv = st == 0
+    tols = np.array([pend.acados_ocp.solver_options.nlp_solver_tol_stat,
+                     pend.acados_ocp.solver_options.nlp_solver_tol_eq,
+                     pend.acados_ocp.solver_options.nlp_solver_tol_ineq,
+                     pend.acados_ocp.solver_options.nlp_solver_tol_comp])
+    import torch
+    if np.any(~conv & (st != 2)) or not conv.any() \
+            or np.any(res[conv] > tols) \
+            or not bool(torch.isfinite(pend._it_dev.x).all()):
+        raise SystemExit(f"WFQP pendulum: statuses "
+                         f"{np.unique(st, return_counts=True)}")
+    want = wfqp_k1_expected(pend._stats, pend.opts)
+    it_ = pend.get_stats("sqp_iter")
+    total = pend.get_stats("qp_iter")
+    feas = pend._stats.feas_qp_iter.cpu().numpy()
+    log(f"WFQP: the main path's pendulum (IRK, SQP_WITH_FEASIBLE_QP, "
+        f"MERIT_BACKTRACKING), B={B_MAIN}, N={N_HORIZON}, float32, cut at "
+        f"{WFQP_ROUNDS} rounds: 1 call {ms:.2f} ms; statuses "
+        f"{np.unique(st, return_counts=True)}, the converged instances' "
+        f"residual maxima {res[conv].max(axis=0).tolist()} (in tolerance); "
+        f"sqp_iter mean "
+        f"{it_.mean():.2f} max {it_.max()}; QP iterations a solve: "
+        f"feasibility QP mean {feas.mean():.2f} max {feas.max()}, nominal "
+        f"QP mean {(total - feas).mean():.2f} max {(total - feas).max()}; "
+        f"launches {counts} (K1 expected {want} from the stat table)")
+    if counts["gj_inverse"] != want or any(
+            v for k, v in counts.items() if k != "gj_inverse"):
+        raise SystemExit(f"WFQP launches {counts}, K1 expected {want}")
+
+    def obstacle(kind):
+        return nlp_batch(obstacle_ocp("bgp", N_HORIZON, "float32"), B_MAIN,
+                         dev, X0_OBSTACLE, OBSTACLE_SIGMA, zero_init=True,
+                         nlp_solver_type=kind, **F32_TOLS)
+
+    sqp = obstacle("SQP")
+    ms_s, st_s = timed_call(sqp)
+    wfqp = obstacle("SQP_WITH_FEASIBLE_QP")
+    ms_w, st_w = timed_call(wfqp)
+    res = check_solved("WFQP obstacle (BGP)", wfqp, st_w)
+    d2 = float((wfqp._it_dev.x ** 2).sum(-1).min())
+    it_ = wfqp.get_stats("sqp_iter")
+    log(f"  obstacle as BGP rows (ERK, N={N_HORIZON}, B={B_MAIN}, float32, "
+        f"from the zero iterate, x0 = {list(X0_OBSTACLE)} + N(0, "
+        f"{OBSTACLE_SIGMA})): plain SQP {ms_s:.2f} ms, statuses "
+        f"{np.unique(st_s, return_counts=True)}; WFQP {ms_w:.2f} ms, every "
+        f"status 0, residual maxima {res.tolist()}, sqp_iter mean "
+        f"{it_.mean():.2f} max {it_.max()}, min ||x||^2 {d2:.6f}")
+    if np.any(st_s == 0):
+        raise SystemExit("plain SQP solved the obstacle from the zero "
+                         "iterate")
+    if not d2 >= 1.0 - 1e-4:
+        raise SystemExit(f"WFQP obstacle: min ||x||^2 {d2}")
+
+
+def integrator_phase(dev, it0) -> dict:
+    """Phase 31: the main path with cost_discretization INTEGRATOR beside
+    the EULER main path, both from the main path's converged iterate it0
+    (phase 4: the RTI takes ~10 calls from x0 to its tolerance),
+    interleaved (1 cold + 3 warm calls each, then 3 rounds of 1 timed
+    call): every status 0 and in tolerance, K1 K1_PER_INTEGRATOR_RTI a
+    call; K1 on the path stage points' launch against its plain version.
+    Returns K1's kernels entry there."""
+    from acados_tpu_torch.ops import batched_inv
+    kw = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
+              integrator_type="IRK")
+    solvers = {disc: rti_batch(kw, B_MAIN, dev, solver_options=dict(
+        cost_discretization=disc))[0] for disc in ("EULER", "INTEGRATOR")}
+    for solver in solvers.values():
+        solver._it_dev = it0
+    warm, rounds = 3, 3
+    out = interleaved(solvers, "INTEGRATOR cost", None, warm, rounds, 1)
+    calls = 1 + warm + rounds
+    for disc, per_call in (("EULER", LAUNCHES_PER_RTI),
+                           ("INTEGRATOR", K1_PER_INTEGRATOR_RTI)):
+        ms, qp_max, counts = out[disc]
+        log(f"main path, cost_discretization {disc}: {call_stats(ms)}; "
+            f"largest qp_iter a call {qp_max}; launches over {calls} "
+            f"calls {counts} (K1 expected {per_call} a call)")
+        if counts["gj_inverse"] != per_call * calls or any(
+                v for k, v in counts.items() if k != "gj_inverse"):
+            raise SystemExit(f"{disc}: launches {counts}")
+    ratio = float(np.median(out["INTEGRATOR"][0])) / float(
+        np.median(out["EULER"][0]))
+    # the path stage points' Newton solves: (B (N - 1), 16, 16)
+    with K1Shapes(match=lambda a: a.shape[0] == B_MAIN * (N_HORIZON - 1)) \
+            as k1:
+        solvers["INTEGRATOR"].solve()
+    log(f"  INTEGRATOR call {ratio:.2f}x the EULER median; K1 shapes of "
+        f"a call {sorted(set(k1.shapes))}")
+    A = k1.matched
+    rel, abs_err, _ = check_inverse(
+        f"INTEGRATOR stage points {tuple(A.shape)}", A,
+        batched_inv._gj_inverse_cuda, F32_BOUND)
+    return k1_entry("gj_inverse_integrator_points", A,
+                    out["INTEGRATOR"][2]["gj_inverse"], rel, abs_err)
+
+
+def integrator_variant(kind, integrator):
+    """The main path's pendulum as an SQP in float64 with the INTEGRATOR
+    cost: NONLINEAR_LS (its own), CONL psi = 0.5 r' W r + 0.01 sum(r^4)
+    on the same residuals, or EXTERNAL 0.5 y' W y with y = (x, u)."""
+    import torch
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    ocp = make_pendulum_ocp(
+        N=N_IRK_CHECK if integrator == "IRK" else N_NLP_CHECK,
+        dtype="float64", nlp_solver_type="SQP", integrator_type=integrator)
+    m, c = ocp.model, ocp.cost
+    W, Q = torch.as_tensor(c.W), torch.as_tensor(c.W_e)
+    if kind == "CONL":
+        m.cost_psi_expr = lambda r, p: (0.5 * r @ W.to(r) @ r
+                                        + 0.01 * (r ** 4).sum())
+        m.cost_psi_expr_e = lambda r, p: 0.5 * r @ Q.to(r) @ r
+        c.cost_type = c.cost_type_e = "CONL"
+    elif kind == "EXTERNAL":
+        m.cost_expr_ext_cost = lambda x, u: 0.5 * (
+            torch.cat([x, u]) @ W.to(x) @ torch.cat([x, u]))
+        m.cost_expr_ext_cost_e = lambda x: 0.5 * x @ Q.to(x) @ x
+        c.cost_type = c.cost_type_e = "EXTERNAL"
+    ocp.solver_options.cost_discretization = "INTEGRATOR"
+    return ocp
+
+
+def nlp_breadth_vs_cpu() -> None:
+    """Phase 32: float64 card against CPU at B = B_NLP_CHECK, each solve
+    cut at NLP_CHECK_ITER iterations (the IRK's at IRK_CHECK_ITER, N =
+    N_IRK_CHECK): DDP on ERK and on IRK, WFQP on the
+    pendulum and on the obstacle as BGH, BGP and soft BGP rows, the
+    INTEGRATOR cost with IRK NONLINEAR_LS, IRK CONL, ERK NONLINEAR_LS and
+    ERK EXTERNAL; statuses and iterations equal, x, u, pi within 1e-9."""
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import ddp_pendulum_ocp, obstacle_ocp
+
+    def soft(ocp):
+        ocp.constraints.idxsphi = np.array([0])
+        ocp.cost.Zl = ocp.cost.Zu = np.array([1.0])
+        ocp.cost.zl = ocp.cost.zu = np.array([50.0])
+        return ocp
+
+    B, cut = B_NLP_CHECK, dict(nlp_solver_max_iter=NLP_CHECK_ITER)
+    cases = {
+        "DDP ERK": (lambda: ddp_pendulum_ocp(N_NLP_CHECK, "float64", "ERK"),
+                    X0_CENTER, 0.05, False),
+        "DDP IRK": (lambda: ddp_pendulum_ocp(N_IRK_CHECK, "float64",
+                                             "IRK"), X0_CENTER, 0.05, False),
+        "WFQP pendulum (IRK)": (lambda: make_pendulum_ocp(
+            N=N_IRK_CHECK, dtype="float64", integrator_type="IRK",
+            nlp_solver_type="SQP_WITH_FEASIBLE_QP"), X0_CENTER, 0.05,
+            False),
+        **{f"WFQP obstacle ({label})": (
+            lambda rows=rows, sft=sft: (soft if sft else (lambda o: o))(
+                obstacle_ocp(rows, N_NLP_CHECK, "float64")),
+            X0_OBSTACLE, OBSTACLE_SIGMA, True)
+           for label, rows, sft in (("BGH", "h", False), ("BGP", "bgp", False),
+                                    ("soft BGP", "bgp", True))},
+        **{f"INTEGRATOR {integ} {kind}": (
+            lambda kind=kind, integ=integ: integrator_variant(kind, integ),
+            X0_CENTER, 0.05, False)
+           for integ, kind in (("IRK", "NONLINEAR_LS"), ("IRK", "CONL"),
+                               ("ERK", "NONLINEAR_LS"), ("ERK", "EXTERNAL"))}}
+    for label, (ocp, center, sigma, zero) in cases.items():
+        so = (dict(nlp_solver_max_iter=IRK_CHECK_ITER) if "IRK" in label
+              else cut)
+        t0 = time.perf_counter()
+        card_vs_cpu(label, lambda where, ocp=ocp, center=center, sigma=sigma,
+                    zero=zero, so=so: nlp_batch(
+                        ocp(), B, where, center, sigma, seed=2,
+                        zero_init=zero, **so), calls=1)
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
 
 
 def main() -> int:
@@ -3156,6 +3688,22 @@ def main() -> int:
     # ---- 28. float64 card against CPU of the new options --------------------
     at(28)
     newton_vs_cpu()
+
+    # ---- 29. DDP at full width ----------------------------------------------
+    at(29)
+    kernels.append(ddp_phase(dev))
+
+    # ---- 30. SQP with feasible QPs, BGP rows -----------------------------------
+    at(30)
+    wfqp_phase(dev)
+
+    # ---- 31. the INTEGRATOR cost on the main path ---------------------------
+    at(31)
+    kernels.append(integrator_phase(dev, solver._it_dev))
+
+    # ---- 32. float64 card against CPU of the NLP breadth --------------------
+    at(32)
+    nlp_breadth_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

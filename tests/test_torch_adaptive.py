@@ -55,30 +55,26 @@ def test_adaptive_qp_tol_matches_jax():
 
 
 def test_waiting_paths_raise():
-    """What item 16b (DDP, WFQP, BGP rows, multiphase, INTEGRATOR cost)
-    and item 20 (phase times, in-loop timeouts, stored iterates) port
-    still raises NotImplementedError naming its ROADMAP item."""
-    from acados_tpu_torch import (AcadosMultiphaseOcp, AcadosOcpBatchSolver,
-                                  AcadosOcpSolver)
+    """What is not ported yet raises NotImplementedError naming its
+    ROADMAP item: multiphase OCPs (item 16c), DISCRETE dynamics and
+    global parameters (item 17), and the interface utilities (item 20:
+    phase times, in-loop timeouts, stored iterates)."""
+    from acados_tpu_torch import AcadosMultiphaseOcp, AcadosOcpSolver
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
     from acados_tpu_torch.interface.builder import build_ocp
 
-    for kind in ("DDP", "SQP_WITH_FEASIBLE_QP"):
-        with pytest.raises(NotImplementedError, match="item 16b"):
-            AcadosOcpSolver(make_pendulum_ocp(nlp_solver_type=kind),
-                            device="cpu")
-    ocp = make_pendulum_ocp()
-    ocp.model.con_phi_expr = lambda r: r ** 2
-    ocp.model.con_r_expr = lambda x, u: x[:1]
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        build_ocp(ocp)
-    ocp = make_pendulum_ocp(integrator_type="IRK")
-    ocp.solver_options.cost_discretization = "INTEGRATOR"
-    with pytest.raises(NotImplementedError, match="item 16b"):
-        AcadosOcpBatchSolver(ocp, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16b"):
+    with pytest.raises(NotImplementedError, match="item 16c"):
         AcadosMultiphaseOcp([5, 5])
+    ocp = make_pendulum_ocp()
+    ocp.solver_options.integrator_type = "DISCRETE"
+    ocp.model.disc_dyn_expr = lambda x, u: x
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build_ocp(ocp)
+    ocp = make_pendulum_ocp()
+    ocp.model.p_global = np.zeros(1)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        build_ocp(ocp)
     form = build_ocp(make_pendulum_ocp())[0]
     for field, value in (("collect_phase_times", True),
                          ("timeout_max_time", 1.0),

@@ -78,16 +78,18 @@ def zero_iterate(form, x0s) -> dict:
                 lam_u=z(N_ + 1, nc), sl=z(N_ + 1, nc), su=z(N_ + 1, nc))
 
 
-def jax_solve(ocp, x0s, opts_update=None, data=None, init=None):
-    """jax.vmap of the JAX package's make_sqp_solver on the batch of x0s
-    (float64). Returns (data dict, init dict, iterate, stats), numpy."""
+def jax_solve(ocp, x0s, opts_update=None, data=None, init=None,
+              make=jax_make_sqp_solver):
+    """jax.vmap of the JAX package's make_sqp_solver (or `make`, another
+    of its solver factories) on the batch of x0s (float64). Returns (data
+    dict, init dict, iterate, stats), numpy."""
     form, dnp, _ = jax_build_ocp(ocp)
     opts = jax_opts_from(ocp)
     if opts_update:
         opts = opts.replace(**opts_update)
     data = batch_data(dnp, x0s, form.nx) if data is None else data
     init = zero_iterate(form, x0s) if init is None else init
-    solve = jax.jit(jax.vmap(jax_make_sqp_solver(form, opts)))
+    solve = jax.jit(jax.vmap(make(form, opts)))
     it, st = solve(JNlpData(**{k: jnp.asarray(v) for k, v in data.items()}),
                    JNlpIterate(**{k: jnp.asarray(v)
                                   for k, v in init.items()}))
@@ -97,13 +99,14 @@ def jax_solve(ocp, x0s, opts_update=None, data=None, init=None):
     return data, init, it, st
 
 
-def port_solve(ocp, data, init, opts_update=None):
-    """The port's make_sqp_solver on the same numpy data and iterate."""
+def port_solve(ocp, data, init, opts_update=None, make=make_sqp_solver):
+    """The port's make_sqp_solver (or `make`) on the same numpy data and
+    iterate."""
     form, _, _ = build_ocp(ocp)
     opts = _sqp_opts_from(ocp)
     if opts_update:
         opts = opts.replace(**opts_update)
-    it, st = make_sqp_solver(form, opts)(
+    it, st = make(form, opts)(
         data_to_torch(data, torch.float64, "cpu"),
         iterate_from_numpy(init, torch.float64, "cpu"))
     return ({f: getattr(it, f).numpy() for f in FIELDS},
