@@ -27,7 +27,8 @@ from acados_tpu_torch.interface.builder import build_ocp, data_to_torch
 from acados_tpu_torch.interface.solver import (_adjoint_wrt, _bound_slot,
                                                _fence, _forward_over_seeds,
                                                _seeds, _sqp_opts_from,
-                                               _torch_dtype, iterate_to_numpy,
+                                               _torch_dtype, _z_at,
+                                               iterate_to_numpy,
                                                iterate_to_torch,
                                                make_nlp_solver)
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
@@ -71,6 +72,12 @@ class _BatchView:
     def get(self, stage, field):
         if field in ("x", "u", "pi", "sl", "su"):
             return self._p._host_iterate()[field][self._i, stage].copy()
+        if field == "z":
+            p, i = self._p, self._i
+            return _z_at(p, stage, {k: p._host_iterate()[k][i:i + 1]
+                                    for k in ("x", "u")},
+                         {k: p._data[k][i:i + 1]
+                          for k in ("p", "ts", "dts")})[0]
         raise ValueError(field)
 
     def get_status(self):

@@ -6,11 +6,14 @@ out the runtime data. `build_ocp` returns the same numpy data dict (same
 keys, same shapes) as the JAX package's, so either package's dict can be
 turned into the port's batch-first `NlpData` by `data_to_torch`.
 
-Ported: ERK and IRK dynamics, LINEAR_LS / NONLINEAR_LS / CONL / EXTERNAL
-costs and AUTO cost detection, cost_discretization EULER and INTEGRATOR
-(ERK and IRK), the Gauss-Newton and the exact Hessian (with the
-exact_hess_cost/dyn/constr switches), BGH and BGP constraints with soft
-rows. The rest raises NotImplementedError naming its ROADMAP.md item.
+Ported: ERK, IRK, GNSF and DISCRETE dynamics (LIFTED_IRK integrates as
+IRK in the OCP, as in the JAX package), DAEs (nz > 0) whose costs and h
+rows may read z, global parameters (model.p_global with
+p_global_precompute_fun), LINEAR_LS (with Vz) / NONLINEAR_LS / CONL /
+EXTERNAL costs and AUTO cost detection, cost_discretization EULER and
+INTEGRATOR (ERK and IRK), the Gauss-Newton and the exact Hessian (with
+the exact_hess_cost/dyn/constr switches), BGH and BGP constraints with
+soft rows.
 """
 from __future__ import annotations
 
@@ -28,30 +31,45 @@ from acados_tpu_torch.sim.butcher import erk_tableau
 from acados_tpu_torch.sim.integrator import (SimOpts, make_step_fn,
                                              make_step_jac_fn,
                                              normalize_dynamics,
-                                             normalize_implicit_dynamics)
+                                             normalize_implicit_dynamics,
+                                             step_jac_of)
 from acados_tpu_torch.sim.irk import (implicit_from_explicit,
-                                      make_irk_stage_points)
+                                      make_irk_stage_points,
+                                      make_irk_z0_fun)
 from acados_tpu_torch.utils.types import ACADOS_INFTY
-
-
-def _not_ported(what: str, item: str = "item 17, integrator breadth"):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md Queue 1, {item})")
 
 
 def _norm4(f):
     """Normalize (x, u[, p[, t]]) callables to (x, u, p, t)."""
     if f is None:
         return None
-    params = list(inspect.signature(f).parameters)
-    if "z" in params:
-        raise _not_ported("a cost/constraint expression of z")
-    n = len(params)
+    n = len(inspect.signature(f).parameters)
     if n == 2:
         return lambda x, u, p, t: f(x, u)
     if n == 3:
         return lambda x, u, p, t: f(x, u, p)
     return f
+
+
+def _norm_z(f):
+    """Normalize a stage callable that may read the algebraic variable z
+    (acados_tpu/interface/builder.py:36-60). Returns (fn, with_z):
+    with_z False: fn(x, u, p, t); with_z True: fn(x, u, z, p, t). A
+    parameter literally named 'z' declares that the callable reads z."""
+    if f is None:
+        return None, False
+    params = list(inspect.signature(f).parameters)
+    if "z" not in params:
+        return _norm4(f), False
+    n = len(params)
+    if n == 3:    # (x, u, z)
+        return (lambda x, u, z, p, t: f(x, u, z)), True
+    if n == 4:    # (x, u, z, p)
+        return (lambda x, u, z, p, t: f(x, u, z, p)), True
+    if n == 5:    # (x, u, z, p, t)
+        return f, True
+    raise ValueError("z-dependent expressions must take "
+                     "(x, u, z[, p[, t]])")
 
 
 def _norm_term(f):
@@ -79,6 +97,23 @@ class StageLayout:
         self.off_h = self.off_g + self.ng
         self.off_phi = self.off_h + self.nh
         self.nrows = spec.nrows
+
+
+def _linear_ls_yfun_z(Vx, Vu, Vz):
+    """LINEAR_LS with an algebraic block: y = Vx x + Vu u + Vz z
+    (reference ocp_nlp_cost_ls.c:243 Vz; acados_tpu/interface/
+    builder.py:88-101)."""
+    Vx = np.asarray(Vx, np.float64)
+    Vu = None if Vu is None else np.asarray(Vu, np.float64)
+    Vz = np.asarray(Vz, np.float64)
+
+    def y(x, u, z, p, t):
+        out = _const(Vx, x) @ x + _const(Vz, x) @ z
+        if Vu is not None:
+            out = out + _const(Vu, x) @ u
+        return out
+
+    return y, Vx.shape[0]
 
 
 def _linear_ls_yfun(Vx, Vu):
@@ -216,36 +251,45 @@ def _build_cost_spec(ocp: AcadosOcp, which: str):
                             y_fun=_norm_term(m.cost_y_expr_e),
                             psi_fun=m.cost_psi_expr_e)
         raise ValueError(f"unsupported cost type {kind!r}")
-    if Vz is not None:
-        raise _not_ported("LINEAR_LS with a Vz block")
     if kind == "LINEAR_LS":
+        if Vz is not None:
+            y, ny = _linear_ls_yfun_z(Vx, Vu, Vz)
+            return CostSpec(kind=kind, ny=ny, y_fun=y, with_z=True)
         y, ny = _linear_ls_yfun(Vx, Vu)
         return CostSpec(kind=kind, ny=ny, y_fun=y,
                         Vx=np.asarray(Vx, np.float64),
                         Vu=None if Vu is None else np.asarray(Vu, np.float64))
     if kind == "NONLINEAR_LS":
-        return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=_norm4(y_expr))
+        f, wz = _norm_z(y_expr)
+        return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=f, with_z=wz)
     if kind == "CONL":
-        return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=_norm4(y_expr),
-                        psi_fun=psi)
+        f, wz = _norm_z(y_expr)
+        return CostSpec(kind=kind, ny=_dim_of(yref), y_fun=f, psi_fun=psi,
+                        with_z=wz)
     if kind == "EXTERNAL":
-        return CostSpec(kind=kind, ext_fun=_norm4(ext))
+        f, wz = _norm_z(ext)
+        return CostSpec(kind=kind, ext_fun=f, with_z=wz)
     raise ValueError(f"unsupported cost type {kind!r}")
 
 
 def _wrap_cost_integrator(spec: CostSpec, points_fn, weights) -> CostSpec:
     """cost_discretization INTEGRATOR (acados_tpu/interface/builder.py:
     279-336): the Lagrange cost at the integrator's quadrature points
-    points_fn(x, u, p, t, dt) -> (Xs (nq, nx), None, Ts (nq,)) with the
-    weights (nq,), which sum to 1 (the dt factor is NlpData.cost_scale).
-    The LS family becomes a NONLINEAR_LS over the stacked point
-    residuals, whose Gauss-Newton Hessian is the integrated one; CONL
-    keeps psi at each point (the stacked generalized Gauss-Newton);
-    EXTERNAL is the weighted sum of the cost at the points."""
+    points_fn(x, u, p, t, dt) -> (Xs (nq, nx), Zs (nq, nz) or None,
+    Ts (nq,)) with the weights (nq,), which sum to 1 (the dt factor is
+    NlpData.cost_scale). The LS family becomes a NONLINEAR_LS over the
+    stacked point residuals, whose Gauss-Newton Hessian is the integrated
+    one; CONL keeps psi at each point (the stacked generalized
+    Gauss-Newton); EXTERNAL is the weighted sum of the cost at the
+    points. A z-dependent integrand reads the IRK's algebraic stage
+    values Zs at its points."""
     wq = np.asarray(weights, np.float64)
 
     def call_pt(f0, x, u, p, t, dtk):
-        Xs, _, Ts = points_fn(x, u, p, t, dtk)
+        Xs, Zs, Ts = points_fn(x, u, p, t, dtk)
+        if spec.with_z:
+            return torch.stack([f0(Xs[q], u, Zs[q], p, Ts[q])
+                                for q in range(Xs.shape[0])])
         return torch.stack([f0(Xs[q], u, p, Ts[q])
                             for q in range(Xs.shape[0])])
 
@@ -254,14 +298,15 @@ def _wrap_cost_integrator(spec: CostSpec, points_fn, weights) -> CostSpec:
         return dataclasses.replace(
             spec, kind="CONL" if spec.kind == "CONL" else "NONLINEAR_LS",
             y_fun=lambda x, u, p, t, dtk: call_pt(y0, x, u, p, t, dtk),
-            Vx=None, Vu=None, needs_dt=True, quad_weights=wq)
+            Vx=None, Vu=None, needs_dt=True, quad_weights=wq, with_z=False)
     if spec.kind == "EXTERNAL":
         e0 = spec.ext_fun
 
         def e_int(x, u, p, t, dtk):
             return (_const(wq, x) * call_pt(e0, x, u, p, t, dtk)).sum()
 
-        return dataclasses.replace(spec, ext_fun=e_int, needs_dt=True)
+        return dataclasses.replace(spec, ext_fun=e_int, needs_dt=True,
+                                   with_z=False)
     raise ValueError(spec.kind)
 
 
@@ -303,12 +348,10 @@ def _integrated_costs(ocp: AcadosOcp, nx: int, cost_0, cost_p):
         pts_fn, wts = _erk_points_fn(normalize_dynamics(m.f_expl_expr),
                                      so.sim_method_num_stages,
                                      so.sim_method_num_steps)
-    elif so.integrator_type == "IRK":
-        fi = (normalize_implicit_dynamics(m.f_impl_expr)
-              if m.f_impl_expr is not None
-              else implicit_from_explicit(normalize_dynamics(m.f_expl_expr)))
+    elif so.integrator_type in ("IRK", "LIFTED_IRK"):
         pts_fn, wts = make_irk_stage_points(
-            fi, nx=nx, num_stages=so.sim_method_num_stages,
+            _f_impl(m), nx=nx, nz=_dim_of(m.z),
+            num_stages=so.sim_method_num_stages,
             num_steps=so.sim_method_num_steps,
             newton_iter=so.sim_method_newton_iter,
             collocation=so.collocation_type)
@@ -331,10 +374,10 @@ def _build_con_specs(ocp: AcadosOcp, nx, nu):
     idxbx_0 = _idx(con.idxbx_0)
     if con.x0 is not None and not idxbx_0:
         idxbx_0 = tuple(range(nx))
-    h0 = _norm4(m.con_h_expr_0 or m.con_h_expr)
+    h0, h0_wz = _norm_z(m.con_h_expr_0 or m.con_h_expr)
     nh0 = _dim_of(con.lh_0 if con.lh_0 is not None else con.lh) \
         if h0 is not None else 0
-    hp = _norm4(m.con_h_expr)
+    hp, hp_wz = _norm_z(m.con_h_expr)
     nhp = _dim_of(con.lh if con.lh is not None else con.uh) \
         if hp is not None else 0
     he = _norm_term(m.con_h_expr_e) if m.con_h_expr_e is not None else None
@@ -376,7 +419,7 @@ def _build_con_specs(ocp: AcadosOcp, nx, nu):
     idxbx = _idx(con.idxbx)
     con_0 = ConstraintSpec(
         nx=nx, nu=nu, idxbx=idxbx_0, idxbu=idxbu, Cg=Cg, Dg=Dg,
-        nh=nh0, h_fun=h0, **bgp_0,
+        nh=nh0, h_fun=h0, with_z=h0_wz, **bgp_0,
         soft_rows=soft_rows(len(idxbx_0), len(idxbu), ng, nh0, None,
                             con.idxsbu, con.idxsg,
                             con.idxsh_0 if con.idxsh_0 is not None
@@ -385,7 +428,7 @@ def _build_con_specs(ocp: AcadosOcp, nx, nu):
                             else con.idxsphi))
     con_p = ConstraintSpec(
         nx=nx, nu=nu, idxbx=idxbx, idxbu=idxbu, Cg=Cg, Dg=Dg,
-        nh=nhp, h_fun=hp, **bgp_p,
+        nh=nhp, h_fun=hp, with_z=hp_wz, **bgp_p,
         soft_rows=soft_rows(len(idxbx), len(idxbu), ng, nhp, con.idxsbx,
                             con.idxsbu, con.idxsg, con.idxsh, con.idxsphi))
     idxbx_e = _idx(con.idxbx_e)
@@ -437,31 +480,83 @@ def _class_slack_penalties(spec: ConstraintSpec, nc, Zl, Zu, zl, zu):
     return out
 
 
-def _check_ported(ocp: AcadosOcp):
-    m, so = ocp.model, ocp.solver_options
+def _check_options(ocp: AcadosOcp):
+    so = ocp.solver_options
     if so.hessian_approx not in ("GAUSS_NEWTON", "EXACT"):
         raise ValueError(f"hessian_approx {so.hessian_approx!r}")
     if so.cost_discretization not in ("EULER", "INTEGRATOR"):
         raise ValueError(
             f"cost_discretization {so.cost_discretization!r}")
-    if _dim_of(m.z):
-        raise _not_ported("algebraic variables (model.z)")
-    if getattr(m, "p_global", None) is not None:
-        raise _not_ported("global parameters (model.p_global)",
-                          "item 17, p_global")
-    if so.integrator_type not in ("ERK", "IRK"):
-        raise _not_ported(f"integrator_type {so.integrator_type!r}")
+
+
+def _f_impl(m):
+    """The model's implicit dynamics f(xdot, x, z, u, p, t), or its
+    explicit ODE wrapped as one."""
+    if m.f_impl_expr is not None:
+        return normalize_implicit_dynamics(m.f_impl_expr)
+    return implicit_from_explicit(normalize_dynamics(m.f_expl_expr))
+
+
+def _global_data(m, pg: np.ndarray) -> np.ndarray:
+    """p_global_precompute_fun(p_global) as a flat float64 array (the
+    reference's generated p_global_precompute_fun.in.h)."""
+    fn = getattr(m, "p_global_precompute_fun", None)
+    if fn is None:
+        return np.zeros(0)
+    out = fn(torch.as_tensor(np.asarray(pg, np.float64),
+                             dtype=torch.float64))
+    return np.asarray(torch.as_tensor(out).detach().cpu(),
+                      np.float64).reshape(-1)
+
+
+def _dynamics(ocp: AcadosOcp, nx: int, nu: int, nz: int):
+    """(step_fn, step_jac_fn), batch-first (acados_tpu/interface/
+    builder.py:529-557). DISCRETE: disc_dyn_expr(x, u, p, t), which
+    ignores dt, with the jacfwd step Jacobian the port builds for ERK;
+    LIFTED_IRK integrates as IRK (its payoff, stage memory across calls,
+    is the simulator's); a DAE's step_fn returns x_next alone."""
+    m, so = ocp.model, ocp.solver_options
+    if so.integrator_type == "DISCRETE":
+        disc = _norm4(m.disc_dyn_expr)
+        one = lambda x, u, p, t, dt: disc(x, u, p, t)
+        return torch.func.vmap(one), step_jac_of(one, nx)
+    itype = ("IRK" if so.integrator_type == "LIFTED_IRK"
+             else so.integrator_type)
+    sim_opts = SimOpts(
+        integrator_type=itype,
+        num_stages=so.sim_method_num_stages,
+        num_steps=so.sim_method_num_steps,
+        newton_iter=so.sim_method_newton_iter,
+        collocation_type=so.collocation_type)
+    step_fn = make_step_fn(f_expl=m.f_expl_expr, f_impl=m.f_impl_expr,
+                           nx=nx, nu=nu, nz=nz, opts=sim_opts)
+    if nz:
+        dae_step = step_fn
+        step_fn = lambda x, u, p, t, dt: dae_step(x, u, p, t, dt)[0]
+    step_jac_fn = make_step_jac_fn(
+        f_expl=m.f_expl_expr, f_impl=m.f_impl_expr, nx=nx, nu=nu, nz=nz,
+        opts=sim_opts, jac_reuse=bool(so.sim_method_jac_reuse))
+    return step_fn, step_jac_fn
 
 
 def build_ocp(ocp: AcadosOcp):
     """AcadosOcp -> (OcpNlpFormulation, data (numpy dict), layouts)."""
-    _check_ported(ocp)
+    _check_options(ocp)
     m, c, con, so = ocp.model, ocp.cost, ocp.constraints, ocp.solver_options
     if "AUTO" in (c.cost_type, c.cost_type_0, c.cost_type_e):
         _resolve_auto_cost(ocp)
     nx = _dim_of(m.x, ocp.dims.nx or 0)
     nu = _dim_of(m.u, ocp.dims.nu or 0)
-    np_dim = _dim_of(m.p, ocp.dims.np or 0)
+    nz = _dim_of(m.z)
+    np_stage = _dim_of(m.p, ocp.dims.np or 0)
+    # p_global tail (acados_tpu/interface/builder.py:502-512): the stage
+    # callables receive p = [p_stage | p_global | global_data]
+    npg = _dim_of(getattr(m, "p_global", None))
+    if getattr(m, "p_global_precompute_fun", None) is not None \
+            and npg == 0:
+        raise ValueError("p_global_precompute_fun needs model.p_global")
+    ngd = _global_data(m, np.zeros(npg)).shape[0] if npg else 0
+    np_dim = np_stage + npg + ngd
     N = so.N_horizon or ocp.dims.N
     if N is None:
         raise ValueError("set solver_options.N_horizon")
@@ -478,17 +573,7 @@ def build_ocp(ocp: AcadosOcp):
     ts = np.concatenate([[0.0], np.cumsum(dts)])
 
     # ---- dynamics step functions (batch-first) ------------------------------
-    sim_opts = SimOpts(
-        integrator_type=so.integrator_type,
-        num_stages=so.sim_method_num_stages,
-        num_steps=so.sim_method_num_steps,
-        newton_iter=so.sim_method_newton_iter,
-        collocation_type=so.collocation_type)
-    step_fn = make_step_fn(f_expl=m.f_expl_expr, f_impl=m.f_impl_expr,
-                           nx=nx, opts=sim_opts)
-    step_jac_fn = make_step_jac_fn(
-        f_expl=m.f_expl_expr, f_impl=m.f_impl_expr, nx=nx, opts=sim_opts,
-        jac_reuse=bool(so.sim_method_jac_reuse))
+    step_fn, step_jac_fn = _dynamics(ocp, nx, nu, nz)
 
     con_0, con_p, con_e = _build_con_specs(ocp, nx, nu)
     cost_0 = _build_cost_spec(ocp, "0")
@@ -496,6 +581,33 @@ def build_ocp(ocp: AcadosOcp):
     cost_e = _build_cost_spec(ocp, "e")
     if so.cost_discretization == "INTEGRATOR":
         cost_0, cost_p = _integrated_costs(ocp, nx, cost_0, cost_p)
+
+    # ---- algebraic variables in the NLP (acados_tpu/interface/builder.py:
+    # 595-623): z-dependent modules read z through the linearization's
+    # affine model and the exact z(t0) evaluator
+    any_z = (cost_0.with_z or cost_p.with_z or con_0.with_z
+             or con_p.with_z)
+    z_fun = None
+    if any_z:
+        if nz == 0:
+            raise ValueError("cost/constraint expressions reference z "
+                             "but model.z declares nz == 0")
+        if so.integrator_type not in ("IRK", "LIFTED_IRK"):
+            raise ValueError(
+                "z-dependent cost/constraints need an implicit DAE "
+                f"integrator (IRK/LIFTED_IRK); got {so.integrator_type}")
+        z0_fun = make_irk_z0_fun(
+            normalize_implicit_dynamics(m.f_impl_expr), nx=nx, nz=nz,
+            num_stages=so.sim_method_num_stages,
+            newton_iter=so.sim_method_newton_iter,
+            collocation=so.collocation_type)
+        nsteps = so.sim_method_num_steps
+        z_fun = lambda x, u, p, t, dt: z0_fun(x, u, p, t, dt / nsteps)
+    elif nz and step_jac_fn is not None:
+        # a DAE whose cost and constraints never read z: the linearizer
+        # takes the 3-tuple of an ODE
+        dae_jac = step_jac_fn
+        step_jac_fn = lambda x, u, p, t, dt: dae_jac(x, u, p, t, dt)[:3]
 
     # stage-0 full-state equality (reference idxbxe_0; x0 sugar implies
     # it): the static license for QP initial-state elimination
@@ -507,7 +619,8 @@ def build_ocp(ocp: AcadosOcp):
 
     form = OcpNlpFormulation(
         N=N, nx=nx, nu=nu, np_=np_dim, step_fn=step_fn,
-        step_jac_fn=step_jac_fn, cost_0=cost_0, cost=cost_p, cost_e=cost_e,
+        step_jac_fn=step_jac_fn, nz=nz if any_z else 0, z_fun=z_fun,
+        cost_0=cost_0, cost=cost_p, cost_e=cost_e,
         con_0=con_0, con=con_p, con_e=con_e,
         exact_hessian=(so.hessian_approx == "EXACT"),
         exact_hess_cost=bool(so.exact_hess_cost),
@@ -568,8 +681,13 @@ def build_ocp(ocp: AcadosOcp):
     else:
         # reference default: Lagrange term scaled by time step, Mayer by 1
         cost_scale = np.concatenate([dts, [1.0]])
-    p0 = np.zeros(np_dim) if ocp.parameter_values is None \
+    p0 = np.zeros(np_stage) if ocp.parameter_values is None \
         else np.asarray(ocp.parameter_values, np.float64)
+    if npg:
+        pg0 = (np.zeros(npg)
+               if getattr(ocp, "p_global_values", None) is None
+               else np.asarray(ocp.p_global_values, np.float64))
+        p0 = np.concatenate([p0, pg0, _global_data(m, pg0)])
 
     data = dict(
         p=np.tile(p0, (N + 1, 1)),

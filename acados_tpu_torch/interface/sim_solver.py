@@ -7,8 +7,10 @@ p)` plus set/get of seeds and sensitivity options), backed by the
 batch-first integrators of `acados_tpu_torch.sim` and
 `sim.integrator.simulate`. The solver runs on the card unless `device`
 is "cpu". The batch solver is one batch-first call over all instances,
-not a loop of per-instance solvers. GNSF, LIFTED_IRK and DAEs (nz > 0)
-raise, naming ROADMAP.md item 17.
+not a loop of per-instance solvers. Integrators: ERK, IRK (ODEs and DAEs,
+whose z at the interval end is get("z")), GNSF (IRK where no structure is
+detected) and LIFTED_IRK, whose stage variables the solver holds between
+simulate() calls (single solver only, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -19,7 +21,12 @@ import numpy as np
 import torch
 
 from acados_tpu_torch.interface.acados_ocp import AcadosModel, _dim_of
-from acados_tpu_torch.sim.integrator import SimOpts, make_step_fn, simulate
+from acados_tpu_torch.sim.integrator import (SimOpts, make_step_fn,
+                                             normalize_dynamics,
+                                             normalize_implicit_dynamics,
+                                             simulate)
+from acados_tpu_torch.sim.irk import implicit_from_explicit
+from acados_tpu_torch.sim.lifted_irk import make_lifted_irk_step
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
 
@@ -48,20 +55,14 @@ class AcadosSim:
     parameter_values: Optional[np.ndarray] = None
 
 
-def _check_ported(sim: AcadosSim, nz: int):
-    itype = sim.solver_options.integrator_type
-    if itype in ("GNSF", "LIFTED_IRK") or nz > 0:
-        what = (f"integrator_type {itype!r}" if nz == 0
-                else "a DAE model (nz > 0)")
-        raise NotImplementedError(
-            f"the simulator with {what} is not ported yet (ROADMAP.md "
-            "Queue 1, item 17, integrator breadth)")
-
-
 class AcadosSimSolver:
     """Reference: acados_sim_solver.py. simulate() returns x_next; the
     whole sim_out surface (xn, S_forw, Sx, Su, S_adj, S_hess, zn) is
-    reachable through get(). One instance runs as a batch of one."""
+    reachable through get(). One instance runs as a batch of one.
+    LIFTED_IRK keeps its lifted stage variables K between calls
+    (reference sim_lifted_irk_memory; acados_tpu/interface/sim_solver.py:
+    62-80, 97-112): each simulate() runs one Newton iteration from the
+    previous call's K."""
 
     def __init__(self, sim: AcadosSim, json_file=None, build=None,
                  generate=None, verbose=False, device=None):
@@ -74,34 +75,57 @@ class AcadosSimSolver:
         self.nu = _dim_of(sim.model.u)
         self.nz = _dim_of(sim.model.z)
         self.np = _dim_of(sim.model.p)
-        _check_ported(sim, self.nz)
         self.dtype = torch.float64 if so.dtype == "float64" \
             else torch.float32
         self.T = float(so.T)
         self._p = np.zeros(self.np) if sim.parameter_values is None \
             else np.asarray(sim.parameter_values, np.float64)
-        self._step = make_step_fn(
-            f_expl=sim.model.f_expl_expr, f_impl=sim.model.f_impl_expr,
-            nx=self.nx, nz=self.nz,
-            opts=SimOpts(integrator_type=so.integrator_type,
-                         num_stages=so.num_stages, num_steps=so.num_steps,
-                         newton_iter=so.newton_iter,
-                         collocation_type=so.collocation_type))
+        self._lifted_K = None
+        if so.integrator_type == "LIFTED_IRK":
+            m = sim.model
+            fi = (normalize_implicit_dynamics(m.f_impl_expr)
+                  if m.f_impl_expr is not None else
+                  implicit_from_explicit(normalize_dynamics(m.f_expl_expr)))
+            self._lstep, K0 = make_lifted_irk_step(
+                fi, nx=self.nx, nz=self.nz, num_stages=so.num_stages,
+                num_steps=so.num_steps, collocation=so.collocation_type)
+            self._lifted_K = K0.to(device=self.device, dtype=self.dtype)[None]
+            self._step = None
+        else:
+            self._step = make_step_fn(
+                f_expl=sim.model.f_expl_expr, f_impl=sim.model.f_impl_expr,
+                nx=self.nx, nu=self.nu, nz=self.nz, p=self._p,
+                opts=SimOpts(integrator_type=so.integrator_type,
+                             num_stages=so.num_stages,
+                             num_steps=so.num_steps,
+                             newton_iter=so.newton_iter,
+                             collocation_type=so.collocation_type))
         self._seed_adj = np.zeros(self.nx)
         self._x = np.zeros(self.nx)
         self._u = np.zeros(self.nu)
         self._out = None
 
     def _run(self, x, u, p, seed_adj=None):
-        """simulate() over a batch of host arrays."""
+        """simulate() over a batch of host arrays; LIFTED_IRK also moves
+        its lifted state on to the next call's."""
         so = self.acados_sim.solver_options
         as_t = lambda a: torch.as_tensor(np.asarray(a), dtype=self.dtype,
                                          device=self.device)
-        out = simulate(self._step, as_t(x), as_t(u), as_t(p), t0=0.0,
-                       dt=self.T,
+        x, u, p = as_t(x), as_t(u), as_t(p)
+        step = self._step
+        if self._lifted_K is not None:
+            K = self._lifted_K
+            step = lambda *a: self._lstep(*a, K)[0]
+        out = simulate(step, x, u, p, t0=0.0, dt=self.T,
                        seed_adj=None if seed_adj is None else as_t(seed_adj),
                        sens_forw=so.sens_forw, sens_adj=so.sens_adj,
-                       sens_hess=so.sens_hess, nz=self.nz)
+                       sens_hess=so.sens_hess,
+                       nz=0 if self._lifted_K is not None else self.nz)
+        if self._lifted_K is not None:
+            T = torch.full((x.shape[0],), self.T, dtype=self.dtype,
+                           device=self.device)
+            self._lifted_K = self._lstep(x, u, p, torch.zeros_like(T), T,
+                                         K)[1]
         if out.xn.is_cuda:
             torch.cuda.synchronize(out.xn.device)
         return out
@@ -174,6 +198,10 @@ class AcadosSimBatchSolver:
             raise ValueError("N_batch must be positive")
         self.N_batch = N_batch
         self._one = AcadosSimSolver(sim, device=device)
+        if sim.solver_options.integrator_type == "LIFTED_IRK":
+            raise NotImplementedError(
+                "batched lifted IRK: call sim.lifted_irk.make_lifted_irk_"
+                "step on the batch directly (its step is batch-first)")
         self.nx, self.nu, self.np = self._one.nx, self._one.nu, self._one.np
         self.dtype, self.device = self._one.dtype, self._one.device
         self._out = None

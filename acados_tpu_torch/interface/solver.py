@@ -14,10 +14,11 @@ options of the ported paths, the globalization's among them), the RTI
 phases (solve() after options_set("rti_phase", 1 or 2), AS-RTI levels
 A-D), get_status,
 get_stats (sqp_iter, qp_iter, residuals, time_tot, time_preparation,
-time_feedback, statistics), get_residuals, get_cost, reset, and the
+time_feedback, statistics), get_residuals, get_cost, reset, get(stage,
+"z") of a DAE, set_p_global_and_precompute_dependencies, and the
 solution sensitivities (eval_param_sens, eval_solution_sensitivity,
 eval_adjoint_solution_sensitivity, eval_and_get_optimal_value_gradient).
-p_global and the in-loop phase times wait (ROADMAP.md Queue 1).
+The in-loop phase times wait (ROADMAP.md Queue 1, item 20).
 """
 from __future__ import annotations
 
@@ -26,9 +27,9 @@ import time
 import numpy as np
 import torch
 
-from acados_tpu_torch.interface.acados_ocp import AcadosOcp
-from acados_tpu_torch.interface.builder import (StageLayout, build_ocp,
-                                                data_to_torch)
+from acados_tpu_torch.interface.acados_ocp import AcadosOcp, _dim_of
+from acados_tpu_torch.interface.builder import (StageLayout, _global_data,
+                                                build_ocp, data_to_torch)
 from acados_tpu_torch.ocp_nlp.ddp import make_ddp_solver
 from acados_tpu_torch.ocp_nlp.formulation import NlpData
 from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
@@ -195,6 +196,22 @@ def _fence(t: torch.Tensor):
     """Wait until the card has computed t (a no-op on the CPU)."""
     if t.is_cuda:
         torch.cuda.synchronize(t.device)
+
+
+def _z_at(solver, stage: int, it: dict, data: dict) -> np.ndarray:
+    """z of a DAE at a shooting node, (M, nz) for M instances
+    (acados_tpu/interface/solver.py:490-500): the exact z(t0) of the
+    interval the node starts, (M, 0) without z or at stage N. it: host
+    "x" and "u", data: host "p", "ts" and "dts", each with a leading
+    axis of the M instances."""
+    form = solver.form
+    if form.z_fun is None or stage >= form.N:
+        return np.zeros((it["x"].shape[0], 0))
+    as_t = lambda a: torch.as_tensor(np.asarray(a)[:, stage],
+                                     dtype=solver.dtype, device=solver.device)
+    z = form.z_fun(*(as_t(v) for v in (it["x"], it["u"], data["p"],
+                                       data["ts"], data["dts"])))
+    return z.detach().cpu().numpy().astype(np.float64)
 
 
 def _torch_dtype(ocp: AcadosOcp):
@@ -448,6 +465,10 @@ class AcadosOcpSolver:
             n = self._layout(stage).nrows
             return np.concatenate([it["lam_l"][stage][:n],
                                    it["lam_u"][stage][:n]])
+        if field == "z":
+            return _z_at(self, stage, {k: it[k][None] for k in ("x", "u")},
+                         {k: self._data[k][None] for k in ("p", "ts",
+                                                           "dts")})[0]
         raise ValueError(f"get: unknown field {field!r}")
 
     def _layout(self, stage) -> StageLayout:
@@ -473,7 +494,12 @@ class AcadosOcpSolver:
             self._default_init = False
             return
         if field == "p":
-            self._data["p"][stage] = value
+            if value.shape[0] == self._data["p"].shape[1]:
+                self._data["p"][stage] = value
+            else:
+                # the stage part only: the [p_global | global_data] tail
+                # is set_p_global_and_precompute_dependencies'
+                self._data["p"][stage, :value.shape[0]] = value
             return
         if field in ("yref", "W"):
             self.cost_set(stage, field, value)
@@ -540,9 +566,22 @@ class AcadosOcpSolver:
                 "sens_u": du[0].cpu().numpy()}
 
     def set_p_global_and_precompute_dependencies(self, p_global_values):
-        raise NotImplementedError(
-            "model.p_global is not ported yet (ROADMAP.md Queue 1, item "
-            "17, p_global)")
+        """Set the global parameters of every stage and recompute their
+        precomputed data (reference p_global_precompute_fun.in.h;
+        acados_tpu/interface/solver.py:632-656): the stage callables see
+        [p_stage | p_global | global_data] as their p."""
+        m = self.acados_ocp.model
+        npg = _dim_of(getattr(m, "p_global", None))
+        if npg == 0:
+            raise ValueError("model.p_global is not declared")
+        vals = np.atleast_1d(np.asarray(p_global_values, np.float64))
+        if vals.shape[0] != npg:
+            raise ValueError(f"expected {npg} p_global values")
+        gd = _global_data(m, vals)
+        np_stage = self._data["p"].shape[1] - npg - gd.shape[0]
+        self._data["p"][:, np_stage:np_stage + npg] = vals
+        if gd.shape[0]:
+            self._data["p"][:, np_stage + npg:] = gd
 
     def eval_and_get_optimal_value_gradient(self,
                                             with_respect_to="p_global"):

@@ -11,8 +11,11 @@ Ported: cost kinds LINEAR_LS, NONLINEAR_LS, CONL (generalized
 Gauss-Newton) and EXTERNAL, with the exact cost Hessian where the JAX
 package takes it, and their integrated forms over the integrator's
 quadrature points (cost_discretization INTEGRATOR); BGH constraint rows
-and BGP convex-over-nonlinear rows phi(r(x, u)), with soft rows.
-z-dependent modules wait (ROADMAP.md Queue 1, item 17).
+and BGP convex-over-nonlinear rows phi(r(x, u)), with soft rows. Cost
+and h callables of a DAE may read the algebraic variable z (with_z):
+the linearizer hands them z through an affine model around the
+linearization point (`zlin`), the merit and residual evaluations the
+exact z(t0) of the formulation's z_fun.
 """
 from __future__ import annotations
 
@@ -30,6 +33,13 @@ from acados_tpu_torch.utils.struct import tensor_dataclass
 def _const(a, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a, np.float64), dtype=like.dtype,
                            device=like.device)
+
+
+def _z_of(zlin, x, u):
+    """z for a z-dependent callable: the affine model's value at (x, u),
+    or the empty vector where none is given (acados_tpu/ocp_nlp/
+    formulation.py:79-81)."""
+    return zlin(x, u) if zlin is not None else x.new_zeros((0,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +65,9 @@ class CostSpec:
       (acados_tpu/ocp_nlp/formulation.py:69-77).
     Vx/Vu: LINEAR_LS constant Jacobian blocks (numpy); when set the
       Jacobian is a constant and no AD pass runs.
+    with_z: the callables read the algebraic variable z and take
+      (x, u, z, p, t); `zlin` (x, u) -> z supplies it (formulation.py:
+      66-72).
     """
 
     kind: str
@@ -66,36 +79,42 @@ class CostSpec:
     quad_weights: Optional[np.ndarray] = None
     Vx: Optional[np.ndarray] = None
     Vu: Optional[np.ndarray] = None
+    with_z: bool = False
 
-    def _call(self, fn, x, u, p, t, dt_):
+    def _call(self, fn, x, u, p, t, dt_, zlin=None):
+        if self.with_z:
+            return fn(x, u, _z_of(zlin, x, u), p, t)
         return fn(x, u, p, t, dt_) if self.needs_dt else fn(x, u, p, t)
 
-    def value(self, x, u, p, t, data, dt_=None) -> torch.Tensor:
+    def value(self, x, u, p, t, data, dt_=None, zlin=None) -> torch.Tensor:
         """Stage cost value of one instance (without slack penalties);
-        dt_ is the interval length an integrated cost takes."""
+        dt_ is the interval length an integrated cost takes, zlin the z
+        of a z-dependent cost."""
         if self.kind in ("LINEAR_LS", "NONLINEAR_LS"):
-            r = self._call(self.y_fun, x, u, p, t, dt_) - data["yref"]
+            r = self._call(self.y_fun, x, u, p, t, dt_, zlin) - data["yref"]
             if self.quad_weights is not None:
                 wq = _const(self.quad_weights, x)
                 return 0.5 * torch.einsum("q,qi,ij,qj->", wq, r, data["W"],
                                           r)
             return 0.5 * r @ data["W"] @ r
         if self.kind == "CONL":
-            r = self._call(self.y_fun, x, u, p, t, dt_) - data["yref"]
+            r = self._call(self.y_fun, x, u, p, t, dt_, zlin) - data["yref"]
             if self.quad_weights is not None:
                 # psi applied at each quadrature point
                 vals = vmap(lambda r_: self.psi_fun(r_, p))(r)
                 return (_const(self.quad_weights, x) * vals).sum()
             return self.psi_fun(r, p)
         if self.kind == "EXTERNAL":
-            return self._call(self.ext_fun, x, u, p, t, dt_)
+            return self._call(self.ext_fun, x, u, p, t, dt_, zlin)
         raise ValueError(self.kind)
 
     def quad_approx(self, x, u, p, t, data, exact_hessian: bool = False,
-                    dt_=None):
+                    dt_=None, zlin=None):
         """Quadratic approximation of one instance at (x, u): (H, grad)
         over w = [x; u] (reference cost update_qp_matrices;
-        acados_tpu/ocp_nlp/formulation.py:120-213)."""
+        acados_tpu/ocp_nlp/formulation.py:120-213). zlin: the affine
+        z(x, u) model of a z-dependent cost; AD through it gives the
+        reference's dzduxt chain rule (and no second derivative of z)."""
         nx = x.shape[-1]
         w = torch.cat([x, u])
         if self.kind == "LINEAR_LS" and self.Vx is not None:
@@ -107,7 +126,8 @@ class CostSpec:
             r = Vx @ x + Vu @ u - data["yref"]
             Wr = data["W"] @ r
             return J.T @ data["W"] @ J, J.T @ Wr
-        yf = lambda w_: self._call(self.y_fun, w_[:nx], w_[nx:], p, t, dt_)
+        yf = lambda w_: self._call(self.y_fun, w_[:nx], w_[nx:], p, t, dt_,
+                                   zlin)
         if self.quad_weights is not None and self.kind in (
                 "LINEAR_LS", "NONLINEAR_LS", "CONL"):
             # the integrated (generalized) Gauss-Newton over the
@@ -153,7 +173,7 @@ class CostSpec:
             return J.T @ Hpsi @ J, J.T @ gpsi
         if self.kind == "EXTERNAL":
             f = lambda w_: self._call(self.ext_fun, w_[:nx], w_[nx:], p, t,
-                                      dt_)
+                                      dt_, zlin)
             grad = jacfwd(f)(w)
             # an integrated cost's points run the IRK stage solves, whose
             # implicit gradient takes forward over reverse
@@ -176,7 +196,8 @@ class ConstraintSpec:
     nphi rows phi(r(x, u, p, t)) with phi_fun: (nr,) -> (nphi,) convex
     and r_fun: per-instance (x, u, p, t) -> (nr,). The QP rows take the
     chain-rule Jacobian; the outer curvature enters the stage Hessian
-    through `bgp_hess`.
+    through `bgp_hess`. with_z: h_fun reads the algebraic variable z and
+    takes (x, u, z, p, t); `zlin` supplies z as for the costs.
     """
 
     nx: int
@@ -191,6 +212,7 @@ class ConstraintSpec:
     nphi: int = 0
     phi_fun: Optional[Callable] = None
     r_fun: Optional[Callable] = None
+    with_z: bool = False
 
     @property
     def nbx(self):
@@ -225,7 +247,7 @@ class ConstraintSpec:
         return (torch.as_tensor(C, dtype=dtype, device=device),
                 torch.as_tensor(D, dtype=dtype, device=device))
 
-    def eval_rows(self, x, u, p, t):
+    def eval_rows(self, x, u, p, t, zlin=None):
         """Row values g(x, u) of one instance."""
         vals = []
         if self.nbx:
@@ -238,19 +260,21 @@ class ConstraintSpec:
                 gv = gv + _const(self.Dg, x) @ u
             vals.append(gv)
         if self.nh:
-            vals.append(self._call_h(x, u, p, t))
+            vals.append(self._call_h(x, u, p, t, zlin))
         if self.nphi:
             vals.append(self.phi_fun(self.r_fun(x, u, p, t)))
         if not vals:
             return torch.zeros((0,), dtype=x.dtype, device=x.device)
         return torch.cat(vals)
 
-    def _call_h(self, x, u, p, t):
+    def _call_h(self, x, u, p, t, zlin=None):
         """The h rows of one instance (acados_tpu/ocp_nlp/formulation.py:
-        283; its z-dependent branch waits, ROADMAP.md Queue 1, item 17)."""
+        283-288)."""
+        if self.with_z:
+            return self.h_fun(x, u, _z_of(zlin, x, u), p, t)
         return self.h_fun(x, u, p, t)
 
-    def h_jac(self, x, u, p, t):
+    def h_jac(self, x, u, p, t, zlin=None):
         """(nh + nphi, nx), (nh + nphi, nu) Jacobians of the nonlinear
         rows: the h block, then the phi(r) block by the chain rule."""
         nx = self.nx
@@ -258,7 +282,7 @@ class ConstraintSpec:
         def nl(w_):
             vals = []
             if self.nh:
-                vals.append(self._call_h(w_[:nx], w_[nx:], p, t))
+                vals.append(self._call_h(w_[:nx], w_[nx:], p, t, zlin))
             if self.nphi:
                 vals.append(self.phi_fun(self.r_fun(w_[:nx], w_[nx:], p,
                                                     t)))
@@ -267,15 +291,15 @@ class ConstraintSpec:
         J = jacfwd(nl)(torch.cat([x, u]))
         return J[:, :nx], J[:, nx:]
 
-    def h_hess(self, x, u, p, t, lam_d):
+    def h_hess(self, x, u, p, t, lam_d, zlin=None):
         """Hessian over w = [x; u] of -(lam_l - lam_u)' h at one instance:
         the constraint term of the exact Lagrangian Hessian
         (acados_tpu/ocp_nlp/linearize.py:221-230). lam_d: the stage's
         (nc,) lam_l - lam_u, of which the h rows are read."""
         nx, off = self.nx, self.nbx + self.nbu + self.ng
         wh = lam_d[off:off + self.nh]
-        return hessian(lambda w_: -(wh @ self._call_h(w_[:nx], w_[nx:], p,
-                                                      t)))(torch.cat([x, u]))
+        return hessian(lambda w_: -(wh @ self._call_h(
+            w_[:nx], w_[nx:], p, t, zlin)))(torch.cat([x, u]))
 
     def bgp_hess(self, x, u, p, t, lam_u):
         """The BGP rows' outer curvature over w = [x; u] at one instance:
@@ -306,9 +330,13 @@ class OcpNlpFormulation:
 
     step_fn / step_jac_fn are batch-first (see sim/integrator.py):
     step_fn(x, u, p, t, dt) -> x_next and step_jac_fn(...) ->
-    (x_next, A, B) on (M, .) tensors. exact_hessian selects the exact
-    Lagrangian Hessian (hessian_approx EXACT) over Gauss-Newton, with
-    each term's curvature switched by exact_hess_cost/dyn/constr
+    (x_next, A, B) on (M, .) tensors; with nz > 0 (a DAE whose cost or
+    constraints read z) step_jac_fn returns (x_next, A, B, z0, Jz), z at
+    the interval start and dz0/d(x, u), and z_fun(x, u, p, t, dt) -> z0
+    (M, nz) is the exact z(t0) for the merit and residual evaluations
+    (acados_tpu/ocp_nlp/formulation.py:371-380). exact_hessian selects
+    the exact Lagrangian Hessian (hessian_approx EXACT) over Gauss-Newton,
+    with each term's curvature switched by exact_hess_cost/dyn/constr
     (reference acados_ocp_options.py:96-98; all on by default).
     """
 
@@ -318,6 +346,8 @@ class OcpNlpFormulation:
     np_: int  # parameter dimension
     step_fn: Callable
     step_jac_fn: Optional[Callable] = None
+    nz: int = 0
+    z_fun: Optional[Callable] = None
     cost_0: CostSpec = None
     cost: CostSpec = None
     cost_e: CostSpec = None

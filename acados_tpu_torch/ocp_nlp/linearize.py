@@ -16,6 +16,13 @@ interval), and the lam-weighted h Hessian one vmap per stage class.
 BGP rows add their outer curvature Jr' phi'' Jr in both Hessian modes
 (:173-197), and an integrated cost (cost_discretization INTEGRATOR)
 takes its interval's length.
+
+A DAE whose cost or h rows read z (form.nz > 0) takes the `use_z` branch
+(:104-140): the fused step also returns z at each interval start and
+dz/d(x, u), and the stage-0 and path modules see z through the affine
+model z0 + Jz (w - w_k), so AD of the composition gives the reference's
+dzduxt chain rule; the merit and residual evaluations re-solve z(t0)
+exactly through form.z_fun (:315-330).
 """
 from __future__ import annotations
 
@@ -95,20 +102,40 @@ def build_static_rows(form: OcpNlpFormulation, dtype, device):
                 mask=mask, soft=soft)
 
 
+def _zlin(nx: int, z0, Jz, xk, uk):
+    """Affine z model of one instance around its linearization point
+    (acados_tpu/ocp_nlp/linearize.py:138-142)."""
+    return lambda x_, u_: (z0 + Jz[:, :nx] @ (x_ - xk)
+                           + Jz[:, nx:] @ (u_ - uk))
+
+
+def _zconst(zk):
+    """z of one instance fixed at its exact value (the merit's)."""
+    return lambda *_: zk
+
+
 def _stack_stages(first, path, last):
     """(B, ...), (B, K, ...), (B, ...) -> (B, K+2, ...)."""
     return torch.cat([first[:, None], path, last[:, None]], dim=1)
 
 
-def _rows(spec, Cb, Db, nc, x, u, p, t):
+def _rows(spec, Cb, Db, nc, x, u, p, t, z=()):
     """Row values and row Jacobians of a (M,) batch of one stage class:
-    (g (M, nc), C (M, nc, nx), D (M, nc, nu))."""
-    M = x.shape[0]
-    g = _pad_rows(vmap(spec.eval_rows)(x, u, p, t), nc)
+    (g (M, nc), C (M, nc, nx), D (M, nc, nu)); z: () or the (z0, Jz) of
+    a z-dependent class."""
+    M, nx = x.shape[0], x.shape[-1]
+
+    def per(fn):
+        if not z:
+            return fn
+        return lambda x_, u_, p_, t_, z0, Jz: fn(
+            x_, u_, p_, t_, zlin=_zlin(nx, z0, Jz, x_, u_))
+
+    g = _pad_rows(vmap(per(spec.eval_rows))(x, u, p, t, *z), nc)
     C = Cb.expand((M,) + tuple(Cb.shape))
     D = Db.expand((M,) + tuple(Db.shape))
     if spec.nh or spec.nphi:
-        Jx, Ju = vmap(spec.h_jac)(x, u, p, t)
+        Jx, Ju = vmap(per(spec.h_jac))(x, u, p, t, *z)
         o, n = spec.nbx + spec.nbu + spec.ng, spec.nh + spec.nphi
         C, D = C.clone(), D.clone()
         C[:, o:o + n] = Jx
@@ -155,31 +182,43 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     exact_constr = form.exact_hessian and form.exact_hess_constr
 
     # ---- dynamics: A, B, b over all B*N intervals (one batch) ----------
-    xnext, A, B = form.step_jac_fn(
+    use_z = form.nz > 0
+    out = form.step_jac_fn(
         _flat2(x[:, :-1]), _flat2(u), _flat2(data.p[:, :-1]),
         _flat2(data.ts[:, :-1]), _flat2(data.dts))
+    xnext, A, B = out[:3]
     A = A.reshape(Bsz, N, nx, nx)
     B = B.reshape(Bsz, N, nx, nu)
     b = xnext.reshape(Bsz, N, nx) - x[:, 1:]
+    # a DAE's z(t0) and dz0/d(x, u) per interval (reference dzduxt,
+    # ocp_nlp_dynamics_cont.c:847-851): the stage-0 and path classes' z
+    z_0 = z_p = ()
+    if use_z:
+        z0s = out[3].reshape(Bsz, N, form.nz)
+        Jzs = out[4].reshape(Bsz, N, form.nz, nx + nu)
+        z_0 = (z0s[:, 0], Jzs[:, 0])
+        z_p = (z0s[:, 1:], Jzs[:, 1:])
 
     # ---- cost quadratics per stage class --------------------------------
     # (an integrated cost takes its interval's length, :145-166; the
     # terminal cost has no interval)
     def quad(spec):
-        def qa(x_, u_, p_, t_, d_, dt_=None):
-            return spec.quad_approx(x_, u_, p_, t_, d_, exact_cost, dt_)
+        def qa(x_, u_, p_, t_, d_, dt_=None, *z):
+            zlin = _zlin(nx, *z, x_, u_) if z else None
+            return spec.quad_approx(x_, u_, p_, t_, d_, exact_cost, dt_,
+                                    zlin)
         return qa
 
     H0, g0 = vmap(quad(form.cost_0))(
         x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0], cost_data_stage0(data),
-        data.dts[:, 0])
+        data.dts[:, 0], *z_0)
     sc = data.cost_scale
     H0, g0 = sc[:, 0, None, None] * H0, sc[:, 0, None] * g0
     if N > 1:
         Hp, gp = _path_vmap(quad(form.cost), Bsz, N - 1,
                             x[:, 1:N], u[:, 1:N], data.p[:, 1:N],
                             data.ts[:, 1:N], {"yref": data.yref, "W": data.W},
-                            data.dts[:, 1:N])
+                            data.dts[:, 1:N], *z_p)
         Hp = sc[:, 1:N, None, None] * Hp
         gp = sc[:, 1:N, None] * gp
     He, ge = vmap(quad(form.cost_e))(
@@ -207,13 +246,21 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
             Hp = Hp + Hd[:, 1:]
     if exact_constr:
         lam_d = it.lam_l - it.lam_u
+
+        def h_hess(spec, z):
+            if not z:
+                return spec.h_hess
+            return lambda x_, u_, p_, t_, ld, z0, Jz: spec.h_hess(
+                x_, u_, p_, t_, ld, zlin=_zlin(nx, z0, Jz, x_, u_))
+
         if form.con_0.nh:
-            H0 = H0 + vmap(form.con_0.h_hess)(x[:, 0], u[:, 0], data.p[:, 0],
-                                              data.ts[:, 0], lam_d[:, 0])
+            H0 = H0 + vmap(h_hess(form.con_0, z_0))(
+                x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0], lam_d[:, 0],
+                *z_0)
         if form.con.nh and N > 1:
-            Hp = Hp + _path_vmap(form.con.h_hess, Bsz, N - 1, x[:, 1:N],
-                                 u[:, 1:N], data.p[:, 1:N], data.ts[:, 1:N],
-                                 lam_d[:, 1:N])
+            Hp = Hp + _path_vmap(h_hess(form.con, z_p), Bsz, N - 1,
+                                 x[:, 1:N], u[:, 1:N], data.p[:, 1:N],
+                                 data.ts[:, 1:N], lam_d[:, 1:N], *z_p)
         if form.con_e.nh:
             He = He + vmap(form.con_e.h_hess)(x[:, N], zu_, data.p[:, N],
                                               data.ts[:, N], lam_d[:, N])
@@ -236,14 +283,15 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     # ---- constraint rows -------------------------------------------------
     sr = static_rows
     g0v, C0, D0 = _rows(form.con_0, sr["C_0"], sr["D_0"], nc, x[:, 0],
-                        u[:, 0], data.p[:, 0], data.ts[:, 0])
+                        u[:, 0], data.p[:, 0], data.ts[:, 0], z_0)
     gev, Ce, _ = _rows(form.con_e, sr["C_e"], sr["D_e"], nc, x[:, N], zu_,
                        data.p[:, N], data.ts[:, N])
     if N > 1:
         K = N - 1
         gpv, Cp, Dp = _rows(form.con, sr["C_p"], sr["D_p"], nc,
                             _flat2(x[:, 1:N]), _flat2(u[:, 1:N]),
-                            _flat2(data.p[:, 1:N]), _flat2(data.ts[:, 1:N]))
+                            _flat2(data.p[:, 1:N]), _flat2(data.ts[:, 1:N]),
+                            tuple(_flat2(a) for a in z_p))
         g_all = _stack_stages(g0v, gpv.reshape(Bsz, K, nc), gev)
         C = _stack_stages(C0, Cp.reshape(Bsz, K, nc, nx), Ce)
         D = torch.cat([D0[:, None], Dp.reshape(Bsz, K, nc, nu)], dim=1)
@@ -275,16 +323,47 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
                  soft_mask=sr["soft"].expand(Bsz, N + 1, nc))
 
 
+def _needs_z(form) -> bool:
+    return form.nz > 0 and form.z_fun is not None and (
+        form.con_0.with_z or form.con.with_z or form.cost_0.with_z
+        or form.cost.with_z)
+
+
+def _z_exact(form: OcpNlpFormulation, data: NlpData, x, u):
+    """Exact z(t0) of every interval, (B, N, nz), for the merit and
+    residual evaluations (acados_tpu/ocp_nlp/linearize.py:315-320): one
+    call of form.z_fun over the B*N intervals."""
+    Bsz, N = x.shape[0], form.N
+    zs = form.z_fun(_flat2(x[:, :-1]), _flat2(u), _flat2(data.p[:, :-1]),
+                    _flat2(data.ts[:, :-1]), _flat2(data.dts))
+    return zs.reshape(Bsz, N, form.nz)
+
+
+def _z_fixed(fn, z):
+    """A per-instance module function with its z fixed to a trailing zk
+    argument (z: the (B, K, nz) or (B, nz) values, or None)."""
+    if z is None:
+        return fn, ()
+    return (lambda *a: fn(*a[:-1], zlin=_zconst(a[-1]))), (z,)
+
+
 def eval_constraints(form: OcpNlpFormulation, data: NlpData, x, u):
     """Row values g_k(x_k, u_k) for all stages, (B, N+1, nc)."""
     N, nc, nu = form.N, form.nc, form.nu
     Bsz = x.shape[0]
-    ev = lambda spec, *a: _pad_rows(vmap(spec.eval_rows)(*a), nc)
-    g0 = ev(form.con_0, x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0])
-    ge = ev(form.con_e, x[:, N], x.new_zeros((Bsz, nu)), data.p[:, N],
+    zs = _z_exact(form, data, x, u) if _needs_z(form) else None
+
+    def ev(spec, z, *a):
+        fn, za = _z_fixed(spec.eval_rows, z)
+        return _pad_rows(vmap(fn)(*a, *za), nc)
+
+    g0 = ev(form.con_0, None if zs is None else zs[:, 0], x[:, 0], u[:, 0],
+            data.p[:, 0], data.ts[:, 0])
+    ge = ev(form.con_e, None, x[:, N], x.new_zeros((Bsz, nu)), data.p[:, N],
             data.ts[:, N])
-    gp = ev(form.con, _flat2(x[:, 1:N]), _flat2(u[:, 1:N]),
-            _flat2(data.p[:, 1:N]), _flat2(data.ts[:, 1:N]))
+    gp = ev(form.con, None if zs is None else _flat2(zs[:, 1:]),
+            _flat2(x[:, 1:N]), _flat2(u[:, 1:N]), _flat2(data.p[:, 1:N]),
+            _flat2(data.ts[:, 1:N]))
     return _stack_stages(g0, gp.reshape(Bsz, N - 1, nc), ge)
 
 
@@ -295,12 +374,15 @@ def eval_cost(form: OcpNlpFormulation, data: NlpData, x, u, sl, su,
     N, nu = form.N, form.nu
     Bsz = x.shape[0]
     sc = data.cost_scale
-    c0 = vmap(form.cost_0.value)(x[:, 0], u[:, 0], data.p[:, 0],
-                                 data.ts[:, 0], cost_data_stage0(data),
-                                 data.dts[:, 0]) * sc[:, 0]
-    cp = _path_vmap(form.cost.value, Bsz, N - 1, x[:, 1:N], u[:, 1:N],
+    zs = _z_exact(form, data, x, u) if _needs_z(form) else None
+    fn0, z0a = _z_fixed(form.cost_0.value, None if zs is None else zs[:, 0])
+    fnp, zpa = _z_fixed(form.cost.value, None if zs is None else zs[:, 1:])
+    c0 = vmap(fn0)(x[:, 0], u[:, 0], data.p[:, 0], data.ts[:, 0],
+                   cost_data_stage0(data), data.dts[:, 0], *z0a) * sc[:, 0]
+    cp = _path_vmap(fnp, Bsz, N - 1, x[:, 1:N], u[:, 1:N],
                     data.p[:, 1:N], data.ts[:, 1:N],
-                    {"yref": data.yref, "W": data.W}, data.dts[:, 1:N])
+                    {"yref": data.yref, "W": data.W}, data.dts[:, 1:N],
+                    *zpa)
     cp = (cp * sc[:, 1:N]).sum(dim=1)
     ce = vmap(form.cost_e.value)(x[:, N], x.new_zeros((Bsz, nu)),
                                  data.p[:, N], data.ts[:, N],

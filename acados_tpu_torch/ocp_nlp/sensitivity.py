@@ -150,6 +150,18 @@ def _ineq_values(form, data: NlpData, it: NlpIterate):
 # The factorized smoothed-KKT solver
 # ---------------------------------------------------------------------------
 
+def _refuse_z(form, what: str) -> None:
+    """lagrangian_hessian evaluates the cost and h rows without the
+    algebraic states, as the JAX package's does (acados_tpu/ocp_nlp/
+    sensitivity.py:84): a DAE whose cost or h rows read z would lose its
+    z terms or fail on a shape, and the parameter gradient has no
+    reference that reads z to be held to. Both refuse a DAE."""
+    if form.nz > 0:
+        raise NotImplementedError(
+            f"{what} of a DAE (nz = {form.nz}) are not supported "
+            "(ROADMAP.md, Queue 3: gaps in the JAX package)")
+
+
 class KktFactor:
     """Riccati-factorized reduced KKT system at the solution of every
     instance, plus the row weights the elimination and reconstruction
@@ -166,6 +178,7 @@ class KktFactor:
                 "solution sensitivities with cost_discretization "
                 "INTEGRATOR are not supported (ROADMAP.md, Queue 3: gaps "
                 "in the JAX package)")
+        _refuse_z(form, "solution sensitivities")
         dt, dev = it.x.dtype, it.x.device
         static_rows = build_static_rows(form, dt, dev)
         self.form, self.data, self.it = form, data, it
@@ -368,6 +381,7 @@ def eval_lagrange_grad_p(form: OcpNlpFormulation, data: NlpData,
     envelope theorem the optimal-value gradient dV/dp at a converged KKT
     point (reference eval_lagr_grad_p, ocp_nlp_common.c:4181). Sum over
     the stages for a global parameter."""
+    _refuse_z(form, "optimal-value gradients")
     dt, dev = it.x.dtype, it.x.device
     static_rows = build_static_rows(form, dt, dev)
     soft_scaled = static_rows["soft"] * static_rows["mask"]

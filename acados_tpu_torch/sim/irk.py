@@ -1,11 +1,15 @@
-"""Implicit Runge-Kutta (collocation) integrator, batch-first.
+"""Implicit Runge-Kutta (collocation) integrator for ODEs and DAEs,
+batch-first.
 
-Counterpart of `acados_tpu/sim/irk.py` for ODEs (nz == 0): Gauss-Legendre
-or Radau IIA collocation with a fixed number of Newton iterations over
-the stacked stage equations. `make_irk_step` differentiates through its
-stage solves by the implicit function theorem (`_stage_root`, the
+Counterpart of `acados_tpu/sim/irk.py`: Gauss-Legendre or Radau IIA
+collocation with a fixed number of Newton iterations over the stacked
+stage equations of nx differential and nz algebraic unknowns a stage,
+f_impl(xdot, x, z, u, p, t) = 0. `make_irk_step` differentiates through
+its stage solves by the implicit function theorem (`_stage_root`, the
 reference's custom_root); `make_irk_step_jac` builds the step Jacobians
-itself for the SQP linearization.
+itself for the SQP linearization, and for a DAE also z at the interval
+start and its Jacobian (the reference's dzduxt); `make_irk_z0_fun`
+solves the first stage system alone for z(t0).
 
 The stage residual of one instance is a plain torch function; its
 Jacobians come from `torch.func.vmap(torch.func.jacfwd(...))`. The
@@ -37,11 +41,17 @@ def _tableau(collocation: str, num_stages: int):
     raise ValueError(f"unknown collocation {collocation}")
 
 
-def _require_ode(nz: int, what: str):
-    if nz:
-        raise NotImplementedError(
-            f"{what} with algebraic variables (nz > 0) is not ported yet "
-            "(ROADMAP.md Queue 1, item 17, integrator breadth)")
+def _z_weights(c_t, tau: float) -> np.ndarray:
+    """Lagrange weights of the collocation basis at tau: the algebraic
+    stage values extrapolated to tau = 1 (z(T), the reference's
+    `_z_end_weights`, acados_tpu/sim/irk.py:25) or tau = 0 (z(t0))."""
+    ns = len(c_t)
+    w = np.zeros(ns)
+    for j in range(ns):
+        others = np.delete(np.asarray(c_t), j)
+        w[j] = (np.prod((tau - others) / (c_t[j] - others))
+                if ns > 1 else 1.0)
+    return w
 
 
 def _stage_residual(f_impl, A_t, c_t, nx: int, nz: int):
@@ -223,11 +233,13 @@ def make_irk_step(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
     the reference's custom_root carry, with the implicit gradient at the
     final iterate, so `torch.func` transforms (jvp, vjp, jacfwd, hessian,
     vmap) differentiate the step as `jax` differentiates the reference's
-    (acados_tpu/sim/irk.py:84-107)."""
-    _require_ode(nz, "make_irk_step")
+    (acados_tpu/sim/irk.py:84-107). z_out is the algebraic variable at
+    the interval end, the last substep's stage values extrapolated to
+    tau = 1 (zeros (M, 0) for an ODE)."""
     A_t, b_t, c_t = _tableau(collocation, num_stages)
     ns = num_stages
     nw = ns * (nx + nz)
+    zw = _z_weights(c_t, 1.0)
     root = _stage_root(_stage_residual(f_impl, A_t, c_t, nx, nz),
                        newton_iter)
 
@@ -242,7 +254,10 @@ def make_irk_step(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
             w = root(x_k, u, p, t, h, w)
             K = w[:, : ns * nx].reshape(M, ns, nx)
             x_k = x_k + h[:, None] * (b_ @ K)
-        return x_k, torch.zeros((M, nz), dtype=x.dtype, device=x.device)
+        if nz == 0:
+            return x_k, torch.zeros((M, 0), dtype=x.dtype, device=x.device)
+        zw_ = torch.as_tensor(zw, dtype=x.dtype, device=x.device)
+        return x_k, zw_ @ w[:, ns * nx:].reshape(M, ns, nz)
 
     return step
 
@@ -255,12 +270,18 @@ def make_irk_step_jac(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
                       explicit_ode: bool = False):
     """Batch-first IRK step that also returns the step Jacobians:
     step_jac(x (M, nx), u (M, nu), p (M, np), t0 (M,), dt (M,)) ->
-    (x_next (M, nx), A (M, nx, nx), B (M, nx, nu)).
+    (x_next (M, nx), A (M, nx, nx), B (M, nx, nu)), and for a DAE
+    (nz > 0) (x_next, A, B, z0 (M, nz), Jz (M, nz, nx + nu)): z at the
+    interval start (the first substep's algebraic stage values
+    extrapolated to tau = 0) and dz0/d(x, u), the reference's dzduxt
+    (acados_tpu/sim/irk.py:316-336, 399-405).
 
     The generic path of acados_tpu/sim/irk.py:196-327: the stage Jacobian
     is built and inverted newton_iter times per substep (once with
     jac_reuse) and once more at the converged root without jac_reuse, and
-    that one inverse serves all nx + nu sensitivity columns.
+    that one inverse serves all nx + nu sensitivity columns. At a DAE's
+    stage size ns (nx + nz) = 9 (3 stages, nx 2, nz 1) the inverses run
+    on K1's warp branch.
 
     kron_path (None = auto: 2 stages, nz == 0, jac_reuse, explicit ODE)
     takes the Kronecker path of acados_tpu/sim/irk.py:328-391 instead
@@ -277,12 +298,12 @@ def make_irk_step_jac(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
     # stage factorization
     if kron_path and not explicit_ode:
         raise ValueError("kron_path requires an explicit ODE model")
-    _require_ode(nz, "make_irk_step_jac")
     if kron_path:
         return _kron_step_jac(f_impl, nx, A_t, b_t, c_t, num_steps,
                               newton_iter)
     ns = num_stages
     nw = ns * (nx + nz)
+    zw0 = _z_weights(c_t, 0.0)
     res_one = _stage_residual(f_impl, A_t, c_t, nx, nz)
     res_b = vmap(res_one)
     jac_w = vmap(jacfwd(res_one, argnums=0))
@@ -316,7 +337,17 @@ def make_irk_step_jac(f_impl, nx: int, nz: int = 0, num_stages: int = 3,
                 M, ns, nx))
             G = h[:, None, None] * torch.einsum("s,msij->mij", b_, dK)
             A_sub = eye + G[:, :, :nx]
+            if nz and i == 0:
+                # z(t0) and dz0/d(x, u) at the first substep, where
+                # d(x_k, u)/d(x, u) is the identity
+                zw0_ = torch.as_tensor(zw0, dtype=dt_, device=dev)
+                z0 = zw0_ @ w[:, ns * nx:].reshape(M, ns, nz)
+                Jz = torch.einsum("s,mszj->mzj", zw0_,
+                                  dW[:, ns * nx:].reshape(M, ns, nz,
+                                                          nx + nu))
             x_k, Sx, Su = x_next, A_sub @ Sx, A_sub @ Su + G[:, :, nx:]
+        if nz:
+            return x_k, Sx, Su, z0, Jz
         return x_k, Sx, Su
 
     return step_jac
@@ -428,15 +459,15 @@ def make_irk_stage_points(f_impl, nx: int, nz: int = 0,
     (acados_tpu/sim/irk.py:119-190).
 
     Returns (points, weights): the per-instance points(x, u, p, t0, dt)
-    -> (Xs (nq, nx), None, Ts (nq,)), the stage states and stage times of
-    all num_steps substeps (nq = num_steps * num_stages), and the
+    -> (Xs (nq, nx), Zs (nq, nz) or None for an ODE, Ts (nq,)), the stage
+    states, algebraic stage values and stage times of all num_steps
+    substeps (nq = num_steps * num_stages), and the
     quadrature weights b / num_steps tiled over the substeps (they sum to
     1). Each substep's stage solve is `_stage_root` on a batch of one,
     started from the previous substep's solution as the reference's scan
     carries it: under torch.func.vmap the instances fold into one batch
     of Newton solves, and torch.func.jacfwd through the points takes the
     implicit gradient, as jax.lax.custom_root does."""
-    _require_ode(nz, "make_irk_stage_points")
     A_t, b_t, c_t = _tableau(collocation, num_stages)
     ns = num_stages
     root = _stage_root(_stage_residual(f_impl, A_t, c_t, nx, nz),
@@ -448,25 +479,51 @@ def make_irk_stage_points(f_impl, nx: int, nz: int = 0,
         c_ = torch.as_tensor(c_t, dtype=x.dtype, device=x.device)
         b_ = torch.as_tensor(b_t, dtype=x.dtype, device=x.device)
         h = dt / num_steps
-        w = x.new_zeros((ns * nx,))
-        Xs, Ts = [], []
+        w = x.new_zeros((ns * (nx + nz),))
+        Xs, Zs, Ts = [], [], []
         for i in range(num_steps):
             t = t0 + i * h
             w = root(x[None], u[None], p[None], t[None], h[None],
                      w[None])[0]
-            K = w.reshape(ns, nx)
+            K = w[: ns * nx].reshape(ns, nx)
             Xs.append(x[None, :] + h * (A_ @ K))
+            Zs.append(w[ns * nx:].reshape(ns, nz))
             Ts.append(t + c_ * h)
             x = x + h * (b_ @ K)
-        return torch.cat(Xs), None, torch.cat(Ts)
+        return torch.cat(Xs), torch.cat(Zs) if nz else None, torch.cat(Ts)
 
     return points, weights
 
 
-def make_irk_z0_fun(*args, **kwargs):
-    raise NotImplementedError(
-        "the DAE z(t0) evaluator is not ported yet (ROADMAP.md Queue 1, "
-        "item 17, integrator breadth)")
+def make_irk_z0_fun(f_impl, nx: int, nz: int, num_stages: int = 3,
+                    newton_iter: int = 3,
+                    collocation: str = "GAUSS_LEGENDRE"):
+    """Batch-first z(t0) evaluator z0_fun(x (M, nx), u, p, t0 (M,),
+    dt (M,)) -> (M, nz) (acados_tpu/sim/irk.py:409-456): newton_iter
+    Newton iterations on the first collocation stage system at (x, u)
+    from zero, with the step dt as given, and the algebraic stage values
+    extrapolated to tau = 0. The merit and residual evaluations of an NLP
+    whose cost or constraints read z call it at trial points. Each
+    iteration is one `linsolve` over the whole batch: one K1 launch on
+    the card."""
+    A_t, _, c_t = _tableau(collocation, num_stages)
+    ns = num_stages
+    nw = ns * (nx + nz)
+    zw0 = _z_weights(c_t, 0.0)
+    res_one = _stage_residual(f_impl, A_t, c_t, nx, nz)
+    res_b = vmap(res_one)
+    jac_w = vmap(jacfwd(res_one, argnums=0))
+
+    def z0_fun(x, u, p, t0, dt):
+        M = x.shape[0]
+        w = torch.zeros((M, nw), dtype=x.dtype, device=x.device)
+        for _ in range(newton_iter):
+            w = w - linsolve(jac_w(w, x, u, p, t0, dt),
+                             res_b(w, x, u, p, t0, dt))
+        zw0_ = torch.as_tensor(zw0, dtype=x.dtype, device=x.device)
+        return zw0_ @ w[:, ns * nx:].reshape(M, ns, nz)
+
+    return z0_fun
 
 
 def implicit_from_explicit(f_expl):

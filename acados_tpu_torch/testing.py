@@ -1,7 +1,9 @@
 """Seeded test inputs: matrices for the Gauss-Jordan inverse (K1),
 batches of OCP-QPs, RTI batches set up from per-instance x0s, the
 parametric pendulum of the sensitivity tests, the unconstrained pendulum
-of the DDP tests and the obstacle OCP of the WFQP and BGP tests.
+of the DDP tests, the obstacle OCP of the WFQP and BGP tests, the
+DAE-constrained cart of the DAE tests, the p_global model and the
+pendulum's hand-rolled RK4 step for DISCRETE dynamics.
 
 Shared by the CPU tests (tests/test_torch_*.py) and the card's check
 (chip_smoke.py), so both hold the port to the same cases. Nothing here
@@ -11,7 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["JAX_SENS_F32_GAP", "ddp_pendulum_ocp", "obstacle_ocp",
+__all__ = ["JAX_SENS_F32_GAP", "DAE_ZBOUND", "dae_ocp", "ddp_pendulum_ocp",
+           "obstacle_ocp", "pendulum_rk4", "pglobal_ocp",
            "param_pendulum_ocp", "pivot_tie_batch", "random_qp_batch",
            "row_permuted_batch", "rti_batch"]
 
@@ -283,3 +286,97 @@ def obstacle_ocp(rows="h", N=10, dtype="float64"):
     so.nlp_solver_type = "SQP_WITH_FEASIBLE_QP"
     so.globalization, so.nlp_solver_max_iter = "MERIT_BACKTRACKING", 100
     return ocp
+
+
+# tests/test_dae_nlp.py's cart with Coulomb-like friction z = c v^3
+DAE_C_FRIC, DAE_ZBOUND, DAE_UMAX = 0.7, 0.12, 2.5
+
+
+def dae_ocp(N=20, dtype="float64", tf=2.0):
+    """tests/test_dae_nlp.py:make_dae_ocp (examples/dae_constrained_ocp.py):
+    x = (position, velocity), u the force, the algebraic z = c v^3 of the
+    implicit DAE 0 = z - c v^3; NONLINEAR_LS on (x, u, z) with W =
+    diag(1, 0.5, 0.05, 0.3) and |z| <= DAE_ZBOUND as an h row, both reading
+    z; IRK Gauss-Legendre 3 stages, 2 substeps (a stage system of
+    3 (2 + 1) = 9 unknowns); SQP, 60 iterations; x0 = (1, 0), |u| <= 2.5.
+    The horizon is tf / N a step: tf scales with N where N is cut."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    ocp, m = AcadosOcp(), AcadosModel()
+    m.name, m.x, m.u, m.z = "dae_fric", 2, 1, 1
+
+    def f_impl(xdot, x, z, u, p, t):
+        return torch.cat([xdot[:1] - x[1:2], xdot[1:2] - (u - z),
+                          z - DAE_C_FRIC * x[1:2] ** 3])
+
+    m.f_impl_expr = f_impl
+    m.cost_y_expr = lambda x, u, z: torch.cat([x, u, z])
+    m.con_h_expr = lambda x, u, z: z
+    ocp.model = m
+    so = ocp.solver_options
+    so.N_horizon, so.tf, so.dtype = N, tf, dtype
+    so.nlp_solver_type, so.nlp_solver_max_iter = "SQP", 60
+    so.integrator_type = "IRK"
+    so.sim_method_num_stages, so.sim_method_num_steps = 3, 2
+    ocp.constraints.x0 = np.array([1.0, 0.0])
+    ocp.constraints.idxbu = np.array([0])
+    ocp.constraints.lbu = np.array([-DAE_UMAX])
+    ocp.constraints.ubu = np.array([DAE_UMAX])
+    ocp.constraints.lh = np.array([-DAE_ZBOUND])
+    ocp.constraints.uh = np.array([DAE_ZBOUND])
+    c = ocp.cost
+    c.cost_type, c.cost_type_e = "NONLINEAR_LS", "LINEAR_LS"
+    c.W, c.yref = np.diag([1.0, 0.5, 0.05, 0.3]), np.zeros(4)
+    c.Vx_e, c.W_e, c.yref_e = np.eye(2), 5.0 * np.eye(2), np.zeros(2)
+    return ocp
+
+
+def pglobal_ocp(N=10, dtype="float64"):
+    """The "pglob" model of tests/test_interface.py::TestPGlobal: a double
+    integrator with a damping stage parameter p[0], global parameters
+    (mass, length) and their precomputed inertia m l^2 as the parameter
+    tail, p = [p_stage | p_global | global_data]; LINEAR_LS on (x, u),
+    x0 = (1, 0), tf = 1, SQP."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    ocp, m = AcadosOcp(), AcadosModel()
+    m.name, m.x, m.u, m.p = "pglob", 2, 1, 1
+    m.p_global = 2
+    m.p_global_precompute_fun = lambda pg: torch.stack([pg[0] * pg[1] ** 2])
+
+    def f_expl(x, u, p, t):
+        return torch.cat([x[1:2], (u - p[0] * x[1:2]) / p[3]])
+
+    m.f_expl_expr = f_expl
+    ocp.model = m
+    so = ocp.solver_options
+    so.N_horizon, so.tf, so.dtype = N, 1.0, dtype
+    so.nlp_solver_type = "SQP"
+    ocp.parameter_values = np.array([0.1])
+    ocp.p_global_values = np.array([1.0, 1.0])
+    ocp.constraints.x0 = np.array([1.0, 0.0])
+    c = ocp.cost
+    c.cost_type = c.cost_type_e = "LINEAR_LS"
+    c.Vx = np.vstack([np.eye(2), np.zeros((1, 2))])
+    c.Vu = np.vstack([np.zeros((2, 1)), np.eye(1)])
+    c.W, c.yref = np.diag([1.0, 1.0, 0.1]), np.zeros(3)
+    c.Vx_e, c.W_e, c.yref_e = np.eye(2), np.eye(2), np.zeros(2)
+    return ocp
+
+
+def pendulum_rk4(dt: float):
+    """tests/test_formulations.py::TestDiscreteDynamics' hand-rolled
+    classical RK4 step of the pendulum over dt, a disc_dyn_expr(x, u)."""
+    from acados_tpu_torch.models.pendulum import pendulum_ode
+
+    def rk4(x, u):
+        f = lambda x_: pendulum_ode(x_, u, None, 0.0)
+        k1 = f(x)
+        k2 = f(x + 0.5 * dt * k1)
+        k3 = f(x + 0.5 * dt * k2)
+        k4 = f(x + dt * k3)
+        return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
+
+    return rk4

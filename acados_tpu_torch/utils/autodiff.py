@@ -56,6 +56,17 @@ def hessian(f):
     return hess
 
 
+def inv_solve(A, b):
+    """A^-1 b for batched square A and b (..., n), through the explicit
+    inverse. Where A is batched under torch.func.vmap, the forward-mode
+    rule of torch.linalg.solve gives wrong tangents for every instance
+    but the first (PyTorch 2.13, vmap over jacfwd); `torch.linalg.inv`
+    and matmul take the transforms exactly. For the solves the JAX
+    package leaves to jnp.linalg.solve (GNSF, lifted IRK), not for the
+    kernel's: those go through ops.linsolve."""
+    return (torch.linalg.inv(A) @ b[..., None])[..., 0]
+
+
 def fold_vmap(apply, info, in_dims, *args):
     """The vmap rule of a batch-first `torch.autograd.Function`: every
     vmapped axis folds into the leading batch axis, so `apply` (the

@@ -104,9 +104,10 @@ failure exits non-zero:
 17. long-horizon pendulum (bench.py's bench_long_horizon_rti, plain,
     cond_N16 and parallel_riccati): make_pendulum_ocp(N=128, Tf=1.0),
     ERK, SQP_RTI, float32, B = 1024, x0 = [0, pi, 0, 0] + N(0, 0.02),
-    the three variants in one process: 1 cold + 10 warm calls each
-    (bench.py warms 25: cut for the plain variant's seconds a call), then
-    1 round of 2 timed calls; every status 0,
+    the three variants in one process: 1 cold + 10 warm calls of the
+    plain one (bench.py warms 25 a variant: cut for the plain variant's
+    seconds a call), the other two from its iterate with 1 warm call
+    each, then 1 round of 2 timed calls; every status 0,
     within stat 1e-1 and eq 1e-4 (bench.py's _LONGH_TOLS); no kernel
     launches in plain and cond_N16 (nu = 1, condensed nu = 8 <= 12), and
     in parallel_riccati K1 exactly 13 launches a lockstep IPM round (one a
@@ -140,8 +141,9 @@ failure exits non-zero:
     against its plain version (the bits that differ counted, the error
     bounded), and its times there;
 21. the batched sensitivities: bench.py's bench_pendulum_irk_sqp config
-    (SQP, IRK, N = 20, float32, B = 4096) solved until every status is
-    0, then eval_solution_sensitivity (every stage, initial_state) and
+    (SQP, IRK, N = 20, float32, B = 4096), its Gauss-Newton solve: every
+    status 0 and in tolerance in one call from the initial iterate,
+    then eval_solution_sensitivity (every stage, initial_state) and
     eval_adjoint_solution_sensitivity seeded on u_0: K1 exactly 44 + 8
     launches, the forward-adjoint gap of every instance within 10 x the
     JAX package's float32 gap, dx_0/dx0 = I; a time split of the layer;
@@ -159,8 +161,9 @@ failure exits non-zero:
     the chain's sensitivities (B = 4) within the CPU's own spread on x0s
     moved by one rounding step, where that exceeds 1e-9;
 24. latency (bench.py's bench_latency): phase 17's three variants at
-    B = 8 (cond_N = 32), 1 cold + 10 warm calls each (bench.py warms
-    25), then 1 round of 2 timed calls; the median call with
+    B = 8 (cond_N = 32), 1 cold + 10 warm calls of the plain one
+    (bench.py warms 25 a variant), the others from its iterate with 1
+    warm call each, then 1 round of 2 timed calls; the median call with
     p10/p90, every status 0, _LONGH_TOLS met, K1 only in
     parallel_riccati, 13 a lockstep IPM round;
 25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
@@ -182,18 +185,17 @@ failure exits non-zero:
 27. the Newton SQP at full width: bench_pendulum_irk_sqp's problem (SQP,
     IRK, N = 20, float32, B = 4096, the main path's x0s) with
     hessian_approx EXACT, CONVEXIFY and MERIT_BACKTRACKING (MIRROR's
-    solve takes over 100 lockstep rounds there, see NEWTON_SO), beside
-    its Gauss-Newton solve: one EXACT linearization first (K1 exactly
-    K1_PER_EXACT_LINEARIZE = 22 launches) and the time split of a round
-    (the Gauss-Newton linearization and the exact dynamics Hessian
-    apart, CONVEXIFY and MIRROR, the QP, a merit's dynamics gap), then
-    the EXACT call, cut at NEWTON_ROUNDS lockstep rounds, and one
-    Gauss-Newton call, each from the initial iterate (nothing compiles
-    in the port: a first call is timed like any other); every status 0
-    and in tolerance in the Gauss-Newton call, the EXACT call's
-    converged or at the cut and finite; its K1 launches equal to those
-    worked out from its stat table (newton_k1_expected: 22 a round, 6
-    a dynamics gap of the merit); sqp_iter mean and max of both; K1 on
+    solve takes over 100 lockstep rounds there, see NEWTON_SO; its
+    Gauss-Newton solve is phase 21's): one EXACT linearization first (K1
+    exactly K1_PER_EXACT_LINEARIZE = 22 launches) and the time split of
+    a round (the Gauss-Newton linearization and the exact dynamics
+    Hessian apart, CONVEXIFY and MIRROR, the QP, a merit's dynamics
+    gap), then the EXACT call from the initial iterate, cut at
+    NEWTON_ROUNDS lockstep rounds (nothing compiles in the port: a first
+    call is timed like any other), its statuses converged or at the cut
+    and finite; its K1 launches equal to those worked out from its stat
+    table (newton_k1_expected: 22 a round, 6 a dynamics gap of the
+    merit); sqp_iter mean and max; K1 on
     the largest launch of the EXACT linearization against its plain
     version, and its times there;
 28. float64 card against CPU of the new options, B = 4, each solve cut
@@ -219,7 +221,7 @@ failure exits non-zero:
     where plain SQP fails on every instance and WFQP converges with
     every node outside the disc;
 31. the main path with cost_discretization INTEGRATOR beside EULER from
-    the main path's converged iterate, interleaved (1 + 3 warm, 3
+    the main path's converged iterate, interleaved (1 + 1 warm, 2
     rounds of 1): every status 0 and in tolerance, K1
     K1_PER_INTEGRATOR_RTI = 48 a call, K1 on the path stage points'
     (77,824, 16, 16) launch against its plain version;
@@ -227,6 +229,31 @@ failure exits non-zero:
     WFQP on the pendulum and on the obstacle as BGH, BGP and soft BGP
     rows, and the INTEGRATOR cost with IRK NONLINEAR_LS, IRK CONL, ERK
     NONLINEAR_LS and ERK EXTERNAL.
+33. the DAE cart (tests/test_dae_nlp.py: nx 2, nz 1, IRK GL3, 2
+    substeps, z in the NONLINEAR_LS cost and in an h row) by SQP at
+    B = 4096, N = 20, float32 at the main path's tolerances, x0 = (1, 0)
+    + N(0, 0.05): every status 0 and in tolerance (float64 at the same B
+    where float32 misses the gate, said so), z(t0) finite with |z| within
+    its bound, get(k, "z") equal to it, K1 launches equal to
+    dae_k1_expected from the stat table, every one at (81,920, 9, 9), and
+    K1 there against its plain version;
+34. integrator breadth at B = 4096, float32: the main path with GNSF by
+    SQP-RTI from the main path's converged iterate (structure detected,
+    every status 0 and in tolerance, no kernel launch) and the batch
+    simulator with GNSF beside IRK (their gap in x_next); DISCRETE, the
+    pendulum's RK4 step as disc_dyn_expr, beside ERK at 4 stages and 1
+    step, 3 RTI calls each, every status 0 (in float32 the step and its
+    Jacobians within rounding and at most 1 % of the instances parted,
+    beside ERK against itself on x0s moved by one rounding step; in
+    float64 the trajectories within 1e-6); the pglob model with per-instance
+    global parameters bit for bit equal to the same batch with the tail
+    baked into p; LIFTED_IRK's single-instance simulate() calls
+    converging to IRK's x_next, and the OCP with LIFTED_IRK bit for bit
+    equal to IRK;
+35. float64 card against CPU at B = 4, within 1e-9: the DAE cart (N =
+    10, 2 iterations), the GNSF, LIFTED_IRK and DISCRETE RTI batches,
+    the p_global SQP, the DAE and GNSF batch simulators, the DAE
+    simulator's zn and the lifted simulator's calls.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -291,6 +318,13 @@ RTI_WARM, RTI_TIMED = 11, 8
 N_LONG, B_LONG, LONG_SIGMA, COND_LONG = 128, 1024, 0.02, 16
 LONG_TOLS = (1e-1, 1e-4, np.inf, np.inf)
 LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 1, 2
+# the plain variant's warm-up serves all three (phases 17, 24): from the
+# swing-up start each variant takes 10-13 calls to reach LONG_TOLS (on an
+# H100 the plain one's first calls 8-15 s at B_LONG, their QPs far from
+# the solution), along the same RTI iterates. The other two start from
+# the plain variant's warmed iterate and take SHARED_WARM warm calls of
+# their own before the timed rounds
+SHARED_WARM = 1
 # the parallel-in-time Riccati: K1 launches a factor, one a non-empty
 # combine of the associative scan over N + 1 elements (7 reduce + 7 even
 # combines at N = 128, the even one at 2 elements empty; 4 + 4 at N = 20)
@@ -1693,15 +1727,19 @@ def check_launches(label, runs: dict) -> None:
 
 
 def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
-                warmed=(), before_call=None) -> dict:
+                warmed=(), before_call=None, shared=False) -> dict:
     """Each solver of {name: solver} but those named in `warmed`: 1 cold
     + `warm` calls; then `rounds` rounds in which every solver takes
     `per_round` timed calls in turn. Every status must be 0 and each
     solver's last call in tolerance. Counts are set to 0 before and read
     after each call and summed per solver. before_call(name, timed), if
-    given, runs before each call. Returns {name: (timed call ms, largest
-    qp_iter per call, launch counts)}."""
+    given, runs before each call. shared: only the first solver warms
+    up; each other one starts from a copy of its warmed iterate and takes
+    SHARED_WARM warm calls of its own (the solvers hold the same OCP and
+    data). Returns {name: (timed call ms, largest qp_iter per call,
+    launch counts)}."""
     import torch
+    from acados_tpu_torch.utils.struct import map_fields
     out = {name: ([], [], {}) for name in solvers}
 
     def call(name, timed):
@@ -1723,8 +1761,18 @@ def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
             raise SystemExit(f"{label} {name}: non-zero statuses "
                              f"{np.unique(st, return_counts=True)}")
 
-    for name in solvers:
-        for _ in range(0 if name in warmed else 1 + warm):
+    first = next(iter(solvers))
+    for name, s in solvers.items():
+        if name in warmed:
+            continue
+        if shared and name != first:
+            s._it_dev = map_fields(lambda t: t.clone(),
+                                   solvers[first]._it_dev)
+            s._host_stale = True
+            n = SHARED_WARM
+        else:
+            n = 1 + warm
+        for _ in range(n):
             call(name, False)
     for _ in range(rounds):
         for name in solvers:
@@ -1763,13 +1811,16 @@ def long_horizon(dev) -> dict:
     batched_inv._gj_inverse_cuda = record
     try:
         runs = interleaved(solvers, "long horizon", LONG_TOLS, LONG_WARM,
-                           LONG_ROUNDS, LONG_PER_ROUND, before_call=arm)
+                           LONG_ROUNDS, LONG_PER_ROUND, before_call=arm,
+                           shared=True)
     finally:
         batched_inv._gj_inverse_cuda = orig
     log(f"long horizon: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LONG}, "
-        f"float32, 1 cold + {LONG_WARM} warm calls a variant (bench.py "
-        f"warms 25; cut for the plain variant's call time), then "
-        f"{LONG_ROUNDS} interleaved rounds of {LONG_PER_ROUND} timed calls")
+        f"float32, 1 cold + {LONG_WARM} warm calls of the plain variant "
+        f"(bench.py warms 25 a variant; cut for the plain variant's call "
+        f"time), the others from its iterate with {SHARED_WARM} warm call "
+        f"each, then {LONG_ROUNDS} interleaved rounds of {LONG_PER_ROUND} "
+        f"timed calls")
     for name, s in solvers.items():
         call_ms, qp_max, counts = runs[name]
         # the profiles' share of the phase grows with the launches (~92,800
@@ -2108,6 +2159,11 @@ def sensitivities(dev) -> dict:
         f"float32: every status 0 after {calls} solve() calls, residual "
         f"maxima {res.tolist()} ({'in' if ok_tol else 'OUT OF'} "
         f"tolerance), sqp_iter max {int(solver.get_stats('sqp_iter').max())}")
+    # this is bench_pendulum_irk_sqp's Gauss-Newton solve, which phase 27
+    # once ran beside the Newton SQP: every status 0 and in tolerance in
+    # one call from the initial iterate
+    if calls != 1 or not ok_tol:
+        raise SystemExit("the Gauss-Newton SQP did not solve in one call")
     reset_counts()
     t0 = time.perf_counter()
     sx, su, adj, gap = consistency(solver)
@@ -2351,11 +2407,12 @@ def latency(dev) -> None:
     in the parallel variant at 13 a lockstep IPM round."""
     solvers = long_variants(B_LAT, "float32", dev, COND_LAT)
     runs = interleaved(solvers, "latency", LONG_TOLS, LAT_WARM, LAT_ROUNDS,
-                       LAT_PER_ROUND)
+                       LAT_PER_ROUND, shared=True)
     log(f"latency: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LAT}, float32, "
-        f"1 cold + {LAT_WARM} warm calls a variant (bench.py warms 25), "
-        f"then {LAT_ROUNDS} interleaved rounds of {LAT_PER_ROUND} timed "
-        f"calls")
+        f"1 cold + {LAT_WARM} warm calls of the plain variant (bench.py "
+        f"warms 25 a variant), the others from its iterate with "
+        f"{SHARED_WARM} warm call each, then {LAT_ROUNDS} interleaved "
+        f"rounds of {LAT_PER_ROUND} timed calls")
     for name, (call_ms, qp_max, counts) in runs.items():
         med = float(np.median(call_ms))
         p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
@@ -2532,8 +2589,8 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
 
 # the Newton SQP (phase 27): bench_pendulum_irk_sqp's problem (SQP, IRK,
 # N = 20, float32, the main path's batch and x0s) with the exact Hessian,
-# CONVEXIFY and the merit line search, beside its Gauss-Newton solve of
-# the same x0s: one EXACT call between two Gauss-Newton calls. MIRROR
+# CONVEXIFY and the merit line search; its Gauss-Newton solve of the
+# same x0s is phase 21's. MIRROR
 # (newton_batch with regularize_method="MIRROR"), whose solve the port's
 # CPU tests hold, takes 69-92 SQP iterations an instance from these x0s
 # on the CPU (float32, B = 8 and 64) and on the H100 at B = 4096 ran to
@@ -2550,8 +2607,10 @@ NEWTON_SPLIT_REPS = 1
 # (PERF.md), which phases 29-32 need; its launches are still held to
 # newton_k1_expected and its trajectory to finiteness, its convergence by
 # the CPU tests (tests/test_torch_exact_irk.py and the Newton tests) and
-# phase 28
-NEWTON_ROUNDS = 8
+# phase 28. It runs 3 rounds (8 before phases 33-35 came, then 6), and
+# the Gauss-Newton call beside it is phase 21's solve of the same
+# problem, held there to one call
+NEWTON_ROUNDS = 3
 # float64 card against CPU of the new options (phase 28), B = 4, each
 # solve cut at CHECK_ITER iterations (the parity of the same code on the
 # card and on the CPU needs no convergence; the CPU tests hold the
@@ -2673,23 +2732,22 @@ def newton_split(solver) -> dict:
 
 
 def newton_sqp(dev) -> dict:
-    """Phase 27: the Newton SQP at full width, beside its Gauss-Newton
-    solve. Returns K1's kernels entry at the largest launch of an EXACT
-    linearization."""
+    """Phase 27: the Newton SQP at full width. Returns K1's kernels entry
+    at the largest launch of an EXACT linearization."""
     import torch
     from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
     from acados_tpu_torch.ops import batched_inv
     exact = newton_batch(B_MAIN, "float32", dev, solver_options=dict(
         NEWTON_SO, nlp_solver_max_iter=NEWTON_ROUNDS))
-    gn = newton_batch(B_MAIN, "float32", dev, solver_options={})
-    it0_exact, it0_gn = exact._on_device()[1], gn._on_device()[1]
+    it0_exact = exact._on_device()[1]
     so = exact.acados_ocp.solver_options
     log(f"Newton SQP: pendulum IRK SQP, B={B_MAIN}, N={N_HORIZON}, float32, "
         f"x0 = {list(X0_CENTER)} + N(0, {X0_SIGMA}); hessian_approx "
         f"{so.hessian_approx}, regularize_method {so.regularize_method}, "
         f"globalization {so.globalization} (alpha_min "
         f"{exact.opts.alpha_min}, alpha_reduction "
-        f"{exact.opts.alpha_reduction}); beside Gauss-Newton, FIXED_STEP")
+        f"{exact.opts.alpha_reduction}); its Gauss-Newton solve (FIXED_STEP) "
+        f"is phase 21's")
 
     # one EXACT linearization at the initial iterate: its K1 launches and
     # shapes, then where a round's time goes
@@ -2712,8 +2770,7 @@ def newton_sqp(dev) -> dict:
     log(f"  time split of a round at the initial iterate (host ms, median "
         f"of {NEWTON_SPLIT_REPS}): {json.dumps(split)}")
 
-    # EXACT (cut at NEWTON_ROUNDS), then Gauss-Newton, each from the
-    # initial iterate
+    # EXACT, cut at NEWTON_ROUNDS, from the initial iterate
     reset_counts()
     ex_ms, st = timed_cold_call(exact, it0_exact)
     counts = read_counts()
@@ -2723,10 +2780,6 @@ def newton_sqp(dev) -> dict:
         raise SystemExit(f"Newton SQP: statuses "
                          f"{np.unique(st, return_counts=True)}")
     res = exact.get_stats("residuals").max(axis=0)
-    ms, st = timed_cold_call(gn, it0_gn)
-    if np.any(st != 0) or not in_tolerance(gn)[0]:
-        raise SystemExit("Gauss-Newton SQP beside the Newton SQP failed")
-    gn_ms, gn_iter = [ms], gn.get_stats("sqp_iter")
     want = newton_k1_expected(ex_stats, exact.opts)
     ex_iter = ex_stats.sqp_iter.cpu().numpy()
     x = exact._it_dev.x
@@ -2744,9 +2797,6 @@ def newton_sqp(dev) -> dict:
         f"{ex_iter.max()}, {rounds} lockstep rounds, {bt} backtracking "
         f"line searches over the batch; launches {counts} (K1 expected "
         f"{want} from the stat table)")
-    log(f"  Gauss-Newton: {call_stats(gn_ms)}; sqp_iter mean "
-        f"{gn_iter.mean():.2f} max {gn_iter.max()}; the EXACT call "
-        f"{ex_ms / float(np.median(gn_ms)):.1f}x its median")
     if counts["gj_inverse"] != want or any(
             v for k, v in counts.items() if k != "gj_inverse"):
         raise SystemExit(f"Newton SQP launches {counts}, K1 expected {want}")
@@ -3224,9 +3274,10 @@ def integrator_phase(dev, it0) -> dict:
     """Phase 31: the main path with cost_discretization INTEGRATOR beside
     the EULER main path, both from the main path's converged iterate it0
     (phase 4: the RTI takes ~10 calls from x0 to its tolerance),
-    interleaved (1 cold + 3 warm calls each, then 3 rounds of 1 timed
-    call): every status 0 and in tolerance, K1 K1_PER_INTEGRATOR_RTI a
-    call; K1 on the path stage points' launch against its plain version.
+    interleaved (1 cold + 1 warm call each, then 2 rounds of 1 timed
+    call; 3 warm and 3 rounds before phases 33-35 came): every status 0
+    and in tolerance, K1 K1_PER_INTEGRATOR_RTI a call; K1 on the path
+    stage points' launch against its plain version.
     Returns K1's kernels entry there."""
     from acados_tpu_torch.ops import batched_inv
     kw = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
@@ -3235,7 +3286,7 @@ def integrator_phase(dev, it0) -> dict:
         cost_discretization=disc))[0] for disc in ("EULER", "INTEGRATOR")}
     for solver in solvers.values():
         solver._it_dev = it0
-    warm, rounds = 3, 3
+    warm, rounds = 1, 2
     out = interleaved(solvers, "INTEGRATOR cost", None, warm, rounds, 1)
     calls = 1 + warm + rounds
     for disc, per_call in (("EULER", LAUNCHES_PER_RTI),
@@ -3334,6 +3385,467 @@ def nlp_breadth_vs_cpu() -> None:
                         ocp(), B, where, center, sigma, seed=2,
                         zero_init=zero, **so), calls=1)
         log(f"  ({time.perf_counter() - t0:.1f} s)")
+
+
+# phases 33-35: integrator breadth. The DAE cart (tests/test_dae_nlp.py)
+# at the main path's width: x0 = (1, 0) + N(0, 0.05), float32 at the main
+# path's tolerances, SQP cut at DAE_MAX_ITER (CPU float32, B = 64: every
+# status 0 in at most 5 iterations); its K1 launches, each at (B N, 9, 9):
+# a linearization 2 substeps x (3 Newton + 1 refresh) stage inverses, an
+# exact z(t0) evaluation (the cost's, once a round and once at the end)
+# 3 Newton solves (dae_k1_expected)
+DAE_X0, DAE_SIGMA, DAE_MAX_ITER = (1.0, 0.0), 0.05, 20
+K1_PER_DAE_LINEARIZE, K1_PER_DAE_Z = 8, 3
+DAE_STAGE_N = 9
+# GNSF on the main path from its converged iterate: 1 RTI call and no
+# warm one; the simulators' calls; DISCRETE / ERK and LIFTED_IRK calls
+GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 2, 3, 10
+# DISCRETE against ERK: the same RK4 in another order of operations, so
+# in float32 the step and its Jacobians agree to rounding (~100 ulp,
+# DISC_STEP_BOUND). After DISC_CALLS RTI calls from the same x0s the
+# float32 batches part by 0.50 in x and 1.94 in u (relative; u flips
+# between its bounds) on 0.29 % of 4096 instances, and ERK against
+# itself on the x0s moved by one float32 rounding step parts as much
+# (0.43, 1.97, 0.27 %): the swing-up's QPs carry rounding that far. In
+# float64 on the same x0s DISCRETE equals ERK within 1.8e-9 on every
+# instance (H100 runs). Held: the float32 share of instances whose u
+# parts by more than DISC_PART (relative) at most DISC_PART_SHARE, the
+# float64 trajectories within DISC_F64_BOUND
+DISC_STEP_BOUND, DISC_F64_BOUND = 1e-5, 1e-6
+DISC_PART, DISC_PART_SHARE = 1e-2, 0.01
+B_INT_CHECK = 4
+
+
+def round_split(solver) -> dict:
+    """Where one SQP round's time goes at the solver's iterate (host ms
+    of one synchronised run each): the linearization, its fused step and
+    Jacobians alone, the QP, and for a DAE the exact z(t0) of every
+    interval that the cost evaluation takes."""
+    from acados_tpu_torch.ocp_nlp.linearize import _needs_z, _z_exact
+    form = solver.form
+    data, it = solver._on_device()
+    M = it.u.shape[0] * it.u.shape[1]
+    flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
+    args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
+            flat(data.ts[:, :-1]), flat(data.dts))
+    lin, qp = linearized(solver)
+    out = dict(linearize_ms=once_ms(lin),
+               step_jac_ms=once_ms(lambda: form.step_jac_fn(*args)),
+               qp_ms=once_ms(lambda: qp_solve(solver, qp)))
+    if _needs_z(form):
+        out["z_exact_ms"] = once_ms(lambda: _z_exact(form, data, it.x,
+                                                     it.u))
+    return out
+
+
+def dae_k1_expected(stats, opts) -> int:
+    """K1 launches of one SQP (FIXED_STEP) solve of the DAE cart, from its
+    stat table: each lockstep round and the final pass a linearization
+    (K1_PER_DAE_LINEARIZE) and the cost at the iterate, whose exact
+    z(t0) takes K1_PER_DAE_Z (sqp.py: eval_cost once a round and once at
+    the end; z_fun, sim/irk.py:make_irk_z0_fun)."""
+    return (K1_PER_DAE_LINEARIZE + K1_PER_DAE_Z) * (
+        lockstep_rounds(stats, opts) + 1)
+
+
+def dae_batch(B, dtype, dev, seed=SEED, max_iter=DAE_MAX_ITER, N=None):
+    """The DAE cart (acados_tpu_torch.testing.dae_ocp) as a batch, x0 per
+    instance DAE_X0 + N(0, DAE_SIGMA), at the main path's float32
+    tolerances in float32."""
+    from acados_tpu_torch.testing import dae_ocp
+    ocp = dae_ocp(N=N or N_HORIZON, dtype=dtype,
+                  tf=2.0 * (N or N_HORIZON) / 20)
+    so = dict(nlp_solver_max_iter=max_iter)
+    if dtype == "float32":
+        so.update(F32_TOLS)
+    return nlp_batch(ocp, B, dev, DAE_X0, DAE_SIGMA, seed=seed, **so)
+
+
+def dae_phase(dev) -> dict:
+    """Phase 33: the DAE cart at full width by SQP (nx 2, nz 1, IRK GL3,
+    2 substeps, z in the cost and in h): every status 0 and in tolerance,
+    z finite with |z| <= DAE_ZBOUND up to the inequality tolerance (the
+    batch's z(t0) at every node, and get("z") of two instances equal to
+    it), K1 launches equal to dae_k1_expected, K1 on the stage system's
+    (B N, 9, 9) launch against its plain version. Should float32 miss the
+    gate, the same batch runs in float64 and the phase says so. Returns
+    K1's kernels entry there."""
+    import torch
+    from acados_tpu_torch.ops import batched_inv
+    from acados_tpu_torch.testing import DAE_ZBOUND
+    from acados_tpu_torch.ocp_nlp.linearize import _z_exact
+    for dtype in ("float32", "float64"):
+        solver = dae_batch(B_MAIN, dtype, dev)
+        reset_counts()
+        with K1Shapes() as k1:
+            ms, st = timed_call(solver)
+        counts = read_counts()
+        ok_tol, res, tols = in_tolerance(solver)
+        it_ = solver.get_stats("sqp_iter")
+        log(f"DAE cart (tests/test_dae_nlp.py), B={B_MAIN}, N={N_HORIZON}, "
+            f"{dtype}, SQP, x0 = {list(DAE_X0)} + N(0, {DAE_SIGMA}): 1 call "
+            f"{ms:.2f} ms; statuses {np.unique(st, return_counts=True)}; "
+            f"sqp_iter mean {it_.mean():.2f} max {it_.max()}; residual "
+            f"maxima {res.tolist()} vs {list(tols)}")
+        if np.all(st == 0) and ok_tol:
+            break
+        if dtype == "float64":
+            raise SystemExit("DAE cart: float64 missed the gate too")
+        log("  float32 missed the gate: the phase solves in float64")
+    want = dae_k1_expected(solver._stats, solver.opts)
+    shapes = sorted(set(k1.shapes))
+    log(f"  launches {counts} (K1 expected {want} from the stat table), "
+        f"shapes {shapes}")
+    if counts["gj_inverse"] != want or any(
+            v for k, v in counts.items() if k != "gj_inverse") \
+            or shapes != [(B_MAIN * N_HORIZON, DAE_STAGE_N, DAE_STAGE_N)]:
+        raise SystemExit(f"DAE launches {counts}, K1 expected {want}")
+    check_solved("DAE cart", solver, st)
+    data, it = solver._on_device()
+    z = _z_exact(solver.form, data, it.x, it.u)
+    zmax = float(z.abs().max())
+    z_get = np.array([[solver.ocp_solvers[i].get(k, "z")
+                       for k in range(N_HORIZON)] for i in (0, B_MAIN - 1)])
+    z_gap = float(np.abs(z_get - z[[0, -1]].cpu().numpy()).max())
+    log(f"  z(t0) of every node: finite {bool(torch.isfinite(z).all())}, "
+        f"max |z| {zmax:.6f} (bound {DAE_ZBOUND} + tol_ineq); get(k, 'z') "
+        f"of instances 0 and {B_MAIN - 1} against it: {z_gap:.3e}")
+    if not bool(torch.isfinite(z).all()) or \
+            zmax > DAE_ZBOUND + tols[2] or z_gap > 1e-5:
+        raise SystemExit("DAE cart: z out of its bound or not finite")
+    log(f"  time split of a round at the solution (host ms): "
+        f"{json.dumps(round_split(solver))}")
+    A = k1.first
+    rel, abs_err, _ = check_inverse(
+        f"DAE stage systems {tuple(A.shape)}", A.float(),
+        batched_inv._gj_inverse_cuda, F32_BOUND)
+    entry = k1_entry("gj_inverse_dae_stage", A.float(), counts["gj_inverse"],
+                     rel, abs_err)
+    entry["solve_dtype"] = dtype
+    return entry
+
+
+def integrator_breadth(dev, it0) -> None:
+    """Phase 34: GNSF, DISCRETE, p_global and LIFTED_IRK at full width.
+    (a) The main path with integrator_type GNSF (structure detected) by
+    SQP-RTI from the main path's converged iterate, 1 cold + GNSF_WARM
+    calls, every status 0 and in tolerance, no kernel launch; the batch
+    simulator with GNSF beside IRK (B_SIM, float32), its gap in x_next.
+    (b) DISCRETE: a hand-rolled RK4 disc_dyn_expr on the pendulum beside
+    ERK at 4 stages and 1 step, DISC_CALLS RTI calls each from the same
+    x0s, every status 0: in float32 the steps and Jacobians within
+    DISC_STEP_BOUND and at most DISC_PART_SHARE of the instances parted
+    (beside ERK against itself on x0s moved by one rounding step); in
+    float64 the trajectories within DISC_F64_BOUND. (c)
+    p_global: the pglob model at B_MAIN with per-instance global
+    parameters set through set("p") against the same model with the tail
+    baked into a plain p: bit for bit. (d) LIFTED_IRK: repeated
+    single-instance simulate() calls converge to IRK's x_next; the OCP
+    with LIFTED_IRK equals IRK bit for bit (one RTI call each)."""
+    import torch
+    from acados_tpu_torch import AcadosSim, AcadosSimSolver
+    from acados_tpu_torch.models.pendulum import export_pendulum_model
+    from acados_tpu_torch.sim.gnsf import detect_gnsf_structure
+    from acados_tpu_torch.models.pendulum import pendulum_ode
+    from acados_tpu_torch.testing import pendulum_rk4, pglobal_ocp
+
+    # (a) GNSF
+    model = detect_gnsf_structure(pendulum_ode, nx=4, nu=1)
+    if model is None:
+        raise SystemExit("GNSF: no structure detected on the pendulum")
+    kw = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
+              integrator_type="IRK")
+    gnsf, _ = rti_batch(dict(kw, integrator_type="GNSF"), B_MAIN, dev)
+    gnsf._it_dev = it0
+    ms = []
+    reset_counts()
+    for c in range(1 + GNSF_WARM):
+        t_ms, st = timed_call(gnsf)
+        ms.append(t_ms)
+        if np.any(st != 0):
+            raise SystemExit(f"GNSF RTI: statuses {np.unique(st)}")
+    counts = read_counts()
+    res = check_solved("GNSF RTI", gnsf, st)
+    log(f"GNSF: the pendulum's structure nx1 {model.nx1}, nx2 {model.nx2}, "
+        f"n_out {model.n_out} (perm {model.perm.tolist()}); the main path "
+        f"with GNSF (4 stages, 2 substeps) by SQP-RTI from the IRK main "
+        f"path's converged iterate, B={B_MAIN}, float32: "
+        f"calls {[round(t, 2) for t in ms]} ms, every status 0, residual "
+        f"maxima {res.tolist()}; launches {counts} (none expected)")
+    if any(counts.values()):
+        raise SystemExit(f"GNSF RTI launched {counts}")
+    log(f"  time split of a round (host ms): "
+        f"{json.dumps(round_split(gnsf))}")
+    x, u = sim_inputs(B_SIM)
+    xn, times = {}, {}
+    for itype in ("IRK", "GNSF"):
+        sim = sim_solver(itype, B_SIM, "float32", dev)
+        sim.simulate(x, u)
+        reset_counts()
+        times[itype] = [once_ms(lambda: sim.simulate(x, u))
+                        for _ in range(GNSF_SIM_CALLS)]
+        counts = read_counts()
+        want = K1_PER_SIM * GNSF_SIM_CALLS if itype == "IRK" else 0
+        xn[itype] = sim.get("xn")
+        S = sim.get("S_forw")
+        if counts["gj_inverse"] != want or not np.isfinite(S).all():
+            raise SystemExit(f"simulator {itype}: launches {counts}")
+    gap = float(np.abs(xn["GNSF"] - xn["IRK"]).max()
+                / np.abs(xn["IRK"]).max())
+    log(f"  simulator B={B_SIM}, float32, sens_forw: IRK median "
+        f"{np.median(times['IRK']):.2f} ms, GNSF "
+        f"{np.median(times['GNSF']):.2f} ms ({GNSF_SIM_CALLS} calls each); "
+        f"max|xn GNSF - xn IRK| / max|xn IRK| {gap:.3e} (bound "
+        f"{F32_BOUND:g}: the same collocation)")
+    if not gap <= F32_BOUND:
+        raise SystemExit("GNSF simulator parts from IRK")
+
+    # (b) DISCRETE
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    rng = np.random.default_rng(SEED)
+    x0s = np.asarray(X0_CENTER) + rng.normal(0.0, X0_SIGMA, (B_MAIN, 4))
+    toward = (np.inf * rng.choice((-1.0, 1.0), x0s.shape)).astype(np.float32)
+    x0s_moved = np.nextafter(x0s.astype(np.float32),
+                             toward).astype(np.float64)
+
+    def disc_batch(kind, dtype, x0s_):
+        ocp = make_pendulum_ocp(N=N_HORIZON, dtype=dtype,
+                                nlp_solver_type="SQP_RTI",
+                                integrator_type=kind)
+        ocp.solver_options.sim_method_num_stages = 4
+        ocp.solver_options.sim_method_num_steps = 1
+        if kind == "DISCRETE":
+            ocp.model.disc_dyn_expr = pendulum_rk4(1.0 / N_HORIZON)
+        return batch_at(ocp, x0s_, dev)
+
+    def parted(a, b):
+        """(gaps in x and u relative to 1 + max|b|, the share of
+        instances whose u parts by more than DISC_PART)."""
+        gaps = {f: float((getattr(a._it_dev, f) - getattr(b._it_dev, f))
+                         .abs().max() / (1 + getattr(b._it_dev, f)
+                                         .abs().max()))
+                for f in ("x", "u")}
+        du = (a._it_dev.u - b._it_dev.u).abs().flatten(1).max(1).values
+        scale = 1 + b._it_dev.u.abs().max()
+        return gaps, float((du / scale > DISC_PART).float().mean())
+
+    runs = {}
+    for dtype in ("float32", "float64"):
+        solvers = {k: disc_batch(k, dtype, x0s) for k in ("ERK", "DISCRETE")}
+        if dtype == "float32":
+            solvers["ERK_moved"] = disc_batch("ERK", dtype, x0s_moved)
+        reset_counts()
+        for _ in range(DISC_CALLS):
+            st = {k: s_.solve() for k, s_ in solvers.items()}
+            bad = [k for k, v in st.items() if np.any(v != 0)]
+            if bad:
+                raise SystemExit(f"DISCRETE / ERK {dtype}: non-zero "
+                                 f"statuses in {bad}")
+        counts = read_counts()
+        if any(counts.values()):
+            raise SystemExit(f"DISCRETE / ERK {dtype}: launches {counts}")
+        runs[dtype] = solvers
+    solvers = runs["float32"]
+    # the discretizations themselves on every interval of that iterate
+    data, it = solvers["ERK"]._on_device()
+    flat = lambda a: a.reshape((a.shape[0] * a.shape[1],)
+                               + tuple(a.shape[2:]))
+    args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
+            flat(data.ts[:, :-1]), flat(data.dts))
+    outs = {k: solvers[k].form.step_jac_fn(*args)
+            for k in ("ERK", "DISCRETE")}
+    step_gap = max(float((a - b).abs().max() / (1 + b.abs().max()))
+                   for a, b in zip(outs["DISCRETE"], outs["ERK"]))
+    g32, share32 = parted(solvers["DISCRETE"], solvers["ERK"])
+    g_ulp, share_ulp = parted(solvers["ERK_moved"], solvers["ERK"])
+    g64, share64 = parted(runs["float64"]["DISCRETE"], runs["float64"]["ERK"])
+    log(f"DISCRETE: the pendulum's RK4 step as disc_dyn_expr beside ERK (4 "
+        f"stages, 1 step), B={B_MAIN}, {DISC_CALLS} RTI calls each from the "
+        f"same x0s, every status 0, no launch. float32: the step and its "
+        f"Jacobians on all {args[0].shape[0]} intervals max|d|/(1+max|ref|) "
+        f"{step_gap:.3e} (bound {DISC_STEP_BOUND:g}); DISCRETE - ERK x "
+        f"{g32['x']:.3e}, u {g32['u']:.3e}, instances parted (u by more "
+        f"than {DISC_PART:g}) {share32:.4%} (bound {DISC_PART_SHARE:.0%}); "
+        f"ERK on x0s moved by one float32 rounding step - ERK x "
+        f"{g_ulp['x']:.3e}, u {g_ulp['u']:.3e}, parted {share_ulp:.4%}. "
+        f"float64: DISCRETE - ERK x {g64['x']:.3e}, u {g64['u']:.3e} "
+        f"(bound {DISC_F64_BOUND:g}), parted {share64:.4%}")
+    if step_gap > DISC_STEP_BOUND or share32 > DISC_PART_SHARE \
+            or max(g64.values()) > DISC_F64_BOUND:
+        raise SystemExit("DISCRETE parts from ERK")
+    del runs, solvers, outs
+
+    # (c) p_global
+    rng = np.random.default_rng(SEED)
+    pg = 1.0 + 0.5 * rng.random((B_MAIN, 2))
+    tails = np.concatenate([pg, (pg[:, 0] * pg[:, 1] ** 2)[:, None]], 1)
+    batches = {}
+    for kind in ("p_global", "baked"):
+        ocp = pglobal_ocp(N=N_HORIZON, dtype="float32")
+        if kind == "baked":
+            ocp.model.p, ocp.model.p_global = 4, None
+            ocp.model.p_global_precompute_fun = None
+            ocp.p_global_values = None
+            ocp.parameter_values = np.array([0.1, 1.0, 1.0, 1.0])
+        for k, v in F32_TOLS.items():
+            setattr(ocp.solver_options, k, v)
+        s = nlp_batch(ocp, B_MAIN, dev, (1.0, 0.0), X0_SIGMA)
+        full = np.concatenate([np.full((B_MAIN, 1), 0.1), tails], 1)
+        if kind == "p_global":
+            # through the per-instance views, as a user sets them
+            for i, view in enumerate(s.ocp_solvers):
+                for k in range(N_HORIZON + 1):
+                    view.set(k, "p", full[i])
+        else:
+            s._data["p"][:] = full[:, None]
+            s._data_dev = None
+        batches[kind] = s
+    if batches["p_global"].form.np_ != 4:
+        raise SystemExit("p_global: the parameter is not [p | pg | gd]")
+    st = {k: timed_call(s) for k, s in batches.items()}
+    same = all(torch.equal(getattr(batches["p_global"]._it_dev, f),
+                           getattr(batches["baked"]._it_dev, f))
+               for f in ("x", "u", "pi", "lam_l", "lam_u"))
+    res = check_solved("p_global", batches["p_global"], st["p_global"][1])
+    log(f"p_global: the pglob model (p = [p_stage | mass, length | m l^2]), "
+        f"B={B_MAIN}, N={N_HORIZON}, float32, per-instance global "
+        f"parameters in [1, 1.5]: {st['p_global'][0]:.2f} ms, every status "
+        f"0, residual maxima {res.tolist()}; beside the tail baked into a "
+        f"plain p ({st['baked'][0]:.2f} ms): bit for bit {same}")
+    if not same or not np.array_equal(st["p_global"][1], st["baked"][1]):
+        raise SystemExit("p_global parts from the baked parameter")
+
+    # (d) LIFTED_IRK
+    xs, us = sim_inputs(1)
+    sims = {}
+    for itype in ("IRK", "LIFTED_IRK"):
+        sim = AcadosSim()
+        sim.model = export_pendulum_model()
+        so = sim.solver_options
+        so.T, so.integrator_type, so.num_stages, so.num_steps = \
+            SIM_DT, itype, 4, 2
+        so.newton_iter, so.dtype = 8, "float32"
+        sims[itype] = AcadosSimSolver(sim, device=dev)
+    x_irk = sims["IRK"].simulate(x=xs[0], u=us[0])
+    errs = [float(np.abs(sims["LIFTED_IRK"].simulate(x=xs[0], u=us[0])
+                         - x_irk).max()) for _ in range(LIFTED_CALLS)]
+    log(f"LIFTED_IRK: {LIFTED_CALLS} single-instance simulate() calls "
+        f"(float32, 4 stages, 2 substeps) against IRK's x_next (8 Newton "
+        f"iterations): max|x - x_IRK| by call "
+        f"{[f'{e:.2e}' for e in errs]}")
+    if not (errs[-1] <= F32_BOUND * max(1.0, np.abs(x_irk).max())
+            and errs[0] > errs[-1]):
+        raise SystemExit("LIFTED_IRK does not converge to IRK")
+    ocp_runs = {}
+    for itype in ("IRK", "LIFTED_IRK"):
+        s, _ = rti_batch(dict(kw, integrator_type=itype), B_MAIN, dev)
+        st = s.solve()
+        ocp_runs[itype] = (st, s._it_dev)
+    same = all(torch.equal(getattr(ocp_runs["IRK"][1], f),
+                           getattr(ocp_runs["LIFTED_IRK"][1], f))
+               for f in ("x", "u", "pi"))
+    log(f"  the main path's OCP with LIFTED_IRK against IRK, one RTI call "
+        f"each: bit for bit {same}")
+    if not same or not np.array_equal(ocp_runs["IRK"][0],
+                                      ocp_runs["LIFTED_IRK"][0]):
+        raise SystemExit("the OCP's LIFTED_IRK parts from IRK")
+
+
+def sim_vs_cpu(label, make, calls=1, fields=("xn", "S_forw", "zn")):
+    """A float64 simulator (make(device) -> AcadosSim(Batch)Solver, called
+    by run(solver)) on the card and on the CPU: every field within 1e-9
+    relative."""
+    import torch
+    out = {}
+    for where in (torch.device("cuda"), "cpu"):
+        s, run = make(where)
+        for _ in range(calls):
+            run(s)
+        out[str(where)] = {f: np.asarray(s.get(f)) for f in fields}
+    g = max(float(np.max(np.abs(out["cuda"][f] - out["cpu"][f])
+                         / (1 + np.abs(out["cpu"][f])), initial=0.0))
+            for f in fields)
+    log(f"{label} float64: card vs CPU max |d|/(1+|ref|) over "
+        f"{list(fields)} {g:.3e} (bound 1e-9)")
+    if not g <= 1e-9:
+        raise SystemExit(f"{label}: card and CPU disagree")
+
+
+def integrators_vs_cpu() -> None:
+    """Phase 35: float64 card against CPU of phases 33-34's paths at
+    B = B_INT_CHECK: the DAE cart (N = 10, 2 iterations), the GNSF,
+    DISCRETE and LIFTED_IRK (as IRK) RTI batches (1 call) and the
+    p_global SQP, the DAE, GNSF and LIFTED_IRK simulators."""
+    from acados_tpu_torch import AcadosSim, AcadosSimSolver
+    from acados_tpu_torch.models.pendulum import (export_pendulum_model,
+                                                  make_pendulum_ocp)
+    from acados_tpu_torch.testing import (dae_ocp, pendulum_rk4,
+                                          pglobal_ocp)
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    B = B_INT_CHECK
+    card_vs_cpu("DAE cart (N = 10, 2 iterations)",
+                lambda where: dae_batch(B, "float64", where, seed=2,
+                                        max_iter=2, N=10), calls=1)
+    kw64 = dict(N=N_NLP_CHECK, dtype="float64", nlp_solver_type="SQP_RTI")
+    for itype in ("GNSF", "LIFTED_IRK"):
+        card_vs_cpu(f"{itype} RTI (N = {N_NLP_CHECK})",
+                    lambda where: rti_batch(dict(kw64, integrator_type=itype),
+                                            B, where, seed=2)[0], calls=1)
+
+    def disc(where):
+        ocp = make_pendulum_ocp(integrator_type="DISCRETE", **kw64)
+        ocp.model.disc_dyn_expr = pendulum_rk4(1.0 / N_NLP_CHECK)
+        rng = np.random.default_rng(2)
+        return batch_at(ocp, np.asarray(X0_CENTER)
+                        + rng.normal(0.0, X0_SIGMA, (B, 4)), where)
+
+    card_vs_cpu(f"DISCRETE RTI (N = {N_NLP_CHECK})", disc, calls=1)
+
+    def pglob(where):
+        s = nlp_batch(pglobal_ocp(N=N_NLP_CHECK), B, where, (1.0, 0.0),
+                      X0_SIGMA, seed=2)
+        rng = np.random.default_rng(2)
+        for view, pg in zip(s.ocp_solvers, 1.0 + 0.5 * rng.random((B, 2))):
+            for k in range(N_NLP_CHECK + 1):
+                view.set(k, "p", [0.1, *pg, pg[0] * pg[1] ** 2])
+        return s
+
+    card_vs_cpu(f"p_global SQP (N = {N_NLP_CHECK})", pglob, calls=1)
+    x, u = sim_inputs(B, seed=2)
+
+    def sim_of(itype, where, dae=False):
+        sim = AcadosSim()
+        sim.model = export_pendulum_model()
+        if dae:
+            import torch
+            from acados_tpu_torch.models.pendulum import pendulum_ode
+            sim.model.z = 1
+            sim.model.f_impl_expr = lambda xd, x_, z, u_, p, t: torch.cat([
+                xd - pendulum_ode(x_, u_), z - x_[2:3] ** 2 - x_[3:4] ** 2])
+        so = sim.solver_options
+        so.T, so.integrator_type, so.num_stages, so.num_steps = \
+            SIM_DT, itype, 4, 2
+        return sim
+
+    from acados_tpu_torch import AcadosSimBatchSolver
+    for itype, dae in (("IRK", True), ("GNSF", False)):
+        sim_vs_cpu(f"simulator {itype}{' DAE' if dae else ''} (B = {B})",
+                   lambda where, itype=itype, dae=dae: (
+                       AcadosSimBatchSolver(sim_of(itype, where, dae), B,
+                                            device=where),
+                       lambda s: s.simulate(x, u)),
+                   fields=("xn", "S_forw"))
+    sim_vs_cpu("simulator IRK DAE (one instance)",
+               lambda where: (AcadosSimSolver(sim_of("IRK", where, True),
+                                              device=where),
+                              lambda s: s.simulate(x=x[0], u=u[0])),
+               fields=("xn", "S_forw", "zn"))
+    sim_vs_cpu("simulator LIFTED_IRK (one instance, 3 calls)",
+               lambda where: (AcadosSimSolver(sim_of("LIFTED_IRK", where),
+                                              device=where),
+                              lambda s: s.simulate(x=x[0], u=u[0])),
+               calls=3, fields=("xn", "S_forw"))
 
 
 def main() -> int:
@@ -3704,6 +4216,18 @@ def main() -> int:
     # ---- 32. float64 card against CPU of the NLP breadth --------------------
     at(32)
     nlp_breadth_vs_cpu()
+
+    # ---- 33. the DAE cart at full width (K1 on its 9 x 9 stage systems) -----
+    at(33)
+    kernels.append(dae_phase(dev))
+
+    # ---- 34. GNSF, DISCRETE, p_global and LIFTED_IRK ------------------------
+    at(34)
+    integrator_breadth(dev, solver._it_dev)
+
+    # ---- 35. float64 card against CPU of the integrator breadth -------------
+    at(35)
+    integrators_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -56,9 +56,10 @@ def test_adaptive_qp_tol_matches_jax():
 
 def test_waiting_paths_raise():
     """What is not ported yet raises NotImplementedError naming its
-    ROADMAP item: multiphase OCPs (item 16c), DISCRETE dynamics and
-    global parameters (item 17), and the interface utilities (item 20:
-    phase times, in-loop timeouts, stored iterates)."""
+    ROADMAP item: multiphase OCPs (item 16c) and the interface utilities
+    (item 20: phase times, in-loop timeouts, stored iterates). DISCRETE
+    dynamics and global parameters (item 17) build: the parameter is
+    [p_stage | p_global]."""
     from acados_tpu_torch import AcadosMultiphaseOcp, AcadosOcpSolver
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
@@ -69,12 +70,11 @@ def test_waiting_paths_raise():
     ocp = make_pendulum_ocp()
     ocp.solver_options.integrator_type = "DISCRETE"
     ocp.model.disc_dyn_expr = lambda x, u: x
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_ocp(ocp)
+    assert build_ocp(ocp)[0].step_jac_fn is not None
     ocp = make_pendulum_ocp()
     ocp.model.p_global = np.zeros(1)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        build_ocp(ocp)
+    form, data, _ = build_ocp(ocp)
+    assert form.np_ == 1 and data["p"].shape == (form.N + 1, 1)
     form = build_ocp(make_pendulum_ocp())[0]
     for field, value in (("collect_phase_times", True),
                          ("timeout_max_time", 1.0),

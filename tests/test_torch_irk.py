@@ -110,10 +110,16 @@ def test_float32_jacobians_stay_float32():
 
 
 def test_unported_paths_raise():
-    """The Kronecker path (2 stages, jac_reuse) is ported: see
-    tests/test_torch_chain.py."""
-    with pytest.raises(NotImplementedError, match="nz > 0"):
-        make_irk_step_jac(_torch_impl(), NX, nz=1)
-    with pytest.raises(NotImplementedError, match="GNSF"):
-        make_step_fn(f_expl=lambda x, u: pendulum_ode(x, u), nx=NX,
-                     opts=SimOpts(integrator_type="GNSF"))
+    """The paths the JAX package refuses, refused alike: the Kronecker
+    path (ported, tests/test_torch_chain.py) with algebraic variables,
+    LIFTED_IRK as a plain step (its stage memory lives in
+    sim/lifted_irk.py and the simulator) and an unknown integrator. DAEs
+    and GNSF are ported (tests/test_torch_dae.py, test_torch_gnsf.py)."""
+    with pytest.raises(ValueError, match="nz == 0"):
+        make_irk_step_jac(_torch_impl(), NX, nz=1, num_stages=2,
+                          kron_path=True)
+    for itype, match in (("LIFTED_IRK", "stage memory"),
+                         ("RK45", "unknown")):
+        with pytest.raises(ValueError, match=match):
+            make_step_fn(f_expl=lambda x, u: pendulum_ode(x, u), nx=NX,
+                         opts=SimOpts(integrator_type=itype))

@@ -190,7 +190,8 @@ def test_optimal_value_gradient_matches_jax(pair):
            ref["grad_p"].sum(axis=0))
     _close(ts.eval_and_get_optimal_value_gradient("initial_state"),
            ref["grad_x0"])
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the parametric pendulum declares no model.p_global
+    with pytest.raises(ValueError, match="p_global"):
         ts.set_p_global_and_precompute_dependencies(np.zeros(1))
 
 

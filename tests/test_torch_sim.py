@@ -246,20 +246,18 @@ def test_sim_batch_solver_equals_serial():
 
 
 def test_not_ported_integrators_raise_naming_item_17():
+    """Item 17 ported GNSF and LIFTED_IRK into the simulator
+    (tests/test_torch_gnsf.py, test_torch_lifted_irk.py): both build and
+    simulate; what stays refused is the JAX package's refusal, a batch of
+    lifted simulators, and LIFTED_IRK as a plain step function."""
     _, tsim = _sims()
+    x, u, _ = _inputs(8)
     for itype in ("GNSF", "LIFTED_IRK"):
         tsim.solver_options.integrator_type = itype
-        with pytest.raises(NotImplementedError, match="item 17"):
-            AcadosSimSolver(tsim, device="cpu")
-    tsim.solver_options.integrator_type = "IRK"
-    tsim.model.z = 1
-    with pytest.raises(NotImplementedError, match="item 17"):
-        AcadosSimSolver(tsim, device="cpu")
-    step = make_step_fn(f_expl=lambda x, u: pendulum_ode(x, u), nx=NX,
-                        opts=SimOpts(integrator_type="IRK"))
-    x, u, _ = _inputs(8)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        simulate(step, torch.as_tensor(x), torch.as_tensor(u), nz=1)
-    with pytest.raises(NotImplementedError, match="item 17"):
+        xn = AcadosSimSolver(tsim, device="cpu").simulate(x=x[0], u=u[0])
+        assert xn.shape == (NX,) and np.isfinite(xn).all()
+    with pytest.raises(NotImplementedError, match="lifted"):
+        AcadosSimBatchSolver(tsim, 4, device="cpu")
+    with pytest.raises(ValueError, match="stage memory"):
         make_step_fn(f_expl=lambda x, u: pendulum_ode(x, u), nx=NX,
-                     opts=SimOpts(integrator_type="GNSF"))
+                     opts=SimOpts(integrator_type="LIFTED_IRK"))
