@@ -18,15 +18,17 @@ acados_tpu:
 """
 
 from acados_tpu_torch.interface.acados_ocp import (AcadosModel,
-                                                   AcadosMultiphaseOcp,
                                                    AcadosOcp,
                                                    AcadosOcpConstraints,
                                                    AcadosOcpCost,
                                                    AcadosOcpDims,
                                                    AcadosOcpOptions)
 from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+from acados_tpu_torch.interface.multiphase import AcadosMultiphaseOcp
 from acados_tpu_torch.interface.ocp_qp_solver import (AcadosOcpQp,
                                                       AcadosOcpQpSolver)
+from acados_tpu_torch.interface.param_manager import (AcadosParam,
+                                                      AcadosParamManager)
 from acados_tpu_torch.interface.sim_solver import (AcadosSim,
                                                    AcadosSimBatchSolver,
                                                    AcadosSimOpts,
@@ -42,5 +44,6 @@ __all__ = [
     "AcadosOcpDims", "AcadosOcpOptions", "AcadosOcpSolver",
     "AcadosOcpBatchSolver", "AcadosSim", "AcadosSimOpts",
     "AcadosSimSolver", "AcadosSimBatchSolver", "AcadosOcpQp",
-    "AcadosOcpQpSolver", "ACADOS_INFTY", "AcadosStatus",
+    "AcadosOcpQpSolver", "AcadosParam", "AcadosParamManager",
+    "ACADOS_INFTY", "AcadosStatus",
 ]

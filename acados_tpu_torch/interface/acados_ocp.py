@@ -450,14 +450,3 @@ class AcadosOcp:
     # zoro_description.py:42-103); see interface/zoro.py
     zoro_description: object = None
 
-
-class AcadosMultiphaseOcp:
-    """Reference: acados_multiphase_ocp.py (acados_tpu/interface/
-    multiphase.py). Multiphase OCPs are not ported yet: constructing one
-    raises."""
-
-    def __init__(self, N_list=None):
-        del N_list
-        raise NotImplementedError(
-            "multiphase OCPs (AcadosMultiphaseOcp) are not ported yet "
-            "(ROADMAP.md Queue 1, item 16c, multiphase)")

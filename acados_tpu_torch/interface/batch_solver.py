@@ -24,6 +24,7 @@ import torch
 
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import build_ocp, data_to_torch
+from acados_tpu_torch.interface.multiphase import AcadosMultiphaseOcp
 from acados_tpu_torch.interface.solver import (_adjoint_wrt, _bound_slot,
                                                _fence, _forward_over_seeds,
                                                _seeds, _sqp_opts_from,
@@ -93,6 +94,12 @@ class AcadosOcpBatchSolver:
                  num_threads_in_batch_solve=None, json_file=None,
                  build=None, generate=None, verbose=False, device=None):
         del num_threads_in_batch_solve, json_file, build, generate, verbose
+        if isinstance(ocp, AcadosMultiphaseOcp):
+            raise NotImplementedError(
+                "AcadosOcpBatchSolver takes single-phase OCPs only, as the "
+                "JAX package's (acados_tpu/interface/batch_solver.py:89 "
+                "builds through build_ocp): solve a multiphase OCP with "
+                "AcadosOcpSolver")
         self.device = resolve_device(device)
         full_precision_matmul()
         self.acados_ocp = ocp

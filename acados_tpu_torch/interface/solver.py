@@ -18,7 +18,15 @@ time_feedback, statistics), get_residuals, get_cost, reset, get(stage,
 "z") of a DAE, set_p_global_and_precompute_dependencies, and the
 solution sensitivities (eval_param_sens, eval_solution_sensitivity,
 eval_adjoint_solution_sensitivity, eval_and_get_optimal_value_gradient).
-The in-loop phase times wait (ROADMAP.md Queue 1, item 20).
+The in-loop phase times wait (ROADMAP.md Queue 1, item 20b).
+
+A multiphase OCP (AcadosMultiphaseOcp) builds through build_mocp, as in
+the JAX package (acados_tpu/interface/solver.py:181-187): get and set of
+x and u take the stage's phase dims; where the JAX package fails on a
+multiphase OCP (lam, sl and su at a path stage, z, the sensitivities)
+the port raises NotImplementedError. With solver_options.
+with_debug_checks or ACADOS_TPU_DEBUG_CHECKS=1, solve() validates the
+data and the iterate on the host first (utils/debug_checks.py).
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ import torch
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp, _dim_of
 from acados_tpu_torch.interface.builder import (StageLayout, _global_data,
                                                 build_ocp, data_to_torch)
+from acados_tpu_torch.interface.multiphase import (AcadosMultiphaseOcp,
+                                                   _phase_dims, build_mocp,
+                                                   phase_of_stage)
 from acados_tpu_torch.ocp_nlp.ddp import make_ddp_solver
 from acados_tpu_torch.ocp_nlp.formulation import NlpData
 from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
@@ -44,6 +55,9 @@ from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
 from acados_tpu_torch.ocp_nlp.wfqp import make_wfqp_solver
 from acados_tpu_torch.ocp_qp.ipm import IpmOpts
 from acados_tpu_torch.ocp_qp.xcond import resolve_cond_N
+from acados_tpu_torch.utils.debug_checks import (check_iterate,
+                                                 check_nlp_data,
+                                                 debug_checks_enabled)
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
 
@@ -167,11 +181,14 @@ def _is_full_cond(so) -> bool:
 def _resolve_cond(ocp: AcadosOcp) -> int | None:
     """qp_solver_cond_N -> the partial-condensing horizon, as
     acados_tpu/interface/solver.py:_resolve_cond maps it: None for full
-    condensing and for cond_N >= N (HPIPM's "no condensing")."""
+    condensing and for cond_N >= N (HPIPM's "no condensing"); a
+    multiphase OCP's N is sum(N_list)."""
     so = ocp.solver_options
     if so.qp_solver_cond_N is None or _is_full_cond(so):
         return None
-    return resolve_cond_N(so.N_horizon or ocp.dims.N, so.qp_solver_cond_N)
+    N = sum(ocp.N_list) if isinstance(ocp, AcadosMultiphaseOcp) \
+        else so.N_horizon or ocp.dims.N
+    return resolve_cond_N(N, so.qp_solver_cond_N)
 
 
 def _as_rti_level_str(level) -> str:
@@ -185,10 +202,10 @@ def _as_rti_level_str(level) -> str:
 # runtime options of acados_tpu's options_set whose paths wait, with
 # their ROADMAP.md Queue 1 item
 _OPTIONS_NOT_PORTED = {
-    "print_level": "item 20, interface utilities (print_statistics)",
-    "store_iterates": "item 20, interface utilities (stored iterates)",
+    "print_level": "item 20b, interface utilities (print_statistics)",
+    "store_iterates": "item 20b, interface utilities (stored iterates)",
     **dict.fromkeys(("timeout_max_time", "timeout_heuristic"),
-                    "item 20, interface utilities (in-loop timeouts)"),
+                    "item 20b, interface utilities (in-loop timeouts)"),
 }
 
 
@@ -232,7 +249,8 @@ def iterate_to_numpy(it: NlpIterate) -> dict:
 
 class AcadosOcpSolver:
     """Drop-in style replacement for the reference class of the same
-    name; `device` None means "cuda"."""
+    name, for an AcadosOcp or an AcadosMultiphaseOcp; `device` None means
+    "cuda"."""
 
     def __init__(self, ocp: AcadosOcp, json_file=None, build=None,
                  generate=None, verbose=False, device=None):
@@ -240,7 +258,9 @@ class AcadosOcpSolver:
         self.device = resolve_device(device)
         full_precision_matmul()
         self.acados_ocp = ocp
-        self.form, self._data, self.layouts = build_ocp(ocp)
+        self._is_mocp = isinstance(ocp, AcadosMultiphaseOcp)
+        self.form, self._data, self.layouts = (
+            build_mocp if self._is_mocp else build_ocp)(ocp)
         self.opts = _sqp_opts_from(ocp)
         self.dtype = _torch_dtype(ocp)
         self._solve_fn = self._make_solve_fn(self.opts)
@@ -429,6 +449,9 @@ class AcadosOcpSolver:
         if self._rti_phase in (1, 2):
             return self._solve_rti_phase()
         self._maybe_default_init()
+        if debug_checks_enabled(self.acados_ocp.solver_options):
+            check_nlp_data(self._data)
+            check_iterate(self._iterate)
         solve_fn = self._solve_fn
         if self._x0_bounds_asymmetric():
             if self._solve_fn_noelim is None:
@@ -453,10 +476,31 @@ class AcadosOcpSolver:
         return self.get(0, "u")
 
     # -- get / set ----------------------------------------------------------
+    def _stage_dims(self, stage: int):
+        """(nx, nu) at a stage: a multiphase OCP's are its phase's, as
+        the reference's multi-solver returns them."""
+        if not self._is_mocp:
+            return self.form.nx, self.form.nu
+        mocp = self.acados_ocp
+        return _phase_dims(mocp)[phase_of_stage(mocp, stage)]
+
+    def _refuse_path_stage_of_mocp(self, stage: int, what: str):
+        """A multiphase OCP has a row layout per phase, which the JAX
+        package's stage lookup does not take (acados_tpu/interface/
+        solver.py:505-512 fails there)."""
+        if self._is_mocp and 0 < stage < self.N:
+            raise NotImplementedError(
+                f"{what} at a path stage of a multiphase OCP is not "
+                "supported: the JAX package fails there too (ROADMAP.md, "
+                "Queue 3: gaps in the JAX package)")
+
     def get(self, stage: int, field: str):
         """Reference: ocp_nlp_get_at_stage (ocp_nlp_interface.c:1704)."""
         it = self._iterate
-        if field in ("x", "u", "pi"):
+        if field in ("x", "u"):
+            n = self._stage_dims(stage)[field == "u"]
+            return it[field][stage][:n].copy()
+        if field == "pi":
             return it[field][stage].copy()
         if field in ("sl", "su"):
             return it[field][stage][self._soft_slice(stage)].copy()
@@ -466,16 +510,22 @@ class AcadosOcpSolver:
             return np.concatenate([it["lam_l"][stage][:n],
                                    it["lam_u"][stage][:n]])
         if field == "z":
+            if self._is_mocp:
+                raise NotImplementedError(
+                    "get(stage, 'z') of a multiphase OCP is not supported: "
+                    "the JAX package's multiphase formulation has no z")
             return _z_at(self, stage, {k: it[k][None] for k in ("x", "u")},
                          {k: self._data[k][None] for k in ("p", "ts",
                                                            "dts")})[0]
         raise ValueError(f"get: unknown field {field!r}")
 
     def _layout(self, stage) -> StageLayout:
+        self._refuse_path_stage_of_mocp(stage, "the constraint rows")
         return self.layouts["0" if stage == 0
                             else ("e" if stage == self.N else "p")]
 
     def _soft_slice(self, stage):
+        self._refuse_path_stage_of_mocp(stage, "the soft rows")
         spec = (self.form.con_0 if stage == 0 else
                 self.form.con_e if stage == self.N else self.form.con)
         return list(spec.soft_rows)
@@ -486,7 +536,11 @@ class AcadosOcpSolver:
         value = np.atleast_1d(np.asarray(value, np.float64))
         it = self._iterate
         if field in ("x", "u", "pi"):
-            it[field][stage] = value
+            if self._is_mocp and field != "pi" and \
+                    value.shape[0] == self._stage_dims(stage)[field == "u"]:
+                it[field][stage][:value.shape[0]] = value  # phase dims
+            else:
+                it[field][stage] = value
             self._default_init = False
             return
         if field in ("sl", "su"):

@@ -37,7 +37,7 @@ import torch
 from acados_tpu_torch.ocp_nlp.formulation import NlpData, OcpNlpFormulation
 from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate,
                                                 build_static_rows, eval_cost,
-                                                linearize)
+                                                linearize, refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
                                           _check_ported, _nlp_residuals,
@@ -73,6 +73,7 @@ def make_ddp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     every tensor leading with the batch axis; init.u seeds the first
     forward simulation (ocp_nlp_ddp_precompute, ocp_nlp_ddp.c:865).
     """
+    refuse_multiphase(form, "DDP")
     if form.con.nrows > 0 or form.con_e.nrows > 0:
         raise ValueError(
             "DDP supports unconstrained OCPs only (initial-state constraint"

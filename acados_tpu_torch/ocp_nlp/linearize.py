@@ -23,6 +23,12 @@ dz/d(x, u), and the stage-0 and path modules see z through the affine
 model z0 + Jz (w - w_k), so AD of the composition gives the reference's
 dzduxt chain rule; the merit and residual evaluations re-solve z(t0)
 exactly through form.z_fun (:315-330).
+
+A multiphase formulation (ocp_nlp/multiphase.py) takes its own
+functions at the JAX package's `_is_mp` hooks (:51-66, 95-97, 335-337,
+363-365, 402-404): `is_multiphase` dispatches build_static_rows,
+linearize and the three evaluations, so the SQP loops are
+phase-agnostic.
 """
 from __future__ import annotations
 
@@ -80,9 +86,31 @@ def _path_vmap(fn, B, K, *args):
     return unflat(out)
 
 
+def is_multiphase(form) -> bool:
+    """A multiphase formulation carries `segments` (acados_tpu/ocp_nlp/
+    linearize.py:51-54): the entry points below dispatch on it, so the
+    NLP solvers are phase-agnostic."""
+    return getattr(form, "segments", None) is not None
+
+
+def refuse_multiphase(form, what: str,
+                      why: str = "the JAX package fails there too") -> None:
+    """A path that reads the single-phase stage classes (form.con,
+    form.cost) raises NotImplementedError on a multiphase formulation,
+    where the JAX package fails on the missing attribute (or, as `why`
+    says, computes something else)."""
+    if is_multiphase(form):
+        raise NotImplementedError(
+            f"{what} of a multiphase OCP is not supported: {why} "
+            "(ROADMAP.md, Queue 3: gaps in the JAX package)")
+
+
 def build_static_rows(form: OcpNlpFormulation, dtype, device):
     """Constant row structure: base C/D blocks, row masks, soft masks
     (no batch axis)."""
+    if is_multiphase(form):
+        from acados_tpu_torch.ocp_nlp.multiphase import build_static_rows_mp
+        return build_static_rows_mp(form, dtype, device)
     nc, N = form.nc, form.N
 
     def cls_const(spec):
@@ -170,6 +198,9 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     iterate; lm is the Levenberg-Marquardt diagonal added to the
     Hessian (reference ocp_nlp_add_levenberg_marquardt_term), a scalar
     or one value an instance, (B,) (adaptive LM)."""
+    if is_multiphase(form):
+        from acados_tpu_torch.ocp_nlp.multiphase import linearize_mp
+        return linearize_mp(form, static_rows, data, it, lm)
     N, nx, nu, nc = form.N, form.nx, form.nu, form.nc
     Bsz = it.x.shape[0]
     dt, dev = it.x.dtype, it.x.device
@@ -272,14 +303,6 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
         H_path = H0[:, None] + lm_w * eyeW
         g_path = g0[:, None]
 
-    eyeX = torch.eye(nx, dtype=dt, device=dev)
-    Q = torch.cat([H_path[:, :, :nx, :nx],
-                   (He[:, :nx, :nx] + lm_x * eyeX)[:, None]], dim=1)
-    S = H_path[:, :, nx:, :nx]
-    R = H_path[:, :, nx:, nx:]
-    q = torch.cat([g_path[:, :, :nx], ge[:, None, :nx]], dim=1)
-    r = g_path[:, :, nx:]
-
     # ---- constraint rows -------------------------------------------------
     sr = static_rows
     g0v, C0, D0 = _rows(form.con_0, sr["C_0"], sr["D_0"], nc, x[:, 0],
@@ -299,6 +322,25 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
         g_all = torch.stack([g0v, gev], dim=1)
         C = torch.stack([C0, Ce], dim=1)
         D = D0[:, None]
+    return _assemble_qp(data, sr, H_path, g_path, He, ge, lm_x, A, B, b,
+                        g_all, C, D)
+
+
+def _assemble_qp(data: NlpData, sr, H_path, g_path, He, ge, lm_x, A, B, b,
+                 g_all, C, D) -> OcpQp:
+    """The delta-form OcpQp of every instance from the stage Hessians
+    and gradients over w = [x; u] (H_path/g_path of stages 0..N-1, He/ge
+    of stage N, without its lm term), the dynamics blocks and the row
+    values and Jacobians of all stages."""
+    Bsz, N, nx = A.shape[0], A.shape[1], A.shape[-1]
+    nc = g_all.shape[-1]
+    eyeX = torch.eye(nx, dtype=A.dtype, device=A.device)
+    Q = torch.cat([H_path[:, :, :nx, :nx],
+                   (He[:, :nx, :nx] + lm_x * eyeX)[:, None]], dim=1)
+    S = H_path[:, :, nx:, :nx]
+    R = H_path[:, :, nx:, nx:]
+    q = torch.cat([g_path[:, :, :nx], ge[:, None, :nx]], dim=1)
+    r = g_path[:, :, nx:]
 
     lb_all = _stack_stages(data.lb_0, data.lb, data.lb_e)
     ub_all = _stack_stages(data.ub_0, data.ub, data.ub_e)
@@ -311,7 +353,7 @@ def linearize(form: OcpNlpFormulation, static_rows, data: NlpData,
     lg = torch.where(mask_l > 0, lb_all - g_all, -1.0)  # delta form
     ug = torch.where(mask_u > 0, ub_all - g_all, 1.0)
 
-    sc_all = sc[:, :, None]
+    sc_all = data.cost_scale[:, :, None]
     Zl = _stack_stages(data.Zl_0, data.Zl, data.Zl_e) * sc_all
     Zu = _stack_stages(data.Zu_0, data.Zu, data.Zu_e) * sc_all
     zl = _stack_stages(data.zl_0, data.zl, data.zl_e) * sc_all
@@ -349,6 +391,9 @@ def _z_fixed(fn, z):
 
 def eval_constraints(form: OcpNlpFormulation, data: NlpData, x, u):
     """Row values g_k(x_k, u_k) for all stages, (B, N+1, nc)."""
+    if is_multiphase(form):
+        from acados_tpu_torch.ocp_nlp.multiphase import eval_constraints_mp
+        return eval_constraints_mp(form, data, x, u)
     N, nc, nu = form.N, form.nc, form.nu
     Bsz = x.shape[0]
     zs = _z_exact(form, data, x, u) if _needs_z(form) else None
@@ -371,6 +416,9 @@ def eval_cost(form: OcpNlpFormulation, data: NlpData, x, u, sl, su,
               soft_mask):
     """Total NLP objective of every instance incl. soft-slack penalties,
     (B,)."""
+    if is_multiphase(form):
+        from acados_tpu_torch.ocp_nlp.multiphase import eval_cost_mp
+        return eval_cost_mp(form, data, x, u, sl, su, soft_mask)
     N, nu = form.N, form.nu
     Bsz = x.shape[0]
     sc = data.cost_scale
@@ -387,18 +435,25 @@ def eval_cost(form: OcpNlpFormulation, data: NlpData, x, u, sl, su,
     ce = vmap(form.cost_e.value)(x[:, N], x.new_zeros((Bsz, nu)),
                                  data.p[:, N], data.ts[:, N],
                                  cost_data_term(data)) * sc[:, N]
+    return c0 + cp + ce + _slack_cost(data, sl, su, soft_mask)
+
+
+def _slack_cost(data: NlpData, sl, su, soft_mask):
+    """The soft rows' slack penalties of every instance, (B,)."""
     Zl = _stack_stages(data.Zl_0, data.Zl, data.Zl_e)
     Zu = _stack_stages(data.Zu_0, data.Zu, data.Zu_e)
     zl = _stack_stages(data.zl_0, data.zl, data.zl_e)
     zu = _stack_stages(data.zu_0, data.zu, data.zu_e)
-    scs = sc[:, :, None] * soft_mask
-    slack = (scs * (zl * sl + 0.5 * Zl * sl ** 2 + zu * su
-                    + 0.5 * Zu * su ** 2)).reshape(Bsz, -1).sum(dim=1)
-    return c0 + cp + ce + slack
+    scs = data.cost_scale[:, :, None] * soft_mask
+    return (scs * (zl * sl + 0.5 * Zl * sl ** 2 + zu * su
+                   + 0.5 * Zu * su ** 2)).reshape(sl.shape[0], -1).sum(dim=1)
 
 
 def eval_dyn_gap(form: OcpNlpFormulation, data: NlpData, x, u):
     """phi(x_k, u_k) - x_{k+1} for all intervals, (B, N, nx)."""
+    if is_multiphase(form):
+        from acados_tpu_torch.ocp_nlp.multiphase import eval_dyn_gap_mp
+        return eval_dyn_gap_mp(form, data, x, u)
     Bsz, N = x.shape[0], form.N
     xn = form.step_fn(_flat2(x[:, :-1]), _flat2(u), _flat2(data.p[:, :-1]),
                       _flat2(data.ts[:, :-1]), _flat2(data.dts))

@@ -35,7 +35,8 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _flat2,
                                                 _stack_stages,
                                                 build_static_rows,
                                                 eval_constraints, eval_cost,
-                                                eval_dyn_gap, linearize)
+                                                eval_dyn_gap, linearize,
+                                                refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, SqpStats, _check_ported,
                                           _nlp_residuals, use_x0_elimination)
@@ -73,6 +74,12 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
     if opts.as_rti_advancement not in ("SHIFT", "SIMULATE", "NONE"):
         raise ValueError(
             f"unknown as_rti_advancement {opts.as_rti_advancement!r}")
+    if opts.as_rti_level == "C":
+        # level C's adjoint correction steps every interval with
+        # form.step_fn, which is phase 0's on a multiphase form
+        refuse_multiphase(form, "AS-RTI level C",
+                          "the JAX package's adjoint correction takes "
+                          "phase 0's dynamics on every interval there")
     full_precision_matmul()
     nbx0 = form.con_0.nbx
     idxbx0 = list(form.con_0.idxbx)

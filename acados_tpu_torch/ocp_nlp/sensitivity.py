@@ -37,7 +37,7 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _flat2,
                                                 build_static_rows,
                                                 eval_constraints, eval_cost,
                                                 eval_dyn_gap, linearize,
-                                                step_one)
+                                                refuse_multiphase, step_one)
 from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv, riccati_factor,
                                              riccati_solve)
 from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
@@ -155,7 +155,9 @@ def _refuse_z(form, what: str) -> None:
     algebraic states, as the JAX package's does (acados_tpu/ocp_nlp/
     sensitivity.py:84): a DAE whose cost or h rows read z would lose its
     z terms or fail on a shape, and the parameter gradient has no
-    reference that reads z to be held to. Both refuse a DAE."""
+    reference that reads z to be held to. Both refuse a DAE, and a
+    multiphase OCP, whose single-phase stage classes they read."""
+    refuse_multiphase(form, what)
     if form.nz > 0:
         raise NotImplementedError(
             f"{what} of a DAE (nz = {form.nz}) are not supported "
@@ -169,6 +171,7 @@ class KktFactor:
 
     def __init__(self, form, opts: SensOpts, data: NlpData,
                  it: NlpIterate):
+        refuse_multiphase(form, "solution sensitivities")
         if form.cost_0.needs_dt or form.cost.needs_dt:
             # the JAX package's Lagrangian Hessian evaluates the cost
             # without the interval length an integrated cost takes
@@ -330,6 +333,7 @@ def make_diff_solver(form: OcpNlpFormulation, opts, sens_opts=None):
     on it at convergence)."""
     from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
 
+    refuse_multiphase(form, "the differentiable solver")
     sens_opts = sens_opts or SensOpts()
     solve = make_sqp_solver(form, opts)
     nd = len(_DATA)

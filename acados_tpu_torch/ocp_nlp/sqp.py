@@ -33,7 +33,8 @@ from acados_tpu_torch.ocp_nlp.formulation import NlpData, OcpNlpFormulation
 from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _stack_stages,
                                                 build_static_rows,
                                                 eval_constraints, eval_cost,
-                                                eval_dyn_gap, linearize)
+                                                eval_dyn_gap, is_multiphase,
+                                                linearize)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import (IpmOpts, _bc, _bmax, _bsum,
@@ -132,11 +133,11 @@ class SqpOpts:
 
 # option -> (default, ROADMAP item) for the paths that wait
 _NOT_PORTED = {
-    "collect_phase_times": (False, "item 20, interface utilities "
+    "collect_phase_times": (False, "item 20b, interface utilities "
                                    "(phase times)"),
-    "timeout_max_time": (0.0, "item 20, interface utilities (in-loop "
+    "timeout_max_time": (0.0, "item 20b, interface utilities (in-loop "
                               "timeouts)"),
-    "store_iterates": (False, "item 20, interface utilities (stored "
+    "store_iterates": (False, "item 20b, interface utilities (stored "
                               "iterates)"),
 }
 
@@ -401,7 +402,11 @@ def use_x0_elimination(form: OcpNlpFormulation, opts: SqpOpts) -> bool:
 def keep_rows_of(form: OcpNlpFormulation):
     """Static real-row counts of the stage classes (con_0, con, con_e):
     partial condensing prunes the padding rows beyond them instead of
-    carrying all nc rows of every eliminated stage."""
+    carrying all nc rows of every eliminated stage. None for a multiphase
+    form, whose path rows differ by phase (acados_tpu/ocp_nlp/sqp.py:
+    463-465): every stage keeps its nc rows."""
+    if is_multiphase(form):
+        return None
     return (form.con_0.nrows, form.con.nrows, form.con_e.nrows)
 
 

@@ -31,7 +31,7 @@ import torch
 from acados_tpu_torch.ocp_nlp.formulation import NlpData, OcpNlpFormulation
 from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _stack_stages,
                                                 build_static_rows, eval_cost,
-                                                linearize)
+                                                linearize, refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
                                           _backtrack, _check_ported, _merit,
@@ -88,6 +88,7 @@ def make_wfqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     column is the nominal QP's status, its qp_iter column both QPs'
     iterations.
     """
+    refuse_multiphase(form, "SQP_WITH_FEASIBLE_QP")
     _check_ported(opts)
     full_precision_matmul()
 

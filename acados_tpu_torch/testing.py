@@ -2,8 +2,10 @@
 batches of OCP-QPs, RTI batches set up from per-instance x0s, the
 parametric pendulum of the sensitivity tests, the unconstrained pendulum
 of the DDP tests, the obstacle OCP of the WFQP and BGP tests, the
-DAE-constrained cart of the DAE tests, the p_global model and the
-pendulum's hand-rolled RK4 step for DISCRETE dynamics.
+DAE-constrained cart of the DAE tests, the p_global model, the
+pendulum's hand-rolled RK4 step for DISCRETE dynamics, the multiphase
+transition example, the control-horizon pendulum and a batch-first
+runner of multiphase OCPs.
 
 Shared by the CPU tests (tests/test_torch_*.py) and the card's check
 (chip_smoke.py), so both hold the port to the same cases. Nothing here
@@ -13,10 +15,11 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["JAX_SENS_F32_GAP", "DAE_ZBOUND", "dae_ocp", "ddp_pendulum_ocp",
+__all__ = ["JAX_SENS_F32_GAP", "DAE_ZBOUND", "MOCP_X0", "MocpBatch",
+           "control_horizon_mocp", "dae_ocp", "ddp_pendulum_ocp",
            "obstacle_ocp", "pendulum_rk4", "pglobal_ocp",
            "param_pendulum_ocp", "pivot_tie_batch", "random_qp_batch",
-           "row_permuted_batch", "rti_batch"]
+           "row_permuted_batch", "rti_batch", "transition_mocp"]
 
 # The JAX package's forward-adjoint gap in float32: max over instances of
 # max|adj - fwd| / max|fwd|, fwd = d u_0 / d x0 from its forward
@@ -380,3 +383,144 @@ def pendulum_rk4(dt: float):
         return x + dt / 6 * (k1 + 2 * k2 + 2 * k3 + k4)
 
     return rk4
+
+
+# tests/test_multiphase.py's transition example: a double integrator for
+# N_H intervals over t1, a DISCRETE transition x -> x[0] over 1 s, then a
+# single integrator for N_H intervals over T_H - t1
+MOCP_X0, MOCP_N_H, MOCP_T_H = (2.0, 0.0), 25, 1.0
+
+
+def transition_mocp(t1=0.4, integrator_type=("ERK", "DISCRETE", "ERK"),
+                    nlp_solver_type="SQP", dtype="float64"):
+    """tests/test_multiphase.py:make_transition_mocp (the reference's
+    mocp_transition_example): phases [double integrator x N_H, transition
+    x 1, single integrator x N_H], NONLINEAR_LS costs, |u| <= 50 and then
+    |u| <= 5, x0 = MOCP_X0, SQP with MERIT_BACKTRACKING."""
+    import torch
+
+    from acados_tpu_torch.interface.acados_ocp import AcadosModel, AcadosOcp
+    from acados_tpu_torch.interface.multiphase import AcadosMultiphaseOcp
+    ph0, m0 = AcadosOcp(), AcadosModel()
+    m0.name, m0.x, m0.u = "dint", 2, 1
+    m0.f_expl_expr = lambda x, u: torch.cat([x[1:2], u[:1]])
+    m0.cost_y_expr = lambda x, u: torch.cat([x, u])
+    ph0.model = m0
+    ph0.cost.cost_type = "NONLINEAR_LS"
+    ph0.cost.W, ph0.cost.yref = np.diag([1.0, 1e-1, 1e-3]), np.zeros(3)
+    ph0.constraints.lbu, ph0.constraints.ubu = np.array([-50.0]), \
+        np.array([50.0])
+    ph0.constraints.idxbu = np.array([0])
+    ph0.constraints.x0 = np.array(MOCP_X0)
+
+    ph1, m1 = AcadosOcp(), AcadosModel()
+    m1.name, m1.x, m1.u = "trans", 2, 0
+    m1.disc_dyn_expr = lambda x, u: x[:1]
+    m1.cost_y_expr = lambda x, u: x
+    ph1.model = m1
+    ph1.cost.cost_type = "NONLINEAR_LS"
+    ph1.cost.W, ph1.cost.yref = np.diag([1.0, 1e-2]), np.zeros(2)
+
+    ph2, m2 = AcadosOcp(), AcadosModel()
+    m2.name, m2.x, m2.u = "sint", 1, 1
+    m2.f_expl_expr = lambda x, u: u[:1]
+    m2.cost_y_expr = lambda x, u: torch.cat([x, u])
+    m2.cost_y_expr_e = lambda x: x
+    ph2.model = m2
+    ph2.cost.cost_type = ph2.cost.cost_type_e = "NONLINEAR_LS"
+    ph2.cost.W, ph2.cost.yref = np.diag([1.0, 1.0]), np.zeros(2)
+    ph2.cost.W_e, ph2.cost.yref_e = np.diag([1e1]), np.zeros(1)
+    ph2.constraints.lbu, ph2.constraints.ubu = np.array([-5.0]), \
+        np.array([5.0])
+    ph2.constraints.idxbu = np.array([0])
+
+    mocp = AcadosMultiphaseOcp([MOCP_N_H, 1, MOCP_N_H])
+    for i, ph in enumerate((ph0, ph1, ph2)):
+        mocp.set_phase(ph, i)
+    so = mocp.solver_options
+    so.nlp_solver_type, so.globalization = nlp_solver_type, \
+        "MERIT_BACKTRACKING"
+    mocp.mocp_opts.integrator_type = list(integrator_type)
+    so.tf = MOCP_T_H + 1.0
+    so.time_steps = np.array(MOCP_N_H * [t1 / MOCP_N_H] + [1.0]
+                             + MOCP_N_H * [(MOCP_T_H - t1) / MOCP_N_H])
+    so.dtype = dtype
+    return mocp
+
+
+def control_horizon_mocp(N=20, Nc=5, dtype="float64",
+                         nlp_solver_type="SQP"):
+    """tests/test_utils_interface.py::TestControlHorizon's problem:
+    create_ocp_with_control_horizon of the pendulum of
+    tests/test_interface.py:make_ocp (models/pendulum.py, which adds its
+    float32 tolerances and Levenberg-Marquardt term in float32): nx 4 and
+    nu 1 for Nc intervals, the transition x -> [x; u], then nx 5 with the
+    control held (N + 1 intervals in all)."""
+    from acados_tpu_torch.interface.mpc_utils import \
+        create_ocp_with_control_horizon
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    return create_ocp_with_control_horizon(
+        make_pendulum_ocp(N=N, dtype=dtype, nlp_solver_type=nlp_solver_type),
+        Nc)
+
+
+class MocpBatch:
+    """A multiphase OCP solved batch-first for B instances, instance i
+    from x0s[i]: the port's SQP (make_nlp_solver) on build_mocp's form
+    with the data broadcast over the batch and each instance's x0 as
+    its stage-0 state bounds, what a vmap of the JAX package's solve
+    function over AcadosOcpSolver's data would do (the batch solvers of
+    both packages take single-phase OCPs only). The iterate starts as
+    AcadosOcpSolver's default: x0 at every stage's phase-0 state
+    coordinates, zeros elsewhere; each solve() warm-starts from the
+    last. The fields the card's checks read (N_batch, N, form, opts,
+    acados_ocp, _it_dev, _stats, get_stats) are those of
+    AcadosOcpBatchSolver."""
+
+    def __init__(self, mocp, x0s, device):
+        import torch
+
+        from acados_tpu_torch.interface.builder import data_to_torch
+        from acados_tpu_torch.interface.multiphase import build_mocp
+        from acados_tpu_torch.interface.solver import (_sqp_opts_from,
+                                                       _torch_dtype,
+                                                       make_nlp_solver)
+        from acados_tpu_torch.ocp_nlp.sqp import init_iterate
+        x0s = np.asarray(x0s, np.float64)
+        self.acados_ocp, self.device = mocp, torch.device(device)
+        self.form, data, self.layouts = build_mocp(mocp)
+        self.opts = _sqp_opts_from(mocp)
+        self.dtype = _torch_dtype(mocp)
+        self.N, self.N_batch = self.form.N, x0s.shape[0]
+        self._solve_fn = make_nlp_solver(
+            self.form, self.opts, mocp.solver_options.nlp_solver_type)
+        data = {k: np.tile(v, (self.N_batch,) + (1,) * np.ndim(v))
+                for k, v in data.items()}
+        lay, idx = self.layouts["0"], list(self.form.con_0.idxbx)
+        for key in ("lb_0", "ub_0"):
+            data[key][:, lay.off_bx:lay.off_bx + lay.nbx] = x0s
+        self._data_dev = data_to_torch(data, self.dtype, self.device)
+        it = init_iterate(self.form, self.N_batch, self.dtype, self.device)
+        it.x[:, :, idx] = torch.as_tensor(x0s, dtype=self.dtype,
+                                          device=self.device)[:, None]
+        self._it_dev, self._stats = it, None
+
+    def solve(self):
+        """One batch-first solve from the current iterate; returns the
+        (B,) statuses."""
+        self._it_dev, self._stats = self._solve_fn(self._data_dev,
+                                                   self._it_dev)
+        return self._stats.status.cpu().numpy()
+
+    def get_stats(self, field):
+        s = self._stats
+        if field == "sqp_iter":
+            return s.sqp_iter.cpu().numpy()
+        if field == "qp_iter":
+            return s.qp_iter_total.cpu().numpy()
+        if field == "cost":
+            return s.cost.cpu().numpy()
+        if field == "residuals":
+            return np.stack([r.cpu().numpy() for r in (
+                s.res_stat, s.res_eq, s.res_ineq, s.res_comp)], axis=1)
+        raise ValueError(field)

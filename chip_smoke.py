@@ -210,7 +210,7 @@ failure exits non-zero:
     lockstep rounds (statuses converged, at max_iter or at a vanishing
     step: DDP cycles from about half these x0s in both packages;
     every res_eq within 1e-4, the converged in tolerance), and with the
-    main path's IRK cut at 2 iterations: K1 launches equal to
+    main path's IRK cut at DDP_CUT_ITER iterations: K1 launches equal to
     ddp_k1_expected from its stat table, K1 on the rollout's (4096, 16,
     16) launch against its plain version, the split of an iteration
     (linearize, Riccati, one rollout, the cost);
@@ -254,6 +254,20 @@ failure exits non-zero:
     10, 2 iterations), the GNSF, LIFTED_IRK and DISCRETE RTI batches,
     the p_global SQP, the DAE and GNSF batch simulators, the DAE
     simulator's zn and the lifted simulator's calls.
+36. multiphase OCPs at B = 4096, float32: the control horizon
+    (create_ocp_with_control_horizon of the main path's pendulum with
+    ERK, N = 20, Nc = 5) by SQP from the main path's x0s, every status 0
+    and in tolerance, the held state equal to the transition's control
+    to float32 rounding, no kernel launch, beside the single-phase
+    pendulum ERK SQP; the transition example of tests/test_multiphase.py
+    with IRK phases by SQP with MERIT_BACKTRACKING, every status 0 and
+    in tolerance, the position carried over the transition, K1 launches
+    equal to mp_k1_expected from the stat table at (102,400, 8, 8) and
+    (102,400, 4, 4) only, and K1 at both shapes against its plain
+    version, torch.linalg.inv and its bound;
+37. float64 card against CPU at B = 4, within 1e-9: the transition
+    example with ERK and IRK phases by SQP and under SQP_RTI, and the
+    control horizon by SQP.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -2607,10 +2621,10 @@ NEWTON_SPLIT_REPS = 1
 # (PERF.md), which phases 29-32 need; its launches are still held to
 # newton_k1_expected and its trajectory to finiteness, its convergence by
 # the CPU tests (tests/test_torch_exact_irk.py and the Newton tests) and
-# phase 28. It runs 3 rounds (8 before phases 33-35 came, then 6), and
-# the Gauss-Newton call beside it is phase 21's solve of the same
-# problem, held there to one call
-NEWTON_ROUNDS = 3
+# phase 28. It runs 2 rounds (8 before phases 33-35 came, then 6, then
+# 3 before phases 36-37), and the Gauss-Newton call beside it is phase
+# 21's solve of the same problem, held there to one call
+NEWTON_ROUNDS = 2
 # float64 card against CPU of the new options (phase 28), B = 4, each
 # solve cut at CHECK_ITER iterations (the parity of the same code on the
 # card and on the CPU needs no convergence; the CPU tests hold the
@@ -2660,16 +2674,17 @@ def merit_evaluations(alpha, opts, dtype) -> int:
                             start=opts.alpha_reduction)[0]
 
 
-def newton_k1_expected(stats, opts) -> int:
-    """K1 launches of one EXACT + MERIT_BACKTRACKING solve() call, worked
-    out from its stat table. Instance b takes sqp_iter[b] rounds, one
+def merit_sqp_k1(stats, opts, per_linearize, per_gap) -> int:
+    """K1 launches of one MERIT_BACKTRACKING SQP solve() call, worked out
+    from its stat table, with per_linearize launches a linearization and
+    per_gap a dynamics gap. Instance b takes sqp_iter[b] rounds, one
     more where it converged inside the loop (the round that finds it
     converged still runs its QP and line search), at most max_iter; the
-    batch runs R lockstep rounds, the most of those. Each round is an EXACT linearization
-    (K1_PER_EXACT_LINEARIZE), the merit at the iterate and at the full
-    step (2 dynamics gaps, K1_PER_DYN_GAP each) and one more gap for each
-    round of the lockstep backtracking, whose rounds are the most any
-    instance active in that round took; then the final linearization."""
+    batch runs R lockstep rounds, the most of those. Each round is a
+    linearization, the merit at the iterate and at the full step (2
+    dynamics gaps) and one more gap for each round of the lockstep
+    backtracking, whose rounds are the most any instance active in that
+    round took; then the final linearization."""
     rounds = np.minimum((stats.sqp_iter + (stats.status == 0)).cpu().numpy(),
                         opts.max_iter)
     alpha = stats.stat[:, :, 6].cpu().numpy()
@@ -2680,7 +2695,14 @@ def newton_k1_expected(stats, opts) -> int:
         tried = [merit_evaluations(a, opts, dtype)
                  for a in alpha[rounds > k, k] if a < 1]
         gaps += 2 + max(tried, default=0)
-    return K1_PER_EXACT_LINEARIZE * (R + 1) + K1_PER_DYN_GAP * gaps
+    return per_linearize * (R + 1) + per_gap * gaps
+
+
+def newton_k1_expected(stats, opts) -> int:
+    """K1 launches of one EXACT + MERIT_BACKTRACKING solve() call of the
+    IRK pendulum: an EXACT linearization K1_PER_EXACT_LINEARIZE, a
+    merit's dynamics gap K1_PER_DYN_GAP."""
+    return merit_sqp_k1(stats, opts, K1_PER_EXACT_LINEARIZE, K1_PER_DYN_GAP)
 
 
 def timed_cold_call(solver, it0):
@@ -2980,7 +3002,7 @@ def wfqp_k1_expected(stats, opts) -> int:
 F32_TOLS = dict(nlp_solver_tol_stat=2e-3, nlp_solver_tol_eq=1e-4,
                 nlp_solver_tol_ineq=1e-4, nlp_solver_tol_comp=1e-3)
 F32_LM = 1e-4
-DDP_CUT_ITER = 2
+DDP_CUT_ITER = 1
 X0_OBSTACLE, OBSTACLE_SIGMA = (-2.0, 0.01), 0.01
 B_NLP_CHECK, N_NLP_CHECK, NLP_CHECK_ITER = 4, 10, 2
 N_IRK_CHECK, IRK_CHECK_ITER = 2, 1
@@ -2991,8 +3013,11 @@ N_IRK_CHECK, IRK_CHECK_ITER = 2, 1
 # (float32 merit ties near the 2e-3 gate stretch its tail; PERF.md).
 # Cut, each keeps its launch count against the stat table, its
 # statuses (converged or at the cut) and a finite trajectory; the
-# converged runs stay held by the CPU tests and phase 32
-DDP_ERK_ROUNDS, WFQP_ROUNDS = 36, 10
+# converged runs stay held by the CPU tests and phase 32. Before phases
+# 36-37 came the ERK DDP ran 36 rounds (186 instances converged there;
+# 37 at 30) and the IRK DDP 2 iterations; the WFQP keeps 10 rounds
+# (1149 converged there; none at 8, and the phase needs some)
+DDP_ERK_ROUNDS, WFQP_ROUNDS = 30, 10
 
 
 def nlp_batch(ocp, B, dev, x0_center, sigma, seed=SEED, zero_init=False,
@@ -3848,6 +3873,178 @@ def integrators_vs_cpu() -> None:
                calls=3, fields=("xn", "S_forw"))
 
 
+# phases 36-37 (multiphase OCPs). The control horizon: the main path's
+# pendulum (ERK, N = 20, SQP Gauss-Newton, float32 at its tolerances)
+# free for MP_NC intervals, then the transition x -> [x; u] and the
+# control held (nx 5): its held state equals the transition's control
+# to MP_HELD_ULPS float32 rounding steps of (1 + |u|) (bit for bit on
+# the CPU). The transition example with IRK phases (GL4 = the
+# options' default sim_method_num_stages 4, 1 substep): K1 solves the
+# double integrator's stage systems at (B 25, 8, 8) and the single
+# integrator's at (B 25, 4, 4), on its group branch; a linearization
+# runs each IRK phase's fused step Jacobian once (newton_iter 3 + 1
+# launches), a merit's dynamics gap each IRK phase's step (3)
+MP_NC = 5
+MP_HELD_ULPS = 8
+K1_PER_MP_LINEARIZE, K1_PER_MP_GAP = 2 * 4, 2 * 3
+MP_STAGE_N = (4, 8)
+B_MP_CHECK = 4
+
+
+def mocp_batch(mocp, B, dev, x0_center, sigma, seed=SEED, **so):
+    """acados_tpu_torch.testing.MocpBatch of `mocp` with the given solver
+    options, x0 per instance = x0_center + N(0, sigma)."""
+    from acados_tpu_torch.testing import MocpBatch
+    for k, v in so.items():
+        setattr(mocp.solver_options, k, v)
+    rng = np.random.default_rng(seed)
+    x0s = np.asarray(x0_center) + rng.normal(0.0, sigma,
+                                             (B, len(x0_center)))
+    return MocpBatch(mocp, x0s, dev)
+
+
+def mp_k1_expected(stats, opts) -> int:
+    """K1 launches of one SQP (MERIT_BACKTRACKING) solve of the transition
+    example with IRK phases, from its stat table (merit_sqp_k1)."""
+    return merit_sqp_k1(stats, opts, K1_PER_MP_LINEARIZE, K1_PER_MP_GAP)
+
+
+def mp_round_split(solver) -> dict:
+    """Where one SQP round of a multiphase batch goes at its iterate (host
+    ms of one synchronised run each): each segment's step Jacobian, the
+    whole linearization, the QP."""
+    from acados_tpu_torch.ocp_nlp.multiphase import _intervals
+    data, it = solver._data_dev, solver._it_dev
+    lin, qp = linearized(solver)
+    out = {f"segment {i} step_jac_ms": once_ms(
+        lambda s=s: s.step_jac_fn(*_intervals(data, it.x, it.u, s)))
+        for i, s in enumerate(solver.form.segments)}
+    out.update(linearize_ms=once_ms(lin),
+               qp_ms=once_ms(lambda: qp_solve(solver, qp)))
+    return out
+
+
+def multiphase_phase(dev) -> list:
+    """Phase 36: multiphase OCPs at full width, float32, B = B_MAIN.
+    (a) The control horizon (create_ocp_with_control_horizon of the main
+    path's pendulum with ERK, N = 20, Nc = MP_NC: N = 21, nx 5) by SQP
+    from the main path's x0s: every status 0 and in tolerance, no kernel
+    launch, the held control within MP_HELD_ULPS rounding steps, beside
+    the single-phase pendulum ERK SQP on the same x0s. (b) The transition
+    example with IRK phases by SQP with MERIT_BACKTRACKING from X0 =
+    MOCP_X0 + N(0, X0_SIGMA): every status 0 and in tolerance, the
+    position carried over the transition, K1 launches equal to
+    mp_k1_expected at the shapes (B 25, 8, 8) and (B 25, 4, 4) alone,
+    and K1 at both against its plain version, torch.linalg.inv and its
+    bound. Returns K1's two kernels entries."""
+    import torch
+    from acados_tpu_torch.ops import batched_inv
+    from acados_tpu_torch.testing import (MOCP_N_H, MOCP_X0,
+                                          control_horizon_mocp,
+                                          transition_mocp)
+    ch = mocp_batch(control_horizon_mocp(N=N_HORIZON, Nc=MP_NC,
+                                         dtype="float32"),
+                    B_MAIN, dev, X0_CENTER, X0_SIGMA)
+    reset_counts()
+    ms, st = timed_call(ch)
+    counts = read_counts()
+    res = check_solved("control horizon", ch, st)
+    it_ = ch.get_stats("sqp_iter")
+    x, u = ch._it_dev.x, ch._it_dev.u
+    u_held = u[:, MP_NC, 0]
+    held = (x[:, MP_NC + 1:, 4] - u_held[:, None]).abs() \
+        / (1 + u_held.abs()[:, None])
+    held_err = float(held.max())
+    held_bound = MP_HELD_ULPS * float(torch.finfo(torch.float32).eps)
+    log(f"control horizon (pendulum ERK, N={N_HORIZON}, Nc={MP_NC}: N = "
+        f"{ch.N}, nx {ch.form.nx}, nu {ch.form.nu}, nc {ch.form.nc}), "
+        f"B={B_MAIN}, float32, SQP: 1 call {ms:.2f} ms; statuses "
+        f"{np.unique(st, return_counts=True)}; sqp_iter mean "
+        f"{it_.mean():.2f} max {it_.max()}; residual maxima {res.tolist()}; "
+        f"held state against the transition's control max |d|/(1+|u|) "
+        f"{held_err:.3e} (bound {held_bound:.3e}); launches {counts}")
+    if any(counts.values()) or not held_err <= held_bound:
+        raise SystemExit("control horizon: kernel launches or the held "
+                         "control broken")
+    log(f"  time split of a round at the solution (host ms): "
+        f"{json.dumps(mp_round_split(ch))}")
+    single, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                               nlp_solver_type="SQP", integrator_type="ERK"),
+                          B_MAIN, dev)
+    ms1, st1 = timed_call(single)
+    check_solved("single-phase pendulum ERK SQP", single, st1)
+    it1 = single.get_stats("sqp_iter")
+    log(f"  beside it the single-phase pendulum ERK SQP (N={N_HORIZON}), "
+        f"same x0s: 1 call {ms1:.2f} ms, sqp_iter mean {it1.mean():.2f} "
+        f"max {it1.max()}, every status 0 and in tolerance")
+    del ch, single
+
+    tr = mocp_batch(transition_mocp(integrator_type=("IRK", "DISCRETE",
+                                                     "IRK"),
+                                    dtype="float32"),
+                    B_MAIN, dev, MOCP_X0, X0_SIGMA, **F32_TOLS)
+    reset_counts()
+    with K1Shapes(match=lambda A: A.shape[-1] == MP_STAGE_N[0]) as k1:
+        ms, st = timed_call(tr)
+    counts = read_counts()
+    res = check_solved("transition IRK", tr, st)
+    want = mp_k1_expected(tr._stats, tr.opts)
+    M = B_MAIN * MOCP_N_H
+    shapes = sorted(set(k1.shapes))
+    x = tr._it_dev.x
+    carry = float((x[:, MOCP_N_H + 1, 0] - x[:, MOCP_N_H, 0]).abs().max())
+    it_ = tr.get_stats("sqp_iter")
+    log(f"transition example, IRK phases (GL4, nx 2 -> 1), B={B_MAIN}, "
+        f"float32, SQP + MERIT_BACKTRACKING, x0 = {list(MOCP_X0)} + N(0, "
+        f"{X0_SIGMA}): 1 call {ms:.2f} ms; statuses "
+        f"{np.unique(st, return_counts=True)}; sqp_iter mean "
+        f"{it_.mean():.2f} max {it_.max()}; residual maxima {res.tolist()}; "
+        f"position over the transition max |d| {carry:.3e}; launches "
+        f"{counts} (K1 expected {want} from the stat table), shapes "
+        f"{shapes}")
+    if counts["gj_inverse"] != want or any(
+            v for k, v in counts.items() if k != "gj_inverse") \
+            or shapes != [(M, n, n) for n in MP_STAGE_N]:
+        raise SystemExit(f"transition IRK launches {counts}, K1 expected "
+                         f"{want}, shapes {shapes}")
+    if not carry <= F32_TOLS["nlp_solver_tol_eq"]:
+        raise SystemExit("transition IRK: the position is not carried")
+    log(f"  time split of a round at the solution (host ms): "
+        f"{json.dumps(mp_round_split(tr))}")
+    entries = []
+    for n, A in ((8, k1.first), (4, k1.matched)):
+        rel, abs_err, _ = check_inverse(
+            f"transition stage systems {tuple(A.shape)}", A,
+            batched_inv._gj_inverse_cuda, F32_BOUND)
+        entries.append(k1_entry(
+            f"gj_inverse_mp_stage_{n}", A,
+            sum(s[-1] == n for s in k1.shapes), rel, abs_err))
+    return entries
+
+
+def multiphase_vs_cpu() -> None:
+    """Phase 37: float64 card against CPU at B = B_MP_CHECK, within 1e-9:
+    the transition example with ERK and with IRK phases by SQP, under
+    SQP_RTI (2 calls), and the control horizon by SQP."""
+    from acados_tpu_torch.testing import (MOCP_X0, control_horizon_mocp,
+                                          transition_mocp)
+    B = B_MP_CHECK
+    for label, phases, nlp in (("ERK", ("ERK", "DISCRETE", "ERK"), "SQP"),
+                               ("IRK", ("IRK", "DISCRETE", "IRK"), "SQP"),
+                               ("ERK", ("ERK", "DISCRETE", "ERK"),
+                                "SQP_RTI")):
+        card_vs_cpu(
+            f"transition example, {label} phases, {nlp}",
+            lambda where, phases=phases, nlp=nlp: mocp_batch(
+                transition_mocp(integrator_type=phases, nlp_solver_type=nlp),
+                B, where, MOCP_X0, X0_SIGMA, seed=2),
+            calls=2 if nlp == "SQP_RTI" else 1)
+    card_vs_cpu(f"control horizon (Nc = {MP_NC}), SQP",
+                lambda where: mocp_batch(control_horizon_mocp(
+                    N=N_HORIZON, Nc=MP_NC), B, where, X0_CENTER, X0_SIGMA,
+                    seed=2), calls=1)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4228,6 +4425,14 @@ def main() -> int:
     # ---- 35. float64 card against CPU of the integrator breadth -------------
     at(35)
     integrators_vs_cpu()
+
+    # ---- 36. multiphase OCPs: the control horizon, the IRK transition -------
+    at(36)
+    kernels.extend(multiphase_phase(dev))
+
+    # ---- 37. float64 card against CPU of the multiphase OCPs ----------------
+    at(37)
+    multiphase_vs_cpu()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

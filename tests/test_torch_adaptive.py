@@ -56,17 +56,21 @@ def test_adaptive_qp_tol_matches_jax():
 
 def test_waiting_paths_raise():
     """What is not ported yet raises NotImplementedError naming its
-    ROADMAP item: multiphase OCPs (item 16c) and the interface utilities
-    (item 20: phase times, in-loop timeouts, stored iterates). DISCRETE
-    dynamics and global parameters (item 17) build: the parameter is
-    [p_stage | p_global]."""
-    from acados_tpu_torch import AcadosMultiphaseOcp, AcadosOcpSolver
+    ROADMAP item: the interface utilities of item 20b (phase times,
+    in-loop timeouts, stored iterates). Multiphase OCPs (item 16c) build,
+    and AcadosOcpBatchSolver refuses them as the JAX package's does;
+    DISCRETE dynamics and global parameters (item 17) build: the
+    parameter is [p_stage | p_global]."""
+    from acados_tpu_torch import (AcadosMultiphaseOcp, AcadosOcpBatchSolver,
+                                  AcadosOcpSolver)
     from acados_tpu_torch.models.pendulum import make_pendulum_ocp
     from acados_tpu_torch.ocp_nlp.sqp import make_sqp_solver
     from acados_tpu_torch.interface.builder import build_ocp
 
-    with pytest.raises(NotImplementedError, match="item 16c"):
-        AcadosMultiphaseOcp([5, 5])
+    mocp = AcadosMultiphaseOcp([5, 5])
+    assert mocp.N_list == [5, 5]
+    with pytest.raises(NotImplementedError, match="single-phase"):
+        AcadosOcpBatchSolver(mocp, 2, device="cpu")
     ocp = make_pendulum_ocp()
     ocp.solver_options.integrator_type = "DISCRETE"
     ocp.model.disc_dyn_expr = lambda x, u: x
@@ -79,10 +83,10 @@ def test_waiting_paths_raise():
     for field, value in (("collect_phase_times", True),
                          ("timeout_max_time", 1.0),
                          ("store_iterates", True)):
-        with pytest.raises(NotImplementedError, match="item 20"):
+        with pytest.raises(NotImplementedError, match="item 20b"):
             make_sqp_solver(form, SqpOpts(**{field: value}))
     solver = AcadosOcpSolver(make_pendulum_ocp(), device="cpu")
     for field in ("timeout_max_time", "timeout_heuristic",
                   "store_iterates", "print_level"):
-        with pytest.raises(NotImplementedError, match="item 20"):
+        with pytest.raises(NotImplementedError, match="item 20b"):
             solver.options_set(field, 1)
