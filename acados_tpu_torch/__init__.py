@@ -24,16 +24,21 @@ from acados_tpu_torch.interface.acados_ocp import (AcadosModel,
                                                    AcadosOcpDims,
                                                    AcadosOcpOptions)
 from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
+from acados_tpu_torch.interface.iterate import (AcadosOcpFlattenedBatchIterate,
+                                                AcadosOcpFlattenedIterate,
+                                                AcadosOcpIterate)
 from acados_tpu_torch.interface.multiphase import AcadosMultiphaseOcp
 from acados_tpu_torch.interface.ocp_qp_solver import (AcadosOcpQp,
                                                       AcadosOcpQpSolver)
 from acados_tpu_torch.interface.param_manager import (AcadosParam,
                                                       AcadosParamManager)
+from acados_tpu_torch.interface.scipy_solver import AcadosScipyOcpSolver
 from acados_tpu_torch.interface.sim_solver import (AcadosSim,
                                                    AcadosSimBatchSolver,
                                                    AcadosSimOpts,
                                                    AcadosSimSolver)
 from acados_tpu_torch.interface.solver import AcadosOcpSolver
+from acados_tpu_torch.interface.zoro import ZoroDescription
 from acados_tpu_torch.utils.types import ACADOS_INFTY, AcadosStatus
 
 __version__ = "0.1.0"
@@ -42,7 +47,9 @@ __all__ = [
     "AcadosModel", "AcadosMultiphaseOcp", "AcadosOcp",
     "AcadosOcpConstraints", "AcadosOcpCost",
     "AcadosOcpDims", "AcadosOcpOptions", "AcadosOcpSolver",
-    "AcadosOcpBatchSolver", "AcadosSim", "AcadosSimOpts",
+    "AcadosOcpBatchSolver", "AcadosScipyOcpSolver", "AcadosOcpIterate",
+    "AcadosOcpFlattenedIterate", "AcadosOcpFlattenedBatchIterate",
+    "ZoroDescription", "AcadosSim", "AcadosSimOpts",
     "AcadosSimSolver", "AcadosSimBatchSolver", "AcadosOcpQp",
     "AcadosOcpQpSolver", "AcadosParam", "AcadosParamManager",
     "ACADOS_INFTY", "AcadosStatus",

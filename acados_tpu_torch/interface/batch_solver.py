@@ -13,7 +13,11 @@ to the host but the statuses (and the measured x0s it is given); the
 per-instance views `ocp_solvers[i].get/set` work on a host copy that is
 moved across only when it changed. The solution sensitivities work on
 the same device-resident data and iterate: one KKT factor of the whole
-batch, the seed directions a vmapped axis.
+batch, the seed directions a vmapped axis. The flat iterate API
+(get_flat, set_flat, store_iterate_to_flat_obj,
+load_iterate_from_flat_obj) moves the iterate with one host copy a
+field, and get_stats gives the phase times (time_lin, time_sim,
+time_reg, time_qp, time_glob).
 """
 from __future__ import annotations
 
@@ -24,17 +28,24 @@ import torch
 
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp
 from acados_tpu_torch.interface.builder import build_ocp, data_to_torch
+from acados_tpu_torch.interface.iterate import AcadosOcpFlattenedBatchIterate
 from acados_tpu_torch.interface.multiphase import AcadosMultiphaseOcp
-from acados_tpu_torch.interface.solver import (_adjoint_wrt, _bound_slot,
+from acados_tpu_torch.interface.solver import (FLAT_FIELDS, PHASE_KEYS,
+                                               _adjoint_wrt, _bound_slot,
                                                _fence, _forward_over_seeds,
                                                _seeds, _sqp_opts_from,
-                                               _torch_dtype, _z_at,
+                                               _torch_dtype, _z_at, flat_of,
                                                iterate_to_numpy,
                                                iterate_to_torch,
-                                               make_nlp_solver)
+                                               make_nlp_solver,
+                                               measured_phase_times,
+                                               set_flat_in, timed_run)
+from acados_tpu_torch.ocp_nlp.linearize import build_static_rows, linearize
+from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
                                                   adjoint_sensitivity)
+from acados_tpu_torch.ocp_nlp.sqp import make_qp_solve, nlp_warm_start
 from acados_tpu_torch.utils.device import (full_precision_matmul,
                                            resolve_device)
 
@@ -124,6 +135,7 @@ class AcadosOcpBatchSolver:
         self.ocp_solvers = [_BatchView(self, i) for i in range(N_batch)]
         self._status = None
         self._stats = None
+        self._phase_cache = None
         self._time_tot = float("nan")
         self._rti_fns = None
         self._rti_cache = None
@@ -156,6 +168,7 @@ class AcadosOcpBatchSolver:
         self._it_dev = it
         self._host_stale = True
         self._stats = stats
+        self._phase_cache = None
         return self._status
 
     def solve(self, n_batch=None):
@@ -219,6 +232,27 @@ class AcadosOcpBatchSolver:
         status = self._take(it, stats)
         self._time_fb = self._time_tot = time.perf_counter() - t0
         return status
+
+    # -- the flat iterate -----------------------------------------------------
+    # acados_tpu/interface/batch_solver.py:213-248: (N_batch, n_field)
+    # arrays; the device iterate crosses once a field each way
+
+    def get_flat(self, field: str) -> np.ndarray:
+        return flat_of(self._host_iterate(), field, (self.N_batch,))
+
+    def set_flat(self, field: str, value):
+        set_flat_in(self._host_iterate(), field, value)
+        self._it_dev = None
+
+    def store_iterate_to_flat_obj(self) -> AcadosOcpFlattenedBatchIterate:
+        """Reference: AcadosOcpFlattenedBatchIterate."""
+        return AcadosOcpFlattenedBatchIterate(
+            **{f: self.get_flat(f) for f in FLAT_FIELDS},
+            N_batch=self.N_batch)
+
+    def load_iterate_from_flat_obj(self, flat):
+        for f in FLAT_FIELDS:
+            self.set_flat(f, getattr(flat, f))
 
     # -- batched solution sensitivities ---------------------------------------
     # acados_tpu/interface/batch_solver.py:250-357: one KktFactor of the
@@ -303,4 +337,48 @@ class AcadosOcpBatchSolver:
                              s.res_eq.cpu().numpy(),
                              s.res_ineq.cpu().numpy(),
                              s.res_comp.cpu().numpy()], axis=1)
+        if field in PHASE_KEYS:
+            return self._phase_times()[field]
         raise ValueError(field)
+
+    def _phase_times(self) -> dict:
+        """The batch's phase times (reference ocp_nlp_timings,
+        ocp_nlp_common.h:410-428): measured in the lockstep loop with
+        collect_phase_times; otherwise by differencing, as
+        acados_tpu/interface/batch_solver.py:371-465 takes them: the
+        linearization alone and the linearization with the production
+        QP path after it (the NLP warm start, regularize, then scale
+        inside the QP dispatch, as the loop runs them), each the least
+        of 3 synchronised runs at the last solve's iterate, scaled by
+        the batch's largest iteration count (the lockstep rounds run).
+        The regularization is inside the QP's time there. Cached per
+        solve."""
+        measured = measured_phase_times(self._stats)
+        if measured is not None:
+            return measured
+        if self._phase_cache is not None:
+            return self._phase_cache
+        form, opts, dev = self.form, self.opts, self.device
+        data, it = self._on_device()
+        static_rows = build_static_rows(form, self.dtype, dev)
+        lm = torch.tensor(opts.levenberg_marquardt, dtype=self.dtype,
+                          device=dev)
+        solve_qp = make_qp_solve(form, opts)
+
+        def both():
+            qp = linearize(form, static_rows, data, it, lm)
+            warm = (nlp_warm_start(qp, it)
+                    if opts.warm_start_first_qp_from_nlp else None)
+            return solve_qp(regularize_qp(qp, opts.regularize_method,
+                                          opts.reg_epsilon), warm=warm)
+
+        t_lin, _ = timed_run(
+            lambda: linearize(form, static_rows, data, it, lm), dev, reps=3)
+        t_both, _ = timed_run(both, dev, reps=3)
+        n_iter = (int(self._stats.sqp_iter.max())
+                  if self._stats is not None else 1) or 1
+        self._phase_cache = {
+            "time_lin": t_lin * n_iter, "time_sim": t_lin * n_iter,
+            "time_reg": 0.0, "time_qp": max(t_both - t_lin, 0.0) * n_iter,
+            "time_glob": max(0.0, self._time_tot - t_both * n_iter)}
+        return self._phase_cache

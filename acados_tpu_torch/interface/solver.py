@@ -9,16 +9,19 @@ solver.
 
 The solver runs on the card unless `device="cpu"` is passed; with no
 CUDA and no explicit device it raises. Ported: solve, get, set,
-cost_set, constraints_set, options_set (rti_phase and the runtime
-options of the ported paths, the globalization's among them), the RTI
+cost_set, constraints_set, options_set (rti_phase, print_level, the
+timeouts, store_iterates and the other runtime options), the RTI
 phases (solve() after options_set("rti_phase", 1 or 2), AS-RTI levels
-A-D), get_status,
-get_stats (sqp_iter, qp_iter, residuals, time_tot, time_preparation,
-time_feedback, statistics), get_residuals, get_cost, reset, get(stage,
-"z") of a DAE, set_p_global_and_precompute_dependencies, and the
-solution sensitivities (eval_param_sens, eval_solution_sensitivity,
-eval_adjoint_solution_sensitivity, eval_and_get_optimal_value_gradient).
-The in-loop phase times wait (ROADMAP.md Queue 1, item 20b).
+A-D), get_status, get_stats (sqp_iter, qp_iter, residuals, statistics,
+time_tot, time_preparation, time_feedback and the phase times time_lin,
+time_sim, time_reg, time_qp, time_glob), get_residuals, get_cost,
+get_iterates, print_statistics, reset, get(stage, "z") of a DAE,
+set_p_global_and_precompute_dependencies, the solution sensitivities
+(eval_param_sens, eval_solution_sensitivity,
+eval_adjoint_solution_sensitivity, eval_and_get_optimal_value_gradient),
+the iterate's store and load (objects, flat vectors, JSON and '.atni'
+files), custom_update (the zoRO tightening, interface/zoro.py) and
+dump_qp_to_file.
 
 A multiphase OCP (AcadosMultiphaseOcp) builds through build_mocp, as in
 the JAX package (acados_tpu/interface/solver.py:181-187): get and set of
@@ -30,6 +33,7 @@ data and the iterate on the host first (utils/debug_checks.py).
 """
 from __future__ import annotations
 
+import json
 import time
 
 import numpy as np
@@ -38,12 +42,16 @@ import torch
 from acados_tpu_torch.interface.acados_ocp import AcadosOcp, _dim_of
 from acados_tpu_torch.interface.builder import (StageLayout, _global_data,
                                                 build_ocp, data_to_torch)
+from acados_tpu_torch.interface.iterate import AcadosOcpFlattenedIterate
 from acados_tpu_torch.interface.multiphase import (AcadosMultiphaseOcp,
                                                    _phase_dims, build_mocp,
                                                    phase_of_stage)
 from acados_tpu_torch.ocp_nlp.ddp import make_ddp_solver
 from acados_tpu_torch.ocp_nlp.formulation import NlpData
-from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
+from acados_tpu_torch.native import load_iterate_bin, save_iterate_bin
+from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate,
+                                                build_static_rows, linearize)
+from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
                                                   adjoint_sensitivity,
@@ -53,7 +61,7 @@ from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, make_sqp_solver,
                                           use_x0_elimination)
 from acados_tpu_torch.ocp_nlp.wfqp import make_wfqp_solver
-from acados_tpu_torch.ocp_qp.ipm import IpmOpts
+from acados_tpu_torch.ocp_qp.ipm import IpmOpts, solve_ocp_qp
 from acados_tpu_torch.ocp_qp.xcond import resolve_cond_N
 from acados_tpu_torch.utils.debug_checks import (check_iterate,
                                                  check_nlp_data,
@@ -108,6 +116,7 @@ def _sqp_opts_from(ocp: AcadosOcp) -> SqpOpts:
                            if so.nlp_solver_tol_min_step_norm is not None
                            else so.tol_min_step_norm),
         timeout_max_time=so.timeout_max_time,
+        timeout_heuristic=so.timeout_heuristic,
         levenberg_marquardt=so.levenberg_marquardt,
         with_adaptive_levenberg_marquardt=(
             so.with_adaptive_levenberg_marquardt),
@@ -199,20 +208,52 @@ def _as_rti_level_str(level) -> str:
     return {0: "A", 1: "B", 2: "C", 3: "D", 4: "STANDARD"}[int(level)]
 
 
-# runtime options of acados_tpu's options_set whose paths wait, with
-# their ROADMAP.md Queue 1 item
-_OPTIONS_NOT_PORTED = {
-    "print_level": "item 20b, interface utilities (print_statistics)",
-    "store_iterates": "item 20b, interface utilities (stored iterates)",
-    **dict.fromkeys(("timeout_max_time", "timeout_heuristic"),
-                    "item 20b, interface utilities (in-loop timeouts)"),
-}
+# the QP fields dump_qp_to_file writes (acados_tpu/interface/solver.py:
+# 1008-1012)
+QP_DUMP_FIELDS = ("Q", "R", "S", "q", "r", "A", "B", "b", "C", "D", "lg",
+                  "ug", "mask_l", "mask_u", "Zl", "Zu", "zl", "zu",
+                  "soft_mask")
+ITERATE_FIELDS = ("x", "u", "pi", "lam_l", "lam_u", "sl", "su")
+FLAT_FIELDS = ("x", "u", "pi", "lam", "sl", "su")
+PHASE_KEYS = ("time_lin", "time_qp", "time_sim", "time_reg", "time_glob")
+
+
+def _sync(device: torch.device):
+    """Wait until the card has run what was queued (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 def _fence(t: torch.Tensor):
     """Wait until the card has computed t (a no-op on the CPU)."""
-    if t.is_cuda:
-        torch.cuda.synchronize(t.device)
+    _sync(t.device)
+
+
+def timed_run(fn, device: torch.device, reps: int = 1):
+    """fn() once to warm up, then the least host time (s) of `reps`
+    synchronised runs: (seconds, the last output)."""
+    out = fn()
+    _sync(device)
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        _sync(device)
+        best = min(best, time.perf_counter() - t0)
+    return best, out
+
+
+def measured_phase_times(stats) -> dict | None:
+    """The phase times a solve measured in its loop (collect_phase_times),
+    with the JAX package's keys: time_sim is time_lin, the linearization
+    holding the integrator sweep (acados_tpu/interface/solver.py:815-819);
+    None without them."""
+    pt = getattr(stats, "phase_times", None)
+    if pt is None:
+        return None
+    pt = pt.tolist()
+    return {"time_lin": pt[0], "time_sim": pt[0], "time_reg": pt[1],
+            "time_qp": pt[2], "time_glob": pt[3]}
 
 
 def _z_at(solver, stage: int, it: dict, data: dict) -> np.ndarray:
@@ -243,8 +284,37 @@ def iterate_to_torch(it: dict, dtype, device) -> NlpIterate:
 
 
 def iterate_to_numpy(it: NlpIterate) -> dict:
+    """NlpIterate -> numpy float64 dict, one host copy a field."""
     return {k: getattr(it, k).detach().cpu().numpy().astype(np.float64)
-            for k in ("x", "u", "pi", "lam_l", "lam_u", "sl", "su")}
+            for k in ITERATE_FIELDS}
+
+
+def flat_of(it: dict, field: str, lead: tuple = ()) -> np.ndarray:
+    """One field of a numpy iterate dict flattened over its stages
+    (reference ocp_nlp_get_all, ocp_nlp_interface.c:1914): `lam` is
+    [lam_l_k, lam_u_k] stage by stage. lead: the leading axes kept (the
+    batch's)."""
+    if field in ("x", "u", "pi", "sl", "su"):
+        return it[field].reshape(lead + (-1,)).copy()
+    if field == "lam":
+        return np.concatenate([it["lam_l"], it["lam_u"]],
+                              axis=-1).reshape(lead + (-1,))
+    raise ValueError(f"get_flat: unknown field {field!r}")
+
+
+def set_flat_in(it: dict, field: str, value) -> None:
+    """Inverse of flat_of on a numpy iterate dict, in place (reference
+    ocp_nlp_set_all, ocp_nlp_interface.c:2018)."""
+    value = np.asarray(value, np.float64)
+    if field in ("x", "u", "pi", "sl", "su"):
+        it[field] = value.reshape(it[field].shape).copy()
+    elif field == "lam":
+        shape = it["lam_l"].shape
+        lam = value.reshape(shape[:-1] + (2 * shape[-1],))
+        it["lam_l"] = lam[..., :shape[-1]].copy()
+        it["lam_u"] = lam[..., shape[-1]:].copy()
+    else:
+        raise ValueError(f"set_flat: unknown field {field!r}")
 
 
 class AcadosOcpSolver:
@@ -273,6 +343,8 @@ class AcadosOcpSolver:
         self._iterate = self._zero_iterate()
         self._default_init = True
         self._last_stats = None
+        self._phase_cache = None
+        self._print_level = int(ocp.solver_options.print_level)
         self._time_tot = float("nan")
         self._time_prep = float("nan")
         self._time_fb = float("nan")
@@ -297,9 +369,10 @@ class AcadosOcpSolver:
     # -- options ------------------------------------------------------------
     def options_set(self, field: str, value):
         """Reference: acados_ocp_solver.py options_set, as
-        acados_tpu/interface/solver.py:233-309 takes it: rti_phase and
-        the runtime options. An option whose path is not ported raises
-        NotImplementedError naming its ROADMAP.md item."""
+        acados_tpu/interface/solver.py:233-309 takes it: rti_phase,
+        print_level and the runtime options; the timeouts also go to the
+        solver options, whose timeout_max_time the post-hoc rule of
+        solve() reads."""
         if field == "rti_phase":
             value = int(value)
             if value not in (0, 1, 2):
@@ -309,15 +382,15 @@ class AcadosOcpSolver:
                 raise ValueError("rti_phase requires SQP_RTI")
             self._rti_phase = value
             return
-        if field in _OPTIONS_NOT_PORTED:
-            raise NotImplementedError(
-                f"options_set({field!r}) is not ported yet (ROADMAP.md "
-                f"Queue 1, {_OPTIONS_NOT_PORTED[field]})")
+        if field == "print_level":
+            self._print_level = int(value)
+            return
         if field == "warm_start_first_qp":
             return  # as acados_tpu: warm starting is explicit here
         opts, qp_opts = self.opts, self.opts.qp_opts
         so = self.acados_ocp.solver_options
         from_so = False
+        so_after = {}
         if field == "levenberg_marquardt":
             opts = opts.replace(levenberg_marquardt=float(value))
         elif field in ("tol_stat", "tol_eq", "tol_ineq", "tol_comp"):
@@ -336,6 +409,12 @@ class AcadosOcpSolver:
             opts = opts.replace(anderson_activation_threshold=float(value))
         elif field == "with_anderson_acceleration":
             opts = opts.replace(with_anderson_acceleration=bool(value))
+        elif field == "store_iterates":
+            opts = opts.replace(store_iterates=bool(value))
+        elif field in ("timeout_max_time", "timeout_heuristic"):
+            value = (float if field == "timeout_max_time" else str)(value)
+            opts = opts.replace(**{field: value})
+            so_after[field] = value
         elif field == "qp_mu0":
             opts = opts.replace(qp_opts=qp_opts.replace(mu0=float(value)))
         elif field == "qp_iter_max":
@@ -360,6 +439,8 @@ class AcadosOcpSolver:
             if from_so:
                 setattr(so, field, old)
             raise
+        for f, v in so_after.items():
+            setattr(so, f, v)
         self._solve_fn, self.opts = solve_fn, opts
         self._solve_fn_noelim = None
         self._rti_fns = None
@@ -464,15 +545,28 @@ class AcadosOcpSolver:
         self._time_tot = time.perf_counter() - t0
         self._iterate = {k: v[0] for k, v in iterate_to_numpy(it).items()}
         self._last_stats = stats
+        self._phase_cache = None
+        if self._print_level > 0:
+            # the iteration table prints after the solve, as the JAX
+            # package prints it (the reference prints it live,
+            # ocp_nlp_sqp.c:449-465)
+            self.print_statistics()
+        budget = self.acados_ocp.solver_options.timeout_max_time
+        if budget and self._time_tot > budget and status != 0:
+            return 7  # ACADOS_TIMEOUT (acados_tpu/interface/solver.py:441)
         return status
 
-    def solve_for_x0(self, x0_bar, fail_on_nonzero_status=True):
+    def solve_for_x0(self, x0_bar, fail_on_nonzero_status=True,
+                     print_stats_on_failure=True):
         """Reference: acados_ocp_solver.py solve_for_x0."""
         self.set(0, "lbx", x0_bar)
         self.set(0, "ubx", x0_bar)
         status = self.solve()
-        if status != 0 and fail_on_nonzero_status:
-            raise RuntimeError(f"solve failed with status {status}")
+        if status != 0:
+            if print_stats_on_failure:
+                self.print_statistics()
+            if fail_on_nonzero_status:
+                raise RuntimeError(f"solve failed with status {status}")
         return self.get(0, "u")
 
     # -- get / set ----------------------------------------------------------
@@ -735,11 +829,153 @@ class AcadosOcpSolver:
             return self._time_prep
         if field == "time_feedback":
             return self._time_fb
+        if field in PHASE_KEYS:
+            return self._phase_times()[field]
         if field == "residuals":
             return self.get_residuals()
         if field == "cost_value":
             return self.get_cost()
         raise ValueError(f"get_stats: unknown field {field!r}")
+
+    def _phase_times(self) -> dict:
+        """The phase times (reference ocp_nlp_timings, ocp_nlp_common.h:
+        410-428), as acados_tpu/interface/solver.py:795-878 takes them:
+        measured in the loop with collect_phase_times, else by isolated
+        re-execution at the last solve's iterate of the linearization,
+        the dynamics sweep with its forward sensitivities, the
+        regularization and the QP, each timed on its second run and
+        scaled by the iteration count. Cached per solve."""
+        measured = measured_phase_times(self._last_stats)
+        if measured is not None:
+            return measured
+        if self._phase_cache is not None:
+            return self._phase_cache
+        form, opts, dev = self.form, self.opts, self.device
+        data, it = self._data_and_iterate()
+        static_rows = build_static_rows(form, self.dtype, dev)
+        lm = torch.tensor(opts.levenberg_marquardt, dtype=self.dtype,
+                          device=dev)
+        t_lin, qp = timed_run(
+            lambda: linearize(form, static_rows, data, it, lm), dev)
+        t_sim, _ = timed_run(lambda: form.step_jac_fn(*(
+            v.flatten(0, 1) for v in (it.x[:, :-1], it.u, data.p[:, :-1],
+                                      data.ts[:, :-1], data.dts))), dev)
+        t_reg, qp_r = timed_run(lambda: regularize_qp(
+            qp, opts.regularize_method, opts.reg_epsilon), dev)
+        t_qp, _ = timed_run(lambda: solve_ocp_qp(qp_r, opts.qp_opts), dev)
+        n_iter = (max(int(self._last_stats.sqp_iter[0]), 1)
+                  if self._last_stats is not None else 1)
+        self._phase_cache = {
+            "time_lin": t_lin * n_iter, "time_sim": t_sim * n_iter,
+            "time_reg": t_reg * n_iter, "time_qp": t_qp * n_iter,
+            "time_glob": max(0.0, self._time_tot
+                             - (t_lin + t_qp + t_reg) * n_iter)}
+        return self._phase_cache
+
+    def custom_update(self, data=None):
+        """Custom-update hook between solver calls (reference
+        AcadosOcpSolver.custom_update + custom_update_templates/): with a
+        ZoroDescription attached, the zoRO covariance propagation and
+        bound tightening (interface/zoro.py); otherwise `data` may be a
+        callable(solver) implementing an arbitrary update."""
+        if self.acados_ocp.zoro_description is not None:
+            from acados_tpu_torch.interface.zoro import zoro_custom_update
+            zoro_custom_update(self)
+            return 0
+        if callable(data):
+            data(self)
+            return 0
+        raise ValueError("custom_update: attach ocp.zoro_description or "
+                         "pass a callable(solver)")
+
+    def get_iterates(self):
+        """The per-iteration primal trajectories when store_iterates is on
+        (reference AcadosOcpSolver.get_iterates / mem->iterates): a dict
+        with 'x' (n_iter+1, N+1, nx) and 'u' (n_iter+1, N, nu)."""
+        s = self._last_stats
+        if s is None or getattr(s, "iterates_x", None) is None:
+            raise RuntimeError("set solver_options.store_iterates = True "
+                               "before solve()")
+        n = int(s.sqp_iter[0]) + 1
+        return {"x": s.iterates_x[0, :n].cpu().numpy(),
+                "u": s.iterates_u[0, :n].cpu().numpy()}
+
+    def print_statistics(self):
+        """Reference-style iteration table (ocp_nlp_sqp.c
+        print_iteration), in the JAX package's columns and formats
+        (acados_tpu/interface/solver.py:908-916)."""
+        cols = ["iter", "res_stat", "res_eq", "res_ineq", "res_comp",
+                "qp_status", "qp_iter", "alpha", "step_norm"]
+        print("  ".join(f"{c:>9s}" for c in cols))
+        for row in self.get_stats("statistics").T:
+            print("  ".join(f"{int(row[0]):>9d}" if i == 0 else
+                            f"{row[i]:>9.3e}" for i in range(len(cols))))
+
+    # -- iterate save/load ----------------------------------------------------
+    # acados_tpu/interface/solver.py:918-993, on the host copy
+
+    def store_iterate_to_obj(self) -> dict:
+        """Reference: AcadosOcpIterate (acados_ocp_iterate.py:40)."""
+        return {k: v.copy() for k, v in self._iterate.items()}
+
+    def load_iterate_from_obj(self, obj):
+        for k in self._iterate:
+            self._iterate[k] = np.asarray(obj[k], np.float64).copy()
+        self._default_init = False
+
+    def get_flat(self, field: str) -> np.ndarray:
+        """Flat all-stage value of one iterate field: x, u, pi, lam (per
+        stage [lam_l, lam_u] over the unified rows), sl, su."""
+        return flat_of(self._iterate, field)
+
+    def set_flat(self, field: str, value):
+        """Inverse of get_flat."""
+        set_flat_in(self._iterate, field, value)
+        self._default_init = False
+
+    def store_iterate_to_flat_obj(self) -> AcadosOcpFlattenedIterate:
+        """Reference: store_iterate_to_flat_obj."""
+        return AcadosOcpFlattenedIterate(
+            **{f: self.get_flat(f) for f in FLAT_FIELDS})
+
+    def load_iterate_from_flat_obj(self, flat):
+        """Reference: load_iterate_from_flat_obj (warm-start transfer
+        between solvers of the same formulation)."""
+        for f in FLAT_FIELDS:
+            self.set_flat(f, getattr(flat, f))
+
+    def store_iterate(self, filename: str, overwrite=True, verbose=False):
+        """Reference: store_iterate -> a JSON file; a '.atni' extension
+        selects the binary checkpoint format (native/), which the JAX
+        package reads and writes byte for byte alike."""
+        del overwrite, verbose
+        if filename.endswith(".atni"):
+            save_iterate_bin(filename, self._iterate)
+            return
+        with open(filename, "w") as f:
+            json.dump({k: v.tolist() for k, v in self._iterate.items()}, f)
+
+    def load_iterate(self, filename: str, verbose=False):
+        del verbose
+        if filename.endswith(".atni"):
+            self.load_iterate_from_obj(load_iterate_bin(filename))
+            return
+        with open(filename) as f:
+            obj = json.load(f)
+        self.load_iterate_from_obj({k: np.asarray(v) for k, v in
+                                    obj.items()})
+
+    def dump_qp_to_file(self, filename: str):
+        """Debug dump of the QP linearized at the current iterate
+        (reference ACADOS_DEBUG_SQP_PRINT_QPS_TO_FILE, ocp_nlp_common.h:
+        674-675): every stage-blocked QP matrix and vector, without the
+        batch axis, to an .npz of the JAX package's keys and shapes."""
+        data, it = self._data_and_iterate()
+        qp = linearize(self.form, build_static_rows(
+            self.form, self.dtype, self.device), data, it,
+            torch.zeros((), dtype=self.dtype, device=self.device))
+        np.savez(filename, **{k: getattr(qp, k)[0].cpu().numpy()
+                              for k in QP_DUMP_FIELDS})
 
 
 def _bound_slot(lay: StageLayout, stage: int, N: int, field: str):

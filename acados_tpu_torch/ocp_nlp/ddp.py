@@ -40,8 +40,7 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate,
                                                 linearize, refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
-                                          _check_ported, _nlp_residuals,
-                                          _set_at)
+                                          _nlp_residuals, _set_at)
 from acados_tpu_torch.ocp_qp.ipm import _bc, _bmax, _bsum
 from acados_tpu_torch.ocp_qp.riccati import (_mv, riccati_backward,
                                              riccati_factor)
@@ -83,7 +82,6 @@ def make_ddp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                                      or form.con_0.nh or form.con_0.nphi):
         raise ValueError("DDP needs exactly a full initial-state constraint"
                          " at stage 0 (lbx_0 == ubx_0)")
-    _check_ported(opts)
     full_precision_matmul()
     nx = form.nx
     idxbx0 = list(form.con_0.idxbx)

@@ -38,8 +38,8 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _flat2,
                                                 eval_dyn_gap, linearize,
                                                 refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
-from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, SqpStats, _check_ported,
-                                          _nlp_residuals, use_x0_elimination)
+from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, SqpStats, _nlp_residuals,
+                                          use_x0_elimination)
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import _bsum, solve_ocp_qp
 from acados_tpu_torch.ocp_qp.riccati import _mTv
@@ -68,7 +68,6 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
     feedback(cache, data, it) -> (NlpIterate, SqpStats)
       data's lb_0/ub_0 carry the fresh x0.
     """
-    _check_ported(opts)
     if opts.as_rti_level not in AS_RTI_LEVELS:
         raise ValueError(f"unknown as_rti_level {opts.as_rti_level!r}")
     if opts.as_rti_advancement not in ("SHIFT", "SIMULATE", "NONE"):
@@ -84,9 +83,8 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
     nbx0 = form.con_0.nbx
     idxbx0 = list(form.con_0.idxbx)
     x0f = use_x0_elimination(form, opts)
-    # the adaptive QP tolerances (acados_tpu/ocp_nlp/rti.py:_qp_opts_at)
-    # wait with nlp_qp_tol_strategy, which _check_ported refuses: every
-    # QP here takes opts.qp_opts
+    # every QP here takes opts.qp_opts: the adaptive QP tolerances of
+    # acados_tpu/ocp_nlp/rti.py:_qp_opts_at are not applied
 
     def _advance_data(data: NlpData, it: NlpIterate) -> NlpData:
         """Stage-0 state bounds at the predicted next x0

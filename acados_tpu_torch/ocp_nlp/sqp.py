@@ -26,6 +26,7 @@ Multiplier update rule follows ocp_nlp_update_variables_sqp
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
@@ -55,10 +56,7 @@ STAT_COLS = ("res_stat", "res_eq", "res_ineq", "res_comp", "qp_status",
 
 @dataclasses.dataclass(frozen=True)
 class SqpOpts:
-    """SQP options; names and defaults as acados_tpu.ocp_nlp.sqp.SqpOpts,
-    for the options of the ported paths and of those that select a path
-    not ported yet: those raise NotImplementedError in make_sqp_solver
-    when set away from their default."""
+    """SQP options; names and defaults as acados_tpu.ocp_nlp.sqp.SqpOpts."""
 
     max_iter: int = 50
     tol_stat: float = 1e-6
@@ -105,8 +103,17 @@ class SqpOpts:
     as_rti_iter: int = 1
     as_rti_advancement: str = "SIMULATE"  # SHIFT | NONE
     step_length: float = 1.0
+    # the time of each phase of every round (linearize, regularize, QP,
+    # the rest), measured in the loop: CUDA events on the card, read
+    # after the loop's last synchronisation, the host clock on the CPU
+    # (reference ocp_nlp_timings, ocp_nlp_common.h:410-428)
     collect_phase_times: bool = False
+    # predictive in-loop timeout (reference ocp_nlp_sqp.c:436,611-635):
+    # before each round, the elapsed time plus the predicted time of the
+    # next one against the budget; one host clock for the whole batch,
+    # read where the round's host sync already is (0 = no timeout)
     timeout_max_time: float = 0.0
+    timeout_heuristic: str = "ZERO"   # ZERO | LAST | MAX | AVERAGE
     # Anderson(1) on the fixed-step update (reference
     # globalization_fixed_step.c:174-215)
     with_anderson_acceleration: bool = False
@@ -131,25 +138,6 @@ class SqpOpts:
         return dataclasses.replace(self, **changes)
 
 
-# option -> (default, ROADMAP item) for the paths that wait
-_NOT_PORTED = {
-    "collect_phase_times": (False, "item 20b, interface utilities "
-                                   "(phase times)"),
-    "timeout_max_time": (0.0, "item 20b, interface utilities (in-loop "
-                              "timeouts)"),
-    "store_iterates": (False, "item 20b, interface utilities (stored "
-                              "iterates)"),
-}
-
-
-def _check_ported(opts: SqpOpts):
-    for field, (default, item) in _NOT_PORTED.items():
-        if getattr(opts, field) != default:
-            raise NotImplementedError(
-                f"SqpOpts.{field}={getattr(opts, field)!r} is not ported "
-                f"yet (ROADMAP.md Queue 1, {item})")
-
-
 @tensor_dataclass
 class SqpStats:
     """Solve diagnostics, per instance (leading batch axis B)."""
@@ -163,6 +151,16 @@ class SqpStats:
     res_comp: torch.Tensor
     stat: torch.Tensor       # (B, max_iter+1, 8) iteration table
     cost: torch.Tensor
+    # (B, max_iter+1, N+1, nx) / (B, max_iter+1, N, nu) with
+    # store_iterates, else None (reference mem->iterates,
+    # ocp_nlp_common.h:452): row 0 the initial iterate, row k+1 the
+    # iterate after round k; the rows after an instance stopped stay as
+    # they were, as a vmapped while_loop leaves them
+    iterates_x: torch.Tensor = None
+    iterates_u: torch.Tensor = None
+    # (4,) float64 seconds with collect_phase_times, else None: the
+    # batch's [linearize, regularize, QP, the rest] summed over rounds
+    phase_times: torch.Tensor = None
 
 
 def _nlp_residuals(qp: OcpQp, it: NlpIterate):
@@ -421,27 +419,17 @@ def _scaled(c, v):
     return (_bc(c, v) if torch.is_tensor(c) else c) * v
 
 
-def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
-    """Build the batch-first SQP solve function.
-
-    Returns solve(data: NlpData, init: NlpIterate) -> (NlpIterate,
-    SqpStats), every tensor leading with the batch axis; it runs on the
-    device its inputs lie on.
-    """
-    _check_ported(opts)
-    full_precision_matmul()
+def make_qp_solve(form: OcpNlpFormulation, opts: SqpOpts):
+    """The QP dispatch of every SQP round (acados_tpu/ocp_nlp/sqp.py:
+    468-500): solve_qp(qp, warm=None, qp_opts=None) -> (sol, info) takes
+    the regularized QP through scaling, then full condensing (the dense
+    IPM, cold), partial condensing (the Riccati IPM), the registry's
+    backend where qp_solver_name names another, or the Riccati IPM.
+    qp_opts overrides opts.qp_opts (the adaptive QP tolerances)."""
     x0_fixed = use_x0_elimination(form, opts)
     keep_rows = keep_rows_of(form)
-    use_aa = (opts.with_anderson_acceleration
-              and opts.globalization == "FIXED_STEP")
-    adaptive_lm = opts.with_adaptive_levenberg_marquardt
 
     def solve_qp(qp, warm=None, qp_opts=None):
-        """QP dispatch (acados_tpu/ocp_nlp/sqp.py:468-500): scaling, then
-        full condensing (the dense IPM, cold), partial condensing (the
-        Riccati IPM), the registry's backend where qp_solver_name names
-        another, or the Riccati IPM. qp_opts overrides opts.qp_opts (the
-        adaptive QP tolerances)."""
         qp_opts = opts.qp_opts if qp_opts is None else qp_opts
         scales = None
         if opts.qpscaling != "NO_SCALING":
@@ -466,6 +454,79 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
         if scales is not None:
             sol = unscale_sol(sol, scales)
         return sol, info
+
+    return solve_qp
+
+
+def nlp_warm_start(qp: OcpQp, it: NlpIterate) -> OcpQpSol:
+    """The QP's warm start at the NLP multipliers with zero primal steps
+    (warm_start_first_qp_from_nlp)."""
+    return OcpQpSol(
+        x=torch.zeros_like(qp.q), u=torch.zeros_like(qp.r), pi=it.pi,
+        lam_lg=it.lam_l, lam_ug=it.lam_u, t_lg=torch.ones_like(it.lam_l),
+        t_ug=torch.ones_like(it.lam_u), sl=it.sl, su=it.su)
+
+
+TIMEOUT_HEURISTICS = ("ZERO", "LAST", "MAX", "AVERAGE")
+
+
+def _predict_round(heuristic: str, pred: float, round_time: float,
+                   r: int) -> float:
+    """The predicted time of the next round (acados_tpu/ocp_nlp/sqp.py:
+    799-815): 0 before the first round has run, else by the heuristic
+    from the last round's time and the last prediction."""
+    if r == 0 or heuristic == "ZERO":
+        return 0.0
+    if heuristic == "LAST":
+        return round_time
+    if heuristic == "MAX":
+        return max(pred, round_time)
+    return 0.5 * (pred + round_time)
+
+
+class _PhaseClock:
+    """The phase marks of every round: CUDA events recorded in stream
+    order on the card, the host clock on the CPU. totals() reads them
+    once, after the loop's last synchronisation (the events have then
+    completed, so reading them waits for nothing)."""
+
+    def __init__(self, device: torch.device):
+        self.stream = (torch.cuda.current_stream(device)
+                       if device.type == "cuda" else None)
+        self.rounds = []
+
+    def mark(self):
+        if self.stream is None:
+            return time.perf_counter()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(self.stream)
+        return ev
+
+    def totals(self) -> torch.Tensor:
+        """[linearize, regularize, QP, the rest] in seconds, summed over
+        the rounds."""
+        out = [0.0] * 4
+        for m in self.rounds:
+            for i in range(4):
+                out[i] += (m[i + 1] - m[i] if self.stream is None
+                           else m[i].elapsed_time(m[i + 1]) / 1e3)
+        return torch.tensor(out, dtype=torch.float64)
+
+
+def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
+    """Build the batch-first SQP solve function.
+
+    Returns solve(data: NlpData, init: NlpIterate) -> (NlpIterate,
+    SqpStats), every tensor leading with the batch axis; it runs on the
+    device its inputs lie on.
+    """
+    if opts.timeout_heuristic not in TIMEOUT_HEURISTICS:
+        raise ValueError(f"timeout_heuristic {opts.timeout_heuristic!r}")
+    full_precision_matmul()
+    use_aa = (opts.with_anderson_acceleration
+              and opts.globalization == "FIXED_STEP")
+    adaptive_lm = opts.with_adaptive_levenberg_marquardt
+    solve_qp = make_qp_solve(form, opts)
 
     def merit_search(data, it, qp, sol, qp_opts_k, soft_scaled, mask, lb_m,
                      ub_m, active):
@@ -558,10 +619,38 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                            dtype=dtype, device=dev),
                 torch.zeros(Bsz, dtype=torch.bool, device=dev))
 
+        hist = None
+        if opts.store_iterates:
+            # the whole history at once: (B, max_iter+1, ...) per field
+            hist = tuple(torch.zeros((Bsz, opts.max_iter + 1)
+                                     + v.shape[1:], dtype=dtype, device=dev)
+                         for v in (init.x, init.u))
+            for h, v in zip(hist, (init.x, init.u)):
+                h[:, 0] = v
+        clock = _PhaseClock(dev) if opts.collect_phase_times else None
+        timeout = opts.timeout_max_time > 0.0
+        r = 0                   # lockstep rounds run
+        t_start = t_prev = time.perf_counter()
+        pred = 0.0
+
         while True:
             active = (k < opts.max_iter) & ~done
             if not bool(active.any()):
                 break
+            if timeout:
+                # the batch's clock, read after the round's sync above:
+                # every active instance has run r rounds (its k == r)
+                t_now = time.perf_counter()
+                pred = _predict_round(opts.timeout_heuristic, pred,
+                                      t_now - t_prev, r)
+                t_prev = t_now
+                if r > 0 and (t_now - t_start) + pred \
+                        > opts.timeout_max_time:
+                    status = torch.where(active, 7, status).to(torch.int32)
+                    done = done | active
+                    continue
+            r += 1
+            marks = [clock.mark()] if clock is not None else None
             lm_k = lm_state if adaptive_lm else lm
             qp = linearize(form, static_rows, data, it, lm_k)
             rs, re, ri, rc = _nlp_residuals(qp, it)
@@ -576,21 +665,22 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             unbounded = cost_k <= opts.tol_unbounded
 
             # regularize (sqp.py:568), then the QP backend (sqp.py:468-500)
+            if clock is not None:
+                marks.append(clock.mark())
             qp_solve = regularize_qp(qp, opts.regularize_method,
                                      opts.reg_epsilon)
+            if clock is not None:
+                marks.append(clock.mark())
             if opts.nlp_qp_tol_strategy == "ADAPTIVE_CURRENT_RES_JOINT":
                 qp_opts_k = adaptive_qp_tol(opts, opts.qp_opts, rs, re, ri,
                                             rc)
             else:
                 qp_opts_k = opts.qp_opts
-            warm = None
-            if opts.warm_start_first_qp_from_nlp:
-                warm = OcpQpSol(
-                    x=torch.zeros_like(qp.q), u=torch.zeros_like(qp.r),
-                    pi=it.pi, lam_lg=it.lam_l, lam_ug=it.lam_u,
-                    t_lg=torch.ones_like(it.lam_l),
-                    t_ug=torch.ones_like(it.lam_u), sl=it.sl, su=it.su)
+            warm = (nlp_warm_start(qp, it)
+                    if opts.warm_start_first_qp_from_nlp else None)
             sol, info = solve_qp(qp_solve, warm=warm, qp_opts=qp_opts_k)
+            if clock is not None:
+                marks.append(clock.mark())
             # a QP at its iteration limit may still be usable; only a NaN
             # QP is fatal (reference ocp_nlp_sqp.c:720-752)
             qp_fatal = info.status == 1
@@ -671,6 +761,16 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                                         torch.where(qp_fatal, 4, 1),
                                         torch.where(small_step, 3, status))))
             done_new = converged | unbounded | nan | qp_fatal | small_step
+            if hist is not None:
+                # row k+1 of every active instance (acados_tpu/ocp_nlp/
+                # sqp.py:770-777); a stopped one's rows stay
+                idx = torch.arange(Bsz, device=dev)
+                row = torch.clamp(k + 1, max=opts.max_iter).long()
+                for h, v in zip(hist, (it_new.x, it_new.u)):
+                    h[idx, row] = where_batch(active, v, h[idx, row])
+            if clock is not None:
+                marks.append(clock.mark())
+                clock.rounds.append(marks)
             # k advances only when a step was taken
             k_new = torch.where(converged, k, k + 1)
             if adaptive_lm:
@@ -721,7 +821,11 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
         cost = eval_cost(form, data, it.x, it.u, it.sl, it.su, soft_scaled)
         stats = SqpStats(status=status.to(torch.int32), sqp_iter=k,
                          qp_iter_total=qp_tot, res_stat=rs, res_eq=re,
-                         res_ineq=ri, res_comp=rc, stat=stat, cost=cost)
+                         res_ineq=ri, res_comp=rc, stat=stat, cost=cost,
+                         iterates_x=None if hist is None else hist[0],
+                         iterates_u=None if hist is None else hist[1],
+                         phase_times=(None if clock is None
+                                      else clock.totals()))
         return it, stats
 
     return solve

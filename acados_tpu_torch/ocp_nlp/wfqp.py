@@ -34,7 +34,7 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _stack_stages,
                                                 linearize, refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
-                                          _backtrack, _check_ported, _merit,
+                                          _backtrack, _merit,
                                           _nlp_residuals, _scaled, _set_at,
                                           _trial)
 from acados_tpu_torch.ocp_qp.data import OcpQp
@@ -55,7 +55,7 @@ class WfqpStats(SqpStats):
     """SqpStats with the feasibility QPs' iterations of every instance,
     (B,); qp_iter_total counts both QPs'."""
 
-    feas_qp_iter: torch.Tensor
+    feas_qp_iter: torch.Tensor = None   # always given (after defaults)
 
 
 def _slackable_rows(form: OcpNlpFormulation, dtype, device):
@@ -89,7 +89,6 @@ def make_wfqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
     iterations.
     """
     refuse_multiphase(form, "SQP_WITH_FEASIBLE_QP")
-    _check_ported(opts)
     full_precision_matmul()
 
     def feasibility_qp(qp: OcpQp, soft_new) -> OcpQp:

@@ -97,7 +97,8 @@ failure exits non-zero:
     at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 10 warm calls; every
     status 0, within stat 5e-3 and eq 1e-4, no kernel launches;
 16. RTI phases on the main path's config (pendulum IRK, N = 20, float32,
-    B = 4096): 1 cold + 11 warm + 8 timed prepare() / feedback(x0)
+    B = 4096): 1 cold + 11 warm + 4 timed (cut from 8 for time) prepare() /
+    feedback(x0)
     cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
     launches in each prepare() and none in each feedback(); the medians
     of time_preparation and time_feedback beside the solve() call's;
@@ -107,16 +108,14 @@ failure exits non-zero:
     the three variants in one process: 1 cold + 10 warm calls of the
     plain one (bench.py warms 25 a variant: cut for the plain variant's
     seconds a call), the other two from its iterate with 1 warm call
-    each, then 1 round of 2 timed calls; every status 0,
+    each, then 1 round of 1 timed call (cut from 2); every status 0,
     within stat 1e-1 and eq 1e-4 (bench.py's _LONGH_TOLS); no kernel
     launches in plain and cond_N16 (nu = 1, condensed nu = 8 <= 12), and
     in parallel_riccati K1 exactly 13 launches a lockstep IPM round (one a
     non-empty combine of the associative scan over 129 stages); for
     each: solves/s, median call with p10/p90, Riccati stages a sweep (or
-    combine levels a factor), the QP's share of a call, and for
-    parallel_riccati kernel launches a call and device busy share
-    (torch.profiler; the other two are not profiled: their profiles
-    took most of the phase); then K1 on the
+    combine levels a factor; the time split and the parallel variant's
+    profile were dropped for time); then K1 on the
     largest combine, (65536, 4, 4) captured in the parallel variant's
     first timed call, against its plain version (the bits that differ
     counted), and its times there;
@@ -130,8 +129,8 @@ failure exits non-zero:
     bit for bit against chol_factor_plain, and its time there;
 19. float64 card against CPU of the new paths: the long-horizon
     pendulum at cond_N = 16 (B = 4), the chain at cond_N = 8 (B = 4) and
-    three prepare() / feedback() cycles of the main path's config
-    (B = 8), each within 1e-9;
+    the main path's config (B = 8) in prepare() / feedback() cycles, 2
+    calls or cycles each (cut from 3), each within 1e-9;
 20. the batch simulator (AcadosSimBatchSolver) with the main path's
     integrator (pendulum, IRK Gauss-Legendre 4 stages, 2 substeps,
     dt = Tf / N = 0.05) at B = 4096 float32 with sens_forw, and RK4
@@ -146,10 +145,10 @@ failure exits non-zero:
     then eval_solution_sensitivity (every stage, initial_state) and
     eval_adjoint_solution_sensitivity seeded on u_0: K1 exactly 44 + 8
     launches, the forward-adjoint gap of every instance within 10 x the
-    JAX package's float32 gap, dx_0/dx0 = I; a time split of the layer;
-    then the chain (n_mass = 8, N = 40, B = 256, float64, after 6 RTI
-    calls): K1 60 + 2 launches, K2 exactly 1 (P_0, (256, 39, 39)), K2
-    bit for bit against its plain version on the captured P_0 (float64
+    JAX package's float32 gap, dx_0/dx0 = I (the layer's time split was
+    dropped for time); then the chain (n_mass = 8, N = 40, B = 256,
+    float64, after 6 RTI calls): K1 60 + 2 launches, K2 exactly 1 (P_0,
+    (256, 39, 39)), K2 bit for bit against its plain version on the captured P_0 (float64
     and float32), and its times beside torch.linalg.cholesky_ex;
 22. the differentiable solver: make_diff_solver on the parametric
     pendulum (ERK, float64, B = 1024), the gradient of 0.5 |u_0|^2 with
@@ -163,7 +162,8 @@ failure exits non-zero:
 24. latency (bench.py's bench_latency): phase 17's three variants at
     B = 8 (cond_N = 32), 1 cold + 10 warm calls of the plain one
     (bench.py warms 25 a variant), the others from its iterate with 1
-    warm call each, then 1 round of 2 timed calls; the median call with
+    warm call each, then 1 round of 1 timed call (cut from 2); the
+    call with
     p10/p90, every status 0, _LONGH_TOLS met, K1 only in
     parallel_riccati, 13 a lockstep IPM round;
 25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
@@ -171,14 +171,16 @@ failure exits non-zero:
     IPM beside qp_solver_name="ADMM": the IPM 1 cold + 15 warm calls,
     ADMM 1 + 3 calls from the IPM's iterate after its 6th call (not yet
     in tolerance: ADMM's own steps bring the batch there), then 2
-    interleaved rounds of 1 timed call (bench.py: 15 warm calls each, 3
+    interleaved rounds of 1 timed call (at 1 the last ADMM call was out
+    of tolerance; bench.py: 15 warm calls each, 3
     rounds of 10; an ADMM call runs up to 500 lockstep iterations);
     every status 0, the OCP's nlp tolerances (stat, eq) met, no launch
     of the repo's kernels; solves/s, the largest ADMM iteration count a
     call, ADMM's residual maxima call by call;
 26. float64 card against CPU of the QP-breadth paths, each within 1e-9:
     the long horizon with parallel_riccati, the main path's config with
-    abs_form and the ADMM RTI batch (B = 8, 3 RTI calls each), and
+    abs_form and the ADMM RTI batch (B = 8, 2 RTI calls each; 3 for
+    the first two cut from 3), and
     AcadosOcpQpSolver on a random QP (N = 20, x0 free) with the Riccati
     IPM, ADMM and ADMM through partial condensing (cond_N = 4), with its
     forward and adjoint sensitivities;
@@ -187,10 +189,9 @@ failure exits non-zero:
     hessian_approx EXACT, CONVEXIFY and MERIT_BACKTRACKING (MIRROR's
     solve takes over 100 lockstep rounds there, see NEWTON_SO; its
     Gauss-Newton solve is phase 21's): one EXACT linearization first (K1
-    exactly K1_PER_EXACT_LINEARIZE = 22 launches) and the time split of
-    a round (the Gauss-Newton linearization and the exact dynamics
-    Hessian apart, CONVEXIFY and MIRROR, the QP, a merit's dynamics
-    gap), then the EXACT call from the initial iterate, cut at
+    exactly K1_PER_EXACT_LINEARIZE = 22 launches; a round's time split
+    was dropped for time), then the EXACT call from the initial
+    iterate, cut at
     NEWTON_ROUNDS lockstep rounds (nothing compiles in the port: a first
     call is timed like any other), its statuses converged or at the cut
     and finite; its K1 launches equal to those worked out from its stat
@@ -199,7 +200,8 @@ failure exits non-zero:
     the largest launch of the EXACT linearization against its plain
     version, and its times there;
 28. float64 card against CPU of the new options, B = 4, each solve cut
-    at 4 iterations: the Newton SQP of phase 27 (2 iterations),
+    at 3 iterations (cut from 4): the Newton SQP of phase 27 (2
+    iterations),
     EXACT with each of the five
     regularizations on the nonconvex EXTERNAL-cost double integrator,
     MERIT with sufficient descent and with SOC, FUNNEL, FIXED_STEP with
@@ -212,8 +214,7 @@ failure exits non-zero:
     every res_eq within 1e-4, the converged in tolerance), and with the
     main path's IRK cut at DDP_CUT_ITER iterations: K1 launches equal to
     ddp_k1_expected from its stat table, K1 on the rollout's (4096, 16,
-    16) launch against its plain version, the split of an iteration
-    (linearize, Riccati, one rollout, the cost);
+    16) launch against its plain version;
 30. SQP_WITH_FEASIBLE_QP at full width: the main path's pendulum with
     MERIT_BACKTRACKING cut at WFQP_ROUNDS rounds (K1 equal to
     wfqp_k1_expected, the converged instances in tolerance, both QPs'
@@ -268,6 +269,45 @@ failure exits non-zero:
 37. float64 card against CPU at B = 4, within 1e-9: the transition
     example with ERK and IRK phases by SQP and under SQP_RTI, and the
     control horizon by SQP.
+38. the interface utilities at the main path's width (pendulum IRK GL4,
+    N = 20, float32, B = 4096, from the main path's converged iterate):
+    the batch with and without collect_phase_times, interleaved (1 warm
+    call each, 3 rounds of 1 timed call): every status 0 and in
+    tolerance, K1 8 launches a call either way, the four phase times
+    positive and their sum within 0.5-1.05 of time_tot after each call,
+    both medians; store_iterates on one RTI call (K1 8) and on the
+    Gauss-Newton SQP (K1 8 a lockstep round and 8 for the final
+    residuals): row 0 the initial iterate and row sqp_iter the returned
+    one, bit for bit; the B = 4096 flat iterate through set_flat and a
+    '.atni' file under build/chip_smoke bit for bit, loaded into a second
+    batch solver, whose next call equals the first solver's bit for bit;
+    on single-instance SQPs of the same pendulum, store_iterates
+    (get_iterates' first and last rows) and the timeouts from its
+    iterate 3 iterations before the solution (1e-7 s with LAST: status 7
+    before 5 iterations; 120 s with ZERO, LAST, MAX, AVERAGE: status 0
+    and bit for bit the solve without), print_
+    statistics() and dump_qp_to_file (19 keys at the JAX package's
+    shapes), zoRO's custom_update from the solution (K1 exactly 8 at
+    (20, 16, 16), against
+    its plain version and timed beside its bound and torch.linalg.inv; a
+    finite backoff growing along the horizon on the force and position
+    rows; the tightened solve at status 0), and AcadosScipyOcpSolver on
+    the float64 pendulum from the SQP solution, within 1e-4 of it;
+39. float64 card against CPU at B = 4, within 1e-9: the stored iterates
+    of a main-path SQP cut at 4 iterations, the flat iterate after 3 RTI
+    calls, zoRO's tightened bounds, and the scipy oracle (within the
+    CPU's own spread from a start one rounding step away, where that
+    exceeds 1e-9);
+40. every examples_torch script with --device cuda (its main() with its
+    own asserts), all started together, one process each: each exits 0;
+    its seconds and last line.
+Phases 38-40 run alone through utilities_phase(dev), utilities_vs_cpu()
+and examples_phase(), after cuda_build.build_all().
+The CPU halves of the float64 card-against-CPU checks (phases 5, 9, 14,
+19, 23, 26, 28, 32, 35, 37, 39) run ahead in a second process started
+after the build (chip_smoke.py --cpu-refs DIR, with no card), which
+the script waits for and stops before it ends; a check called alone
+computes both halves itself.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -325,13 +365,13 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
 # the RTI phases on the main path: warm and timed prepare/feedback cycles
-RTI_WARM, RTI_TIMED = 11, 8
+RTI_WARM, RTI_TIMED = 11, 4
 # bench.py's bench_long_horizon_rti: N, B, x0 spread, its float32
 # tolerances (_LONGH_TOLS: stat, eq) and the condensed horizon of its
 # cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
 N_LONG, B_LONG, LONG_SIGMA, COND_LONG = 128, 1024, 0.02, 16
 LONG_TOLS = (1e-1, 1e-4, np.inf, np.inf)
-LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 1, 2
+LONG_WARM, LONG_ROUNDS, LONG_PER_ROUND = 10, 1, 1
 # the plain variant's warm-up serves all three (phases 17, 24): from the
 # swing-up start each variant takes 10-13 calls to reach LONG_TOLS (on an
 # H100 the plain one's first calls 8-15 s at B_LONG, their QPs far from
@@ -349,7 +389,7 @@ PAR_COMBINE_B = 64 * 1024
 # variant, and the warm calls (bench.py: 25; 3 leave cond_N32 out of
 # _LONGH_TOLS at B = 8), rounds and calls a round
 B_LAT, COND_LAT = 8, 32
-LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 10, 1, 2
+LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 10, 1, 1
 # bench.py's bench_admm_backend: B, N, x0 spread, the IPM's warm calls
 # (bench.py: 15 for each variant), the IPM call whose iterate the ADMM
 # variant starts from (the RTI iteration still far from tolerance there:
@@ -731,12 +771,13 @@ def call_stats(call_ms, B=B_MAIN) -> str:
 
 def profile_calls(solver, call_ms: float, calls: int = 1) -> dict:
     """A torch.profiler trace of a few solve() calls: the device's busy
-    share of the unprofiled call time, launches per call, top kernels."""
+    share of the unprofiled call time, launches per call, top kernels.
+    It traces the device alone: the host's operator events (several for
+    each launch) are read by nothing here."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             solver.solve()
@@ -849,49 +890,158 @@ def fc_time_split(solver) -> dict:
     return out
 
 
+# The CPU halves of the float64 card-against-CPU checks (phases 5, 9,
+# 14, 19, 23, 26, 28, 32, 35, 37 and 39) run ahead in a second process,
+# started after the build (`chip_smoke.py --cpu-refs DIR`, which sees no
+# card; REF_THREADS threads): each half is saved under its check's label
+# and read where the card's half needs it, so the CPU's solves no longer
+# add to the run's time. A check run alone (no such process) computes
+# both halves in turn. REF_CHECKS: the checks, in the order main() runs
+# them.
+REF_THREADS = 4
+REF_CHECKS = ("main_path_vs_cpu", "full_cond_vs_cpu", "chain_vs_cpu",
+              "new_paths_vs_cpu", "sens_vs_cpu", "qp_paths_vs_cpu",
+              "newton_vs_cpu", "nlp_breadth_vs_cpu", "integrators_vs_cpu",
+              "multiphase_vs_cpu", "utilities_vs_cpu")
+REFS = dict(mode=None, dir=None, proc=None, seen=set())
+
+
+def _ref_path(key: str) -> str:
+    import hashlib
+    import os
+    return os.path.join(REFS["dir"], hashlib.sha1(
+        key.encode()).hexdigest()[:20] + ".pkl")
+
+
+def cpu_half(key: str, compute):
+    """The CPU half of the check `key`: compute() here when no reference
+    process runs; in the reference process, compute() saved under key;
+    in the main one, the saved result, waited for."""
+    import os
+    import pickle
+    if key in REFS["seen"]:
+        raise SystemExit(f"two checks share the label {key!r}")
+    REFS["seen"].add(key)
+    if REFS["mode"] is None:
+        return compute()
+    path = _ref_path(key)
+    if REFS["mode"] == "worker":
+        out = compute()
+        with open(path + ".tmp", "wb") as f:
+            pickle.dump(out, f)
+        os.replace(path + ".tmp", path)
+        return out
+    while not os.path.exists(path):
+        if REFS["proc"].poll() is not None and not os.path.exists(path):
+            with open(os.path.join(REFS["dir"], "worker.log")) as f:
+                tail = f.read()[-3000:]
+            raise SystemExit(f"the CPU reference process stopped (exit "
+                             f"{REFS['proc'].returncode}) before {key!r}:\n"
+                             f"{tail}")
+        time.sleep(0.05)
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def card_half() -> bool:
+    """False in the reference process, which computes CPU halves only."""
+    return REFS["mode"] != "worker"
+
+
+def start_cpu_refs() -> None:
+    """Start the reference process (see REF_CHECKS)."""
+    import os
+    import shutil
+    d = os.path.join(UTIL_DIR, "cpu_refs")
+    shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(d)
+    with open(os.path.join(d, "worker.log"), "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-refs", d],
+            stdout=logf, stderr=subprocess.STDOUT,
+            env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                 "OMP_NUM_THREADS": str(REF_THREADS)})
+    REFS.update(mode="main", dir=d, proc=proc)
+
+
+def stop_cpu_refs() -> None:
+    """Wait for the reference process, then make sure it is gone."""
+    proc = REFS["proc"]
+    if proc is None:
+        return
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+
+
+def cpu_refs_worker(d: str) -> int:
+    """The reference process: every check's CPU half, saved under d."""
+    import torch
+    torch.set_num_threads(REF_THREADS)
+    REFS.update(mode="worker", dir=d)
+    for name in REF_CHECKS:
+        t0 = time.perf_counter()
+        globals()[name]()
+        log(f"{name}: {time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def card_vs_cpu(label, make, moved=None, calls=3, step=None,
                 spread_bound=False):
     """The same float64 batch (make(device) -> solver) on the card and on
     the CPU, `calls` RTI calls (step(solver) -> statuses, default
-    solver.solve()): equal statuses and qp_iter, and max |d|/(1 + |ref|)
-    over x, u, pi within 1e-9, naming the worst instance. moved, if
-    given, makes the CPU batch again from inputs moved by one rounding
-    step (moved() -> solver), to log the CPU's own spread beside the
-    card's gap; with spread_bound the bound is 4 x that spread where
+    solver.solve()): equal statuses and qp_iter call by call, and max
+    |d|/(1 + |ref|) over x, u, pi within 1e-9, naming the worst instance.
+    moved, if given, makes the CPU batch again from inputs moved by one
+    rounding step (moved() -> solver), to log the CPU's own spread beside
+    the card's gap; with spread_bound the bound is 4 x that spread where
     it exceeds 1e-9 (as tests/test_torch_sens_models.py holds stiff
-    cases to the JAX package's spread)."""
+    cases to the JAX package's spread). The CPU half: cpu_half(label)."""
     import torch
     step = step or (lambda s: s.solve())
-    gpu, cpu = make(torch.device("cuda")), make("cpu")
-    for _ in range(calls):
-        st_g, st_c = step(gpu), step(cpu)
+    fields = ("x", "u", "pi")
+
+    def run(solver):
+        per_call = [(np.asarray(step(solver)), solver.get_stats("qp_iter"))
+                    for _ in range(calls)]
+        return per_call, {f: getattr(solver._it_dev, f).cpu().numpy()
+                          for f in fields}
+
+    def cpu():
+        per_call, it = run(make("cpu"))
+        return per_call, it, run(moved())[1] if moved is not None else None
+
+    ref_calls, ref, ref_moved = cpu_half(label, cpu)
+    if not card_half():
+        return
+    gpu = make(torch.device("cuda"))
+    for st_c, qp_c in ref_calls:
+        st_g = step(gpu)
         if not (np.array_equal(st_g, st_c) and np.array_equal(
-                gpu.get_stats("qp_iter"), cpu.get_stats("qp_iter"))):
+                gpu.get_stats("qp_iter"), qp_c)):
             raise SystemExit(f"{label}: card and CPU disagree on "
                              "statuses/qp_iter")
 
-    def gaps(s):
-        """Per instance, max |s - cpu| / (1 + |cpu|) over x, u, pi."""
+    def gaps(it):
+        """Per instance, max |it - cpu| / (1 + |cpu|) over x, u, pi."""
         out = 0.0
-        for f in ("x", "u", "pi"):
-            a = getattr(s._it_dev, f).cpu().numpy()
-            b = getattr(cpu._it_dev, f).numpy()
+        for f in fields:
+            a, b = it[f], ref[f]
             out = np.maximum(out, np.max(
                 (np.abs(a - b) / (1 + np.abs(b))).reshape(len(b), -1), 1))
         return out
 
-    g = gaps(gpu)
+    g = gaps({f: getattr(gpu._it_dev, f).cpu().numpy() for f in fields})
     worst = int(np.argmax(g))
     log(f"{label} float64 B={len(g)}, {calls} RTI calls: card vs CPU "
         f"max |d|/(1+|ref|) {g[worst]:.3e} (bound 1e-9, worst instance "
         f"{worst}), statuses {st_g.tolist()}, qp_iter "
         f"{gpu.get_stats('qp_iter').tolist()}")
     bound = 1e-9
-    if moved is not None:
-        cpu_moved = moved()
-        for _ in range(calls):
-            step(cpu_moved)
-        gm = gaps(cpu_moved)
+    if ref_moved is not None:
+        gm = gaps(ref_moved)
         if spread_bound:
             bound = max(bound, 4 * float(gm.max()))
         log(f"  CPU against the CPU on x0s moved by one rounding step: "
@@ -1837,23 +1987,13 @@ def long_horizon(dev) -> dict:
         f"timed calls")
     for name, s in solvers.items():
         call_ms, qp_max, counts = runs[name]
-        # the profiles' share of the phase grows with the launches (~92,800
-        # a plain call): only the parallel variant is profiled
-        split = time_split(s, reps=1 if name == "plain" else 2,
-                           profiled=int(name == "parallel_riccati"))
         depth = (f"combine levels a factor {K1_PER_PAR_FACTOR[N_LONG]} "
                  f"(the {N_LONG} stages in log depth)"
                  if name == "parallel_riccati" else
-                 f"Riccati stages a sweep {split['riccati_stages']}")
-        log(f"  {name}: {call_stats(call_ms, B_LONG)}; {depth}; kernel "
-            f"launches a call "
-            f"{split.get('kernel_launches_per_call', 'not profiled')} "
-            f"(device busy share "
-            f"{split.get('device_busy_share', 'not profiled')}); QP "
-            f"{split['qp_ms']:.2f} of {split['call_ms']:.2f} ms a call "
-            f"({split['qp_share'] * 100:.1f} %); largest qp_iter per call "
-            f"{qp_max}; launches of the repo's kernels {counts}")
-        log(f"    time split: {json.dumps(split)}")
+                 f"Riccati stages a sweep {s.opts.cond_N or s.form.N}")
+        log(f"  {name}: {call_stats(call_ms, B_LONG)}; {depth}; largest "
+            f"qp_iter per call {qp_max}; launches of the repo's kernels "
+            f"{counts}")
     check_launches("long horizon", runs)
     qp_max = runs["parallel_riccati"][1]
     launches = runs["parallel_riccati"][2]["gj_inverse"]
@@ -1979,16 +2119,16 @@ def new_paths_vs_cpu() -> None:
     card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
                 f"cond_N={COND_LONG})",
                 lambda where: long_batch(4, "float64", where,
-                                         cond_N=COND_LONG, seed=1))
+                                         cond_N=COND_LONG, seed=1), calls=2)
     card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN}, "
                 f"cond_N={COND_CHAIN})",
                 lambda where: chain_batch(N_MASS, 4, "float64", where,
-                                          cond_N=COND_CHAIN))
+                                          cond_N=COND_CHAIN), calls=2)
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
     card_vs_cpu("RTI phases reference check (prepare/feedback)",
                 lambda where: rti_batch(kw64, 8, where, seed=1)[0],
-                step=lambda s: (s.prepare(), s.feedback())[1])
+                step=lambda s: (s.prepare(), s.feedback())[1], calls=2)
 
 
 # the simulator (phase 20): the main path's integrator, dt = Tf / N, and
@@ -2019,6 +2159,9 @@ CHAIN_EYE_BOUND = 1e-3
 B_DIFF, DIFF_X0_SIGMA, DIFF_P_SIGMA = 1024, 0.01, 0.005
 # float64 card against CPU of the new paths (phase 23)
 B_CHECK = 4
+# the chain's float64 sensitivities of phase 23 after this many RTI calls
+# (cut from 3)
+CHAIN_SENS_CALLS = 2
 
 
 def sim_solver(integrator_type, B, dtype, dev, sens_hess=False):
@@ -2129,36 +2272,6 @@ def consistency(solver, dev=None):
     return sx, su, adj, gap
 
 
-def timed_sens(solver) -> dict:
-    """Host-clock ms of the sensitivity layer's parts on a warm solver:
-    the KKT factor (linearize, the Lagrangian Hessian, the Riccati
-    factor), the forward sensitivities over the seeds and the adjoint."""
-    import torch
-    from acados_tpu_torch.interface.solver import _forward_over_seeds
-    from acados_tpu_torch.ocp_nlp import sensitivity as sens
-    from acados_tpu_torch.ocp_nlp.linearize import build_static_rows
-    data, it = solver._on_device()
-    form = solver.form
-    rows = build_static_rows(form, it.x.dtype, it.x.device)
-    zero = torch.zeros((), dtype=it.x.dtype, device=it.x.device)
-    kf = sens.KktFactor(form, sens.SensOpts(), data, it)
-    B, N, nx, nu = solver.N_batch, solver.N, form.nx, form.nu
-    sx = torch.zeros((B, N + 1, nx), dtype=it.x.dtype, device=it.x.device)
-    su = torch.zeros((B, N, nu), dtype=it.x.dtype, device=it.x.device)
-    su[:, 0] = 1.0
-    return dict(
-        kkt_factor_ms=host_ms(lambda: sens.KktFactor(
-            form, sens.SensOpts(), data, it), reps=1),
-        linearize_ms=host_ms(lambda: sens.linearize(form, rows, data, it,
-                                                    zero), reps=1),
-        lagrangian_hessian_ms=host_ms(
-            lambda: sens.lagrangian_hessian(form, data, it), reps=1),
-        forward_ms=host_ms(lambda: _forward_over_seeds(
-            kf, solver._layout(0), "initial_state"), reps=1),
-        adjoint_ms=host_ms(lambda: sens.adjoint_sensitivity(kf, sx, su),
-                           reps=1))
-
-
 def sensitivities(dev) -> dict:
     """Phase 21: the batched sensitivities on the main path's width, then
     the chain's. Returns K2's kernels entry at the chain's P_0."""
@@ -2197,8 +2310,6 @@ def sensitivities(dev) -> dict:
             or eye_gap > 1e-4 or counts["gj_inverse"] != want \
             or counts["chol_factor"]:
         raise SystemExit("sensitivities on the main path failed")
-    split = timed_sens(solver)
-    log(f"  time split (host ms, one call each): {json.dumps(split)}")
 
     # the chain: P_0 (nx = 39 > 12) goes through chol_any, K2. In float64:
     # its active wall rows give barrier weights lam / t up to ~1e10 (t at
@@ -2238,8 +2349,6 @@ def sensitivities(dev) -> dict:
             not all(np.isfinite(a).all() for a in (csx, csu, cadj)) or \
             ceye > CHAIN_EYE_BOUND or cgap.max() > 1e-9:
         raise SystemExit("chain sensitivities failed")
-    log(f"  time split (host ms, one call each): "
-        f"{json.dumps(timed_sens(chain))}")
     H = p0s[0]
     kern = batched_chol.chol_factor_batched
     Lk, Lp = kern(H), batched_chol.chol_factor_plain(H)
@@ -2360,38 +2469,41 @@ def rel_gap(a, b) -> float:
 def sens_vs_cpu() -> None:
     """Phase 23: float64 card against CPU of phases 20-22 at B_CHECK."""
     import torch
-    gpu, cpu = torch.device("cuda"), "cpu"
     x, u = sim_inputs(B_CHECK, seed=1)
     seed = np.random.default_rng(2).normal(size=(B_CHECK, 4))
-    gaps = {}
-    for itype in ("IRK", "ERK"):
-        outs = []
-        for where in (gpu, cpu):
+
+    def outputs(where) -> dict:
+        """The simulators' outputs, the sensitivities and the
+        differentiable solver's gradient on `where`, as numpy."""
+        out = {}
+        for itype in ("IRK", "ERK"):
             sim = sim_solver(itype, B_CHECK, "float64", where,
                              sens_hess=True)
-            one = sim._one
-            out = one._run(x, u, np.zeros((B_CHECK, 0)), seed)
-            outs.append(out)
-        for f in ("xn", "S_forw", "S_adj", "S_hess"):
-            gaps[f"sim {itype} {f}"] = rel_gap(
-                getattr(outs[0], f).cpu().numpy(),
-                getattr(outs[1], f).numpy())
+            r = sim._one._run(x, u, np.zeros((B_CHECK, 0)), seed)
+            for f in ("xn", "S_forw", "S_adj", "S_hess"):
+                out[f"sim {itype} {f}"] = getattr(r, f).cpu().numpy()
+        s, _ = sens_batch(B_CHECK, "float64", where, seed=1)
+        sx, su, adj, _ = consistency(s)
+        g, _, _, _ = diff_grad(diff_batch(B_CHECK, where, seed=1))
+        out.update({"sens x": sx, "sens u": su, "adjoint": adj,
+                    "diff solver grad": g})
+        return out
+
     def chain_sens(where, moved=False):
         c = chain_batch(N_MASS, 4, "float64", where, moved=moved)
-        for _ in range(3):
+        for _ in range(CHAIN_SENS_CALLS):
             c.solve()
         return consistency(c)[:3]
 
-    res = {}
-    for where in (gpu, cpu):
-        s, _ = sens_batch(B_CHECK, "float64", where, seed=1)
-        sx, su, adj, _ = consistency(s)
-        d = diff_batch(B_CHECK, where, seed=1)
-        g, _, _, _ = diff_grad(d)
-        res[str(where)] = (sx, su, adj, g)
-    for n, a, b in zip(("sens x", "sens u", "adjoint", "diff solver grad"),
-                       res["cuda"], res["cpu"]):
-        gaps[n] = rel_gap(a, b)
+    ref = cpu_half("phase 23: simulators, sensitivities, differentiable "
+                   "solver", lambda: outputs("cpu"))
+    chain_ref, chain_moved = cpu_half(
+        "phase 23: chain sensitivities",
+        lambda: (chain_sens("cpu"), chain_sens("cpu", True)))
+    if not card_half():
+        return
+    card = outputs(torch.device("cuda"))
+    gaps = {k: rel_gap(card[k], ref[k]) for k in ref}
     worst = max(gaps, key=gaps.get)
     log(f"new paths, float64 card against CPU (B={B_CHECK}): max "
         f"|d|/(1+|ref|) by output {json.dumps(gaps)}; worst {worst} "
@@ -2402,11 +2514,11 @@ def sens_vs_cpu() -> None:
     # ~1e10 on its active wall rows): the CPU's own results move by more
     # than 1e-9 when x0 moves by one rounding step, so the card's gap is
     # held to that spread where it exceeds 1e-9
-    ref = chain_sens(cpu)
-    card = [rel_gap(a, b) for a, b in zip(chain_sens(gpu), ref)]
-    spread = [rel_gap(a, b) for a, b in zip(chain_sens(cpu, True), ref)]
-    log(f"chain sensitivities (n_mass={N_MASS}, B=4, 3 RTI calls), "
-        f"float64 card against CPU: sens x, sens u, adjoint "
+    card = [rel_gap(a, b) for a, b in zip(chain_sens(torch.device("cuda")),
+                                          chain_ref)]
+    spread = [rel_gap(a, b) for a, b in zip(chain_moved, chain_ref)]
+    log(f"chain sensitivities (n_mass={N_MASS}, B=4, {CHAIN_SENS_CALLS} "
+        f"RTI calls), float64 card against CPU: sens x, sens u, adjoint "
         f"{['%.3e' % g for g in card]}; the CPU against itself on x0s "
         f"moved by one rounding step {['%.3e' % g for g in spread]}")
     if not all(g <= max(1e-9, sp) for g, sp in zip(card, spread)):
@@ -2522,7 +2634,7 @@ def qp_paths_vs_cpu() -> None:
     card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
                 f"parallel_riccati)",
                 lambda where: long_batch(8, "float64", where, seed=1,
-                                         parallel=True))
+                                         parallel=True), calls=2)
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
     # SPEED_ABS stops at iter_max (50) on most instances here: their
@@ -2533,7 +2645,8 @@ def qp_paths_vs_cpu() -> None:
                 lambda where: rti_batch(kw64, 8, where, seed=1,
                                         **abs_form)[0],
                 moved=lambda: rti_batch(kw64, 8, "cpu", seed=1, moved=True,
-                                        **abs_form)[0], spread_bound=True)
+                                        **abs_form)[0], spread_bound=True,
+                calls=2)
     kwa = dict(N=N_ADMM, dtype="float64", nlp_solver_type="SQP_RTI")
     card_vs_cpu("ADMM RTI reference check",
                 lambda where: rti_batch(kwa, 8, where, seed=1,
@@ -2556,45 +2669,63 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
     u within 1e-9, or within 4 x their spread on `ref_where` under one
     rounding step of the data (the larger of two draws) where that is
     larger (at the active rows the seeds' barrier weights lam / t reach
-    ~1e12). Returns whether all hold."""
+    ~1e12). The half on `ref_where`: cpu_half(label). Returns whether
+    all hold (True in the reference process)."""
     import torch
     rel = lambda a, b: float(np.max(np.abs(a - b) / (1 + np.abs(b)),
                                     initial=0.0))
     cpu = lambda t: t.detach().cpu().numpy()
-    runs = [qp_solver_pair(w, solver, cond_N, moved=m)
-            for w, m in ((where, 0), (ref_where, 0), (ref_where, 1),
-                         (ref_where, 2))]
-    st = [s.solve() for s in runs]
-    it = [int(s.get_stats("num_iter")) for s in runs]
-    if any(st) or it[0] != it[1]:
-        raise SystemExit(f"QP solver {label}: statuses {st}, iterations "
-                         f"{it}")
-    dims = runs[0].qp_desc.dims
     rng = np.random.default_rng(1)
-    dq = rng.normal(size=(1, dims.N + 1, dims.nx))
-    sx = rng.normal(size=(dims.N + 1, dims.nx))
-    su = rng.normal(size=(dims.N, dims.nu))
-    out = []
-    for s in runs:
+
+    def run(w, m):
+        """(status, iterations, solution and seeds as numpy)."""
+        s = qp_solver_pair(w, solver, cond_N, moved=m)
+        st = s.solve()
+        dims = s.qp_desc.dims
         qp = s.qp_desc.qp
         d = qp.replace(**{f: None for f in qp.__dataclass_fields__})
-        d = d.replace(q=torch.as_tensor(dq, device=qp.q.device))
-        grad = s.eval_sens_adj(sx, su)
-        out.append(dict(
+        d = d.replace(q=torch.as_tensor(dq(dims), device=qp.q.device))
+        grad = s.eval_sens_adj(*seeds(dims))
+        return st, int(s.get_stats("num_iter")), dims.N, dict(
             **{f: cpu(getattr(s.sol, f)) for f in ("x", "u", "pi", "lam_lg",
                                                    "lam_ug", "sl", "su")},
             sens_forw=np.concatenate([cpu(t).ravel()
                                       for t in s.eval_sens_forw(d)]),
             sens_adj=np.concatenate([cpu(getattr(grad, f)).ravel() for f in
-                                     ("Q", "q", "A", "b", "C", "lg", "ug")])))
+                                     ("Q", "q", "A", "b", "C", "lg", "ug")]))
+
+    draws = {}
+
+    def dq(dims):
+        if "dq" not in draws:
+            draws["dq"] = rng.normal(size=(1, dims.N + 1, dims.nx))
+            draws["sx"] = rng.normal(size=(dims.N + 1, dims.nx))
+            draws["su"] = rng.normal(size=(dims.N, dims.nu))
+        return draws["dq"]
+
+    def seeds(dims):
+        dq(dims)
+        return draws["sx"], draws["su"]
+
+    refs = cpu_half(f"phase 26: AcadosOcpQpSolver {label}",
+                    lambda: [run(ref_where, m) for m in (0, 1, 2)])
+    if not card_half():
+        return True
+    runs = [run(where, 0)] + refs
+    st = [r[0] for r in runs]
+    it = [r[1] for r in runs]
+    if any(st) or it[0] != it[1]:
+        raise SystemExit(f"QP solver {label}: statuses {st}, iterations "
+                         f"{it}")
+    out = [r[3] for r in runs]
     gaps = {f: rel(out[0][f], out[1][f]) for f in out[1]}
     spread = {f: max(rel(o[f], out[1][f]) for o in out[2:])
               for f in ("sens_forw", "sens_adj")}
     bound = {f: 1e-9 if f not in spread else max(1e-9, 4 * spread[f])
              for f in gaps}
     ok = all(gaps[f] <= bound[f] for f in gaps)
-    log(f"AcadosOcpQpSolver {label} float64 (N={dims.N}, x0 free, {it[0]} "
-        f"iterations): {where} vs {ref_where} max |d|/(1+|ref|) "
+    log(f"AcadosOcpQpSolver {label} float64 (N={runs[0][2]}, x0 free, "
+        f"{it[0]} iterations): {where} vs {ref_where} max |d|/(1+|ref|) "
         f"{json.dumps(gaps)}; the seeds' spread on {ref_where} under one "
         f"rounding step of the data {json.dumps(spread)} (iterations "
         f"{it[2:]}): {'ok' if ok else 'FAIL'}")
@@ -2611,11 +2742,9 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
 # max_iter 100 with one instance unconverged: its call would not fit the
 # script's time limit. CONVEXIFY leaves the Hessian as it is where the
 # reduced Hessian is convex and keeps Newton's local convergence (16-29
-# iterations on the CPU at B = 8); MIRROR's and CONVEXIFY's times a round
-# are in the phase's time split.
+# iterations on the CPU at B = 8).
 NEWTON_SO = dict(hessian_approx="EXACT", regularize_method="CONVEXIFY",
                  globalization="MERIT_BACKTRACKING")
-NEWTON_SPLIT_REPS = 1
 # the EXACT call runs NEWTON_ROUNDS lockstep rounds (nlp_solver_max_iter):
 # run to convergence it took 52 rounds and 198 s of the script's 1200 s
 # (PERF.md), which phases 29-32 need; its launches are still held to
@@ -2637,7 +2766,7 @@ NEWTON_ROUNDS = 2
 # them: at the pendulum's own weights the merit's last comparisons are
 # between values within a few rounding steps, whose outcome follows the
 # order of the sums)
-B_NEWTON_CHECK, NEWTON_CHECK_ITER, CHECK_ITER = 4, 2, 4
+B_NEWTON_CHECK, NEWTON_CHECK_ITER, CHECK_ITER = 4, 2, 3
 
 
 def newton_batch(B, dtype, dev, solver_options=NEWTON_SO, seed=SEED):
@@ -2716,43 +2845,6 @@ def timed_cold_call(solver, it0):
     return (time.perf_counter() - t0) * 1e3, status
 
 
-def newton_split(solver) -> dict:
-    """Where one EXACT SQP round's time goes, at the initial iterate (host
-    ms, each synchronised, medians of NEWTON_SPLIT_REPS): the Gauss-Newton
-    part of the linearization and the exact dynamics Hessian apart, the
-    whole EXACT linearization, the solver's regularization and MIRROR's,
-    the QP, one merit evaluation's dynamics gap."""
-    import torch
-    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
-                                                    dyn_hessian,
-                                                    eval_dyn_gap, linearize)
-    from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
-    form, opts = solver.form, solver.opts
-    data, it = solver._on_device()
-    rows = build_static_rows(form, it.x.dtype, it.x.device)
-    lm = torch.tensor(opts.levenberg_marquardt, dtype=it.x.dtype,
-                      device=it.x.device)
-    gn_form = dataclasses.replace(form, exact_hessian=False)
-    qp = linearize(form, rows, data, it, lm)
-    qp_reg = regularize_qp(qp, opts.regularize_method, opts.reg_epsilon)
-    reps = NEWTON_SPLIT_REPS
-    return dict(
-        linearize_exact_ms=host_ms(
-            lambda: linearize(form, rows, data, it, lm), reps),
-        linearize_gauss_newton_ms=host_ms(
-            lambda: linearize(gn_form, rows, data, it, lm), reps),
-        exact_dyn_hessian_ms=host_ms(
-            lambda: dyn_hessian(form, data, it.x, it.u, it.pi), reps),
-        regularize_ms=host_ms(
-            lambda: regularize_qp(qp, opts.regularize_method,
-                                  opts.reg_epsilon), reps),
-        regularize_mirror_ms=host_ms(
-            lambda: regularize_qp(qp, "MIRROR", opts.reg_epsilon), reps),
-        qp_ms=host_ms(lambda: qp_solve(solver, qp_reg), reps),
-        merit_dyn_gap_ms=host_ms(
-            lambda: eval_dyn_gap(form, data, it.x, it.u), reps))
-
-
 def newton_sqp(dev) -> dict:
     """Phase 27: the Newton SQP at full width. Returns K1's kernels entry
     at the largest launch of an EXACT linearization."""
@@ -2788,9 +2880,6 @@ def newton_sqp(dev) -> dict:
     if lin_counts["gj_inverse"] != K1_PER_EXACT_LINEARIZE or any(
             v for k, v in lin_counts.items() if k != "gj_inverse"):
         raise SystemExit(f"EXACT linearization launches {lin_counts}")
-    split = newton_split(exact)
-    log(f"  time split of a round at the initial iterate (host ms, median "
-        f"of {NEWTON_SPLIT_REPS}): {json.dumps(split)}")
 
     # EXACT, cut at NEWTON_ROUNDS, from the initial iterate
     reset_counts()
@@ -3078,39 +3167,6 @@ def once_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def ddp_split(solver) -> dict:
-    """Where one DDP iteration's time goes at the solver's iterate (host
-    ms of one run each, synchronised): the linearization, the Riccati
-    factorization + backward sweep, one rollout of the batch (alpha = 1)
-    and one cost evaluation."""
-    import torch
-    from acados_tpu_torch.ocp_nlp.ddp import rollout
-    from acados_tpu_torch.ocp_nlp.linearize import (build_static_rows,
-                                                    eval_cost)
-    from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
-    from acados_tpu_torch.ocp_qp.riccati import (riccati_backward,
-                                                 riccati_factor)
-    form, opts = solver.form, solver.opts
-    data, it = solver._on_device()
-    lin, qp = linearized(solver)
-    qp = regularize_qp(qp, opts.regularize_method, opts.reg_epsilon)
-
-    def riccati():
-        fact = riccati_factor(qp.Q, qp.R, qp.S, qp.A, qp.B,
-                              reg_eps=opts.qp_opts.reg_eps, factor_p0=False)
-        return fact, riccati_backward(fact, qp.A, qp.B, qp.q, qp.r, qp.b)
-
-    fact, (kff, _) = riccati()
-    alpha = torch.ones(it.x.shape[0], dtype=it.x.dtype, device=it.x.device)
-    soft = build_static_rows(form, it.x.dtype, it.x.device)["soft"]
-    return dict(
-        linearize_ms=once_ms(lin), riccati_ms=once_ms(riccati),
-        rollout_ms=once_ms(lambda: rollout(form, data, it.x[:, 0], it.u,
-                                           it.x, fact.K, kff, alpha)),
-        cost_ms=once_ms(lambda: eval_cost(form, data, it.x, it.u, it.sl,
-                                          it.su, soft)))
-
-
 def ddp_first_cost(solver):
     """Every instance's cost at the DDP solver's first forward simulation:
     its solve function cut at 0 iterations, on the same data and initial
@@ -3144,8 +3200,8 @@ def ddp_phase(dev) -> dict:
     lockstep rounds;
     (b) the same OCP with the main path's IRK cut at DDP_CUT_ITER
     iterations, its K1 launches against ddp_k1_expected, K1 on the
-    rollout's (B, 16, 16) launch against its plain version, and the
-    split of an iteration. Returns K1's kernels entry there."""
+    rollout's (B, 16, 16) launch against its plain version. Returns K1's
+    kernels entry there."""
     from acados_tpu_torch.ops import batched_inv
     from acados_tpu_torch.testing import ddp_pendulum_ocp
     import torch
@@ -3212,8 +3268,6 @@ def ddp_phase(dev) -> dict:
     A = k1.first
     if tuple(A.shape) != (B_MAIN, 16, 16):
         raise SystemExit(f"DDP IRK: first K1 launch {tuple(A.shape)}")
-    log(f"  time split of an iteration at the cut iterate (host ms): "
-        f"{json.dumps(ddp_split(irk))}")
     rel, abs_err, _ = check_inverse(
         f"DDP rollout step {tuple(A.shape)}", A,
         batched_inv._gj_inverse_cuda, F32_BOUND)
@@ -3424,7 +3478,7 @@ K1_PER_DAE_LINEARIZE, K1_PER_DAE_Z = 8, 3
 DAE_STAGE_N = 9
 # GNSF on the main path from its converged iterate: 1 RTI call and no
 # warm one; the simulators' calls; DISCRETE / ERK and LIFTED_IRK calls
-GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 2, 3, 10
+GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 2, 3, 5
 # DISCRETE against ERK: the same RK4 in another order of operations, so
 # in float32 the step and its Jacobians agree to rounding (~100 ulp,
 # DISC_STEP_BOUND). After DISC_CALLS RTI calls from the same x0s the
@@ -3439,28 +3493,6 @@ GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 2, 3, 10
 DISC_STEP_BOUND, DISC_F64_BOUND = 1e-5, 1e-6
 DISC_PART, DISC_PART_SHARE = 1e-2, 0.01
 B_INT_CHECK = 4
-
-
-def round_split(solver) -> dict:
-    """Where one SQP round's time goes at the solver's iterate (host ms
-    of one synchronised run each): the linearization, its fused step and
-    Jacobians alone, the QP, and for a DAE the exact z(t0) of every
-    interval that the cost evaluation takes."""
-    from acados_tpu_torch.ocp_nlp.linearize import _needs_z, _z_exact
-    form = solver.form
-    data, it = solver._on_device()
-    M = it.u.shape[0] * it.u.shape[1]
-    flat = lambda t: t.reshape((M,) + tuple(t.shape[2:]))
-    args = (flat(it.x[:, :-1]), flat(it.u), flat(data.p[:, :-1]),
-            flat(data.ts[:, :-1]), flat(data.dts))
-    lin, qp = linearized(solver)
-    out = dict(linearize_ms=once_ms(lin),
-               step_jac_ms=once_ms(lambda: form.step_jac_fn(*args)),
-               qp_ms=once_ms(lambda: qp_solve(solver, qp)))
-    if _needs_z(form):
-        out["z_exact_ms"] = once_ms(lambda: _z_exact(form, data, it.x,
-                                                     it.u))
-    return out
 
 
 def dae_k1_expected(stats, opts) -> int:
@@ -3538,8 +3570,6 @@ def dae_phase(dev) -> dict:
     if not bool(torch.isfinite(z).all()) or \
             zmax > DAE_ZBOUND + tols[2] or z_gap > 1e-5:
         raise SystemExit("DAE cart: z out of its bound or not finite")
-    log(f"  time split of a round at the solution (host ms): "
-        f"{json.dumps(round_split(solver))}")
     A = k1.first
     rel, abs_err, _ = check_inverse(
         f"DAE stage systems {tuple(A.shape)}", A.float(),
@@ -3599,8 +3629,6 @@ def integrator_breadth(dev, it0) -> None:
         f"maxima {res.tolist()}; launches {counts} (none expected)")
     if any(counts.values()):
         raise SystemExit(f"GNSF RTI launched {counts}")
-    log(f"  time split of a round (host ms): "
-        f"{json.dumps(round_split(gnsf))}")
     x, u = sim_inputs(B_SIM)
     xn, times = {}, {}
     for itype in ("IRK", "GNSF"):
@@ -3780,17 +3808,21 @@ def integrator_breadth(dev, it0) -> None:
 def sim_vs_cpu(label, make, calls=1, fields=("xn", "S_forw", "zn")):
     """A float64 simulator (make(device) -> AcadosSim(Batch)Solver, called
     by run(solver)) on the card and on the CPU: every field within 1e-9
-    relative."""
+    relative. The CPU half: cpu_half(label)."""
     import torch
-    out = {}
-    for where in (torch.device("cuda"), "cpu"):
+
+    def outputs(where):
         s, run = make(where)
         for _ in range(calls):
             run(s)
-        out[str(where)] = {f: np.asarray(s.get(f)) for f in fields}
-    g = max(float(np.max(np.abs(out["cuda"][f] - out["cpu"][f])
-                         / (1 + np.abs(out["cpu"][f])), initial=0.0))
-            for f in fields)
+        return {f: np.asarray(s.get(f)) for f in fields}
+
+    ref = cpu_half(label, lambda: outputs("cpu"))
+    if not card_half():
+        return
+    card = outputs(torch.device("cuda"))
+    g = max(float(np.max(np.abs(card[f] - ref[f]) / (1 + np.abs(ref[f])),
+                         initial=0.0)) for f in fields)
     log(f"{label} float64: card vs CPU max |d|/(1+|ref|) over "
         f"{list(fields)} {g:.3e} (bound 1e-9)")
     if not g <= 1e-9:
@@ -3909,21 +3941,6 @@ def mp_k1_expected(stats, opts) -> int:
     return merit_sqp_k1(stats, opts, K1_PER_MP_LINEARIZE, K1_PER_MP_GAP)
 
 
-def mp_round_split(solver) -> dict:
-    """Where one SQP round of a multiphase batch goes at its iterate (host
-    ms of one synchronised run each): each segment's step Jacobian, the
-    whole linearization, the QP."""
-    from acados_tpu_torch.ocp_nlp.multiphase import _intervals
-    data, it = solver._data_dev, solver._it_dev
-    lin, qp = linearized(solver)
-    out = {f"segment {i} step_jac_ms": once_ms(
-        lambda s=s: s.step_jac_fn(*_intervals(data, it.x, it.u, s)))
-        for i, s in enumerate(solver.form.segments)}
-    out.update(linearize_ms=once_ms(lin),
-               qp_ms=once_ms(lambda: qp_solve(solver, qp)))
-    return out
-
-
 def multiphase_phase(dev) -> list:
     """Phase 36: multiphase OCPs at full width, float32, B = B_MAIN.
     (a) The control horizon (create_ocp_with_control_horizon of the main
@@ -3966,8 +3983,6 @@ def multiphase_phase(dev) -> list:
     if any(counts.values()) or not held_err <= held_bound:
         raise SystemExit("control horizon: kernel launches or the held "
                          "control broken")
-    log(f"  time split of a round at the solution (host ms): "
-        f"{json.dumps(mp_round_split(ch))}")
     single, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
                                nlp_solver_type="SQP", integrator_type="ERK"),
                           B_MAIN, dev)
@@ -4009,8 +4024,6 @@ def multiphase_phase(dev) -> list:
                          f"{want}, shapes {shapes}")
     if not carry <= F32_TOLS["nlp_solver_tol_eq"]:
         raise SystemExit("transition IRK: the position is not carried")
-    log(f"  time split of a round at the solution (host ms): "
-        f"{json.dumps(mp_round_split(tr))}")
     entries = []
     for n, A in ((8, k1.first), (4, k1.matched)):
         rel, abs_err, _ = check_inverse(
@@ -4045,15 +4058,556 @@ def multiphase_vs_cpu() -> None:
                     seed=2), calls=1)
 
 
+# the interface utilities (phase 38): interleaved rounds of the main
+# path's batch with and without collect_phase_times (after 1 warm call
+# each, from the main path's converged iterate), the rows the phase
+# times must cover of time_tot, the heuristics of the timeouts, the zoRO
+# description of the IRK pendulum (a path bound on the cart position
+# beside the force bound; P0 = 0 and a W and gain at which both rows'
+# backoff grows along the horizon and the tightened problem stays
+# feasible: at 100 x this W the position's backoff passes its bound and
+# the tightened QP fails) and where the files go
+PT_ROUNDS = 3
+PT_COVER = (0.5, 1.05)
+TIMEOUT_HEURISTICS = ("ZERO", "LAST", "MAX", "AVERAGE")
+# the timeout solves start this many SQP iterations before the solution
+# (a row of the stored iterates): each runs a few rounds, not 8
+TIMEOUT_START_BACK = 3
+ZORO_POS_BOUND = 3.0
+ZORO_W = (1e-6, 1e-5, 1e-6, 1e-5)
+ZORO_K = ((1.0, -10.0, 1.0, -1.0),)
+ZORO_GAMMA = 2.0
+SCIPY_ATOL = 1e-4             # tests/test_admm.py::TestScipyCrossCheck
+UTIL_DIR = "build/chip_smoke"
+B_UTIL_CHECK = 4
+QP_DUMP_SHAPES = dict(
+    Q=("N1", "nx", "nx"), R=("N", "nu", "nu"), S=("N", "nu", "nx"),
+    q=("N1", "nx"), r=("N", "nu"), A=("N", "nx", "nx"),
+    B=("N", "nx", "nu"), b=("N", "nx"), C=("N1", "nc", "nx"),
+    D=("N", "nc", "nu"), **dict.fromkeys(
+        ("lg", "ug", "mask_l", "mask_u", "Zl", "Zu", "zl", "zu",
+         "soft_mask"), ("N1", "nc")))
+# the examples (phase 40): examples_torch/, each run with --device cuda,
+# and how long the phase waits for them all
+EXAMPLES_TIMEOUT = 400
+EXAMPLES = ("minimal_example_ocp", "minimal_example_closed_loop",
+            "minimal_example_mhe", "mocp_transition_example",
+            "differentiable_mpc", "batched_scenario_mpc",
+            "batched_rti_phases", "dae_constrained_ocp",
+            "on_device_mpc_loop")
+
+
+def main_path_iterate(dev):
+    """The main path's batch after 1 cold + WARM_CALLS calls, in
+    tolerance: its converged iterate, for running phases 38-39 alone."""
+    solver, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                               nlp_solver_type="SQP_RTI",
+                               integrator_type="IRK"), B_MAIN, dev)
+    run_calls(solver, "main path", timed=0)
+    return solver._it_dev
+
+
+def zoro_pendulum(dtype="float32"):
+    """The main path's pendulum (IRK GL4, 2 substeps, N = 20) by SQP with
+    a path bound |p| <= ZORO_POS_BOUND and a zoRO description."""
+    from acados_tpu_torch import ZoroDescription
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    ocp = make_pendulum_ocp(N=N_HORIZON, dtype=dtype, nlp_solver_type="SQP",
+                            integrator_type="IRK")
+    ocp.constraints.idxbx = np.array([0])
+    ocp.constraints.lbx = np.array([-ZORO_POS_BOUND])
+    ocp.constraints.ubx = np.array([ZORO_POS_BOUND])
+    ocp.zoro_description = ZoroDescription(
+        backoff_scaling_gamma=ZORO_GAMMA, P0_mat=np.zeros((4, 4)),
+        W_mat=np.diag(ZORO_W), fdbk_K_mat=np.array(ZORO_K))
+    return ocp
+
+
+def phase_time_calls(dev, it0) -> dict:
+    """Phase 38 (a): the main path's batch without and with
+    collect_phase_times, from the converged iterate it0, 1 warm call
+    each, then PT_ROUNDS interleaved rounds of one timed call: every
+    status 0 and in tolerance, K1 LAUNCHES_PER_RTI a call either way;
+    after each call with the option, the four phase times positive and
+    their sum within PT_COVER of time_tot; both medians logged, and the
+    phase times of the plain solver by differencing beside them.
+    Returns the two solvers {"plain", "collect"}."""
+    kw = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
+              integrator_type="IRK")
+    solvers = {name: rti_batch(kw, B_MAIN, dev, solver_options=dict(
+        collect_phase_times=flag))[0]
+        for name, flag in (("plain", False), ("collect", True))}
+    covers = []
+
+    def check_previous(name, timed):
+        s = solvers["collect"]
+        if name == "plain" and s._stats is not None:
+            covers.append(phase_cover(s))
+
+    for s in solvers.values():
+        s._it_dev = it0
+    out = interleaved(solvers, "phase times", None, 1, PT_ROUNDS, 1,
+                      before_call=check_previous)
+    covers.append(phase_cover(solvers["collect"]))
+    calls = 2 + PT_ROUNDS
+    for name, (ms, _, counts) in out.items():
+        log(f"main path with{'' if name == 'collect' else 'out'} "
+            f"collect_phase_times: {call_stats(ms)}; launches over {calls} "
+            f"calls {counts}")
+        if counts["gj_inverse"] != LAUNCHES_PER_RTI * calls or any(
+                v for k, v in counts.items() if k != "gj_inverse"):
+            raise SystemExit(f"phase times {name}: launches {counts}")
+    ratio = float(np.median(out["collect"][0])) / float(
+        np.median(out["plain"][0]))
+    last = {k: solvers["collect"].get_stats(k) for k in
+            ("time_lin", "time_reg", "time_qp", "time_glob", "time_tot")}
+    diffd = {k: solvers["plain"].get_stats(k) for k in
+             ("time_lin", "time_qp", "time_glob", "time_tot")}
+    log(f"  collect call {ratio:.3f}x the plain median; the sum of the "
+        f"phase times over time_tot, call by call: "
+        f"{[round(c, 4) for c in covers]}; the last call's (s): "
+        f"{json.dumps(last)}; the plain solver's by differencing (s): "
+        f"{json.dumps(diffd)}")
+    return solvers
+
+
+def phase_cover(s) -> float:
+    """The sum of the batch solver's measured phase times over its
+    time_tot; every phase time must be positive and the sum within
+    PT_COVER."""
+    parts = [s.get_stats(k) for k in ("time_lin", "time_reg", "time_qp",
+                                      "time_glob")]
+    cover = sum(parts) / s.get_stats("time_tot")
+    if not (all(p > 0 for p in parts)
+            and PT_COVER[0] <= cover <= PT_COVER[1]):
+        raise SystemExit(f"phase times {parts} cover {cover:.3f} of "
+                         f"time_tot")
+    return cover
+
+
+def stored_iterates(dev, it0, rti) -> None:
+    """Phase 38 (b): store_iterates on the main path: one RTI call
+    (K1 LAUNCHES_PER_RTI) of the main-path batch `rti`, its solve
+    function rebuilt with the option, from the RTI's converged iterate
+    it0; and its Gauss-Newton SQP from it0 with the x0s of another seed
+    (from it0 at its own x0s the SQP stops in the first round, which
+    leaves one row), K1 LAUNCHES_PER_RTI a lockstep round and one for
+    the final residuals; row 0 the initial iterate and the row at each
+    instance's sqp_iter its returned x and u, bit for bit; every status
+    0 and in tolerance."""
+    import torch
+    from acados_tpu_torch.interface.solver import make_nlp_solver
+    rti.opts = rti.opts.replace(store_iterates=True,
+                                collect_phase_times=False)
+    rti._solve_fn = make_nlp_solver(rti.form, rti.opts, "SQP_RTI")
+    for nlp in ("SQP_RTI", "SQP"):
+        if nlp == "SQP_RTI":
+            s = rti
+        else:
+            s, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                                  nlp_solver_type=nlp,
+                                  integrator_type="IRK"),
+                             B_MAIN, dev, seed=SEED + 1,
+                             opts_update=dict(store_iterates=True))
+        s._it_dev = it0
+        reset_counts()
+        ms, st = timed_call(s)
+        counts = read_counts()
+        res = check_solved(f"stored iterates {nlp}", s, st)
+        stats, it = s._stats, s._it_dev
+        k = stats.sqp_iter.long()
+        idx = torch.arange(B_MAIN, device=dev)
+        rounds = lockstep_rounds(stats, s.opts)
+        want = LAUNCHES_PER_RTI * (rounds + (nlp == "SQP"))
+        first = all(torch.equal(h[:, 0], v) for h, v in (
+            (stats.iterates_x, it0.x), (stats.iterates_u, it0.u)))
+        last = all(torch.equal(h[idx, k], v) for h, v in (
+            (stats.iterates_x, it.x), (stats.iterates_u, it.u)))
+        mb = (stats.iterates_x.numel() + stats.iterates_u.numel()) \
+            * stats.iterates_x.element_size() / 2 ** 20
+        log(f"store_iterates, main path {nlp}, B={B_MAIN}: 1 call "
+            f"{ms:.2f} ms, history {tuple(stats.iterates_x.shape)} + "
+            f"{tuple(stats.iterates_u.shape)} ({mb:.1f} MiB); sqp_iter max "
+            f"{int(k.max())}, {rounds} lockstep rounds; residual maxima "
+            f"{res.tolist()}; row 0 the initial iterate: {first}; row "
+            f"sqp_iter the returned one: {last}; launches {counts} (K1 "
+            f"expected {want})")
+        if not (first and last) or counts["gj_inverse"] != want:
+            raise SystemExit(f"stored iterates {nlp} failed")
+
+
+def flat_roundtrip(solver, other) -> None:
+    """Phase 38 (c): the B_MAIN iterate of `solver` (a main-path batch)
+    through get_flat/set_flat and a '.atni' file under UTIL_DIR, bit for
+    bit, then into `other`, a second main-path batch with the same x0s
+    (its solve function may store iterates: the arithmetic is the
+    same): one warm call of each gives the same statuses and iterate bit
+    for bit."""
+    import os
+
+    import torch
+    from acados_tpu_torch import AcadosOcpFlattenedBatchIterate
+    from acados_tpu_torch.native import load_iterate_bin, save_iterate_bin
+    fields = ("x", "u", "pi", "lam", "sl", "su")
+    t0 = time.perf_counter()
+    flat = solver.store_iterate_to_flat_obj()
+    t_get = time.perf_counter() - t0
+    for f in fields:
+        solver.set_flat(f, getattr(flat, f))
+    same = all(np.array_equal(solver.get_flat(f), getattr(flat, f))
+               for f in fields)
+    os.makedirs(UTIL_DIR, exist_ok=True)
+    path = os.path.join(UTIL_DIR, f"iterate_b{B_MAIN}.atni")
+    t0 = time.perf_counter()
+    save_iterate_bin(path, {f: getattr(flat, f) for f in fields})
+    back = load_iterate_bin(path)
+    t_io = time.perf_counter() - t0
+    same_file = all(np.array_equal(back[f], getattr(flat, f))
+                    for f in fields)
+    other.load_iterate_from_flat_obj(AcadosOcpFlattenedBatchIterate(
+        **back, N_batch=B_MAIN))
+    st1, st2 = solver.solve(), other.solve()
+    warm_same = np.array_equal(st1, st2) and all(
+        torch.equal(getattr(solver._it_dev, f), getattr(other._it_dev, f))
+        for f in ("x", "u", "pi", "lam_l", "lam_u", "sl", "su"))
+    log(f"flat iterate, B={B_MAIN}: get {t_get * 1e3:.1f} ms (one host "
+        f"copy a field), set_flat round trip bit for bit: {same}; "
+        f"'.atni' {os.path.getsize(path) / 2 ** 20:.1f} MiB written and "
+        f"read in {t_io * 1e3:.1f} ms, bit for bit: {same_file}; the next "
+        f"call of the solver and of a second one loaded from the file "
+        f"equal bit for bit: {warm_same} (statuses "
+        f"{np.unique(st2, return_counts=True)})")
+    if not (same and same_file and warm_same) or np.any(st2 != 0):
+        raise SystemExit("flat iterate round trip failed")
+    os.remove(path)
+
+
+def single_solver_utilities(dev) -> dict:
+    """Phase 38 (d-g) on single-instance solvers of the main path's
+    pendulum (IRK, N = 20, float32, SQP). One solve with store_iterates
+    (get_iterates: row 0 the initial iterate, the last the solution, bit
+    for bit); its iterate TIMEOUT_START_BACK rows before the solution is
+    the start of the timeout solves (1e-7 s with LAST gives status 7 with
+    sqp_iter < 5; 120 s with each heuristic status 0 and bit for bit the
+    solve without a timeout from the same start). Then print_statistics()
+    and dump_qp_to_file (the 19 keys at their shapes), zoRO's
+    custom_update from the solution (K1 exactly LAUNCHES_PER_RTI, a finite
+    backoff growing along the horizon on the tightened rows, the
+    tightened solve at status 0), and AcadosScipyOcpSolver on the
+    pendulum in float64 against the SQP within SCIPY_ATOL. Returns K1's
+    kernels entry at zoRO's shape."""
+    import os
+
+    from acados_tpu_torch import AcadosOcpSolver, AcadosScipyOcpSolver
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.ops import batched_inv
+
+    def sqp(dtype="float32", integrator="IRK", **so):
+        ocp = make_pendulum_ocp(N=N_HORIZON, dtype=dtype,
+                                nlp_solver_type="SQP",
+                                integrator_type=integrator)
+        for k, v in so.items():
+            setattr(ocp.solver_options, k, v)
+        return AcadosOcpSolver(ocp, device=dev)
+
+    fields = ("x", "u", "pi", "lam", "sl", "su")
+    plain = sqp(store_iterates=True)
+    ms, st = once_ms(plain.solve), plain.get_status()
+    its = plain.get_iterates()
+    x_sol, u_sol = trajectory(plain)
+    rows_ok = (np.array_equal(its["x"][-1], x_sol)
+               and np.array_equal(its["u"][-1], u_sol)
+               and np.all(its["x"][0] == np.asarray(X0_CENTER,
+                                                     its["x"].dtype)))
+    log(f"single-instance pendulum IRK SQP float32 with store_iterates: "
+        f"{ms:.1f} ms, status {st}, {plain.get_stats('sqp_iter')} "
+        f"iterations; get_iterates {its['x'].shape}, row 0 the initial "
+        f"iterate and the last the solution: {rows_ok}")
+    if st != 0 or not rows_ok:
+        raise SystemExit("single-instance stored iterates failed")
+    row = max(len(its["x"]) - 1 - TIMEOUT_START_BACK, 0)
+    start = {k: np.zeros_like(v) for k, v in plain._iterate.items()}
+    start.update(x=its["x"][row].astype(np.float64),
+                 u=its["u"][row].astype(np.float64))
+
+    def from_start(solver):
+        solver.load_iterate_from_obj(start)
+        return solver.solve()
+
+    ref_s = sqp()
+    st = from_start(ref_s)
+    ref = {f: ref_s.get_flat(f) for f in fields}
+    tight = sqp(timeout_max_time=1e-7, timeout_heuristic="LAST")
+    st7 = from_start(tight)
+    log(f"timeouts, from the iterate of row {row}: without, status {st} "
+        f"after {ref_s.get_stats('sqp_iter')} iterations; budget 1e-7 s "
+        f"(LAST): status {st7}, sqp_iter {tight.get_stats('sqp_iter')}")
+    if st != 0 or st7 != 7 or not tight.get_stats("sqp_iter") < 5:
+        raise SystemExit("the impossible budget did not time out")
+    for heur in TIMEOUT_HEURISTICS:
+        s = sqp(timeout_max_time=120.0, timeout_heuristic=heur)
+        st = from_start(s)
+        same = all(np.array_equal(s.get_flat(f), ref[f]) for f in fields)
+        log(f"  budget 120 s ({heur}): status {st}, bit for bit the solve "
+            f"without a timeout: {same}")
+        if st != 0 or not same:
+            raise SystemExit(f"timeout {heur} changed the solve")
+
+    plain.print_statistics()
+    os.makedirs(UTIL_DIR, exist_ok=True)
+    path = os.path.join(UTIL_DIR, "qp.npz")
+    plain.dump_qp_to_file(path)
+    dims = dict(N=N_HORIZON, N1=N_HORIZON + 1, nx=plain.form.nx,
+                nu=plain.form.nu, nc=plain.form.nc)
+    with np.load(path) as z:
+        got = {k: z[k].shape for k in z.files}
+        finite = all(np.isfinite(z[k]).all() for k in z.files)
+    want = {k: tuple(dims[d] for d in v) for k, v in QP_DUMP_SHAPES.items()}
+    log(f"dump_qp_to_file: {len(got)} keys, shapes as the JAX package's: "
+        f"{got == want}, finite: {finite}")
+    if got != want or not finite:
+        raise SystemExit(f"dump_qp_to_file: {got}")
+    os.remove(path)
+
+    zs = AcadosOcpSolver(zoro_pendulum(), device=dev)
+    for k in range(N_HORIZON + 1):   # its position bound is inactive there
+        zs.set(k, "x", x_sol[k])
+        if k < N_HORIZON:
+            zs.set(k, "u", u_sol[k])
+    if zs.solve() != 0:
+        raise SystemExit("zoRO nominal solve failed")
+    base = zs._data["ub"].copy()
+    reset_counts()
+    with K1Shapes() as k1:
+        zms = once_ms(zs.custom_update)
+    counts = read_counts()
+    lay = zs.layouts["p"]
+    rows = [lay.off_bu, lay.off_bx]
+    back = base[:, rows] - zs._data["ub"][:, rows]
+    grows = bool(np.all(np.diff(back, axis=0) > 0))
+    st_t = zs.solve()
+    log(f"zoRO custom_update, pendulum IRK N={N_HORIZON} float32: "
+        f"{zms:.2f} ms, launches {counts}, K1 shapes "
+        f"{sorted(set(k1.shapes))}; backoff of the force and position "
+        f"rows at stages 1 and {N_HORIZON - 1}: {back[0].tolist()} -> "
+        f"{back[-1].tolist()}, finite and growing: "
+        f"{bool(np.isfinite(back).all()) and grows}; tightened solve "
+        f"status {st_t}")
+    if counts["gj_inverse"] != LAUNCHES_PER_RTI or any(
+            v for k, v in counts.items() if k != "gj_inverse") \
+            or not (np.isfinite(back).all() and grows and np.all(back > 0)) \
+            or st_t != 0:
+        raise SystemExit("zoRO custom_update failed")
+    A = k1.first
+    rel, abs_err, _ = check_inverse(f"zoRO stage systems {tuple(A.shape)}",
+                                    A, batched_inv._gj_inverse_cuda,
+                                    F32_BOUND)
+    entry = k1_entry("gj_inverse_zoro", A, counts["gj_inverse"], rel,
+                     abs_err)
+
+    s64 = sqp(dtype="float64", integrator="ERK")
+    if s64.solve() != 0:
+        raise SystemExit("float64 pendulum SQP failed")
+    x_sqp, u_sqp = trajectory(s64)
+    oracle = AcadosScipyOcpSolver(s64.acados_ocp, device=dev)
+    t0 = time.perf_counter()
+    st_o = oracle.solve(x_init=x_sqp, u_init=u_sqp)
+    o_ms = (time.perf_counter() - t0) * 1e3
+    x_o, u_o = trajectory(oracle)
+    gap = max(float(np.abs(x_o - x_sqp).max()),
+              float(np.abs(u_o - u_sqp).max()))
+    log(f"AcadosScipyOcpSolver, pendulum float64 on the card: status "
+        f"{st_o} in {o_ms:.0f} ms ({oracle._result.nit} SLSQP iterations, "
+        f"{oracle._result.nfev} evaluations), max |oracle - SQP| over x "
+        f"and u {gap:.3e} (atol {SCIPY_ATOL:g})")
+    if st_o != 0 or not gap <= SCIPY_ATOL:
+        raise SystemExit("the scipy oracle disagrees with the SQP")
+    return entry
+
+
+def trajectory(solver):
+    """(x (N+1, nx), u (N, nu)) of a single-instance solver."""
+    return (np.array([solver.get(k, "x") for k in range(solver.N + 1)]),
+            np.array([solver.get(k, "u") for k in range(solver.N)]))
+
+
+def utilities_phase(dev, it0=None) -> list:
+    """Phase 38: the interface utilities on the card at the main path's
+    width (B = B_MAIN, float32, pendulum IRK GL4, N = 20, its x0s), from
+    the main path's converged iterate it0 (made here when None, to run
+    the phase alone): the phase times, stored iterates, the flat
+    iterate and '.atni', then the single-instance utilities. Returns
+    K1's kernels entry at zoRO's shape."""
+    if it0 is None:
+        it0 = main_path_iterate(dev)
+    solvers = phase_time_calls(dev, it0)
+    stored_iterates(dev, it0, solvers["collect"])
+    flat_roundtrip(solvers["plain"], solvers["collect"])
+    del solvers
+    return [single_solver_utilities(dev)]
+
+
+def utilities_vs_cpu() -> None:
+    """Phase 39: float64 card against CPU of phase 38's new paths at
+    B = B_UTIL_CHECK: the stored iterates of a main-path SQP cut at 4
+    iterations, the flat iterate after 3 RTI calls, zoRO's tightened
+    bounds (single instance, linearized at x = x0 on every stage) and
+    the scipy oracle from the CPU SQP's solution, each within 1e-9 as
+    max |d| / (1 + |cpu|), the oracle within the CPU's own spread where
+    that exceeds 1e-9 (the CPU oracle started one rounding step away)."""
+    import torch
+    from acados_tpu_torch import AcadosOcpSolver, AcadosScipyOcpSolver
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    kw64 = dict(N=N_HORIZON, dtype="float64", integrator_type="IRK")
+    flat_fields = ("x", "u", "pi", "lam", "sl", "su")
+    ocp = make_pendulum_ocp(N=N_HORIZON, dtype="float64",
+                            nlp_solver_type="SQP")
+
+    def oracle(where, x_init, u_init):
+        o = AcadosScipyOcpSolver(ocp, device=where)
+        if o.solve(x_init=x_init, u_init=u_init) != 0:
+            raise SystemExit(f"scipy oracle ({where}) failed")
+        return np.concatenate([a.reshape(-1) for a in trajectory(o)])
+
+    def outputs(where) -> dict:
+        """The paths' results on `where`, as numpy."""
+        s, _ = rti_batch(dict(kw64, nlp_solver_type="SQP"), B_UTIL_CHECK,
+                         where, seed=2,
+                         opts_update=dict(store_iterates=True, max_iter=4))
+        out = dict(st=s.solve(),
+                   iterates=[getattr(s._stats, f).cpu().numpy()
+                             for f in ("iterates_x", "iterates_u")])
+        r, _ = rti_batch(dict(kw64, nlp_solver_type="SQP_RTI"),
+                         B_UTIL_CHECK, where, seed=2)
+        for _ in range(3):
+            out["st_rti"] = r.solve()
+        out["flat"] = [r.get_flat(f) for f in flat_fields]
+        z = AcadosOcpSolver(zoro_pendulum("float64"), device=where)
+        for k in range(N_HORIZON + 1):
+            z.set(k, "x", X0_CENTER)
+        out["st_zoro"] = z.custom_update()
+        out["zoro"] = [z._data[k] for k in ("lb", "ub", "lb_e", "ub_e")]
+        return out
+
+    def cpu() -> dict:
+        out = outputs("cpu")
+        s = AcadosOcpSolver(ocp, device="cpu")
+        s.solve()
+        x0, u0 = trajectory(s)
+        out.update(start=(x0, u0), oracle=oracle("cpu", x0, u0),
+                   oracle_moved=oracle("cpu", x0 * (1 + np.finfo(float).eps),
+                                       u0))
+        return out
+
+    ref = cpu_half("phase 39: the interface utilities", cpu)
+    if not card_half():
+        return
+    card = outputs(torch.device("cuda"))
+    card["oracle"] = oracle("cuda", *ref["start"])
+    if not (np.array_equal(card["st"], ref["st"])
+            and np.array_equal(card["st_rti"], ref["st_rti"])
+            and card["st_zoro"] == ref["st_zoro"] == 0):
+        raise SystemExit("utilities: card and CPU statuses differ")
+    gaps = {name: max(rel_gap(a, b) for a, b in zip(card[k], ref[k]))
+            for name, k in (("stored iterates", "iterates"),
+                            ("flat iterate", "flat"),
+                            ("zoRO bounds", "zoro"))}
+    gaps["scipy oracle"] = rel_gap(card["oracle"], ref["oracle"])
+    spread = rel_gap(ref["oracle_moved"], ref["oracle"])
+    bounds = dict.fromkeys(gaps, 1e-9)
+    bounds["scipy oracle"] = max(1e-9, 4 * spread)
+    log(f"float64 card against CPU, B={B_UTIL_CHECK}: max |d|/(1+|ref|) "
+        f"{json.dumps(gaps)}; bounds {json.dumps(bounds)} (the oracle's "
+        f"CPU spread from a start one rounding step away {spread:.3e})")
+    if any(not gaps[k] <= bounds[k] for k in gaps):
+        raise SystemExit("utilities: card and CPU disagree")
+
+
+def examples_phase() -> None:
+    """Phase 40: every examples_torch script with --device cuda, all
+    started together, one process and one thread each (their main()
+    with its own asserts): each must exit 0; its seconds and last lines
+    are logged. Run in this process one after the other they took
+    145.6-194.7 s (host-bound RTI loops at B = 1-4), more than the
+    script's time limit leaves beside phases 1-39."""
+    import os
+    d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                     "examples_torch")
+    os.makedirs(UTIL_DIR, exist_ok=True)
+    procs, done = {}, {}
+    try:
+        for name in EXAMPLES:
+            logf = open(os.path.join(UTIL_DIR, f"{name}.log"), "w")
+            procs[name] = (subprocess.Popen(
+                [sys.executable, f"{name}.py", "--device", "cuda"], cwd=d,
+                stdout=logf, stderr=subprocess.STDOUT,
+                env={**os.environ, "OMP_NUM_THREADS": "1"}), logf)
+        t0 = time.perf_counter()
+        while len(done) < len(procs):
+            for name, (p, _) in procs.items():
+                if name not in done and p.poll() is not None:
+                    done[name] = time.perf_counter() - t0
+            if time.perf_counter() - t0 > EXAMPLES_TIMEOUT:
+                raise SystemExit(f"examples still running after "
+                                 f"{EXAMPLES_TIMEOUT} s: "
+                                 f"{sorted(set(procs) - set(done))}")
+            time.sleep(0.1)
+    finally:
+        for p, logf in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            logf.close()
+    failed = []
+    for name, (p, _) in procs.items():
+        with open(os.path.join(UTIL_DIR, f"{name}.log")) as f:
+            out = f.read().strip().splitlines()
+        log(f"example {name}: exit {p.returncode} after {done[name]:.1f} s; "
+            f"last line: {out[-1] if out else ''}")
+        if p.returncode != 0:
+            failed.append(name)
+            log("\n".join(out[-20:]))
+    if failed:
+        raise SystemExit(f"examples failed: {failed}")
+
+
+# the main path's config in float64 for phases 5 and 9
+KW64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
+            integrator_type="IRK")
+
+
+def main_path_vs_cpu() -> None:
+    """Phase 5: the main path's config in float64 at B = 8, card against
+    CPU."""
+    card_vs_cpu("reference check",
+                lambda where: rti_batch(KW64, 8, where, seed=1)[0])
+
+
+def full_cond_vs_cpu() -> None:
+    """Phase 9: the same with full condensing."""
+    card_vs_cpu("full-condensing reference check",
+                lambda where: rti_batch(KW64, 8, where, seed=1,
+                                        qp_solver=FULL_COND)[0])
+
+
+def chain_vs_cpu() -> None:
+    """Phase 14: the chain in float64 at B = 4, card against CPU, beside
+    the CPU's own spread under one rounding step of the x0s."""
+    card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN})",
+                lambda where: chain_batch(N_MASS, 4, "float64", where),
+                moved=lambda: chain_batch(N_MASS, 4, "float64", "cpu",
+                                          moved=True))
+
+
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
+        return cpu_refs_worker(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
               file=sys.stderr)
         return 2
-    from acados_tpu_torch.dense_qp import ipm as dense_ipm
-    from acados_tpu_torch.ops import batched_chol, batched_inv, cuda_build
-    from acados_tpu_torch.ops.linsolve import linsolve
+    from acados_tpu_torch.ops import cuda_build
     from acados_tpu_torch.utils.device import full_precision_matmul
     t_run = time.perf_counter()
 
@@ -4080,6 +4634,19 @@ def main() -> int:
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
+    start_cpu_refs()
+    try:
+        return card_phases(dev, t_run, at)
+    finally:
+        stop_cpu_refs()
+
+
+def card_phases(dev, t_run, at) -> int:
+    """Phases 3-40 (see the module docstring)."""
+    import torch
+    from acados_tpu_torch.dense_qp import ipm as dense_ipm
+    from acados_tpu_torch.ops import batched_chol, batched_inv
+    from acados_tpu_torch.ops.linsolve import linsolve
 
     # ---- 3. K1 against its plain version --------------------------------------
     at(3)
@@ -4165,10 +4732,7 @@ def main() -> int:
 
     # ---- 5. reference check at a small input --------------------------------------
     at(5)
-    kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
-                integrator_type="IRK")
-    card_vs_cpu("reference check",
-                lambda where: rti_batch(kw64, 8, where, seed=1)[0])
+    main_path_vs_cpu()
 
     # ---- 6. full-condensing path ----------------------------------------------------
     at(6)
@@ -4314,9 +4878,7 @@ def main() -> int:
 
     # ---- 9. full-condensing reference check ------------------------------------------
     at(9)
-    card_vs_cpu("full-condensing reference check",
-                lambda where: rti_batch(kw64, 8, where, seed=1,
-                                        qp_solver=FULL_COND)[0])
+    full_cond_vs_cpu()
 
     # ---- 10. Riccati IPM with a free initial state at nx = 16 -----------------------------
     at(10)
@@ -4337,10 +4899,7 @@ def main() -> int:
 
     # ---- 14. chain reference check -----------------------------------------------------------
     at(14)
-    card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN})",
-                lambda where: chain_batch(N_MASS, 4, "float64", where),
-                moved=lambda: chain_batch(N_MASS, 4, "float64", "cpu",
-                                          moved=True))
+    chain_vs_cpu()
 
     # ---- 15. quadrotor and race car ------------------------------------------------------------
     at(15)
@@ -4433,6 +4992,18 @@ def main() -> int:
     # ---- 37. float64 card against CPU of the multiphase OCPs ----------------
     at(37)
     multiphase_vs_cpu()
+
+    # ---- 38. the interface utilities at the main path's width ---------------
+    at(38)
+    kernels.extend(utilities_phase(dev, solver._it_dev))
+
+    # ---- 39. float64 card against CPU of the utilities ----------------------
+    at(39)
+    utilities_vs_cpu()
+
+    # ---- 40. the examples on the card ---------------------------------------
+    at(40)
+    examples_phase()
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -55,9 +55,10 @@ def test_adaptive_qp_tol_matches_jax():
 
 
 def test_waiting_paths_raise():
-    """What is not ported yet raises NotImplementedError naming its
-    ROADMAP item: the interface utilities of item 20b (phase times,
-    in-loop timeouts, stored iterates). Multiphase OCPs (item 16c) build,
+    """What used to wait now builds: the options of the interface
+    utilities (phase times, in-loop timeouts, stored iterates) build the
+    SQP and are taken by options_set, and no raise names a ROADMAP item
+    any more. Multiphase OCPs (item 16c) build,
     and AcadosOcpBatchSolver refuses them as the JAX package's does;
     DISCRETE dynamics and global parameters (item 17) build: the
     parameter is [p_stage | p_global]."""
@@ -83,10 +84,13 @@ def test_waiting_paths_raise():
     for field, value in (("collect_phase_times", True),
                          ("timeout_max_time", 1.0),
                          ("store_iterates", True)):
-        with pytest.raises(NotImplementedError, match="item 20b"):
-            make_sqp_solver(form, SqpOpts(**{field: value}))
+        assert callable(make_sqp_solver(form, SqpOpts(**{field: value})))
     solver = AcadosOcpSolver(make_pendulum_ocp(), device="cpu")
-    for field in ("timeout_max_time", "timeout_heuristic",
-                  "store_iterates", "print_level"):
-        with pytest.raises(NotImplementedError, match="item 20b"):
-            solver.options_set(field, 1)
+    for field, value in (("timeout_max_time", 1.0),
+                         ("timeout_heuristic", "AVERAGE"),
+                         ("store_iterates", 1)):
+        solver.options_set(field, value)
+        assert getattr(solver.opts, field) == (
+            True if field == "store_iterates" else value)
+    solver.options_set("print_level", 1)
+    assert solver._print_level == 1

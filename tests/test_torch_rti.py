@@ -176,9 +176,10 @@ def test_options_set_runtime_fields():
     """The runtime options of the ported paths take effect (the solve
     then agrees with the JAX solver given the same options), the
     globalization's (alpha_min, alpha_reduction, Anderson and the
-    string-keyed globalization itself) among them; the options of paths
-    not ported raise NotImplementedError naming their ROADMAP item; an
-    unknown field raises ValueError."""
+    string-keyed globalization itself) among them, and those of the
+    interface utilities (print_level, store_iterates, timeout_max_time)
+    are taken as the JAX solver takes them; an unknown field raises
+    ValueError."""
     ours = _single_at(AcadosOcpSolver(_ocp(make_pendulum_ocp),
                                       device="cpu"), X0S[0])
     ref = _single_at(JaxSolver(_ocp(jax_pendulum_ocp)), X0S[0])
@@ -222,10 +223,14 @@ def test_options_set_runtime_fields():
                 np.asarray(ref.get_stats("statistics"))[7])
         for k in range(N):
             _close(ours.get(k, "u"), ref.get(k, "u"), f"{glob} u {k}")
-    for field, item in (("print_level", "item 20"),
-                        ("store_iterates", "item 20"),
-                        ("timeout_max_time", "item 20")):
-        with pytest.raises(NotImplementedError, match=item):
-            ours.options_set(field, 1)
+    # the interface utilities' options, as the JAX solver takes them
+    for field, value in (("print_level", 0), ("store_iterates", 1),
+                         ("timeout_max_time", 60.0)):
+        ours.options_set(field, value)
+        ref.options_set(field, value)
+    assert ours._print_level == ref._print_level == 0
+    assert ours.opts.store_iterates is ref.opts.store_iterates is True
+    assert ours.opts.timeout_max_time == ref.opts.timeout_max_time == 60.0
+    assert ours.acados_ocp.solver_options.timeout_max_time == 60.0
     with pytest.raises(ValueError, match="unsupported"):
         ours.options_set("no_such_option", 1)
