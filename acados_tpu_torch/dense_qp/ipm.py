@@ -23,6 +23,7 @@ from acados_tpu_torch.ocp_qp.ipm import (IpmInfo, IpmOpts, _apply, _bc,
                                          _max_alpha, _mu_of, _row_weights)
 from acados_tpu_torch.ocp_qp.riccati import _mTv, _mv
 from acados_tpu_torch.ops.batched_chol import chol_any
+from acados_tpu_torch.utils.device import wait_any
 from acados_tpu_torch.utils.struct import (select_fields, tensor_dataclass,
                                            where_batch)
 
@@ -149,7 +150,7 @@ def solve_dense_qp(qp: DenseQp, opts: IpmOpts = None,
 
     while True:
         active = (k < opts.iter_max) & ~done
-        if not bool(active.any()):
+        if not wait_any(active):
             break
         weights = _row_weights(qp, it)
         chol = chol_any(_barrier_hessian(qp, weights[0], opts.reg_eps))

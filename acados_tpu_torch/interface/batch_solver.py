@@ -1,11 +1,18 @@
 """AcadosOcpBatchSolver: N_batch solves as one batch-first solve.
 
 Counterpart of `acados_tpu/interface/batch_solver.py` (API mirror of the
-reference batch solver) on a single device: the batch is the leading
-axis of every tensor of one lockstep solve, where the JAX package
-vmaps and shards it. solve() runs the plan's NLP solver (SQP, SQP_RTI,
-DDP or SQP_WITH_FEASIBLE_QP; the JAX package's batch solver runs its
-SQP for every plan); prepare/feedback are SQP_RTI's.
+reference batch solver): the batch is the leading axis of every tensor
+of one lockstep solve, where the JAX package vmaps it. solve() runs the
+plan's NLP solver (SQP, SQP_RTI, DDP or SQP_WITH_FEASIBLE_QP; the JAX
+package's batch solver runs its SQP for every plan); prepare/feedback
+are SQP_RTI's.
+
+Over a mesh of several devices (`devices=`, parallel/mesh.py) solve()
+splits the batch into one shard a device, each solved in a thread of its
+own (`map_shards`), where N_batch divides by their number, as the JAX
+package shards its solve; the iterate and the stats are gathered on the
+mesh's first device, where everything else runs, as in the JAX package,
+whose other entry points are not sharded either.
 
 The data and the iterate stay on the device between solves and between
 the RTI phases (`prepare`, `feedback`), so a warm RTI loop moves nothing
@@ -46,8 +53,8 @@ from acados_tpu_torch.ocp_nlp.rti import make_rti_solver
 from acados_tpu_torch.ocp_nlp.sensitivity import (KktFactor, SensOpts,
                                                   adjoint_sensitivity)
 from acados_tpu_torch.ocp_nlp.sqp import make_qp_solve, nlp_warm_start
-from acados_tpu_torch.utils.device import (full_precision_matmul,
-                                           resolve_device)
+from acados_tpu_torch.parallel.mesh import make_batch_mesh, map_shards
+from acados_tpu_torch.utils.device import full_precision_matmul
 
 
 class _BatchView:
@@ -98,20 +105,28 @@ class _BatchView:
 
 
 class AcadosOcpBatchSolver:
-    """Batch of N_batch identical-structure OCPs solved as one batch;
-    `device` None means "cuda"."""
+    """Batch of N_batch identical-structure OCPs solved as one batch.
+
+    devices: the mesh solve() shards over (`make_batch_mesh`; None means
+    every visible card); device: a one-device mesh, the shortcut for
+    devices=[device]; not both."""
 
     def __init__(self, ocp: AcadosOcp, N_batch: int,
                  num_threads_in_batch_solve=None, json_file=None,
-                 build=None, generate=None, verbose=False, device=None):
+                 build=None, generate=None, verbose=False, device=None,
+                 devices=None):
         del num_threads_in_batch_solve, json_file, build, generate, verbose
+        if device is not None and devices is not None:
+            raise ValueError("pass device or devices, not both")
         if isinstance(ocp, AcadosMultiphaseOcp):
             raise NotImplementedError(
                 "AcadosOcpBatchSolver takes single-phase OCPs only, as the "
                 "JAX package's (acados_tpu/interface/batch_solver.py:89 "
                 "builds through build_ocp): solve a multiphase OCP with "
                 "AcadosOcpSolver")
-        self.device = resolve_device(device)
+        self.mesh = make_batch_mesh(devices if device is None
+                                    else [device])
+        self.device = self.mesh[0]
         full_precision_matmul()
         self.acados_ocp = ocp
         self.N_batch = N_batch
@@ -172,13 +187,30 @@ class AcadosOcpBatchSolver:
         return self._status
 
     def solve(self, n_batch=None):
-        """Solve all instances; returns the (N_batch,) statuses."""
+        """Solve all instances; returns the (N_batch,) statuses. Sharded
+        over the mesh when it has several devices and N_batch divides by
+        their number; time_tot spans every shard."""
         del n_batch
         t0 = time.perf_counter()
-        it, stats = self._solve_fn(*self._on_device())
+        if len(self.mesh) > 1 and self.N_batch % len(self.mesh) == 0:
+            it, stats, times = map_shards(self._shard_solve, self.mesh,
+                                          *self._on_device())
+            if times is not None:
+                # the shards run at once: each phase's longest
+                stats = stats.replace(phase_times=times.amax(0).cpu())
+        else:
+            it, stats = self._solve_fn(*self._on_device())
         status = self._take(it, stats)
         self._time_tot = time.perf_counter() - t0
         return status
+
+    def _shard_solve(self, data, init):
+        """One shard's solve, its (4,) phase times (not batch-first) set
+        apart as a (1, 4) row."""
+        it, stats = self._solve_fn(data, init)
+        times = stats.phase_times
+        return (it, stats.replace(phase_times=None),
+                None if times is None else times[None])
 
     # -- batched RTI phases ---------------------------------------------------
     # acados_tpu/interface/batch_solver.py:165-213 (the reference capsule's

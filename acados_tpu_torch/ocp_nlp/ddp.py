@@ -44,7 +44,7 @@ from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
 from acados_tpu_torch.ocp_qp.ipm import _bc, _bmax, _bsum
 from acados_tpu_torch.ocp_qp.riccati import (_mv, riccati_backward,
                                              riccati_factor)
-from acados_tpu_torch.utils.device import full_precision_matmul
+from acados_tpu_torch.utils.device import full_precision_matmul, wait_any
 from acados_tpu_torch.utils.struct import select_fields, where_batch
 
 
@@ -117,7 +117,7 @@ def make_ddp_solver(form: OcpNlpFormulation, opts: SqpOpts):
 
         while True:
             active = (k < opts.max_iter) & ~done
-            if not bool(active.any()):
+            if not wait_any(active):
                 break
             qp = linearize(form, static_rows, data, it, lm)
             rs, re, ri, rc = _nlp_residuals(qp, it)
@@ -152,16 +152,16 @@ def make_ddp_solver(form: OcpNlpFormulation, opts: SqpOpts):
             alpha = torch.ones(Bsz, dtype=dtype, device=dev)
             accepted = steps & ~search
             x_new, u_new = it.x, it.u
-            if bool(steps.any()):
+            if wait_any(steps):
                 # the first trial is alpha = 1 for every instance
                 x_t, u_t = try_alpha(alpha)
                 x_new, u_new = x_t, u_t
-                if bool(search.any()):
+                if wait_any(search):
                     cost0 = eval_cost(form, data, it.x, it.u, it.sl, it.su,
                                       soft_scaled)
                     while True:
                         run = search & ~accepted & (alpha > opts.alpha_min)
-                        if not bool(run.any()):
+                        if not wait_any(run):
                             break
                         if x_t is None:
                             x_t, u_t = try_alpha(alpha)
@@ -178,7 +178,7 @@ def make_ddp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                     # left under alpha_min without accepting: the rollout
                     # at the alpha the loop ended at
                     below = search & ~accepted
-                    if bool(below.any()):
+                    if wait_any(below):
                         x_t, u_t = try_alpha(alpha)
                         x_new = where_batch(below, x_t, x_new)
                         u_new = where_batch(below, u_t, u_new)

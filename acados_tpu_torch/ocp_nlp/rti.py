@@ -39,6 +39,7 @@ from acados_tpu_torch.ocp_nlp.linearize import (NlpIterate, _flat2,
                                                 refuse_multiphase)
 from acados_tpu_torch.ocp_nlp.regularize import regularize_qp
 from acados_tpu_torch.ocp_nlp.sqp import (SqpOpts, SqpStats, _nlp_residuals,
+                                          adaptive_qp_tol,
                                           use_x0_elimination)
 from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import _bsum, solve_ocp_qp
@@ -83,8 +84,10 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
     nbx0 = form.con_0.nbx
     idxbx0 = list(form.con_0.idxbx)
     x0f = use_x0_elimination(form, opts)
-    # every QP here takes opts.qp_opts: the adaptive QP tolerances of
-    # acados_tpu/ocp_nlp/rti.py:_qp_opts_at are not applied
+    # the standard preparation's and the feedback's QPs take each
+    # instance's tolerances from its NLP residuals under this strategy
+    # (acados_tpu/ocp_nlp/rti.py:_qp_opts_at); AS-RTI's take qp_opts
+    adaptive = opts.nlp_qp_tol_strategy == "ADAPTIVE_CURRENT_RES_JOINT"
 
     def _advance_data(data: NlpData, it: NlpIterate) -> NlpData:
         """Stage-0 state bounds at the predicted next x0
@@ -179,7 +182,10 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
                                      data.ub_0 - qp.ug[:, 0], 0.0))
         # the QP at the predicted x0 (the bounds in data now): its
         # solution warm-starts the feedback IPM
-        sol_pred, _ = solve_ocp_qp(qp, opts.qp_opts, x0_fixed=x0f)
+        qp_opts = (adaptive_qp_tol(opts, opts.qp_opts,
+                                   *_nlp_residuals(qp, it))
+                   if adaptive else opts.qp_opts)
+        sol_pred, _ = solve_ocp_qp(qp, qp_opts, x0_fixed=x0f)
         return RtiCache(qp=qp, g0=g0, it=it, sol_pred=sol_pred)
 
     def prepare(data: NlpData, it: NlpIterate,
@@ -222,7 +228,9 @@ def make_rti_solver(form: OcpNlpFormulation, opts: SqpOpts):
         # inject the current stage-0 bounds (fresh x0) into the delta rows
         qp = _inject_x0(cache.qp, cache.g0, data)
         rs, re, ri, rc = _nlp_residuals(qp, cache.it)
-        sol, info = solve_ocp_qp(qp, opts.qp_opts, warm=cache.sol_pred,
+        qp_opts = (adaptive_qp_tol(opts, opts.qp_opts, rs, re, ri, rc)
+                   if adaptive else opts.qp_opts)
+        sol, info = solve_ocp_qp(qp, qp_opts, warm=cache.sol_pred,
                                  x0_fixed=x0f)
         qp_fatal = info.status == 1
         it_new, nan = _full_step(cache.it, sol)

@@ -44,7 +44,7 @@ from acados_tpu_torch.ocp_qp.qpscaling import scale_qp, unscale_sol
 from acados_tpu_torch.ocp_qp.registry import get_qp_backend
 from acados_tpu_torch.ocp_qp.riccati import _mTv, _mv
 from acados_tpu_torch.ocp_qp.xcond import solve_ocp_qp_xcond
-from acados_tpu_torch.utils.device import full_precision_matmul
+from acados_tpu_torch.utils.device import full_precision_matmul, wait_any
 from acados_tpu_torch.utils.struct import (map_fields, select_fields,
                                            tensor_dataclass, where_batch)
 from acados_tpu_torch.utils.types import ACADOS_INFTY
@@ -285,7 +285,7 @@ def _backtrack(run0, accept, opts: SqpOpts, alpha0: float, like):
     extras = None
     while True:
         run = run0 & ~accepted & (alpha > opts.alpha_min)
-        if not bool(run.any()):
+        if not wait_any(run):
             break
         ok, ex = accept(alpha)
         if extras is None:
@@ -635,7 +635,7 @@ def make_sqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
 
         while True:
             active = (k < opts.max_iter) & ~done
-            if not bool(active.any()):
+            if not wait_any(active):
                 break
             if timeout:
                 # the batch's clock, read after the round's sync above:

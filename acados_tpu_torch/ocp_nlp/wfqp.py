@@ -39,7 +39,7 @@ from acados_tpu_torch.ocp_nlp.sqp import (STAT_COLS, SqpOpts, SqpStats,
                                           _trial)
 from acados_tpu_torch.ocp_qp.data import OcpQp
 from acados_tpu_torch.ocp_qp.ipm import _bmax, _bsum, solve_ocp_qp
-from acados_tpu_torch.utils.device import full_precision_matmul
+from acados_tpu_torch.utils.device import full_precision_matmul, wait_any
 from acados_tpu_torch.utils.struct import (select_fields, tensor_dataclass,
                                            where_batch)
 from acados_tpu_torch.utils.types import ACADOS_INFTY
@@ -144,7 +144,7 @@ def make_wfqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
 
         while True:
             active = (k < opts.max_iter) & ~done
-            if not bool(active.any()):
+            if not wait_any(active):
                 break
             qp = linearize(form, static_rows, data, it, lm)
             rs, re, ri, rc = _nlp_residuals(qp, it)
@@ -174,7 +174,7 @@ def make_wfqp_solver(form: OcpNlpFormulation, opts: SqpOpts):
                     lb_m, ub_m)
                 search = active & ~converged
                 merit0 = (merit(it.x, it.u, it.sl, it.su)
-                          if bool(search.any()) else None)
+                          if wait_any(search) else None)
                 alpha, _, _ = _backtrack(
                     search,
                     lambda a: (merit(*_trial(it, sol, a)) < merit0, ()),

@@ -33,6 +33,7 @@ from acados_tpu_torch.ocp_qp.data import OcpQp, OcpQpSol
 from acados_tpu_torch.ocp_qp.ipm import (IpmInfo, _bc, _bmax, _ct_vec,
                                          _stage_g)
 from acados_tpu_torch.ocp_qp.riccati import riccati_factor, riccati_solve
+from acados_tpu_torch.utils.device import wait_any
 from acados_tpu_torch.utils.struct import select_fields, where_batch
 
 
@@ -115,7 +116,7 @@ def solve_ocp_qp_admm(qp: OcpQp, opts: AdmmOpts = None):
     while True:
         done = (r_prim < opts.tol_prim) & (r_dual < opts.tol_dual)
         active = (k < opts.iter_max) & ~done
-        if not bool(active.any()):
+        if not wait_any(active):
             break
         rho_v = rho * _bc(rho_s, rho)
         cv, dv = _ct_vec(qp, rho_v * mask * (y - z))
@@ -140,7 +141,7 @@ def solve_ocp_qp_admm(qp: OcpQp, opts: AdmmOpts = None):
             y_n = where_batch(due, y_n * _bc(rho_s, y_n)
                               / _bc(rho_s_n, y_n), y_n)
             refactor = due & active
-            if bool(refactor.any()):
+            if wait_any(refactor):
                 fct = select_fields(refactor, factorize(rho_s_n), fct)
 
         # lockstep freeze: only active instances take the new values

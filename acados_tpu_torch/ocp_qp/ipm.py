@@ -31,6 +31,7 @@ from acados_tpu_torch.ocp_qp.riccati import (_mTv, _mv,
                                              parallel_riccati_factor,
                                              parallel_riccati_solve,
                                              riccati_factor, riccati_solve)
+from acados_tpu_torch.utils.device import wait_any
 from acados_tpu_torch.utils.struct import (jvp_fields, map_fields,
                                            select_fields, tensor_dataclass,
                                            vjp_fields, where_batch)
@@ -407,7 +408,7 @@ def solve_ocp_qp(qp: OcpQp, opts: IpmOpts = None,
 
     while True:
         active = (k < opts.iter_max) & ~done
-        if not bool(active.any()):
+        if not wait_any(active):
             break
         weights = _row_weights(qp, it)
         Qb, Rb, Sb = _barrier_hessian(qp, weights[0])

@@ -154,7 +154,7 @@ def _launch(name: str, inputs, outputs, n: int,
                  stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    cuda_build.count_launch(LAUNCHES, name)
 
 
 def chol_factor_batched(H: torch.Tensor,

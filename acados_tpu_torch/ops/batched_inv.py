@@ -78,7 +78,6 @@ def _gj_inverse_cuda(A: torch.Tensor,
     """Launch the CUDA kernel on a (B, n, n) CUDA tensor. source: its
     library, `cuda_build`'s name for csrc/gj_inverse.cu or the path of a
     copy of that file (to hold two versions of the kernel side by side)."""
-    global LAUNCHES
     if A.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{A.device}")
@@ -106,7 +105,7 @@ def _gj_inverse_cuda(A: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"gj_inverse kernel launch failed: CUDA error "
                            f"{err}")
-    LAUNCHES += 1
+    cuda_build.count_launch(globals(), "LAUNCHES")
     return out
 
 

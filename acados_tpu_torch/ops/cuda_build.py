@@ -9,6 +9,11 @@ library, and `build_all()` builds every source at once (one `nvcc` each,
 all started together). A library may also be named by the path of a copy
 of a source (an earlier version, say), which is built the same way beside
 the others, so two versions of a kernel can run side by side.
+
+Builds, loads and the wrappers' launch counts are safe under threads
+(the shards of `parallel/mesh.py:map_shards` call the wrappers from
+threads of their own): one process-wide lock serialises every build and
+load, and `count_launch` adds to a counter under another.
 """
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
@@ -31,6 +37,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_BUILD_LOCK = threading.RLock()
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: dict, key: str) -> None:
+    """counts[key] += 1 under a process-wide lock: a read-modify-write
+    that two threads could otherwise interleave, losing a launch. counts:
+    a dict of counters, or a module's globals() for a module-level
+    counter."""
+    with _COUNT_LOCK:
+        counts[key] += 1
 
 
 def _nvcc() -> str:
@@ -64,7 +81,11 @@ def build_all(names=None) -> dict[str, str]:
     Returns {name: nvcc's -Xptxas -v report} for the sources it compiled;
     raises RuntimeError naming every source that failed.
     """
-    names = list(SOURCES if names is None else names)
+    with _BUILD_LOCK:
+        return _build(list(SOURCES if names is None else names))
+
+
+def _build(names) -> dict[str, str]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
@@ -94,10 +115,14 @@ def load(name: str) -> ctypes.CDLL:
     """The ctypes handle of a kernel library (a name of SOURCES or a path
     to a copy of a source), building it if needed."""
     lib = _LOADED.get(name)
-    if lib is None:
-        out = target(name)
-        if not out.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(out))
-        _LOADED[name] = lib
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            out = target(name)
+            if not out.exists():
+                build_all([name])
+            lib = ctypes.CDLL(str(out))
+            _LOADED[name] = lib
     return lib

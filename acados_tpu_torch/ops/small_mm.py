@@ -69,7 +69,6 @@ def _check(X: torch.Tensor, Y: torch.Tensor) -> int:
 
 def _small_mm_cuda(X: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
     """Launch the CUDA kernel on contiguous (B, n, n) CUDA tensors."""
-    global LAUNCHES
     if X.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{X.device}")
@@ -88,7 +87,7 @@ def _small_mm_cuda(X: torch.Tensor, Y: torch.Tensor, n: int) -> torch.Tensor:
                  stream)
     if err != 0:
         raise RuntimeError(f"small_mm kernel launch failed: CUDA error {err}")
-    LAUNCHES += 1
+    cuda_build.count_launch(globals(), "LAUNCHES")
     return out
 
 

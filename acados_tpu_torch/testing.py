@@ -4,8 +4,9 @@ parametric pendulum of the sensitivity tests, the unconstrained pendulum
 of the DDP tests, the obstacle OCP of the WFQP and BGP tests, the
 DAE-constrained cart of the DAE tests, the p_global model, the
 pendulum's hand-rolled RK4 step for DISCRETE dynamics, the multiphase
-transition example, the control-horizon pendulum and a batch-first
-runner of multiphase OCPs.
+transition example, the control-horizon pendulum, a batch-first
+runner of multiphase OCPs, and one process of a batch split over
+processes.
 
 Shared by the CPU tests (tests/test_torch_*.py) and the card's check
 (chip_smoke.py), so both hold the port to the same cases. Nothing here
@@ -19,7 +20,8 @@ __all__ = ["JAX_SENS_F32_GAP", "DAE_ZBOUND", "MOCP_X0", "MocpBatch",
            "control_horizon_mocp", "dae_ocp", "ddp_pendulum_ocp",
            "obstacle_ocp", "pendulum_rk4", "pglobal_ocp",
            "param_pendulum_ocp", "pivot_tie_batch", "random_qp_batch",
-           "row_permuted_batch", "rti_batch", "transition_mocp"]
+           "row_permuted_batch", "rti_batch", "slice_solve_worker",
+           "transition_mocp"]
 
 # The JAX package's forward-adjoint gap in float32: max over instances of
 # max|adj - fwd| / max|fwd|, fwd = d u_0 / d x0 from its forward
@@ -32,7 +34,7 @@ JAX_SENS_F32_GAP = 1.01e-7
 
 
 def rti_batch(ocp, x0s: np.ndarray, device, opts_update=None,
-              qp_opts_update=None):
+              qp_opts_update=None, devices=None):
     """AcadosOcpBatchSolver of len(x0s) instances of `ocp`, set up as
     bench.py's _build_rti sets up the JAX package's batch: each
     instance's x0 as lbx = ubx at stage 0 and as its initial x at every
@@ -41,10 +43,12 @@ def rti_batch(ocp, x0s: np.ndarray, device, opts_update=None,
     opts_update / qp_opts_update: SqpOpts and IpmOpts fields that
     replace those the solver derived from the OCP (bench.py's keywords
     of the same names, e.g. qp_solver_name="ADMM" or
-    parallel_riccati=True); the solve function is rebuilt with them."""
+    parallel_riccati=True); the solve function is rebuilt with them.
+    devices: the solver's mesh, given with device None."""
     from acados_tpu_torch.interface.batch_solver import AcadosOcpBatchSolver
     from acados_tpu_torch.interface.solver import make_nlp_solver
-    solver = AcadosOcpBatchSolver(ocp, len(x0s), device=device)
+    solver = AcadosOcpBatchSolver(ocp, len(x0s), device=device,
+                                  devices=devices)
     if opts_update or qp_opts_update:
         opts = solver.opts.replace(**(opts_update or {}))
         opts = opts.replace(qp_opts=opts.qp_opts.replace(
@@ -524,3 +528,41 @@ class MocpBatch:
             return np.stack([r.cpu().numpy() for r in (
                 s.res_stat, s.res_eq, s.res_ineq, s.res_comp)], axis=1)
         raise ValueError(field)
+
+
+def slice_solve_worker(rank: int, init_method: str, world: int,
+                       ocp_kw: dict, x0s: np.ndarray, calls: int,
+                       device: str, out_dir: str) -> None:
+    """One of `world` processes (torch.multiprocessing.spawn's fn): the
+    process group started through `initialize_distributed` at
+    init_method, this process's `process_local_batch_slice` of the x0s
+    solved as `rti_batch` of make_pendulum_ocp(**ocp_kw) on device,
+    `calls` solve() calls, then the global status histogram and largest
+    res_stat; writes rank{rank}.npz under out_dir (the slice, x, u, the
+    statuses, the reductions and the slice of a batch of 100)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.parallel.distributed import (
+        all_reduce_status_counts, global_max_residual,
+        initialize_distributed, process_local_batch_slice)
+    torch.set_num_threads(1)
+    n = initialize_distributed(init_method, world, rank)
+    try:
+        start, stop = process_local_batch_slice(len(x0s))
+        solver = rti_batch(make_pendulum_ocp(**ocp_kw), x0s[start:stop],
+                           device)
+        for _ in range(calls):
+            status = solver.solve()
+        it = solver._host_iterate()
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), n=n,
+                 slice=(start, stop), x=it["x"], u=it["u"], status=status,
+                 counts=all_reduce_status_counts(status),
+                 res_max=global_max_residual(
+                     solver.get_stats("residuals")[:, 0]),
+                 slice100=process_local_batch_slice(100))
+    finally:
+        dist.destroy_process_group()

@@ -97,9 +97,9 @@ failure exits non-zero:
     at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 10 warm calls; every
     status 0, within stat 5e-3 and eq 1e-4, no kernel launches;
 16. RTI phases on the main path's config (pendulum IRK, N = 20, float32,
-    B = 4096): 1 cold + 11 warm + 4 timed (cut from 8 for time) prepare() /
-    feedback(x0)
-    cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
+    B = 4096) from phase 4's converged iterate: 1 + 2 warm + 4 timed
+    (cut from 11 warm cycles from the swing-up and 8 timed, for time)
+    prepare() / feedback(x0) cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
     launches in each prepare() and none in each feedback(); the medians
     of time_preparation and time_feedback beside the solve() call's;
 17. long-horizon pendulum (bench.py's bench_long_horizon_rti, plain,
@@ -160,10 +160,11 @@ failure exits non-zero:
     the chain's sensitivities (B = 4) within the CPU's own spread on x0s
     moved by one rounding step, where that exceeds 1e-9;
 24. latency (bench.py's bench_latency): phase 17's three variants at
-    B = 8 (cond_N = 32), 1 cold + 10 warm calls of the plain one
-    (bench.py warms 25 a variant), the others from its iterate with 1
-    warm call each, then 1 round of 1 timed call (cut from 2); the
-    call with
+    B = 8 (cond_N = 32), the plain one from phase 17's warm iterate (its
+    first 8 instances share these x0s) with 1 call (1 cold + 10 warm
+    from the swing-up before that; bench.py warms 25 a variant), the
+    others from its iterate with 1 warm call each, then 1 round of 1
+    timed call (cut from 2); the call with
     p10/p90, every status 0, _LONGH_TOLS met, K1 only in
     parallel_riccati, 13 a lockstep IPM round;
 25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
@@ -299,12 +300,43 @@ failure exits non-zero:
     CPU's own spread from a start one rounding step away, where that
     exceeds 1e-9);
 40. every examples_torch script with --device cuda (its main() with its
-    own asserts), all started together, one process each: each exits 0;
-    its seconds and last line.
-Phases 38-40 run alone through utilities_phase(dev), utilities_vs_cpu()
-and examples_phase(), after cuda_build.build_all().
+    own asserts), all started together, one process each, after phase
+    38, running beside the float64 checks (see below): each exits 0; its
+    seconds and last line;
+41. batch sharding: the main path's batch (B = 4096, float32, from its
+    converged iterate) with devices=["cuda:0"] bit for bit the default,
+    and over two shards on the one card (devices=["cuda:0"] * 2, a
+    thread each): K1 8 launches a call unsharded and 16 sharded, all at
+    (40,960, 16, 16), each shard bit for bit its half solved alone, equal
+    statuses with the whole batch, every instance in tolerance, the
+    largest x/u gap and the instances whose qp_iter differs (a float32
+    QP's last round follows the batch size's reduction order); one warm
+    call each, then
+    3 interleaved rounds of one timed call, both medians beside the
+    card's name and power limit, and K1 at the shard's shape against its
+    plain version, torch.linalg.inv and its bound (41a, after phase
+    40); two processes on the card with torchrun's environment
+    (chip_smoke.py --dist-worker DIR), started with the examples, each
+    through initialize_distributed (gloo) solving its
+    process_local_batch_slice from the converged iterate: after its
+    first call K1 8, the summed status histogram equal to the
+    one-process call's and the global largest res_stat within the
+    float32 gate of it, then, after 41a, 3 timed calls, K1 8 each, and
+    the pair's wall time (41b); float64 card
+    against CPU within 1e-9: tests/test_torch_sharding.py's B = 8
+    pendulum MERIT SQP over 4 shards cut at 4 iterations (statuses and
+    sqp_iter equal) and 3 prepare()/feedback() cycles with
+    ADAPTIVE_CURRENT_RES_JOINT (41c, beside the examples).
+Phases 28, 32, 35, 37, 39 and 41c, float64 checks that time nothing,
+run after phase 38, beside the examples of phase 40 and the first calls
+of 41b's processes (the float64 checks and the examples took 120 and
+116 s on a slow host, one after the other).
+Phases 38-41 run alone through utilities_phase(dev), utilities_vs_cpu(),
+examples_phase(), procs = start_dist(it0, x0s), sharding_vs_cpu(),
+entry, ref = sharding_phase(dev, it0) and dist_phase(procs, *ref), after
+cuda_build.build_all().
 The CPU halves of the float64 card-against-CPU checks (phases 5, 9, 14,
-19, 23, 26, 28, 32, 35, 37, 39) run ahead in a second process started
+19, 23, 26, 28, 32, 35, 37, 39, 41) run ahead in a second process started
 after the build (chip_smoke.py --cpu-refs DIR, with no card), which
 the script waits for and stops before it ends; a check called alone
 computes both halves itself.
@@ -326,6 +358,9 @@ N_HORIZON = 20
 WARM_CALLS = 10
 TIMED_CALLS = 6
 LAUNCHES_PER_RTI = 8          # 4 inverses per substep x 2 substeps
+# the main path's OCP (make_pendulum_ocp's keywords)
+MAIN_KW = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
+               integrator_type="IRK")
 # the Newton SQP (phase 27): K1 launches of an EXACT linearization (the
 # 8 above + 14 of the dynamics Hessian's torch.func.hessian through the
 # IRK step: per substep 3 Newton solves forward, 1 reverse, 1 + 2 in the
@@ -365,7 +400,9 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
 # the RTI phases on the main path: warm and timed prepare/feedback cycles
-RTI_WARM, RTI_TIMED = 11, 4
+# (from the main path's converged iterate; from the swing-up it took 11
+# warm cycles)
+RTI_WARM, RTI_TIMED = 2, 4
 # bench.py's bench_long_horizon_rti: N, B, x0 spread, its float32
 # tolerances (_LONGH_TOLS: stat, eq) and the condensed horizon of its
 # cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
@@ -386,10 +423,12 @@ K1_PER_PAR_FACTOR = {128: 13, 20: 7}
 # the largest combine: 64 pairs of each of the B_LONG instances
 PAR_COMBINE_B = 64 * 1024
 # bench.py's bench_latency: B, the condensed horizon of its cond_N32
-# variant, and the warm calls (bench.py: 25; 3 leave cond_N32 out of
-# _LONGH_TOLS at B = 8), rounds and calls a round
+# variant, and the warm calls (bench.py: 25; from the swing-up 3 left
+# cond_N32 out of _LONGH_TOLS at B = 8; the plain variant starts from
+# phase 17's warm iterate, so 1 + 0 before the timed round),
+# rounds and calls a round
 B_LAT, COND_LAT = 8, 32
-LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 10, 1, 1
+LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 0, 1, 1
 # bench.py's bench_admm_backend: B, N, x0 spread, the IPM's warm calls
 # (bench.py: 15 for each variant), the IPM call whose iterate the ADMM
 # variant starts from (the RTI iteration still far from tolerance there:
@@ -891,7 +930,7 @@ def fc_time_split(solver) -> dict:
 
 
 # The CPU halves of the float64 card-against-CPU checks (phases 5, 9,
-# 14, 19, 23, 26, 28, 32, 35, 37 and 39) run ahead in a second process,
+# 14, 19, 23, 26, 28, 32, 35, 37, 39 and 41) run ahead in a second process,
 # started after the build (`chip_smoke.py --cpu-refs DIR`, which sees no
 # card; REF_THREADS threads): each half is saved under its check's label
 # and read where the card's half needs it, so the CPU's solves no longer
@@ -902,7 +941,7 @@ REF_THREADS = 4
 REF_CHECKS = ("main_path_vs_cpu", "full_cond_vs_cpu", "chain_vs_cpu",
               "new_paths_vs_cpu", "sens_vs_cpu", "qp_paths_vs_cpu",
               "newton_vs_cpu", "nlp_breadth_vs_cpu", "integrators_vs_cpu",
-              "multiphase_vs_cpu", "utilities_vs_cpu")
+              "multiphase_vs_cpu", "utilities_vs_cpu", "sharding_vs_cpu")
 REFS = dict(mode=None, dir=None, proc=None, seen=set())
 
 
@@ -1808,13 +1847,15 @@ def erk_models(dev):
             raise SystemExit(f"{name}: unexpected kernel launches {counts}")
 
 
-def rti_phases(dev, call_med_ms: float) -> None:
+def rti_phases(dev, call_med_ms: float, it0) -> None:
     """Phase 16: prepare() / feedback(x0) cycles on the main path's
-    config at STANDARD. call_med_ms: the main path's median solve() call
-    in this run, logged beside."""
-    solver, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
-                               nlp_solver_type="SQP_RTI",
-                               integrator_type="IRK"), B_MAIN, dev)
+    config at STANDARD, from the main path's converged iterate it0.
+    call_med_ms: the main path's median solve() call in this run, logged
+    beside."""
+    from acados_tpu_torch.utils.struct import map_fields
+    solver, _ = rti_batch(MAIN_KW, B_MAIN, dev)
+    solver._it_dev = map_fields(lambda t: t.clone(), it0)
+    solver._host_stale = True
     x0s = solver._data["lb_0"][:, :4].copy()
     prep, fb, bad = [], [], []
     t_prep, t_fb = [], []
@@ -1838,7 +1879,8 @@ def rti_phases(dev, call_med_ms: float) -> None:
                         f"{np.percentile(t, 10):.2f}, p90 "
                         f"{np.percentile(t, 90):.2f})")
     log(f"RTI phases: pendulum IRK, B={B_MAIN}, N={N_HORIZON}, float32, "
-        f"STANDARD, {len(prep)} prepare()/feedback(x0) cycles; launches in "
+        f"STANDARD, {len(prep)} prepare()/feedback(x0) cycles from the "
+        f"main path's converged iterate; launches in "
         f"each prepare() {prep[-1]} (8 K1 in every one: {prep_ok}), in "
         f"each feedback() {fb[-1]} (none in every one: {fb_ok}); last "
         f"qp_iter max {int(solver.get_stats('qp_iter').max())}")
@@ -1952,11 +1994,11 @@ def interleaved(solvers: dict, label, tols, warm, rounds, per_round,
     return out
 
 
-def long_horizon(dev) -> dict:
+def long_horizon(dev):
     """Phase 17: bench_long_horizon_rti's three variants at full width,
     in one process; K1 on the largest combine of the parallel Riccati
-    (captured in the variant's first timed call). Returns K1's kernels
-    entry there."""
+    (captured in the variant's first timed call). Returns (K1's kernels
+    entry there, the plain variant's warm iterate)."""
     import torch
     from acados_tpu_torch.ops import batched_inv
     solvers = long_variants(B_LONG, "float32", dev, COND_LONG)
@@ -2026,7 +2068,7 @@ def long_horizon(dev) -> dict:
                          "parallel Riccati's combine")
     entry = k1_entry("gj_inverse_par_riccati", M, launches, rel, abs_err)
     entry["bits_differing"] = bits
-    return entry
+    return entry, solvers["plain"]._it_dev
 
 
 def chain_cond(dev, plain) -> dict:
@@ -2526,19 +2568,26 @@ def sens_vs_cpu() -> None:
                          "beyond the CPU's own spread")
 
 
-def latency(dev) -> None:
+def latency(dev, it_long) -> None:
     """Phase 24: bench_latency, the three long-horizon variants at
     B = B_LAT (one controller's batch), interleaved: the median call with
     p10/p90 beside each other, every status 0, _LONGH_TOLS met, K1 only
-    in the parallel variant at 13 a lockstep IPM round."""
+    in the parallel variant at 13 a lockstep IPM round. The plain
+    variant starts from it_long, phase 17's warm plain iterate, whose
+    first B_LAT instances have these x0s (the same seeded draw), and
+    takes LAT_WARM calls from there."""
+    from acados_tpu_torch.utils.struct import map_fields
     solvers = long_variants(B_LAT, "float32", dev, COND_LAT)
+    solvers["plain"]._it_dev = map_fields(lambda t: t[:B_LAT].clone(),
+                                          it_long)
+    solvers["plain"]._host_stale = True
     runs = interleaved(solvers, "latency", LONG_TOLS, LAT_WARM, LAT_ROUNDS,
                        LAT_PER_ROUND, shared=True)
     log(f"latency: pendulum ERK SQP-RTI, N={N_LONG}, B={B_LAT}, float32, "
-        f"1 cold + {LAT_WARM} warm calls of the plain variant (bench.py "
-        f"warms 25 a variant), the others from its iterate with "
-        f"{SHARED_WARM} warm call each, then {LAT_ROUNDS} interleaved "
-        f"rounds of {LAT_PER_ROUND} timed calls")
+        f"the plain variant from phase 17's warm iterate, 1 + {LAT_WARM} "
+        f"warm calls (bench.py warms 25 a variant from the swing-up), the "
+        f"others from its iterate with {SHARED_WARM} warm call each, then "
+        f"{LAT_ROUNDS} interleaved rounds of {LAT_PER_ROUND} timed calls")
     for name, (call_ms, qp_max, counts) in runs.items():
         med = float(np.median(call_ms))
         p10, p90 = (float(np.percentile(call_ms, q)) for q in (10, 90))
@@ -3354,7 +3403,9 @@ def integrator_phase(dev, it0) -> dict:
     the EULER main path, both from the main path's converged iterate it0
     (phase 4: the RTI takes ~10 calls from x0 to its tolerance),
     interleaved (1 cold + 1 warm call each, then 2 rounds of 1 timed
-    call; 3 warm and 3 rounds before phases 33-35 came): every status 0
+    call; 3 warm and 3 rounds before phases 33-35 came; without the warm
+    call the INTEGRATOR batch, whose optimum is not EULER's, was out of
+    tolerance after its calls, res_stat 3.3e-3): every status 0
     and in tolerance, K1 K1_PER_INTEGRATOR_RTI a call; K1 on the path
     stage points' launch against its plain version.
     Returns K1's kernels entry there."""
@@ -4523,18 +4574,15 @@ def utilities_vs_cpu() -> None:
         raise SystemExit("utilities: card and CPU disagree")
 
 
-def examples_phase() -> None:
-    """Phase 40: every examples_torch script with --device cuda, all
-    started together, one process and one thread each (their main()
-    with its own asserts): each must exit 0; its seconds and last lines
-    are logged. Run in this process one after the other they took
-    145.6-194.7 s (host-bound RTI loops at B = 1-4), more than the
-    script's time limit leaves beside phases 1-39."""
+def start_examples():
+    """Start phase 40: every examples_torch script with --device cuda,
+    one process and one thread each. Returns ({name: (process, its log
+    file)}, the start time)."""
     import os
     d = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                      "examples_torch")
     os.makedirs(UTIL_DIR, exist_ok=True)
-    procs, done = {}, {}
+    procs = {}
     try:
         for name in EXAMPLES:
             logf = open(os.path.join(UTIL_DIR, f"{name}.log"), "w")
@@ -4542,7 +4590,36 @@ def examples_phase() -> None:
                 [sys.executable, f"{name}.py", "--device", "cuda"], cwd=d,
                 stdout=logf, stderr=subprocess.STDOUT,
                 env={**os.environ, "OMP_NUM_THREADS": "1"}), logf)
-        t0 = time.perf_counter()
+    except BaseException:
+        stop_procs(procs.values())
+        raise
+    return procs, time.perf_counter()
+
+
+def stop_procs(procs) -> None:
+    """Kill what still runs of (process, log file) pairs; close the
+    logs."""
+    for p, logf in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        logf.close()
+
+
+def examples_phase(started=None) -> None:
+    """Phase 40: every examples_torch script with --device cuda, all
+    started together (by start_examples, here when `started` is None),
+    one process and one thread each (their main() with its own asserts):
+    each must exit 0; its seconds and last lines are logged. Run in this
+    process one after the other they took 145.6-194.7 s (host-bound RTI
+    loops at B = 1-4), more than the script's time limit leaves beside
+    phases 1-39; at once 88.6-116.0 s, so they run beside
+    the float64 checks, which time nothing. The processes are stopped on
+    the way out."""
+    import os
+    procs, t0 = started or start_examples()
+    done = {}
+    try:
         while len(done) < len(procs):
             for name, (p, _) in procs.items():
                 if name not in done and p.poll() is not None:
@@ -4553,11 +4630,7 @@ def examples_phase() -> None:
                                  f"{sorted(set(procs) - set(done))}")
             time.sleep(0.1)
     finally:
-        for p, logf in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-            logf.close()
+        stop_procs(procs.values())
     failed = []
     for name, (p, _) in procs.items():
         with open(os.path.join(UTIL_DIR, f"{name}.log")) as f:
@@ -4569,6 +4642,375 @@ def examples_phase() -> None:
             log("\n".join(out[-20:]))
     if failed:
         raise SystemExit(f"examples failed: {failed}")
+
+
+# batch sharding (phase 41): the main path's batch over two shards on the
+# one card (41a: one warm call each, then interleaved rounds of one timed
+# call), its two halves in two processes on the card (41b: one call
+# checked against the one-process call, then timed calls), and the
+# float64 checks (41c: tests/test_torch_sharding.py's B = 8 pendulum
+# MERIT SQP, its cost weights scaled by 1e-3, over 4 shards, and the RTI
+# phases with adaptive QP tolerances near the upright pendulum)
+SHARD_ROUNDS = 3
+DIST_TIMED = 3
+DIST_TIMEOUT = 300
+# how long 41b's processes wait, after their first call, for the go
+# (phases 39, 40 and 41a run meanwhile)
+DIST_GO_TIMEOUT = 900
+DIST_DIR = UTIL_DIR + "/dist"
+SHARD_CHECK_SHARDS = 4
+# the MERIT SQP's float64 check cut at this many iterations (it takes 10
+# to 21; the CPU test runs it to the end): the 4 shards' host code takes
+# turns, so each iteration costs about 4 unsharded ones
+SHARD_CHECK_ITER = 4
+SHARD_X0S = np.tile(np.array([0.0, np.pi, 0.0, 0.0]), (8, 1))
+SHARD_X0S[:, 1] += np.linspace(-0.05, 0.05, 8)
+ADAPTIVE_X0S = (np.array([0.0, 0.15, 0.0, 0.0])
+                + np.random.default_rng(7).normal(0.0, 0.03, (8, 4)))
+ADAPTIVE_CYCLES = 3
+
+
+def sharding_phase(dev, it0):
+    """Phase 41a: the main path's batch (B = B_MAIN, float32) from the
+    converged iterate it0, as the default solver, with devices=["cuda:0"]
+    and with devices=["cuda:0"] * 2 (two shards, each in a thread of its
+    own, on the one card): one warm call each, K1 LAUNCHES_PER_RTI a
+    call unsharded and twice that sharded, every K1 launch of the sharded
+    call at half the batch; devices=["cuda:0"] bit for bit the default;
+    each shard bit for bit its half of the batch solved alone (statuses,
+    qp_iter, iterate); against the whole batch the statuses equal and
+    every instance in tolerance, the x/u gap and the instances whose
+    qp_iter differs logged (in float32 on the card a QP's last IPM round
+    follows reductions whose order depends on the batch size: the halves
+    alone stop 880 of the 4096 instances' QPs a round earlier or later
+    than the whole batch, with the same iterate bit for bit); then
+    SHARD_ROUNDS interleaved rounds of one timed call each
+    (K1 counted again) and both medians beside the card's name and power
+    limit. Returns (K1's kernels entry at a shard's shape, (the unsharded
+    first call's status histogram, its largest res_stat, the res_stat
+    gate))."""
+    import torch
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.ops import batched_inv
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    from acados_tpu_torch.utils.struct import map_fields
+    one = ["cuda:0"]
+    solvers = {"default": rti_batch(MAIN_KW, B_MAIN, dev)[0],
+               "cuda:0": rti_batch(MAIN_KW, B_MAIN, None, devices=one)[0],
+               "2 shards": rti_batch(MAIN_KW, B_MAIN, None,
+                                     devices=one * 2)[0]}
+    if [len(s.mesh) for s in solvers.values()] != [1, 1, 2]:
+        raise SystemExit(f"meshes {[s.mesh for s in solvers.values()]}")
+    for s in solvers.values():
+        s._it_dev = map_fields(lambda t: t.clone(), it0)
+        s._host_stale = True
+    half = B_MAIN * N_HORIZON // 2
+    counts, warm_ms, shapes = {}, {}, {}
+    with K1Shapes(match=lambda A: A.shape[0] == half) as k1:
+        for name, s in solvers.items():
+            n_shapes = len(k1.shapes)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.solve()
+            torch.cuda.synchronize()
+            warm_ms[name] = (time.perf_counter() - t0) * 1e3
+            counts[name] = read_counts()
+            shapes[name] = sorted(set(k1.shapes[n_shapes:]))
+    want = {name: {**dict.fromkeys(counts[name], 0),
+                   "gj_inverse": LAUNCHES_PER_RTI * len(s.mesh)}
+            for name, s in solvers.items()}
+    log(f"sharding: main path B={B_MAIN} from its converged iterate, one "
+        f"warm call each: K1 launches "
+        f"{json.dumps({k: c['gj_inverse'] for k, c in counts.items()})} at "
+        f"{json.dumps({k: [list(v) for v in vs] for k, vs in shapes.items()})}"
+        f", ms {json.dumps(warm_ms)}")
+    if counts != want or shapes["2 shards"] != [(half, 16, 16)]:
+        raise SystemExit(f"sharding: expected launches {want} and K1 at "
+                         f"({half}, 16, 16) sharded")
+    d, o, two = (solvers[k] for k in ("default", "cuda:0", "2 shards"))
+    fields = [f.name for f in dataclasses.fields(d._it_dev)]
+    # each half alone, unsharded: what a shard computes
+    halves = []
+    for h in (slice(0, B_MAIN // 2), slice(B_MAIN // 2, B_MAIN)):
+        s = batch_at(make_pendulum_ocp(**MAIN_KW), d._data["lb_0"][h, :4],
+                     dev)
+        s._it_dev = map_fields(lambda t: t[h].clone(), it0)
+        s._host_stale = True
+        s.solve()
+        halves.append(s)
+    half_st = np.concatenate([s._status for s in halves])
+    half_qp = np.concatenate([s.get_stats("qp_iter") for s in halves])
+    half_bits = sum(int((getattr(two._it_dev, f) != torch.cat(
+        [getattr(s._it_dev, f) for s in halves])).sum()) for f in fields)
+    log(f"  2 shards against the halves solved alone: statuses equal "
+        f"{np.array_equal(two._status, half_st)}, qp_iter equal "
+        f"{np.array_equal(two.get_stats('qp_iter'), half_qp)}, iterate "
+        f"entries that differ {half_bits}; the halves against the whole "
+        f"batch: qp_iter differs on "
+        f"{int((half_qp != d.get_stats('qp_iter')).sum())} instances")
+    if not (np.array_equal(two._status, half_st) and np.array_equal(
+            two.get_stats("qp_iter"), half_qp) and half_bits == 0):
+        raise SystemExit("sharding: a shard is not bit for bit its half "
+                         "solved alone")
+    if not (np.array_equal(d._status, o._status) and np.array_equal(
+            d.get_stats("qp_iter"), o.get_stats("qp_iter")) and all(
+            torch.equal(getattr(d._it_dev, f), getattr(o._it_dev, f))
+            for f in fields)):
+        raise SystemExit("sharding: devices=['cuda:0'] is not bit for bit "
+                         "the default")
+    same_st = np.array_equal(two._status, d._status)
+    qp_diff = two.get_stats("qp_iter") - d.get_stats("qp_iter")
+    ok_tol, res, tols = in_tolerance(two)
+    gaps = {f: float((getattr(two._it_dev, f)
+                      - getattr(d._it_dev, f)).abs().max())
+            for f in ("x", "u")}
+    n_bits = sum(int((getattr(two._it_dev, f)
+                      != getattr(d._it_dev, f)).sum()) for f in fields)
+    log(f"  2 shards against the whole batch unsharded: statuses equal "
+        f"{same_st}, qp_iter differs on {int((qp_diff != 0).sum())} "
+        f"instances (by {sorted(set(qp_diff[qp_diff != 0].tolist()))}), "
+        f"largest |x| gap {gaps['x']:.3e}, |u| gap {gaps['u']:.3e}, "
+        f"iterate entries that differ {n_bits}; residual maxima "
+        f"{res.tolist()} vs tolerances {list(tols)}: "
+        f"{'in tolerance' if ok_tol else 'OUT OF TOLERANCE'}")
+    if not (same_st and ok_tol):
+        raise SystemExit("sharding: the sharded call disagrees")
+    ref_hist = np.bincount(d._status, minlength=8)
+    ref_max = float(d.get_stats("residuals")[:, 0].max())
+    gate = d.acados_ocp.solver_options.nlp_solver_tol_stat
+    timed = interleaved({"unsharded": d, "2 shards": two}, "sharding",
+                        None, 0, SHARD_ROUNDS, 1,
+                        warmed=("unsharded", "2 shards"))
+    for name, per_call in (("unsharded", 1), ("2 shards", 2)):
+        got = timed[name][2]
+        want_t = {**dict.fromkeys(got, 0), "gj_inverse":
+                  LAUNCHES_PER_RTI * per_call * SHARD_ROUNDS}
+        if got != want_t:
+            raise SystemExit(f"sharding {name}: launches {got}, expected "
+                             f"{want_t}")
+    med = {k: float(np.median(v[0])) for k, v in timed.items()}
+    log(f"  {SHARD_ROUNDS} interleaved rounds of one call: unsharded "
+        f"{timed['unsharded'][0]} ms (median {med['unsharded']:.2f}), 2 "
+        f"shards on one card {timed['2 shards'][0]} ms (median "
+        f"{med['2 shards']:.2f}; {med['2 shards'] / med['unsharded']:.3f}x)"
+        f" on {card_line()}")
+    A = k1.matched
+    rel, abs_err, _ = check_inverse(f"a shard's stage Jacobians "
+                                    f"{tuple(A.shape)}", A,
+                                    batched_inv._gj_inverse_cuda, F32_BOUND)
+    entry = k1_entry("gj_inverse", A, LAUNCHES_PER_RTI * 2
+                     * (1 + SHARD_ROUNDS), rel, abs_err)
+    return entry, (ref_hist, ref_max, gate)
+
+
+def start_dist(it0, x0s) -> list:
+    """Start phase 41b: two processes on the one card with torchrun's
+    environment (WORLD_SIZE, RANK, LOCAL_RANK, MASTER_ADDR, MASTER_PORT),
+    `chip_smoke.py --dist-worker DIST_DIR`, from the main path's
+    converged iterate it0 (x0s: the batch's x0s). Each makes its first
+    call and waits for DIST_DIR/go (dist_phase). Returns [(process, its
+    log file)]."""
+    import os
+    import shutil
+    import socket
+    import torch
+    shutil.rmtree(DIST_DIR, ignore_errors=True)
+    os.makedirs(DIST_DIR)
+    torch.save({f.name: getattr(it0, f.name).cpu()
+                for f in dataclasses.fields(it0)},
+               os.path.join(DIST_DIR, "it0.pt"))
+    np.save(os.path.join(DIST_DIR, "x0s.npy"), np.asarray(x0s))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {**os.environ, "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port), "OMP_NUM_THREADS": "1"}
+    procs = []
+    try:
+        for r in range(2):
+            logf = open(os.path.join(DIST_DIR, f"rank{r}.log"), "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dist-worker",
+                 DIST_DIR], stdout=logf, stderr=subprocess.STDOUT,
+                env={**env, "RANK": str(r), "LOCAL_RANK": str(r)}), logf))
+    except BaseException:
+        stop_procs(procs)
+        raise
+    return procs
+
+
+def dist_phase(procs, ref_hist, ref_max, gate) -> None:
+    """Phase 41b: the processes of start_dist, each through
+    initialize_distributed (gloo) on its process_local_batch_slice of the
+    main path's batch, K1 LAUNCHES_PER_RTI a call. Their first call ran
+    beside the float64 checks; after it the summed status histogram must
+    equal the one-process call's (ref_hist, phase 41a's) and the global
+    largest res_stat ref_max within the float32 gate (res_stat's
+    tolerance). Here they are let go (DIST_DIR/go) for DIST_TIMED timed
+    calls, every status 0; the pair's wall time from the go is logged.
+    The processes are stopped on the way out."""
+    import os
+    t0 = time.perf_counter()
+    open(os.path.join(DIST_DIR, "go"), "w").close()
+    try:
+        for p, _ in procs:
+            p.wait(timeout=max(1.0, DIST_TIMEOUT
+                               - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        raise SystemExit(f"dist: the processes ran over {DIST_TIMEOUT} s")
+    finally:
+        stop_procs(procs)
+    wall = time.perf_counter() - t0
+    outs = []
+    for r, (p, _) in enumerate(procs):
+        if p.returncode != 0:
+            with open(os.path.join(DIST_DIR, f"rank{r}.log")) as f:
+                log(f.read()[-3000:])
+            raise SystemExit(f"dist: rank {r} exited {p.returncode}")
+        with open(os.path.join(DIST_DIR, f"rank{r}.json")) as f:
+            outs.append(json.load(f))
+    for o in outs:
+        others = sum(v for c in o["launches"] for k, v in c.items()
+                     if k != "gj_inverse")
+        log(f"  dist rank {o['rank']} of {o['world']}: slice {o['slice']}, "
+            f"ready after {o['setup_s']:.1f} s, calls "
+            f"{[round(t, 2) for t in o['call_ms']]} ms, K1 launches a call "
+            f"{[c['gj_inverse'] for c in o['launches']]} (others {others}),"
+            f" summed statuses {o['hist']}, global largest res_stat "
+            f"{o['global_max']:.4e} (its own {o['local_max']:.4e})")
+    ok = (all(o["world"] == 2 and o["hist"] == ref_hist.tolist()
+              and abs(o["global_max"] - ref_max) <= gate
+              and o["global_max"] <= gate and o["all_zero"]
+              and all(c == {**dict.fromkeys(c, 0),
+                            "gj_inverse": LAUNCHES_PER_RTI}
+                      for c in o["launches"]) for o in outs)
+          and [o["slice"] for o in outs] == [[0, B_MAIN // 2],
+                                             [B_MAIN // 2, B_MAIN]])
+    log(f"dist: two processes on one card, B={B_MAIN} split in halves, "
+        f"the pair's {DIST_TIMED} timed calls each {wall:.1f} s of wall "
+        f"time; the one-process call's statuses "
+        f"{ref_hist.tolist()}, largest res_stat {ref_max:.4e} (gate "
+        f"{gate:g}): {'agree' if ok else 'DISAGREE'}")
+    if not ok:
+        raise SystemExit("dist: the two processes disagree")
+
+
+def wait_for(path: str, timeout: float) -> None:
+    """Wait until the file `path` exists."""
+    import os
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if time.perf_counter() - t0 > timeout:
+            raise SystemExit(f"no {path} after {timeout} s")
+        time.sleep(0.05)
+
+
+def dist_worker(d: str) -> int:
+    """One process of phase 41b (see dist_phase); writes rank{r}.json
+    under d."""
+    import os
+    import torch
+    import torch.distributed as dist
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.ocp_nlp.linearize import NlpIterate
+    from acados_tpu_torch.ops import cuda_build
+    from acados_tpu_torch.parallel.distributed import (
+        all_reduce_status_counts, global_max_residual,
+        initialize_distributed, process_local_batch_slice)
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    t_start = time.perf_counter()
+    world = initialize_distributed()
+    rank = dist.get_rank()
+    try:
+        start, stop = process_local_batch_slice(B_MAIN)
+        dev = torch.device("cuda:0")
+        x0s = np.load(os.path.join(d, "x0s.npy"))
+        it0 = torch.load(os.path.join(d, "it0.pt"))
+        solver = batch_at(make_pendulum_ocp(**MAIN_KW), x0s[start:stop],
+                          dev)
+        solver._it_dev = NlpIterate(**{k: v[start:stop].to(dev)
+                                       for k, v in it0.items()})
+        solver._host_stale = True
+        cuda_build.load("gj_inverse")
+        setup_s = time.perf_counter() - t_start
+        call_ms, launches, all_zero = [], [], True
+        for c in range(1 + DIST_TIMED):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = solver.solve()
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+            launches.append(read_counts())
+            all_zero = all_zero and bool(np.all(st == 0))
+            if c == 0:
+                res = solver.get_stats("residuals")[:, 0]
+                hist = all_reduce_status_counts(st)
+                gmax = global_max_residual(res)
+                wait_for(os.path.join(d, "go"), DIST_GO_TIMEOUT)
+        with open(os.path.join(d, f"rank{rank}.json"), "w") as f:
+            json.dump(dict(rank=rank, world=world, slice=[start, stop],
+                           hist=hist.tolist(), global_max=gmax,
+                           local_max=float(res.max()), call_ms=call_ms,
+                           launches=launches, all_zero=all_zero,
+                           setup_s=setup_s), f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def merit_shard_batch(where):
+    """Phase 41c's SQP: tests/test_torch_sharding.py's pendulum MERIT SQP
+    (float64, N = N_HORIZON, cost weights scaled by 1e-3) at SHARD_X0S,
+    cut at SHARD_CHECK_ITER iterations, unsharded on the CPU, over
+    SHARD_CHECK_SHARDS shards on the card."""
+    import torch
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    ocp = make_pendulum_ocp(N=N_HORIZON, nlp_solver_type="SQP")
+    ocp.solver_options.globalization = "MERIT_BACKTRACKING"
+    ocp.cost.W = 1e-3 * np.asarray(ocp.cost.W)
+    ocp.cost.W_e = 1e-3 * np.asarray(ocp.cost.W_e)
+    ocp.solver_options.nlp_solver_max_iter = SHARD_CHECK_ITER
+    if torch.device(where).type == "cpu":
+        return batch_at(ocp, SHARD_X0S, "cpu")
+    return batch_at(ocp, SHARD_X0S, None,
+                    devices=["cuda:0"] * SHARD_CHECK_SHARDS)
+
+
+def adaptive_rti_batch(where):
+    """Phase 41c's RTI phases: the pendulum ERK SQP_RTI (float64, N = 8)
+    with nlp_qp_tol_strategy ADAPTIVE_CURRENT_RES_JOINT near the upright
+    reference (tests/test_torch_rti.py's set-up at B = 8)."""
+    from acados_tpu_torch.models.pendulum import make_pendulum_ocp
+    from acados_tpu_torch.testing import rti_batch as batch_at
+    ocp = make_pendulum_ocp(N=8, dtype="float64", nlp_solver_type="SQP_RTI")
+    ocp.solver_options.nlp_qp_tol_strategy = "ADAPTIVE_CURRENT_RES_JOINT"
+    return batch_at(ocp, ADAPTIVE_X0S, where)
+
+
+def closed_loop_cycle(solver):
+    """prepare(), then feedback() at the x_1 of the solver's iterate (the
+    loop closed on the model); returns the statuses."""
+    x1 = solver._host_iterate()["x"][:, 1].copy()
+    solver.prepare()
+    return solver.feedback(x0=x1)
+
+
+def sharding_vs_cpu() -> None:
+    """Phase 41c: float64 card against CPU within 1e-9: the MERIT SQP
+    over SHARD_CHECK_SHARDS shards on the card against the unsharded CPU
+    solve (statuses and sqp_iter equal), and ADAPTIVE_CYCLES
+    prepare()/feedback() cycles with adaptive QP tolerances."""
+    card_vs_cpu(f"sharded MERIT SQP ({SHARD_CHECK_SHARDS} shards of "
+                f"B = {len(SHARD_X0S)} on the card, statuses and sqp_iter)",
+                merit_shard_batch, calls=1,
+                step=lambda s: np.stack([s.solve(),
+                                         s.get_stats("sqp_iter")]))
+    card_vs_cpu("RTI phases with adaptive QP tolerances",
+                adaptive_rti_batch, calls=ADAPTIVE_CYCLES,
+                step=closed_loop_cycle)
 
 
 # the main path's config in float64 for phases 5 and 9
@@ -4602,6 +5044,8 @@ def chain_vs_cpu() -> None:
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--cpu-refs":
         return cpu_refs_worker(sys.argv[2])
+    if len(sys.argv) == 3 and sys.argv[1] == "--dist-worker":
+        return dist_worker(sys.argv[2])
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this test needs a GPU",
@@ -4642,7 +5086,7 @@ def main() -> int:
 
 
 def card_phases(dev, t_run, at) -> int:
-    """Phases 3-40 (see the module docstring)."""
+    """Phases 3-41 (see the module docstring)."""
     import torch
     from acados_tpu_torch.dense_qp import ipm as dense_ipm
     from acados_tpu_torch.ops import batched_chol, batched_inv
@@ -4907,11 +5351,12 @@ def card_phases(dev, t_run, at) -> int:
 
     # ---- 16. RTI phases on the main path's config ---------------------------
     at(16)
-    rti_phases(dev, med)
+    rti_phases(dev, med, solver._it_dev)
 
     # ---- 17. long-horizon pendulum: plain, cond_N16, parallel_riccati ------
     at(17)
-    kernels.append(long_horizon(dev))
+    entry, it_long = long_horizon(dev)
+    kernels.append(entry)
 
     # ---- 18. chain at cond_N = 8 (K2 on the condensed Huu) ------------------
     at(18)
@@ -4939,7 +5384,7 @@ def card_phases(dev, t_run, at) -> int:
 
     # ---- 24. latency: the long-horizon variants at B = 8 --------------------
     at(24)
-    latency(dev)
+    latency(dev, it_long)
 
     # ---- 25. the ADMM QP backend beside the IPM -----------------------------
     at(25)
@@ -4953,10 +5398,6 @@ def card_phases(dev, t_run, at) -> int:
     at(27)
     kernels.append(newton_sqp(dev))
 
-    # ---- 28. float64 card against CPU of the new options --------------------
-    at(28)
-    newton_vs_cpu()
-
     # ---- 29. DDP at full width ----------------------------------------------
     at(29)
     kernels.append(ddp_phase(dev))
@@ -4969,10 +5410,6 @@ def card_phases(dev, t_run, at) -> int:
     at(31)
     kernels.append(integrator_phase(dev, solver._it_dev))
 
-    # ---- 32. float64 card against CPU of the NLP breadth --------------------
-    at(32)
-    nlp_breadth_vs_cpu()
-
     # ---- 33. the DAE cart at full width (K1 on its 9 x 9 stage systems) -----
     at(33)
     kernels.append(dae_phase(dev))
@@ -4981,29 +5418,60 @@ def card_phases(dev, t_run, at) -> int:
     at(34)
     integrator_breadth(dev, solver._it_dev)
 
-    # ---- 35. float64 card against CPU of the integrator breadth -------------
-    at(35)
-    integrators_vs_cpu()
-
     # ---- 36. multiphase OCPs: the control horizon, the IRK transition -------
     at(36)
     kernels.extend(multiphase_phase(dev))
-
-    # ---- 37. float64 card against CPU of the multiphase OCPs ----------------
-    at(37)
-    multiphase_vs_cpu()
 
     # ---- 38. the interface utilities at the main path's width ---------------
     at(38)
     kernels.extend(utilities_phase(dev, solver._it_dev))
 
-    # ---- 39. float64 card against CPU of the utilities ----------------------
-    at(39)
-    utilities_vs_cpu()
+    # ---- 40 starts: the examples, and 41b's processes up to their first
+    # call, run beside the float64 checks of phases 28, 32, 35, 37, 39
+    # and 41c, which time nothing ---------------------------------------
+    at("40 (the examples and 41b's processes start)")
+    torch.cuda.empty_cache()
+    examples = start_examples()
+    dist = []
+    try:
+        dist = start_dist(solver._it_dev, solver._data["lb_0"][:, :4])
 
-    # ---- 40. the examples on the card ---------------------------------------
-    at(40)
-    examples_phase()
+        # ---- 28. float64 card against CPU of the new options ------------
+        at(28)
+        newton_vs_cpu()
+
+        # ---- 32. float64 card against CPU of the NLP breadth ------------
+        at(32)
+        nlp_breadth_vs_cpu()
+
+        # ---- 35. float64 card against CPU of the integrator breadth -----
+        at(35)
+        integrators_vs_cpu()
+
+        # ---- 37. float64 card against CPU of the multiphase OCPs --------
+        at(37)
+        multiphase_vs_cpu()
+
+        # ---- 39. float64 card against CPU of the utilities --------------
+        at(39)
+        utilities_vs_cpu()
+
+        # ---- 41c. float64 card against CPU of the sharded paths ---------
+        at("41c")
+        sharding_vs_cpu()
+
+        # ---- 40. the examples on the card --------------------------------
+        at(40)
+        examples_phase(examples)
+
+        # ---- 41a-b. batch sharding over devices and processes ------------
+        at("41a")
+        entry, ref = sharding_phase(dev, solver._it_dev)
+        kernels.append(entry)
+        at("41b")
+        dist_phase(dist, *ref)
+    finally:
+        stop_procs(list(examples[0].values()) + dist)
 
     log(f"-- all phases in {time.perf_counter() - t_run:.1f} s")
     log(json.dumps({"kernels": kernels}))

@@ -134,6 +134,62 @@ def test_rti_phase_matches_jax(level):
     _close(ours.get(0, "u"), ref.get(0, "u"), "u after phase 0")
 
 
+ADAPTIVE = dict(nlp_qp_tol_strategy="ADAPTIVE_CURRENT_RES_JOINT")
+
+
+@pytest.mark.parametrize("which", ["batch", "single"])
+def test_adaptive_qp_tol_phases_match_jax(which):
+    """Under ADAPTIVE_CURRENT_RES_JOINT the standard preparation's and
+    the feedback's QPs take each instance's tolerances from its NLP
+    residuals (acados_tpu/ocp_nlp/rti.py:_qp_opts_at), in the batch's
+    prepare()/feedback(x0) and in rti_phase 1/2 of one instance: three
+    cycles near the upright reference against the JAX package, equal
+    feedback qp_iter and x, u, pi (and the batch's predicted QP
+    solutions) within 1e-9. With opts.qp_opts in those QPs the port's
+    feedback QPs took 2, 3 and 3 iterations where the JAX package's
+    took 1, and the iterates parted by up to 1.3e-3."""
+    if which == "batch":
+        ours = _batch_at(AcadosOcpBatchSolver(
+            _ocp(make_pendulum_ocp, **ADAPTIVE), B, device="cpu"), X0S_UP)
+        ref = _batch_at(JaxBatch(_ocp(jax_pendulum_ocp, **ADAPTIVE), B),
+                        X0S_UP)
+        x0 = X0S_UP.copy()
+        for _ in range(3):
+            ours.prepare()
+            ref.prepare()
+            for f in ("x", "u", "pi"):
+                _close(getattr(ours._rti_cache.sol_pred, f).numpy(),
+                       np.asarray(getattr(ref._rti_cache.sol_pred, f)),
+                       f"predicted {f}")
+            st, st_ref = ours.feedback(x0=x0), ref.feedback(x0=x0)
+            np.testing.assert_array_equal(st, st_ref)
+            np.testing.assert_array_equal(
+                ours.get_stats("qp_iter"),
+                np.asarray(ref._stats.qp_iter_total))
+            it = ours._host_iterate()
+            for f in ("x", "u", "pi"):
+                _close(it[f], ref._iterate[f], f)
+            x0 = ref._iterate["x"][:, 1]
+        return
+    x0 = X0S_UP[1]
+    ours = _single_at(AcadosOcpSolver(_ocp(make_pendulum_ocp, **ADAPTIVE),
+                                      device="cpu"), x0)
+    ref = _single_at(JaxSolver(_ocp(jax_pendulum_ocp, **ADAPTIVE)), x0)
+    for _ in range(3):
+        for phase in (1, 2):
+            for s in (ours, ref):
+                s.options_set("rti_phase", phase)
+                if phase == 2:
+                    s.constraints_set(0, "lbx", x0)
+                    s.constraints_set(0, "ubx", x0)
+            assert ours.solve() == ref.solve() == 0
+        assert ours.get_stats("qp_iter") == ref.get_stats("qp_iter")
+        for k in range(N + 1):
+            for f in ("x", "u", "pi") if k < N else ("x",):
+                _close(ours.get(k, f), ref.get(k, f), f)
+        x0 = ref.get(1, "x")
+
+
 def test_batch_phases_equal_single_phases():
     """The batch's prepare()/feedback() equal each instance's rti_phase
     1/2 (tests/test_batch_rti.py's batch == serial oracle), in the port
