@@ -34,12 +34,16 @@
 // so every launch is bound by bytes (a few microseconds), and by the
 // latency of its n-step dependent recurrence at this batch.
 //
-// Every op at n <= 32 (every K2 launch of the solvers: the dense IPM's
-// barrier Hessians, nv = 24 on the pendulum, and the Riccati P_0 at
-// nx = 16; K3 and K4 at the same n) runs the row branch
-// chol_rows<T, NP, OP>: one body for the three ops, whose factor steps
-// (factor_rows) and substitutions (solve_rows) work on the same rows in
-// registers.
+// Every op at n <= 32 (the dense IPM's barrier Hessians, nv = 24 on the
+// pendulum, the Riccati P_0 at nx = 16, the chain's condensed Huu at
+// cond_N = 8, n = 15; K3 and K4 at the same n) runs the row branch
+// chol_rows<T, NP, OP> (K2 through the block branch below is no faster at
+// the chain's (256, 15, 15): 0.0092 against 0.0092 ms float32, 0.0099
+// against 0.0089 float64; it wins only at n = 15 float32 below 256
+// matrices, by 0.0007 ms, and loses more at every larger batch, H100 SXM
+// at 700 W: k2_compare.py --sweep --ablate, build "allblock"): one body
+// for the three ops, whose factor steps (factor_rows) and substitutions
+// (solve_rows) work on the same rows in registers.
 //   - Bands NP = 4, 8, 16, 24, 32 (a template each); n is padded to its
 //     band with the identity ([[H, 0], [0, I]]), which adds pivots of 1
 //     and leaves every entry of the factor's n x n block as it was, so
@@ -124,11 +128,74 @@
 //   cycles). Measured (k2_compare.py, H100 SXM at 700 W): K3 0.0128 ms,
 //   K4 0.0213 ms back to back, K4 being K2's factor plus the same solve.
 //
-// At n = 33..64 every op runs chol_kernel, one warp per matrix, the matrix
-// in shared memory for the whole recurrence (one coalesced read of the
-// lower triangle, one coalesced write):
-//   - factor: column by column, lanes own the rows i >= j (a second row
-//     when n > 32) and run their sums serially in k; the pivot is
+// K2 at n = 33..64 and batch <= kBlockMaxBatch = 512 (the chain's free-x0
+// P_0 at nx = 39, B = 256; the condensed Huu of blocks of more than 32
+// controls) runs the block branch chol_block<T>, made for small batches,
+// where one warp a matrix left most of the card idle (256 warps on 132
+// SMs, each running a serial sum of j products a lane at each step j,
+// about n^2 / 2 dependent steps):
+//   - A thread block a matrix: 8 general warps and a pivot warp. The lower
+//     triangle goes into shared memory (odd row stride) with one coalesced
+//     read, a row a warp at a time, every load of a thread in flight at
+//     once: 64 x 65 x 8 B = 33 KB at most, under the 48 KB default. At
+//     most 113 registers, so two blocks share an SM and 256 matrices run
+//     in one wave.
+//   - Right-looking, two columns j, j + 1 a step, one barrier a step.
+//     Column j holds its raw values (every product of the columns left of
+//     it subtracted); column j + 1 those of the columns left of j, and it
+//     is never written again: whoever needs L[i][j+1] = (S[i][j+1] -
+//     L[i][j] L[j+1][j]) * (1 / d_j+1) takes it from there, with
+//     L[i][j] = S[i][j] * (1 / d_j), the plain version's roundings. Each
+//     general entry (i, k) of rows and columns >= j + 2 subtracts
+//     L[i][j] L[k][j], then L[i][j+1] L[k][j+1]: every entry receives the
+//     plain version's products in ascending column order, one rounding
+//     each, so the factor is bit for bit the plain version's. The store
+//     gives an odd column its column c - 1 product on the way out.
+//   - The entries of a step's triangle are counted from its bottom-right
+//     corner, column by column, so every step's triangle is a prefix of
+//     the count and general thread t owns q = t + 256 e, the same entries
+//     every step: the load stays balanced to one entry as the triangle
+//     shrinks, and no entry has two writers. A thread takes its entries
+//     in pairs whose shared loads are issued together.
+//   - The three entries at the triangle's top-left corner, (j+2, j+2),
+//     (j+3, j+2) and (j+3, j+3), belong to lane 0 of the pivot warp: while
+//     the general warps update, it gives them the step's products, takes
+//     pivot j + 2's sqrt and reciprocal (the IEEE intrinsics of the row
+//     branch), gives (j+3, j+2) and (j+3, j+3) column j + 2's product and
+//     takes pivot j + 3's, so the next step finds both in place. Only
+//     columns >= j + 2 are written in a step and only columns j, j + 1
+//     read, so one barrier a step orders everything. The chain of a step
+//     is the barrier, the corner's loads, two pivots' products, sqrt and
+//     reciprocal; the ablations of k2_compare.py (--ablate) time it
+//     without the sqrt and reciprocals, without the general updates, and
+//     without both.
+//   - What bounds it: at (256, 39, 39) float32 the bytes, 256 x (780 +
+//     1521) x 4 B = 2.4 MB, take 0.7 us; the branch takes 0.0140 ms back
+//     to back (the one-warp kernel 0.0294, torch.linalg.cholesky_ex
+//     0.0471 timed the same way; H100 SXM at 700 W, k2_compare.py). Its
+//     latency does: without the general updates 0.0118, without the
+//     sqrt and reciprocals 0.0119, without both 0.0097, against 0.0056
+//     for a launch of the row branch at n = 4, so the steps' barriers,
+//     loads and products, the load and the store take about 4 us, the
+//     pivots' sqrt and reciprocals 2 and the updates 2.
+//   - The pivot thread keeps a failure flag; the steps run on through a
+//     failed pivot's NaN, and after the last barrier every thread reads
+//     the flag, so the test is uniform over the block and the store
+//     writes NaN over the whole matrix.
+//   - One coalesced store: d_j on the diagonal, L below, 0 above.
+//   - Above 512 matrices K2 at n = 33..64 runs chol_kernel (below), whose
+//     many matrices an SM, a warp each, mostly outrun one block a matrix
+//     there: at n = 39, 0.0308 against 0.0407 ms float32 and 0.0415
+//     against 0.0496 float64 at B = 1024 (H100 SXM, 700 W; k2_compare.py
+//     --sweep --ablate, build "allblock"). At n = 64 float64 the block
+//     branch would still win (0.0993 against 0.1896 ms at B = 1024); no
+//     solver runs such a batch.
+//
+// K3 and K4 at n = 33..64 (no solver caller), and K2 there above 512
+// matrices, run chol_kernel, the one-warp kernel of the first port, the
+// matrix in shared memory for the whole recurrence:
+//   - factor (K2, K4): column by column, lanes own the rows i >= j (a second
+//     row when n > 32) and run their sums serially in k; the pivot is
 //     broadcast with __shfl_sync and its test is warp-uniform, so a bad
 //     pivot stops the warp and the store writes NaN;
 //   - forward substitution: lanes own rows, column i updates every row
@@ -537,14 +604,269 @@ int launch_rows(const T* M, const T* b, T* x, T* L, long long batch, int n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Every op: the row branch at n <= 32, chol_kernel above.
+// ---- the block branch: K2 at n = 33..64 -------------------------------------
+
+// A block a matrix: kBlockGeneral threads update the trailing triangle in
+// groups of kBlockGroup entries, and one more warp, whose lane 0 takes the
+// pivots, owns no entry of it. K2 takes this branch at n = 33..64 up to
+// kBlockMaxBatch matrices (dispatch()).
+constexpr int kBlockGeneral = 256;
+constexpr int kBlockThreads = kBlockGeneral + 32;
+constexpr int kBlockWarps = kBlockThreads / 32;
+constexpr int kBlockPivot = kBlockGeneral;  // its thread index
+constexpr int kBlockGroup = 2;
+// blocks an SM holds at least: 256 matrices on 132 SMs in one wave
+constexpr int kBlockMinBlocks = 2;
+// entries of a trailing triangle a general thread owns at most (fewer than
+// the 64 * 63 / 2 - 1 = 2015 below the first pivot at n = 64), in whole
+// groups
+constexpr int kBlockEntries =
+    ((kMaxN * (kMaxN - 1) / 2 - 1 + kBlockGeneral - 1) / kBlockGeneral +
+     kBlockGroup - 1) / kBlockGroup * kBlockGroup;
+// rows of the matrix a warp moves in and out at most
+constexpr int kBlockRows = (kMaxN + kBlockWarps - 1) / kBlockWarps;
+constexpr long long kBlockMaxBatch = 512;
+
+template <typename T>
+__host__ __device__ __forceinline__ size_t block_smem(int n) {
+  return static_cast<size_t>(n * row_stride(n) + 2 * n) * sizeof(T);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBlockThreads, kBlockMinBlocks)
+    chol_block(const T* __restrict__ H, T* __restrict__ L, int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ int failed;  // a pivot was <= 0 or not finite
+  const int ld = row_stride(n);
+  T* S = reinterpret_cast<T*>(smem_raw);  // the lower triangle, raw
+  T* dg = S + n * ld;                     // d_j = L[j][j]
+  T* iv = dg + n;                         // 1 / d_j
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const long long nn = static_cast<long long>(n) * n;
+  const T* g = H + blockIdx.x * nn;
+
+  // the lower triangle, row warp + r kBlockWarps in warp `warp`, all the
+  // loads in flight at once, then into shared memory
+  {
+    T v[kBlockRows][2];
+#pragma unroll
+    for (int r = 0; r < kBlockRows; ++r) {
+      const int i = warp + r * kBlockWarps;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h;
+        if (i < n && c <= i) v[r][h] = g[i * n + c];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < kBlockRows; ++r) {
+      const int i = warp + r * kBlockWarps;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = lane + 32 * h;
+        if (i < n && c <= i) S[i * ld + c] = v[r][h];
+      }
+    }
+  }
+
+  // This thread's entries of the trailing triangles: entry q of a step's
+  // triangle, counted from the bottom-right corner column by column
+  // (k' = n-1-k, i' = n-1-i, q = k'(k'+1)/2 + i'), so that the triangle
+  // of rows and columns j+2..n-1 is q < P = m(m+1)/2 with m = n-2-j, and
+  // its three entries at the top-left corner, (j+2, j+2), (j+3, j+2) and
+  // (j+3, j+3), are q = P-1, P-2 and P-m-1. General thread t owns
+  // q = t + e kBlockGeneral: the same entries every step.
+  // k' = floor((sqrt(8q + 1) - 1) / 2), the estimate put right by one
+  // step either way.
+  int own[kBlockEntries], ri[kBlockEntries], rk[kBlockEntries];
+#pragma unroll
+  for (int e = 0; e < kBlockEntries; ++e) {
+    const int q = tid + e * kBlockGeneral;
+    const float x = 8.0f * q + 1.0f;
+    int kp = static_cast<int>((x * rsqrtf(x) - 1.0f) * 0.5f);
+    kp += (kp + 1) * (kp + 2) / 2 <= q;
+    kp -= kp * (kp + 1) / 2 > q;
+    const int i = n - 1 - (q - kp * (kp + 1) / 2), k = n - 1 - kp;
+    own[e] = i * ld + k;
+    ri[e] = i * ld;
+    rk[e] = k * ld;
+  }
+
+  // pivots 0 and 1 from the matrix as loaded
+  T inv0 = T(0), inv1 = T(0);  // the pivot thread's 1 / d of the step
+  bool ok = true;
+  if (tid == kBlockPivot) {
+    const T p0 = g[0];
+    ok = pivot_ok(p0);  // false for NaN too
+    const T d0 = sqrt_rn(p0);
+    inv0 = dvd(T(1), d0);
+    dg[0] = d0;
+    iv[0] = inv0;
+    if (n > 1) {
+      const T l = mul(g[n], inv0);
+      const T p1 = sub(g[n + 1], mul(l, l));
+      ok = ok && pivot_ok(p1);
+      const T d1 = sqrt_rn(p1);
+      inv1 = dvd(T(1), d1);
+      dg[1] = d1;
+      iv[1] = inv1;
+    }
+  }
+  __syncthreads();
+
+  // Right-looking, two columns j, j + 1 a step. Column j holds its raw
+  // values (all products of the columns left of it subtracted), column
+  // j + 1 those of the columns left of j: it is never written again, and
+  // whoever needs L[i][j+1] = (S[i][j+1] - L[i][j] L[j+1][j]) * (1 / d_j+1)
+  // takes it from there (the store too). Each general entry (i, k) of
+  // rows and columns >= j + 2 subtracts L[i][j] L[k][j], then
+  // L[i][j+1] L[k][j+1], so each entry receives the plain version's
+  // products in ascending column order, one rounding each. Only columns
+  // >= j + 2 are written and only columns j, j + 1 read, each entry by its
+  // one owner, so one barrier a step orders everything. Meanwhile the
+  // pivot thread gives the next step's corner, (j+2, j+2), (j+3, j+2) and
+  // (j+3, j+3), both columns' products, takes pivot j + 2's sqrt and
+  // reciprocal, gives (j+3, j+2) and (j+3, j+3) column j + 2's product
+  // and takes pivot j + 3's: the next step finds both in place. A failed
+  // pivot's NaN runs on to the end; the store writes NaN.
+  for (int j = 0; j + 2 < n; j += 2) {
+    const int m = n - 2 - j;
+    const int P = m * (m + 1) / 2;
+    if (tid == kBlockPivot) {
+      const int r1 = (j + 1) * ld, r2 = (j + 2) * ld;
+      const T lc = mul(S[r1 + j], inv0);           // L[j+1][j]
+      const T l20 = mul(S[r2 + j], inv0);
+      const T l21 = mul(sub(S[r2 + j + 1], mul(l20, lc)), inv1);
+      const T p2 = sub(sub(S[r2 + j + 2], mul(l20, l20)), mul(l21, l21));
+      ok = ok && pivot_ok(p2);
+      const T d2 = sqrt_rn(p2);
+      const T inv2 = dvd(T(1), d2);
+      dg[j + 2] = d2;
+      iv[j + 2] = inv2;
+      T inv3 = T(0);
+      if (m > 1) {
+        const int r3 = (j + 3) * ld;
+        const T l30 = mul(S[r3 + j], inv0);
+        const T l31 = mul(sub(S[r3 + j + 1], mul(l30, lc)), inv1);
+        const T s32 = sub(sub(S[r3 + j + 2], mul(l30, l20)), mul(l31, l21));
+        S[r3 + j + 2] = s32;                       // column j + 2's raw
+        const T l32 = mul(s32, inv2);
+        const T p3 = sub(sub(sub(S[r3 + j + 3], mul(l30, l30)),
+                             mul(l31, l31)), mul(l32, l32));
+        ok = ok && pivot_ok(p3);
+        const T d3 = sqrt_rn(p3);
+        inv3 = dvd(T(1), d3);
+        dg[j + 3] = d3;
+        iv[j + 3] = inv3;
+      }
+      inv0 = inv2;
+      inv1 = inv3;
+    } else if (tid < kBlockGeneral) {
+      const T i0 = iv[j], i1 = iv[j + 1];
+      const T lc = mul(S[(j + 1) * ld + j], i0);  // L[j+1][j]
+      const int corner = P - m - 1;                // (j+3, j+3)
+#pragma unroll
+      for (int e0 = 0; e0 < kBlockEntries; e0 += kBlockGroup) {
+        if (tid + e0 * kBlockGeneral >= P - 2) break;
+        T a0[kBlockGroup], b0[kBlockGroup], a1[kBlockGroup],
+            b1[kBlockGroup], c[kBlockGroup];
+        bool on[kBlockGroup];
+#pragma unroll
+        for (int u = 0; u < kBlockGroup; ++u) {  // the group's loads at once
+          const int q = tid + (e0 + u) * kBlockGeneral;
+          on[u] = q < P - 2 && q != corner;
+          if (on[u]) {
+            a0[u] = S[ri[e0 + u] + j];
+            b0[u] = S[rk[e0 + u] + j];
+            a1[u] = S[ri[e0 + u] + j + 1];
+            b1[u] = S[rk[e0 + u] + j + 1];
+            c[u] = S[own[e0 + u]];
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBlockGroup; ++u) {
+          if (on[u]) {
+            const T li0 = mul(a0[u], i0), lk0 = mul(b0[u], i0);
+            const T li1 = mul(sub(a1[u], mul(li0, lc)), i1);
+            const T lk1 = mul(sub(b1[u], mul(lk0, lc)), i1);
+            S[own[e0 + u]] = sub(sub(c[u], mul(li0, lk0)), mul(li1, lk1));
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+  if (tid == kBlockPivot) failed = !ok;
+  __syncthreads();
+
+  // L: d_j on the diagonal, S[i][c] * (1 / d_c) below (an odd column c
+  // first takes column c - 1's product), 0 above; NaN in every entry if a
+  // pivot failed
+  const T nan = quiet_nan<T>();
+  const bool bad = failed;
+  T* out = L + blockIdx.x * nn;
+#pragma unroll
+  for (int r = 0; r < kBlockRows; ++r) {
+    const int i = warp + r * kBlockWarps;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = lane + 32 * h;
+      if (i < n && c < n) {
+        T x = c == i ? dg[i] : T(0);
+        if (c < i) {
+          T s = S[i * ld + c];
+          if (c & 1) {
+            const T ip = iv[c - 1];
+            s = sub(s, mul(mul(S[i * ld + c - 1], ip),
+                           mul(S[c * ld + c - 1], ip)));
+          }
+          x = mul(s, iv[c]);
+        }
+        out[i * n + c] = bad ? nan : x;
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_block(const T* H, T* L, long long batch, int n,
+                 cudaStream_t stream) {
+  if (batch > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  chol_block<T><<<static_cast<unsigned>(batch), kBlockThreads,
+                  block_smem<T>(n), stream>>>(H, L, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Which kernel runs an op at (batch, n): K2 at n = 33..64 and batch <=
+// kBlockMaxBatch the block branch, every op at n <= 32 the row branch, and
+// every other op chol_kernel (K2 there at batches whose many matrices an
+// SM, a warp each, outrun one block a matrix).
+enum class Branch { kRows = 0, kBlock = 1, kWarp = 2 };
+
+template <Op OP>
+Branch branch_of(long long batch, int n) {
+  if (n <= 32) return Branch::kRows;
+  return OP == Op::kFactor && batch <= kBlockMaxBatch ? Branch::kBlock
+                                                      : Branch::kWarp;
+}
+
 template <typename T, Op OP>
 int dispatch(const T* M, const T* b, T* x, T* L, long long batch, int n,
              void* stream_ptr) {
-  if (n < 1 || n > 32 || batch <= 0) {
-    return launch<T, OP>(M, b, x, L, batch, n, stream_ptr);
+  if (n < 1 || n > kMaxN || batch < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (batch == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  switch (branch_of<OP>(batch, n)) {
+    case Branch::kBlock:
+      return launch_block<T>(M, L, batch, n, stream);
+    case Branch::kWarp:
+      return launch<T, OP>(M, b, x, L, batch, n, stream_ptr);
+    default:
+      break;
+  }
   if (n <= 4) return launch_rows<T, 4, OP>(M, b, x, L, batch, n, stream);
   if (n <= 8) return launch_rows<T, 8, OP>(M, b, x, L, batch, n, stream);
   if (n <= 16) return launch_rows<T, 16, OP>(M, b, x, L, batch, n, stream);
@@ -586,4 +908,13 @@ extern "C" int chol_factor_solve_f64(const double* H, const double* b,
                                      double* x, double* L, long long batch,
                                      int n, void* stream) {
   return dispatch<double, Op::kFactorSolve>(H, b, x, L, batch, n, stream);
+}
+
+// The branch an op takes at (batch, n): 0 the row branch, 1 the block
+// branch, 2 chol_kernel; op 0 K2, 1 K3, 2 K4.
+extern "C" int chol_branch(int op, long long batch, int n) {
+  const Branch b = op == 0   ? branch_of<Op::kFactor>(batch, n)
+                   : op == 1 ? branch_of<Op::kSolve>(batch, n)
+                             : branch_of<Op::kFactorSolve>(batch, n);
+  return static_cast<int>(b);
 }

@@ -15,13 +15,22 @@ depends only on where the tensor lies: a CPU tensor takes the plain
 version, a CUDA tensor launches the kernel or raises. The Pallas `tile_b`
 argument, which sizes TPU VMEM blocks, has no counterpart.
 
-K2, K3 and K4 at n <= 32 (every solver's launch) run the kernel's row
-branch: lanes own rows; the factor and the forward substitution go
-right-looking, and the back substitution subtracts each entry's products
-in ascending k. Each subtracts the plain version's products in the plain
+K2, K3 and K4 at n <= 32 (the dense IPM, the Riccati P_0 at nx = 16, the
+chain's condensed Huu) run the kernel's row branch: lanes own rows; the
+factor and the forward substitution go right-looking, and the back
+substitution subtracts each entry's products in ascending k. K2 at
+n = 33..64 up to 512 matrices (the chain's free-x0 P_0 at nx = 39, B =
+256; condensed Huu of more than 32 controls) runs the block branch, made
+for small batches: a thread block a matrix in shared memory,
+right-looking, two columns a step and one barrier a step, the general
+threads updating the trailing triangle while one thread takes the next
+two pivots' sqrt and reciprocal. K3 and K4 at n = 33..64 (no solver
+caller), and K2 there above 512 matrices, keep the first port's one-warp
+kernel. Each branch subtracts the plain version's products in the plain
 version's order, so the kernels equal the plain versions bit for bit
-(tests/test_torch_chol.py holds a PyTorch model of that schedule against
-them).
+(tests/test_torch_chol.py holds PyTorch models of the row and block
+schedules against them); `chol_branch` says which branch an op takes at
+a (B, n).
 
 A matrix that is not positive definite (a pivot that is <= 0 or not
 finite) comes back NaN in every entry, from kernel and plain version
@@ -155,6 +164,21 @@ def _launch(name: str, inputs, outputs, n: int,
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     cuda_build.count_launch(LAUNCHES, name)
+
+
+BRANCHES = ("rows", "block", "warp")
+
+
+def chol_branch(kname: str, batch: int, n: int,
+                source: str = "batched_chol") -> str:
+    """The branch of csrc/batched_chol.cu that kernel kname (chol_factor,
+    chol_solve or chol_factor_solve) takes at (batch, n, n), as its
+    dispatcher decides: "rows", "block" or "warp" (the one-warp
+    chol_kernel). Asks the built library (the card's machine only)."""
+    fn = cuda_build.load(source).chol_branch
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return BRANCHES[fn(tuple(LAUNCHES).index(kname), batch, n)]
 
 
 def chol_factor_batched(H: torch.Tensor,

@@ -345,6 +345,7 @@ The last lines are the kernels JSON line, the card line and
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import json
 import subprocess
@@ -495,8 +496,8 @@ K1_PARENT_GROUP_DEVICE_MS = {
 K1_PARENT_MAIN_DEVICE_MS = 0.2793
 # K2's row branch (n <= 32, bands 4, 8, 16, 24, 32): an n in each band
 # with the batches that end inside a group, a warp and a block of warps,
-# the long batches, the short batch every n <= 32 runs at, and K2's grid
-# (K2_WIDE_N: the shared-memory kernel above the row branch)
+# the long batches, the short batch every n runs at, and K2's grid
+# (K2_WIDE_N: above the row branch)
 K2_ROW_N = (4, 8, 16, 24, 32)
 K2_EDGE_B = (1, 2, 3, 5, 33, 1023)
 K2_LONG_N = (4, 24)
@@ -505,10 +506,19 @@ K2_SWEEP_B = 7
 K2_GRID_N = (4, 8, 13, 16, 24, 32)
 K2_GRID_B = (4096,)
 K2_WIDE_N = (39, 64)
-# the K2 the row branch replaced (one warp a matrix, left-looking, in
-# shared memory): device ms back to back over chol_grid's cells, by (n, B,
-# type), from k2_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
-# lines only
+# K2's block branch (n = 33..64 up to 512 matrices, a block a matrix; the
+# one-warp kernel above): small batches, one past a wave of 256 blocks,
+# both sides of the 512 threshold, a long batch at the chain's P_0 width,
+# and the small-batch cells of K2's grid (the chain's P_0 and condensed
+# Huu at B = 256, and n = 64) in both types
+K2_BLOCK_N = (33, 39, 48, 64)
+K2_BLOCK_EDGE_B = (1, 2, 3, 5, 33, 257, 512, 513)
+K2_BLOCK_LONG = (39, 20_001)
+K2_SMALL_CELLS = ((15, 256), (39, 256), (64, 256))
+# the K2 the row and block branches replaced (one warp a matrix,
+# left-looking, in shared memory): device ms back to back over
+# chol_grid's cells, by (n, B, type), from k2_compare.py (NVIDIA H100 80GB
+# HBM3, 700.00 W), for the log lines only
 K2_PARENT_DEVICE_MS = {
     (4, 4096, "float32"): 0.0073, (4, 65536, "float32"): 0.0383,
     (8, 4096, "float32"): 0.0101, (8, 65536, "float32"): 0.0738,
@@ -517,7 +527,12 @@ K2_PARENT_DEVICE_MS = {
     (24, 4096, "float32"): 0.0289, (24, 65536, "float32"): 0.3156,
     (32, 4096, "float32"): 0.0423, (32, 65536, "float32"): 0.4870,
     (24, 4096, "float64"): 0.0329, (39, 4096, "float32"): 0.0645,
-    (64, 4096, "float32"): 0.2332}
+    (64, 4096, "float32"): 0.2332,
+    # the small-batch cells before the block branch (n = 15: the row
+    # branch, which stays)
+    (15, 256, "float32"): 0.0095, (39, 256, "float32"): 0.0296,
+    (64, 256, "float32"): 0.0645, (15, 256, "float64"): 0.0093,
+    (39, 256, "float64"): 0.0376, (64, 256, "float64"): 0.0873}
 # the K3 and K4 the row branch replaced (one warp a matrix in shared
 # memory, the back substitution on one lane): device ms back to back over
 # chol_grid's cells, by (n, B, type), from k2_compare.py (NVIDIA H100 80GB
@@ -1161,17 +1176,43 @@ def indefinite_batch(rng, B, n):
     return H, bad
 
 
+def pivot_fail_batch(rng, n):
+    """SPD matrices with a pivot that fails at every column j: H[j][j] =
+    -1, inf or NaN, or a NaN below the diagonal in column j (-inf in the
+    last row's diagonal), each beside a good matrix; returns (H, bad)."""
+    H = spd_batch(rng, 8 * n, n)
+    bad = np.zeros(8 * n, bool)
+    for j in range(n):
+        H[8 * j, j, j] = -1.0
+        H[8 * j + 2, j, j] = np.inf
+        H[8 * j + 4, j, j] = np.nan
+        if j < n - 1:
+            H[8 * j + 6, n - 1, j] = np.nan
+        else:
+            H[8 * j + 6, j, j] = -np.inf
+        H[8 * j + 7, j, (j + 1) % n] = np.nan   # above the diagonal, or
+        bad[8 * j:8 * j + 7:2] = True           # the last row's first entry
+        if j == n - 1:
+            bad[8 * j + 7] = True
+    return H, bad
+
+
 def k2_bit_checks(dev, rng, kern, Hb=None) -> None:
     """K2 (kern: chol_factor_batched, or the same on a copy's build)
     against chol_factor_plain bit for bit, NaN in the same matrices, in
     float32 and float64: on the barrier Hessians Hb (where given), every
-    n = 1..32 at B = K2_SWEEP_B, the batches of K2_EDGE_B at each band's n
-    (they end inside a group, a warp and a block of warps), B = K2_LONG_B
-    at K2_LONG_N, an input one element off its allocation (not aligned to
-    the row branch's vectors) at n = 24 and 13, and batches mixing SPD with
-    indefinite and non-finite matrices at n = 4, 13, 24, whose bad
-    matrices fall in every position of a warp's groups (up to 8).
-    Raises at the first batch that differs."""
+    n = 1..64 at B = K2_SWEEP_B, the batches of K2_EDGE_B at each row
+    band's n (they end inside a group, a warp and a block of warps) and
+    of K2_BLOCK_EDGE_B at K2_BLOCK_N (the block branch, a block a matrix,
+    and the one-warp kernel past 512), B = K2_LONG_B at K2_LONG_N and
+    K2_BLOCK_LONG, an input one element off its allocation (not aligned
+    to the row branch's vectors) at n = 24, 13 and 39, batches mixing SPD
+    with indefinite and non-finite matrices at n = 4, 13, 24 (B = 1001)
+    and 39, 64 (B = 505 and 1001, either side of the block branch's
+    threshold), whose bad matrices fall in every position of a warp's
+    groups (up to 8), and at n = 39 and 64 a failed pivot at every column
+    of a block (pivot_fail_batch). Raises at the first batch that
+    differs."""
     import torch
     from acados_tpu_torch.ops.batched_chol import chol_factor_plain
     for dtype in (torch.float32, torch.float64):
@@ -1181,24 +1222,36 @@ def k2_bit_checks(dev, rng, kern, Hb=None) -> None:
         batches = [] if Hb is None else [
             (f"barrier Hessians {tuple(Hb.shape)}", Hb.to(dtype), None)]
         batches += [(f"n={n} B={K2_SWEEP_B}", spd(K2_SWEEP_B, n), None)
-                    for n in range(1, 33)]
+                    for n in range(1, 65)]
         batches += [(f"n={n} B={B}", spd(B, n), None) for n in K2_ROW_N
                     for B in K2_EDGE_B]
-        batches += [(f"long n={n} B={K2_LONG_B}", spd(K2_LONG_B, n), None)
-                    for n in K2_LONG_N]
-        for n in (24, 13):
-            B = 1023
+        batches += [(f"n={n} B={B}", spd(B, n), None) for n in K2_BLOCK_N
+                    for B in K2_BLOCK_EDGE_B]
+        batches += [(f"long n={n} B={B}", spd(B, n), None)
+                    for n, B in [(n, K2_LONG_B) for n in K2_LONG_N]
+                    + [K2_BLOCK_LONG]]
+        for n, B in ((24, 1023), (13, 1023), (39, 511)):
             H = torch.empty(B * n * n + 1, dtype=dtype,
                             device=dev)[1:].view(B, n, n)
             H.copy_(spd(B, n))
             batches.append((f"misaligned n={n} B={B}", H, None))
-        for n in (4, 13, 24):
-            H, bad = indefinite_batch(rng, 1001, n)
+        for n, B in ((4, 1001), (13, 1001), (24, 1001), (39, 505),
+                     (39, 1001), (64, 505), (64, 1001)):
+            H, bad = indefinite_batch(rng, B, n)
             if set(np.flatnonzero(bad) % 8) != set(range(8)):
                 raise SystemExit("the bad matrices miss a group position")
-            batches.append((f"indefinite/non-finite n={n} B=1001",
+            batches.append((f"indefinite/non-finite n={n} B={B}",
                             torch.as_tensor(H, dtype=dtype, device=dev),
                             torch.as_tensor(bad, device=dev)))
+        for n in (39, 64):
+            H, bad = pivot_fail_batch(rng, n)
+            batches.append((f"a failed pivot at every column n={n} "
+                            f"B={len(H)}",
+                            torch.as_tensor(H, dtype=dtype, device=dev),
+                            torch.as_tensor(bad, device=dev)))
+        branches = dict(collections.Counter(
+            k2_branch("chol_factor", len(H), H.shape[-1], kern)
+            for _, H, _ in batches))
         for name, H, bad in batches:
             Lk, Lp = kern(H), chol_factor_plain(H)
             nan_p = torch.isnan(Lp).flatten(1).all(1)
@@ -1207,10 +1260,12 @@ def k2_bit_checks(dev, rng, kern, Hb=None) -> None:
                 raise SystemExit(f"K2 is not bit for bit its plain version: "
                                  f"{name} {dtype}")
         log(f"  K2 bit for bit, {str(dtype):<14} {len(batches)} batches "
-            f"(n = 1..32 at B = {K2_SWEEP_B}; n in {K2_ROW_N} at B in "
-            f"{K2_EDGE_B}; n in {K2_LONG_N} at B = {K2_LONG_B}; misaligned "
-            f"n = 24, 13; indefinite/non-finite n = 4, 13, 24): equal, NaN "
-            f"in the same matrices")
+            f"(n = 1..64 at B = {K2_SWEEP_B}; n in {K2_ROW_N} at B in "
+            f"{K2_EDGE_B}; n in {K2_BLOCK_N} at B in {K2_BLOCK_EDGE_B}; n "
+            f"in {K2_LONG_N} at B = {K2_LONG_B}; (n, B) = {K2_BLOCK_LONG}; "
+            f"misaligned n = 24, 13, 39; indefinite/non-finite n = 4, 13, "
+            f"24, 39, 64; a failed pivot at every column n = 39, 64): "
+            f"equal, NaN in the same matrices; branches {branches}")
 
 
 def k3_k4_bit_checks(dev, rng, kern, Hb=None) -> None:
@@ -1302,6 +1357,19 @@ def k3_k4_bit_checks(dev, rng, kern, Hb=None) -> None:
             f"entries")
 
 
+def k2_branch(kname, B, n, fn=None):
+    """The branch of csrc/batched_chol.cu that kernel kname takes at
+    (B, n, n) (batched_chol.chol_branch) in the build a wrapper fn runs
+    (a partial naming a copy's source, or the package's own), or None for
+    a build whose source predates the query."""
+    from acados_tpu_torch.ops import batched_chol
+    source = getattr(fn, "keywords", {}).get("source", "batched_chol")
+    try:
+        return batched_chol.chol_branch(kname, B, n, source)
+    except AttributeError:
+        return None
+
+
 def chol_library(kname):
     """(name, fn(H, L, b)): the library call that computes the function of
     kernel kname (chol_factor: K2, chol_solve: K3, chol_factor_solve: K4)."""
@@ -1343,10 +1411,13 @@ def chol_grid(kname, kerns: dict, parent=None, order=None) -> list:
     chol_solve or chol_factor_solve) in kerns ({label: fn}), called in
     turns (order: labels, default each once), over K2's grid (n in
     K2_GRID_N x B in K2_GRID_B and n in K2_WIDE_N at B = 4096 float32,
-    (4096, 24, 24) float64) on SPD X X' / n + I (K3: its library factor)
-    and b ~ N(0, 1), beside the library call (CUDA events around one call:
-    it waits for the host) and the bound. parent: device ms of an earlier
-    build by (n, B, dtype name), logged beside."""
+    (4096, 24, 24) float64, and K2_SMALL_CELLS in both types) on SPD X X'
+    / n + I (K3: its library factor) and b ~ N(0, 1), beside the library
+    call and the bound. The library's torch.linalg.cholesky_ex is timed
+    as the kernels are (device_ms); torch.cholesky_solve waits for the
+    host, so K3's and K4's library calls are timed by CUDA events around
+    one call. parent: device ms of an earlier build by (n, B, dtype name),
+    logged beside."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1354,9 +1425,13 @@ def chol_grid(kname, kerns: dict, parent=None, order=None) -> list:
     cells = [(n, B, torch.float32) for n in K2_GRID_N for B in K2_GRID_B]
     cells.append((24, 4096, torch.float64))
     cells += [(n, 4096, torch.float32) for n in K2_WIDE_N]
+    cells += [(n, B, dtype) for dtype in (torch.float32, torch.float64)
+              for n, B in K2_SMALL_CELLS]
     lname, lib_fn = chol_library(kname)
-    log(f"{kname} grid (device ms back to back; {lname} CUDA events around "
-        f"one call; X X' / n + I):")
+    like = kname == "chol_factor"
+    log(f"{kname} grid (device ms back to back; {lname} "
+        f"{'the same way' if like else 'CUDA events around one call'}; "
+        f"X X' / n + I):")
     rows = []
     for n, B, dtype in cells:
         X = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype)
@@ -1367,15 +1442,18 @@ def chol_grid(kname, kerns: dict, parent=None, order=None) -> list:
         times = {label: [] for label in kerns}
         for label in order:
             times[label].append(device_ms(lambda: kerns[label](*args)))
-        lib = cuda_ms(lambda: lib_fn(H, L, b), reps=10)
+        lib = (device_ms(lambda: lib_fn(H, L, b)) if like
+               else cuda_ms(lambda: lib_fn(H, L, b), reps=10))
         b_ms, b_by = chol_bound(kname, B, n, dtype)
         dt = str(dtype).split(".")[-1]
+        branch = {label: k2_branch(kname, B, n, fn)
+                  for label, fn in kerns.items()}
         rows.append(dict(kernel=kname, n=n, B=B, dtype=dt, bound_ms=b_ms,
-                         bound_by=b_by, library_ms=lib,
+                         bound_by=b_by, library_ms=lib, branch=branch,
                          **{k: float(np.median(v)) for k, v in times.items()}))
         old = (parent or {}).get((n, B, dt))
         log(f"  n={n:2d} B={B:6d} {dt:<7} " + "  ".join(
-            f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+            f"{k} {' '.join(f'{t:.4f}' for t in v)} ({branch[k]})"
             for k, v in times.items())
             + (f"  (before: {old:.4f})" if old is not None else "")
             + f"  library {lib:.4f}  bound {b_ms:.4f} ({b_by})")
@@ -2139,16 +2217,19 @@ def chain_cond(dev, plain) -> dict:
     k_dev = device_ms(lambda: kern(H))
     p_ms = cuda_ms(lambda: batched_chol.chol_factor_plain(H), reps=10)
     l_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=20)
-    l_dev = kernel_busy_ms(lambda: torch.linalg.cholesky_ex(H))
+    l_dev = device_ms(lambda: torch.linalg.cholesky_ex(H))
     b_ms, b_by = chol_bound("chol_factor", B_CHAIN, nu_c, H.dtype)
+    branch = k2_branch("chol_factor", B_CHAIN, nu_c)
     log(f"K2 on the chain's {len(huu)} condensed Huu batches "
-        f"{tuple(H.shape)} float32: bit for bit with chol_factor_plain; "
-        f"kernel {k_ms:.4f} ms (device {k_dev:.4f} ms back to back), plain "
-        f"{p_ms:.4f} ms, torch.linalg.cholesky_ex {l_ms:.4f} ms (its "
-        f"kernels {l_dev:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+        f"{tuple(H.shape)} float32 ({branch} branch): bit for bit with "
+        f"chol_factor_plain; kernel {k_ms:.4f} ms (device {k_dev:.4f} ms "
+        f"back to back), plain {p_ms:.4f} ms, torch.linalg.cholesky_ex "
+        f"{l_ms:.4f} ms (device {l_dev:.4f} ms back to back), bound "
+        f"{b_ms:.4f} ms ({b_by})")
     return {"name": "chol_factor_chain_cond8", "route": "cuda",
             "source": "acados_tpu_torch/csrc/batched_chol.cu",
             "replaces": "acados_tpu/ops/batched_chol.py:38",
+            "branch": branch,
             "shape": list(H.shape), "launches": counts["chol_factor"],
             "max_abs_err": abs_err, "ms": k_ms, "device_ms": k_dev,
             "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2402,13 +2483,16 @@ def sensitivities(dev) -> dict:
     k_dev = device_ms(lambda: kern(H))
     p_ms = cuda_ms(lambda: batched_chol.chol_factor_plain(H), reps=10)
     l_ms = cuda_ms(lambda: torch.linalg.cholesky_ex(H), reps=20)
-    l_dev = kernel_busy_ms(lambda: torch.linalg.cholesky_ex(H))
+    l_dev = device_ms(lambda: torch.linalg.cholesky_ex(H))
     b_ms, b_by = chol_bound("chol_factor", B_CHAIN, 39, H.dtype)
-    log(f"K2 on the chain's P_0 {tuple(H.shape)} float64: bit for bit "
-        f"with chol_factor_plain; kernel {k_ms:.4f} ms (device "
-        f"{k_dev:.4f} ms back to back), plain {p_ms:.4f} ms, "
-        f"torch.linalg.cholesky_ex {l_ms:.4f} ms (its kernels "
-        f"{l_dev:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+    branch = k2_branch("chol_factor", B_CHAIN, 39)
+    log(f"K2 on the chain's P_0 {tuple(H.shape)} float64 ({branch} "
+        f"branch): bit for bit with chol_factor_plain; kernel {k_ms:.4f} "
+        f"ms (device {k_dev:.4f} ms back to back), plain {p_ms:.4f} ms, "
+        f"torch.linalg.cholesky_ex {l_ms:.4f} ms (device {l_dev:.4f} ms "
+        f"back to back), bound {b_ms:.4f} ms ({b_by})")
+    if branch != "block":
+        raise SystemExit(f"K2 took the {branch} branch at the chain's P_0")
     # the same matrices in float32, for the kernel table's float32 rows
     H32 = H.float()
     if not same_bits(kern(H32), batched_chol.chol_factor_plain(H32)):
@@ -2420,7 +2504,7 @@ def sensitivities(dev) -> dict:
                    lambda: batched_chol.chol_factor_plain(H32), reps=10),
                library_ms_f32=cuda_ms(lambda: torch.linalg.cholesky_ex(H32),
                                       reps=20),
-               library_device_ms_f32=kernel_busy_ms(
+               library_device_ms_f32=device_ms(
                    lambda: torch.linalg.cholesky_ex(H32)),
                bound_ms_f32=chol_bound("chol_factor", B_CHAIN, 39,
                                        H32.dtype)[0])
@@ -2428,6 +2512,7 @@ def sensitivities(dev) -> dict:
     return {"name": "chol_factor_chain_p0", "route": "cuda",
             "source": "acados_tpu_torch/csrc/batched_chol.cu",
             "replaces": "acados_tpu/ops/batched_chol.py:38",
+            "branch": branch,
             "shape": list(H.shape), "launches": counts["chol_factor"],
             "max_abs_err": float((Lk - Lp).abs().max()), "ms": k_ms,
             "device_ms": k_dev, "plain_ms": p_ms, "bound_ms": b_ms,
@@ -5269,13 +5354,19 @@ def card_phases(dev, t_run, at) -> int:
         k_dev_ms = device_ms(lambda: kfn(*args))
         p_ms = cuda_ms(lambda: pfn(*args), reps=10)
         l_ms = cuda_ms(lambda: lfn(Hb, L32, bf), reps=20)
-        l_dev_ms = kernel_busy_ms(lambda: lfn(Hb, L32, bf))
+        # cholesky_ex queues as the kernels do; cholesky_solve waits for
+        # the host: the sum of its kernels' times instead
+        like = kname == "chol_factor"
+        l_dev_ms = (device_ms if like else kernel_busy_ms)(
+            lambda: lfn(Hb, L32, bf))
         b_ms, b_by = chol_bound(kname, Bm, n, Hb.dtype)
-        log(f"{kname} at ({Bm}, {n}, {n}) float32: kernel {k_ms:.4f} ms "
+        log(f"{kname} at ({Bm}, {n}, {n}) float32 "
+            f"({k2_branch(kname, Bm, n)} branch): kernel {k_ms:.4f} ms "
             f"(device {k_dev_ms:.4f} ms back to back; the kernel the row "
             f"branch replaced {parent[(n, Bm, 'float32')]}), plain "
-            f"{p_ms:.4f} ms, {lname} {l_ms:.4f} ms (its kernels' device "
-            f"time {l_dev_ms:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+            f"{p_ms:.4f} ms, {lname} {l_ms:.4f} ms (device "
+            f"{l_dev_ms:.4f} ms {'back to back' if like else 'its kernels'}"
+            f"), bound {b_ms:.4f} ms ({b_by})")
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "acados_tpu_torch/csrc/batched_chol.cu",

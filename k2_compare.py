@@ -7,7 +7,7 @@ the grid of each (chip_smoke.chol_grid).
 
 Run from the root of the repository:
 
-    python3 k2_compare.py [--sass] [LABEL=PATH.cu ...]
+    python3 k2_compare.py [--sass] [--sweep] [--ablate] [LABEL=PATH.cu ...]
 
 With no LABEL=PATH it builds acados_tpu_torch/csrc/batched_chol.cu alone.
 To hold the source against an earlier commit's, write that copy under
@@ -27,7 +27,13 @@ two versions are compared on one card in one run. --sass prints ptxas's
 registers and spills for each kernel and, for each build, the SASS
 instruction mix (cuobjdump) of one step of each row-branch kernel at each
 band, and the listings of one factor step and one back-substitution step
-at the dense IPM's band. Needs one GPU and nvcc; imports nothing of JAX.
+at the dense IPM's band. --sweep also times
+K2 alone over batches of 64..4096 at n = 15, 39, 64 in both types
+(batch_sweep), beside torch.linalg.cholesky_ex timed the same way: where
+the block branch and the others cross over in B. --ablate adds builds
+of the `now` source (or the package's) with parts of the block branch's
+step taken out (ABLATIONS; they fail the checks and are timed all the
+same), and one that sends K2 through the block branch at every n. Needs one GPU and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -63,8 +69,11 @@ def build(specs: dict) -> dict:
         for line in reports.get(path, "").splitlines():
             entry = "Compiling entry function" in line
             m = re.search(r"\dchol_kernelI([fd])LN\w*?OpE(\d)E", line)
+            blk = re.search(r"\dchol_blockI([fd])E", line)
             if entry and m:
                 kernel = f"chol_kernel {m.group(1)} op {m.group(2)}"
+            elif entry and blk:
+                kernel = f"block branch {blk.group(1)}"
             elif entry and _row_kernel(line):
                 kernel = f"row branch {_row_kernel(line)}"
             elif kernel and ("registers" in line or "spill" in line):
@@ -153,8 +162,9 @@ def step_listing(sass: str, band: str = "f24", step: int = 12) -> list:
 
 def builds_agree(dev, kerns: dict) -> list:
     """Each later build's K2 against the first's bit for bit on SPD X X' /
-    n + I at every n = 1..32 (B = 4096) and on the indefinite and
-    non-finite batches at n = 4, 13, 24, float32 and float64. Returns the
+    n + I at every n = 1..32 (B = 4096) and at K2_BLOCK_N (B = 256), and
+    on the indefinite and non-finite batches at n = 4, 13, 24, float32
+    and float64. Returns the
     labels of the builds that differ anywhere (expected none: the same
     operations in the same order)."""
     import torch
@@ -165,6 +175,8 @@ def builds_agree(dev, kerns: dict) -> list:
     rng = np.random.default_rng(cs.SEED + 1)
     batches = [(f"n={n} B=4096", cs.spd_batch(rng, 4096, n))
                for n in range(1, 33)]
+    batches += [(f"n={n} B=256", cs.spd_batch(rng, 256, n))
+                for n in cs.K2_BLOCK_N]
     batches += [(f"indefinite/non-finite n={n} B=1001",
                  cs.indefinite_batch(rng, 1001, n)[0]) for n in (4, 13, 24)]
     for dtype in (torch.float32, torch.float64):
@@ -185,6 +197,85 @@ def builds_agree(dev, kerns: dict) -> list:
     return differ
 
 
+SWEEP_N = (15, 39, 64)
+SWEEP_B = (64, 128, 256, 512, 1024, 2048, 4096)
+
+# the block branch's step loop with a part taken out, for timing alone
+# (the results are wrong): the pivots' sqrt and reciprocal, the general
+# threads' updates, or both (the barriers and the pivot thread's loads
+# and products remain); and "allblock", right, whose dispatcher sends K2
+# through the block branch at every (B, n)
+_PIVOTS = (("const T d2 = sqrt_rn(p2);", "const T d2 = p2;"),
+           ("const T inv2 = dvd(T(1), d2);", "const T inv2 = p2;"),
+           ("const T d3 = sqrt_rn(p3);", "const T d3 = p3;"),
+           ("inv3 = dvd(T(1), d3);", "inv3 = p3;"))
+_GENERAL = (("    } else if (tid < kBlockGeneral) {",
+             "    } else if (false) {"),)
+ABLATIONS = {"nosqrt": _PIVOTS, "noupdate": _GENERAL,
+             "barrier": _PIVOTS + _GENERAL,
+             # not an ablation: K2 through the block branch at every (B, n)
+             "allblock": (("  if (n <= 32) return Branch::kRows;",
+                           "  if (OP == Op::kFactor) return Branch::kBlock;"
+                           "\n  if (n <= 32) return Branch::kRows;"),)}
+
+
+def ablations(source: str) -> dict:
+    """{label: path} of copies of `source` with ABLATIONS applied, written
+    under build/."""
+    text = (ROOT / source).read_text()
+    out = {}
+    for label, edits in ABLATIONS.items():
+        t = text
+        for old, new in edits:
+            if old not in t:
+                raise SystemExit(f"ablation {label}: the source has no "
+                                 f"{old!r}")
+            t = t.replace(old, new)
+        path = ROOT / "build" / f"batched_chol_{label}.cu"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(t)
+        out[label] = str(path.relative_to(ROOT))
+    return out
+
+
+def batch_sweep(kerns: dict, order: list) -> list:
+    """K2's device ms back to back of each build in turns at n in SWEEP_N
+    x B in SWEEP_B, float32 and float64, beside torch.linalg.cholesky_ex
+    timed the same way and each build's branch there: where the branches
+    cross over in B."""
+    import torch
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(cs.SEED + 2)
+    rows = []
+    cs.log("K2 batch sweep (device ms back to back; cholesky_ex the same "
+           "way):")
+    for dtype in (torch.float32, torch.float64):
+        for n in SWEEP_N:
+            for B in SWEEP_B:
+                X = torch.randn((B, n, n), generator=gen, device=dev,
+                                dtype=dtype)
+                H = X @ X.transpose(1, 2) / n + torch.eye(
+                    n, device=dev, dtype=dtype)
+                times = {label: [] for label in kerns}
+                for label in order:
+                    fn = kerns[label]["chol_factor"]
+                    times[label].append(cs.device_ms(lambda: fn(H)))
+                lib = cs.device_ms(lambda: torch.linalg.cholesky_ex(H))
+                dt = str(dtype).split(".")[-1]
+                branch = {label: cs.k2_branch("chol_factor", B, n,
+                                              kern["chol_factor"])
+                          for label, kern in kerns.items()}
+                rows.append(dict(n=n, B=B, dtype=dt, library_ms=lib,
+                                 branch=branch, **{
+                                     k: float(np.median(v))
+                                     for k, v in times.items()}))
+                cs.log(f"  n={n:2d} B={B:5d} {dt:<7} " + "  ".join(
+                    f"{k} {float(np.median(v)):.4f} ({branch[k]})"
+                    for k, v in times.items())
+                    + f"  cholesky_ex {lib:.4f}")
+    return rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -193,8 +284,11 @@ def main() -> int:
         return 2
     from acados_tpu_torch.ops import cuda_build
     from acados_tpu_torch.utils.device import full_precision_matmul
-    specs = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
+    specs = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a
+                 and not a.startswith("--"))
     specs = specs or {"now": SOURCE}
+    if "--ablate" in sys.argv:
+        specs.update(ablations(specs.get("now", SOURCE)))
     cs.log(f"card: {cs.card_line()}; torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
     full_precision_matmul()
@@ -245,7 +339,8 @@ def main() -> int:
         rows += cs.chol_grid(kname, {label: kern[kname]
                                      for label, kern in kerns.items()},
                              order=order, parent=parent)
-    cs.log(json.dumps({"grid": rows, "card": cs.card_line(),
+    sweep = batch_sweep(kerns, order) if "--sweep" in sys.argv else None
+    cs.log(json.dumps({"grid": rows, "sweep": sweep, "card": cs.card_line(),
                        "failed": failed}))
     return 1 if failed else 0
 

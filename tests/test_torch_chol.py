@@ -7,8 +7,9 @@ rounding. Interpret mode grows steeply with n here, so larger n are held
 against the JAX package's `chol_any`, which is LAPACK on the CPU. The
 CUDA kernels run only on the card (chip_smoke.py holds them against the
 plain versions there); here the wrappers must refuse, not fall back, and
-PyTorch models of the row branch's schedule (K2, K3, K4 at n <= 32) are
-held bit for bit against the plain versions.
+PyTorch models of the row branch's schedule (K2, K3, K4 at n <= 32) and
+of K2's block branch (n = 33..64) are held bit for bit against the plain
+versions.
 """
 import numpy as np
 import pytest
@@ -418,6 +419,154 @@ def test_row_solve_schedule_is_bit_for_bit_plain(n, dtype, kernel):
         nan = torch.isnan(plain)
         assert torch.equal(torch.isnan(ours), nan)
         assert torch.equal(ours[~nan], plain[~nan])
+
+
+_CU = batched_chol.cuda_build.CSRC / "batched_chol.cu"
+
+
+def _block_threads():
+    """(general threads, entries a thread) of the block branch, as
+    csrc/batched_chol.cu sets them."""
+    import re
+    src = _CU.read_text()
+    const = lambda name: int(re.search(rf"constexpr int {name} = (\d+);",
+                                       src).group(1))
+    general, group = const("kBlockGeneral"), const("kBlockGroup")
+    per = -(-(64 * 63 // 2 - 1) // general)
+    return general, -(-per // group) * group
+
+
+def _block_entries(n: int) -> list:
+    """(q, i, k) of every general thread's entries, numbered as chol_block
+    numbers them: q counts a trailing triangle from its bottom-right
+    corner column by column (k' = n-1-k, i' = n-1-i, q = k'(k'+1)/2 + i'),
+    and thread t owns q = t + e * general."""
+    import math
+    general, per = _block_threads()
+    out = []
+    for t in range(general):
+        for e in range(per):
+            q = t + e * general
+            kp = (math.isqrt(8 * q + 1) - 1) // 2
+            out.append((q, n - 1 - (q - kp * (kp + 1) // 2), n - 1 - kp))
+    return out
+
+
+def _block_schedule(H: torch.Tensor) -> torch.Tensor:
+    """A PyTorch model of K2's block branch (chol_block) on a (B, n, n)
+    batch, a block a matrix: the lower triangle loaded (the upper read as
+    NaN, so a read of it would show), pivots 0 and 1 taken from it; then
+    two columns j, j + 1 a step: the pivot thread gives the next corner,
+    (j+2, j+2), (j+3, j+2) and (j+3, j+3), the step's products (L[i][j+1]
+    = (S[i][j+1] - L[i][j] L[j+1][j]) / d_j+1 taken from column j + 1 as
+    it lies, never updated), takes pivots j + 2 and j + 3 and writes
+    (j+3, j+2); the general threads subtract both columns' products from
+    their entries q < P - 2 but the corner (j+3, j+3) of the triangle of
+    rows and columns >= j + 2; a failed pivot sets the block's flag and
+    the steps run on; then L as stored, an odd column taking column
+    c - 1's product first. Asserts at each step that the general entries
+    are that triangle less its corner, each once."""
+    B, n = H.shape[0], H.shape[-1]
+    entries = _block_entries(n)
+    lower = torch.ones(n, n, dtype=torch.bool).tril()
+    S = torch.where(lower, H, float("nan"))
+    dg = torch.zeros((B, n), dtype=H.dtype)
+    iv = torch.zeros_like(dg)
+
+    def pivot(p, j):
+        d = torch.sqrt(p)
+        dg[:, j], iv[:, j] = d, 1.0 / d
+        return (p > 0) & torch.isfinite(p)
+
+    ok = pivot(S[:, 0, 0], 0)
+    if n > 1:
+        l = S[:, 1, 0] * iv[:, 0]
+        ok &= pivot(S[:, 1, 1] - l * l, 1)
+    for j in range(0, n - 2, 2):
+        m = n - 2 - j
+        P = m * (m + 1) // 2
+        i0, i1 = iv[:, j].clone(), iv[:, j + 1].clone()
+        lc = S[:, j + 1, j] * i0
+        # the pivot thread
+        l20 = S[:, j + 2, j] * i0
+        l21 = (S[:, j + 2, j + 1] - l20 * lc) * i1
+        ok &= pivot((S[:, j + 2, j + 2] - l20 * l20) - l21 * l21, j + 2)
+        corner = [(j + 2, j + 2)]
+        if m > 1:
+            l30 = S[:, j + 3, j] * i0
+            l31 = (S[:, j + 3, j + 1] - l30 * lc) * i1
+            s32 = (S[:, j + 3, j + 2] - l30 * l20) - l31 * l21
+            l32 = s32 * iv[:, j + 2]
+            ok &= pivot(((S[:, j + 3, j + 3] - l30 * l30) - l31 * l31)
+                        - l32 * l32, j + 3)
+            corner += [(j + 3, j + 2), (j + 3, j + 3)]
+        # the general threads
+        act = [(i, k) for q, i, k in entries
+               if q < P - 2 and q != P - m - 1]
+        assert sorted(act) == [(i, k) for i in range(j + 2, n)
+                               for k in range(j + 2, i + 1)
+                               if (i, k) not in corner]
+        if act:
+            i_, k_ = torch.tensor(act).T
+            li0 = S[:, i_, j] * i0[:, None]
+            lk0 = S[:, k_, j] * i0[:, None]
+            li1 = (S[:, i_, j + 1] - li0 * lc[:, None]) * i1[:, None]
+            lk1 = (S[:, k_, j + 1] - lk0 * lc[:, None]) * i1[:, None]
+            S[:, i_, k_] = (S[:, i_, k_] - li0 * lk0) - li1 * lk1
+        if m > 1:
+            S[:, j + 3, j + 2] = s32
+    L = torch.diag_embed(dg)
+    for c in range(n - 1):
+        s = S[:, c + 1:, c]
+        if c % 2:
+            s = s - (S[:, c + 1:, c - 1] * iv[:, c - 1, None]) * (
+                S[:, c, c - 1] * iv[:, c - 1])[:, None]
+        L[:, c + 1:, c] = s * iv[:, c, None]
+    return torch.where(ok[:, None, None], L, float("nan"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 2, 15, 33, 39, 48, 63, 64])
+def test_block_branch_schedule_is_bit_for_bit_plain(n, dtype):
+    """K2's block branch (n = 33..64 up to 512 matrices; n <= 32 only in
+    k2_compare.py's "allblock" build): its schedule (right-looking, two
+    columns a step, the entries of each trailing triangle owned by the
+    same threads every step, the next two pivots taken beside the update,
+    a failed pivot flagging the block) equals chol_factor_plain to the last bit, NaN in exactly the same
+    matrices: SPD ones, indefinite ones, ones with NaN or inf in the lower
+    triangle, and SPD ones with NaN or inf above the diagonal (never
+    read)."""
+    rng = np.random.default_rng(1100 + n)
+    H = _bad_matrices(_spd(rng, 37, n) / n, n)
+    Ht = torch.as_tensor(H, dtype=dtype)
+    ours = _block_schedule(Ht)
+    plain = batched_chol.chol_factor_plain(Ht)
+    bad = torch.isnan(plain).flatten(1).all(1)
+    assert bool(bad.any()) and not bool(bad.all())
+    assert torch.equal(torch.isnan(ours), torch.isnan(plain))
+    assert torch.equal(ours[~bad], plain[~bad])
+
+
+def test_block_branch_fails_at_every_pivot():
+    """A failed pivot at each column j of n = 39 (H[j][j] = -1, an inf or
+    a NaN on the diagonal, a NaN below it in column j): the block stores
+    NaN throughout, as chol_factor_plain returns; the matrix beside them
+    stays bit for bit."""
+    n = 39
+    rng = np.random.default_rng(1200)
+    H = _spd(rng, 4 * n + 1, n) / n
+    for j in range(n):
+        H[j, j, j] = -1.0
+        H[n + j, j, j] = np.inf
+        H[2 * n + j, j, j] = np.nan
+        H[3 * n + j, n - 1, j] = np.nan if j < n - 1 else -np.inf
+    Ht = torch.as_tensor(H, dtype=torch.float32)
+    ours = _block_schedule(Ht)
+    plain = batched_chol.chol_factor_plain(Ht)
+    bad = torch.isnan(plain).flatten(1).all(1)
+    assert bad[:-1].all() and not bad[-1]
+    assert torch.isnan(ours[:-1]).all()
+    assert torch.equal(ours[-1], plain[-1])
 
 
 def test_k2_step_mix_reads_the_row_branch():
