@@ -12,8 +12,13 @@
 // branches below divide as it does (IEEE division) and differ from it
 // only by fused multiply-adds in the elimination.
 //
-// Layout: the natural row-major (batch, n, n) tensor, read once and
-// written once.
+// Layout: the output is the natural row-major (batch, n, n) tensor. The
+// input is either that, or a batch of matrices each stored as its
+// transpose (strides (n^2, 1, n)): the layout in which torch.func's
+// jacfwd under vmap hands over the IRK's stage Jacobians, which the
+// wrapper would otherwise copy first. Either is read once and the result
+// written once; only the loads differ (below), never the arithmetic, so
+// a transposed view inverts bit for bit as its row-major copy does.
 //
 // What bounds it on an H100 SXM (3.35 TB/s, 67 TFLOP/s float32 outside
 // the tensor cores): 2 n^2 x 4 bytes and about 2 n^3 flops a matrix.
@@ -45,6 +50,14 @@
 //     The owner's row takes them as the warp branch's does; in float32
 //     ptxas then predicates the update's multiply-adds off for the owner,
 //     which keeps the loaded quotients, so taking them costs nothing.
+//   - Transposed input: lane l's row is memory column l. At RL = 1 the
+//     lanes of a group read consecutive addresses j n + l at register j:
+//     scalar loads, each warp load covering whole 32-byte sectors, at any
+//     base alignment (at n = 16 faster than the row-major vector loads).
+//     At RL = 2 (j n + 2 l and j n + 2 l + 1, half of each sector a load)
+//     the warp instead stages its contiguous matrices through the tile
+//     below, with 16-byte loads where the base is aligned to them
+//     (kStageTransposed; k1_compare.py times the two).
 //   - Staging out through a per-matrix tile of row stride n + 1, then one
 //     coalesced store of the warp's matrices. A group past the batch
 //     inverts the identity and stores nothing: every lane of a warp takes
@@ -89,9 +102,11 @@
 //     48 (ptxas reports them in chip_smoke.py's build phase).
 //   - Staging: the warp copies its n^2 contiguous elements with
 //     consecutive lanes on consecutive addresses into a per-warp tile of
-//     row stride NP + 1 (odd: a walk down a column hits 32 banks), reads
-//     its rows from there, writes the result back through the tile to
-//     [pos_i][p_j], and stores it coalesced. Up to 4 warps a block, as
+//     row stride NP + 1 (odd: a walk down a column hits 32 banks; a
+//     transposed input is written down the tile's columns, which the odd
+//     stride keeps on distinct banks too), reads its rows from there,
+//     writes the result back through the tile to [pos_i][p_j], and stores
+//     it coalesced. Up to 4 warps a block, as
 //     many as fit in 48 KB of static shared memory.
 // At (10240, 39, 39) float32 (NP = 40) that is 224 warp instructions a
 // step (86 FFMA, 44 selects, 36 shared accesses, 2 redux, 34 integer and
@@ -107,6 +122,17 @@ namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxN = 48;
+// How a launch reads its input: row-major with the group branch's vector
+// loads (the base aligned to them), row-major by scalar loads, or each
+// matrix stored as its transpose.
+enum Load : int { kRowsVec = 0, kRows = 1, kTransposed = 2 };
+// The group branch's transposed loads at RL rows a lane: direct scalar
+// loads of each lane's rows (RL = 1: n = 2, 16), or the warp's matrices
+// staged through shared memory (RL = 2: n = 4, 8), the faster of the two
+// at each n on the H100 (k1_compare.py holds this choice against the
+// other by a copy that flips it).
+template <int RL>
+constexpr bool kStageTransposed = RL == 2;
 
 // ---- shared by both branches ----------------------------------------------
 
@@ -128,6 +154,23 @@ __device__ __forceinline__ bool finite_nonzero(double x) {
   return static_cast<unsigned long long>(__double_as_longlong(fabs(x))) -
              1ull <
          0x7fefffffffffffffull;
+}
+
+// x, its value hidden from the compiler. A zero numerator is divided as
+// 1 (and its quotient dropped for x * piv) because FCHK sends a zero
+// dividend to the division's slow path, a subroutine call a lane; seeing
+// that the quotient of 1 is dropped, the compiler would divide x itself
+// where the select gives x, and so every zero (57.8 % of the main path's
+// stage Jacobians) took the slow path: 0.1082 ms against 0.0897 on
+// N(0, 1) + 16 I at (81,920, 16, 16) float32 on the H100, the same
+// arithmetic (k1_compare.py --stage --variants).
+__device__ __forceinline__ float opaque(float x) {
+  asm("mov.b32 %0, %0;" : "+f"(x));
+  return x;
+}
+__device__ __forceinline__ double opaque(double x) {
+  asm("mov.b64 %0, %0;" : "+d"(x));
+  return x;
 }
 
 // A 16-byte shared store made only where p holds, predicated rather than
@@ -254,7 +297,7 @@ struct WarpCfg {
 template <typename T, int NP>
 __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
     gj_inv_warp(const T* __restrict__ A, T* __restrict__ out,
-                long long batch, int n) {
+                long long batch, int n, bool transposed) {
   using C = WarpCfg<T, NP>;
   constexpr int RL = C::kRows, LD = C::kLd, G = C::kGroup;
   __shared__ __align__(16) unsigned char smem[C::kWarps * C::kBytes];
@@ -271,8 +314,10 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
   const unsigned magic = ((1u << 20) + n - 1) / n;
 
   // stage: n^2 contiguous elements, consecutive lanes on consecutive
-  // addresses, 8 loads in flight a lane
+  // addresses, 8 loads in flight a lane; memory row r, column c is
+  // A[r][c], or A[c][r] where the input is transposed
   const T* a = A + m * nn;
+  const int ld_r = transposed ? 1 : LD, ld_c = transposed ? LD : 1;
   for (int e0 = 0; e0 < nn; e0 += 8 * 32) {
     T v[8];
 #pragma unroll
@@ -285,7 +330,7 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
       const int e = e0 + u * 32 + lane;
       if (e < nn) {
         const int r = static_cast<int>((static_cast<unsigned>(e) * magic) >> 20);
-        tile[r * LD + e - r * n] = v[u];
+        tile[r * ld_r + (e - r * n) * ld_c] = v[u];
       }
     }
   }
@@ -346,7 +391,7 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
         const int c = c0 + lane < NP ? c0 + lane : NP - 1;
         const T x = c == kk ? T(1) : raw[c];
         const bool z = plain_zero && x == T(0);
-        const T q = (z ? T(1) : x) / piv;
+        const T q = opaque(z ? T(1) : x) / piv;
         quot[c] = z ? x * piv : q;
       }
       __syncwarp();
@@ -473,10 +518,75 @@ struct GroupCfg {
                 "group");
 };
 
+// The group branch's transposed input staged through shared memory (where
+// kStageTransposed): the warp's matrices m0 .. m0 + G - 1 are
+// contiguous, so its lanes load them with consecutive lanes on consecutive
+// 16-byte vectors (scalars where the base is not aligned to them), write
+// each element into its matrix's tile at (column, row), and each lane
+// then reads its rows from the tile. A matrix past the batch is the
+// identity.
+template <typename T, int N, int RL>
+__device__ __forceinline__ void stage_transposed(
+    const T* __restrict__ A, long long batch, long long m0,
+    unsigned char* base, T (&R)[RL][N], int (&pos)[RL]) {
+  using C = GroupCfg<T, N, RL>;
+  constexpr int L = C::kLanes, G = C::kMats, LD = C::kLd;
+  constexpr int VK = 16 / static_cast<int>(sizeof(T));
+  const int lane = threadIdx.x & 31;
+  const int gl = lane % L;
+  unsigned char* wbase = base - (lane / L) * C::kBytes;
+  const long long left =
+      (batch - m0 < G ? batch - m0 : G) * static_cast<long long>(N * N);
+  const T* a = A + m0 * (N * N);
+  auto put = [&](int e, T v) {
+    const int g = e / (N * N), r = (e / N) % N, c = e % N;
+    reinterpret_cast<T*>(wbase + g * C::kBytes)[2 * N + c * LD + r] = v;
+  };
+  const bool vec = reinterpret_cast<unsigned long long>(a) % 16 == 0 &&
+                   left == G * N * N && (N * N) % VK == 0;
+  if (vec) {
+#pragma unroll
+    for (int e0 = 0; e0 < G * N * N; e0 += 32 * VK) {
+      const int e = e0 + lane * VK;
+      if (e < G * N * N) {
+        if constexpr (sizeof(T) == 4) {
+          const float4 v = *reinterpret_cast<const float4*>(a + e);
+          put(e, v.x);
+          put(e + 1, v.y);
+          put(e + 2, v.z);
+          put(e + 3, v.w);
+        } else {
+          const double2 v = *reinterpret_cast<const double2*>(a + e);
+          put(e, v.x);
+          put(e + 1, v.y);
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int e0 = 0; e0 < G * N * N; e0 += 32) {
+      const int e = e0 + lane;
+      if (e < G * N * N) {
+        put(e, e < left ? a[e] : T((e / N) % N == e % N));
+      }
+    }
+  }
+  __syncwarp();
+  const T* tile = reinterpret_cast<const T*>(base) + 2 * N;
+#pragma unroll
+  for (int t = 0; t < RL; ++t) {
+    const int r = gl * RL + t;
+    pos[t] = r;
+#pragma unroll
+    for (int j = 0; j < N; ++j) R[t][j] = tile[r * LD + j];
+  }
+  __syncwarp();
+}
+
 template <typename T, int N, int RL>
 __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
     gj_inv_group(const T* __restrict__ A, T* __restrict__ out,
-                 long long batch, bool vec) {
+                 long long batch, Load load) {
   using C = GroupCfg<T, N, RL>;
   constexpr int L = C::kLanes, G = C::kMats, LD = C::kLd;
   __shared__ __align__(16) unsigned char smem[C::kWarps * G * C::kBytes];
@@ -494,19 +604,37 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
   T* quot = raw + N;
   T* tile = quot + N;
 
-  // rows gl * RL + t of the matrix, contiguous in A; position = row
+  // rows gl * RL + t of the matrix; position = row. Row-major, a row is
+  // contiguous in A; transposed, it is column r of the stored block, so
+  // the group's lanes read consecutive addresses at each register j.
   T R[RL][N];
   int pos[RL];
+  bool staged = false;
+  if constexpr (kStageTransposed<RL>) {
+    if (load == kTransposed) {
+      stage_transposed<T, N, RL>(A, batch, m0, base, R, pos);
+      staged = true;
+    }
+  }
+  if (!staged) {
 #pragma unroll
-  for (int t = 0; t < RL; ++t) {
-    const int r = gl * RL + t;
-    pos[t] = r;
-    const T* a = A + m * (N * N) + r * N;
-    if (m < batch && vec) {
-      load_vec(R[t], a);
-    } else {
+    for (int t = 0; t < RL; ++t) {
+      const int r = gl * RL + t;
+      pos[t] = r;
+      const T* a = A + m * (N * N);
+      if (load == kTransposed) {
 #pragma unroll
-      for (int j = 0; j < N; ++j) R[t][j] = m < batch ? a[j] : T(r == j);
+        for (int j = 0; j < N; ++j) {
+          R[t][j] = m < batch ? a[j * N + r] : T(r == j);
+        }
+      } else if (m < batch && load == kRowsVec) {
+        load_vec(R[t], a + r * N);
+      } else {
+#pragma unroll
+        for (int j = 0; j < N; ++j) {
+          R[t][j] = m < batch ? a[r * N + j] : T(r == j);
+        }
+      }
     }
   }
 
@@ -548,7 +676,7 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
       const int c = gl + t * L;
       const T x = c == k ? T(1) : raw[c];
       const bool z = plain_zero && x == T(0);
-      const T q = (z ? T(1) : x) / piv;
+      const T q = opaque(z ? T(1) : x) / piv;
       quot[c] = z ? x * piv : q;
     }
     __syncwarp();
@@ -597,47 +725,54 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
 }
 
 template <typename T, int N, int RL>
-void launch_group(const T* A, T* out, long long batch, cudaStream_t stream) {
+void launch_group(const T* A, T* out, long long batch, bool transposed,
+                  cudaStream_t stream) {
   using C = GroupCfg<T, N, RL>;
   const long long warps = (batch + C::kMats - 1) / C::kMats;
   const long long blocks = (warps + C::kWarps - 1) / C::kWarps;
-  // rows load as vectors where A is aligned to them (a fresh tensor is)
+  // row-major rows load as vectors where A is aligned to them (a fresh
+  // tensor is)
   constexpr int kVecBytes = vec_len<T, N>() * static_cast<int>(sizeof(T));
-  const bool vec = reinterpret_cast<unsigned long long>(A) % kVecBytes == 0;
+  const Load load =
+      transposed ? kTransposed
+                 : (reinterpret_cast<unsigned long long>(A) % kVecBytes == 0
+                        ? kRowsVec
+                        : kRows);
   gj_inv_group<T, N, RL>
       <<<static_cast<unsigned>(blocks), C::kWarps * 32, 0, stream>>>(
-          A, out, batch, vec);
+          A, out, batch, load);
 }
 
 template <typename T, int NP>
 void launch_warp(const T* A, T* out, long long batch, int n,
-                 cudaStream_t stream) {
+                 bool transposed, cudaStream_t stream) {
   constexpr int W = WarpCfg<T, NP>::kWarps;
   const long long blocks = (batch + W - 1) / W;
   gj_inv_warp<T, NP><<<static_cast<unsigned>(blocks), W * 32, 0, stream>>>(
-      A, out, batch, n);
+      A, out, batch, n, transposed);
 }
 
 template <typename T>
-int launch(const T* A, T* out, long long batch, int n, void* stream_ptr) {
+int launch(const T* A, T* out, long long batch, int n, bool tr,
+           void* stream_ptr) {
   if (n < 1 || n > kMaxN || batch < 0 || batch > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (batch == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (n) {
-    case 2: launch_group<T, 2, 1>(A, out, batch, stream); break;
-    case 4: launch_group<T, 4, 2>(A, out, batch, stream); break;
-    case 8: launch_group<T, 8, 2>(A, out, batch, stream); break;
-    case 16: launch_group<T, 16, 1>(A, out, batch, stream); break;
+    case 2: launch_group<T, 2, 1>(A, out, batch, tr, stream); break;
+    case 4: launch_group<T, 4, 2>(A, out, batch, tr, stream); break;
+    case 8: launch_group<T, 8, 2>(A, out, batch, tr, stream); break;
+    case 16: launch_group<T, 16, 1>(A, out, batch, tr, stream); break;
     default:
       switch ((n + 7) / 8) {
-        case 1: launch_warp<T, 8>(A, out, batch, n, stream); break;
-        case 2: launch_warp<T, 16>(A, out, batch, n, stream); break;
-        case 3: launch_warp<T, 24>(A, out, batch, n, stream); break;
-        case 4: launch_warp<T, 32>(A, out, batch, n, stream); break;
-        case 5: launch_warp<T, 40>(A, out, batch, n, stream); break;
-        default: launch_warp<T, 48>(A, out, batch, n, stream); break;
+        case 1: launch_warp<T, 8>(A, out, batch, n, tr, stream); break;
+        case 2: launch_warp<T, 16>(A, out, batch, n, tr, stream); break;
+        case 3: launch_warp<T, 24>(A, out, batch, n, tr, stream); break;
+        case 4: launch_warp<T, 32>(A, out, batch, n, tr, stream); break;
+        case 5: launch_warp<T, 40>(A, out, batch, n, tr, stream); break;
+        default: launch_warp<T, 48>(A, out, batch, n, tr, stream); break;
       }
   }
   return static_cast<int>(cudaGetLastError());
@@ -645,12 +780,24 @@ int launch(const T* A, T* out, long long batch, int n, void* stream_ptr) {
 
 }  // namespace
 
+// A: the (batch, n, n) input, row-major; the _tr entries take each matrix
+// stored as its transpose (strides (n^2, 1, n)). out: row-major.
 extern "C" int gj_inverse_f32(const float* A, float* out, long long batch,
                               int n, void* stream) {
-  return launch<float>(A, out, batch, n, stream);
+  return launch<float>(A, out, batch, n, false, stream);
 }
 
 extern "C" int gj_inverse_f64(const double* A, double* out, long long batch,
                               int n, void* stream) {
-  return launch<double>(A, out, batch, n, stream);
+  return launch<double>(A, out, batch, n, false, stream);
+}
+
+extern "C" int gj_inverse_tr_f32(const float* A, float* out,
+                                 long long batch, int n, void* stream) {
+  return launch<float>(A, out, batch, n, true, stream);
+}
+
+extern "C" int gj_inverse_tr_f64(const double* A, double* out,
+                                 long long batch, int n, void* stream) {
+  return launch<double>(A, out, batch, n, true, stream);
 }

@@ -18,6 +18,13 @@ updates that leave them so (tests/test_torch_ops.py holds a PyTorch model
 of that schedule against `gj_inverse_plain` bit for bit). Both branches
 differ from the plain version only by fused multiply-adds.
 
+The kernel reads its input row-major or, in place, as a batch of
+matrices each stored as its transpose (`input_layout`): the IRK hands
+over its stage Jacobians so, as torch.func's jacfwd under vmap builds
+them. Any other layout is copied to row-major first. The result is
+row-major either way, and a transposed view inverts bit for bit as its
+row-major copy does.
+
 `gj_inverse_any` takes (..., n, n) and flattens every leading axis into
 one launch, and under `torch.func.vmap` folds every vmapped axis in as
 well, which is what the JAX package's `custom_vmap` collapse does: the
@@ -73,11 +80,26 @@ def gj_inverse_plain(A: torch.Tensor) -> torch.Tensor:
     return M[..., :, n:]
 
 
+def input_layout(A: torch.Tensor) -> str:
+    """How the kernel reads a (B, n, n) input: "rows" where A is
+    contiguous; "transposed" where A is the transpose of a contiguous
+    (B, n, n) block, strides (n^2, 1, n), as torch.func's jacfwd under
+    vmap hands over the IRK's stage Jacobians; "copy" for any other
+    layout, which the wrapper copies to rows first."""
+    if A.is_contiguous():
+        return "rows"
+    if A.transpose(-1, -2).is_contiguous():
+        return "transposed"
+    return "copy"
+
+
 def _gj_inverse_cuda(A: torch.Tensor,
                      source: str = "gj_inverse") -> torch.Tensor:
-    """Launch the CUDA kernel on a (B, n, n) CUDA tensor. source: its
-    library, `cuda_build`'s name for csrc/gj_inverse.cu or the path of a
-    copy of that file (to hold two versions of the kernel side by side)."""
+    """Launch the CUDA kernel on a (B, n, n) CUDA tensor, reading it in
+    place where `input_layout` allows; the result is row-major. source:
+    its library, `cuda_build`'s name for csrc/gj_inverse.cu or the path
+    of a copy of that file (to hold two versions of the kernel side by
+    side)."""
     if A.device.type != "cuda":
         raise ValueError(f"the CUDA kernel needs a CUDA tensor, got "
                          f"{A.device}")
@@ -89,13 +111,16 @@ def _gj_inverse_cuda(A: torch.Tensor,
     n = A.shape[-1]
     if not 1 <= n <= _GJ_MAX_N:
         raise ValueError(f"kernel takes 1 <= n <= {_GJ_MAX_N}, got {n}")
-    A = A.contiguous()
-    out = torch.empty_like(A)
+    layout = input_layout(A)
+    if layout == "copy":
+        A = A.contiguous()
+    out = torch.empty(A.shape, dtype=A.dtype, device=A.device)
     if A.shape[0] == 0:
         return out  # nothing to launch, nothing to count
     lib = cuda_build.load(source)
-    fn = lib.gj_inverse_f32 if A.dtype == torch.float32 \
-        else lib.gj_inverse_f64
+    fn = getattr(lib, ("gj_inverse_tr_" if layout == "transposed"
+                       else "gj_inverse_")
+                 + ("f32" if A.dtype == torch.float32 else "f64"))
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int

@@ -20,8 +20,11 @@ failure exits non-zero:
     agree bit for bit only under the lowest-index tie rule, and on the
     edge cases of both branches (every n = 1..48 at B = 7; B = 1, 2, 3,
     33 at n = 9, 29, 39, 48; B = 1, 2, 3, 33, 65, 1023 at n = 2, 4, 8,
-    16; n = 2, 3, 16 at B = 200,003; a misaligned input at n = 2 and 16);
-    linsolve on the card launching K1 for small n too; then K1's time at
+    16; n = 2, 3, 16 at B = 200,003; a misaligned input at n = 2 and 16),
+    and the same edge cases (n = 16 alone at B = 200,003) as transposed
+    views, the layout in which the IRK hands K1 its stage Jacobians, each
+    bit for bit the kernel on the view's contiguous copy; linsolve on the
+    card launching K1 for small n too; then K1's time at
     the main-path shape beside its bound, the plain version and
     torch.linalg.inv, and over both branches' grid (n = 9, 21, 29, 39, 48
     at B = 10240 and n = 2, 4, 8, 16 at B = 81920 float32,
@@ -711,6 +714,28 @@ def check_inverse(name, A, inv_kernel, bound, quiet=False):
     if not ok:
         raise SystemExit(f"K1 disagrees with its plain version: {name}")
     return rel, abs_err, resid
+
+
+def transposed_view(A):
+    """The same matrices as A, each stored as its transpose: strides
+    (n^2, 1, n), the layout of the IRK's stage Jacobians."""
+    return A.transpose(-1, -2).contiguous().transpose(-1, -2)
+
+
+def check_transposed(name, A, kern, bound, quiet=True):
+    """K1 on A, a view the kernel reads in place (input_layout
+    "transposed"; "rows" at n = 1, where the view is contiguous), bit for
+    bit against the kernel on A's contiguous copy and within bound of the
+    plain version; returns check_inverse's (rel_err, abs_err, resid)."""
+    from acados_tpu_torch.ops.batched_inv import input_layout
+    layout = input_layout(A)
+    same = same_bits(kern(A), kern(A.contiguous()))
+    if layout != ("rows" if A.is_contiguous() else "transposed") \
+            or not same:
+        raise SystemExit(f"K1 on a transposed view: {name} {A.dtype} read "
+                         f"as {layout!r}, bit for bit its contiguous "
+                         f"copy's: {same}")
+    return check_inverse(name + " transposed", A, kern, bound, quiet=quiet)
 
 
 def rti_batch(ocp_kw, B, device, seed=SEED, qp_solver=None,
@@ -1607,7 +1632,11 @@ def k1_edge_cases(dev, rng, kern):
     pivot and stay well conditioned: 200,003 draws of N(0, 1) + 3 I hold
     matrices so ill-conditioned that the kernel's fused multiply-adds
     alone move their inverses by more than F32_BOUND or F64_BOUND of the
-    batch's largest entry (k1_compare.py logs such batches)."""
+    batch's largest entry (k1_compare.py logs such batches). Each row-major
+    batch's transposed view (every batch above but the long ones at n = 2,
+    3, one long batch at n = 16, and transposed views misaligned by an
+    element at n = 2, 8, 16, 39) goes through check_transposed: bit for
+    bit the kernel on its contiguous copy, and within bound."""
     import torch
     from acados_tpu_torch.ops.batched_inv import _GJ_MAX_N
     for dtype, bound in ((torch.float32, F32_BOUND),
@@ -1615,33 +1644,48 @@ def k1_edge_cases(dev, rng, kern):
         cases = [(n, K1_SWEEP_B) for n in range(1, _GJ_MAX_N + 1)]
         cases += [(n, B) for n in K1_EDGE_N for B in K1_EDGE_B]
         cases += [(n, B) for n in K1_GROUP_N for B in K1_GROUP_EDGE_B]
-        worst = 0.0
+        worst = worst_t = 0.0
         for n, B in cases:
             A = torch.as_tensor(rng.normal(size=(B, n, n)) + n * np.eye(n),
                                 dtype=dtype, device=dev)
             worst = max(worst, check_inverse(f"edge n={n} B={B}", A, kern,
                                              bound, quiet=True)[0])
+            worst_t = max(worst_t, check_transposed(
+                f"edge n={n} B={B}", transposed_view(A), kern, bound)[0])
         for n in K1_LONG_N:
             A = rng.uniform(-1.0, 1.0, (K1_LONG_B, n, n)) + 2 * n * np.eye(n)
-            A = np.take_along_axis(
-                A, np.argsort(rng.random((K1_LONG_B, n)))[..., None], 1)
+            A = torch.as_tensor(np.take_along_axis(
+                A, np.argsort(rng.random((K1_LONG_B, n)))[..., None], 1),
+                dtype=dtype, device=dev)
             worst = max(worst, check_inverse(
-                f"long n={n} B={K1_LONG_B}", torch.as_tensor(
-                    A, dtype=dtype, device=dev), kern, bound, quiet=True)[0])
-        for n in (2, 16):
+                f"long n={n} B={K1_LONG_B}", A, kern, bound, quiet=True)[0])
+            if n == 16:
+                worst_t = max(worst_t, check_transposed(
+                    f"long n={n} B={K1_LONG_B}", transposed_view(A), kern,
+                    bound)[0])
+        for n in (2, 8, 16, 39):
             B = 1023
             flat = torch.empty(B * n * n + 1, dtype=dtype, device=dev)
             A = flat[1:].view(B, n, n)
             A.copy_(torch.as_tensor(rng.normal(size=(B, n, n))
                                     + n * np.eye(n), dtype=dtype))
-            worst = max(worst, check_inverse(
-                f"misaligned n={n} B={B}", A, kern, bound, quiet=True)[0])
+            if n in (2, 16):
+                worst = max(worst, check_inverse(
+                    f"misaligned n={n} B={B}", A, kern, bound,
+                    quiet=True)[0])
+            worst_t = max(worst_t, check_transposed(
+                f"misaligned n={n} B={B}", A.transpose(-1, -2), kern,
+                bound)[0])
         log(f"  edge cases {str(dtype):<14} {len(cases) + len(K1_LONG_N) + 2}"
             f" batches (n = 1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in "
             f"{K1_EDGE_N} at B in {K1_EDGE_B}; n in {K1_GROUP_N} at B in "
             f"{K1_GROUP_EDGE_B}; n in {K1_LONG_N} dominant, rows permuted, "
             f"at B = {K1_LONG_B}; misaligned n = 2, 16): worst "
-            f"max|k-p|/max|p| {worst:.3e}, bound {bound:g}, ok")
+            f"max|k-p|/max|p| {worst:.3e}, bound {bound:g}, ok; their "
+            f"transposed views ({len(cases) + 5} batches: the same, the "
+            f"long one at n = 16 only, misaligned n = 2, 8, 16, 39) each "
+            f"bit for bit its contiguous copy, worst max|k-p|/max|p| "
+            f"{worst_t:.3e}, ok")
 
 
 def k1_bound(A):
@@ -1654,14 +1698,17 @@ def k1_bound(A):
     return bound_of(2 * M * n * n * A.element_size(), 2 * M * n ** 3, peak)
 
 
-def k1_grid(kerns: dict, parent=None, order=None) -> list:
+def k1_grid(kerns: dict, parent=None, order=None,
+            transposed=False) -> list:
     """Device ms back to back of each K1 wrapper in kerns ({label: fn}),
     called in turns (order: labels, default each once), over both
     branches' grid (n in K1_BRANCH_N x B in K1_GRID_B and n in K1_GROUP_N
     x B in K1_GROUP_GRID_B, float32, and (10240, 39, 39) and
     (81920, 16, 16) float64), beside torch.linalg.inv (CUDA events around
     one call: it waits for the host) and the bound. parent: device ms of
-    an earlier build by (n, B, dtype name), logged beside."""
+    an earlier build by (n, B, dtype name), logged beside. transposed:
+    each wrapper also on the same matrices as a transposed view (label
+    + "/tr"), in the same turn."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -1677,9 +1724,13 @@ def k1_grid(kerns: dict, parent=None, order=None) -> list:
     for n, B, dtype in cells:
         A = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype) \
             + n * torch.eye(n, device=dev, dtype=dtype)
-        times = {label: [] for label in kerns}
+        views = {"": A}
+        if transposed:
+            views["/tr"] = transposed_view(A)
+        times = {label + v: [] for label in kerns for v in views}
         for label in order:
-            times[label].append(device_ms(lambda: kerns[label](A)))
+            for v, X in views.items():
+                times[label + v].append(device_ms(lambda: kerns[label](X)))
         lib = cuda_ms(lambda: torch.linalg.inv(A), reps=10)
         b_ms, b_by = k1_bound(A)
         dt = str(dtype).split(".")[-1]
@@ -1702,12 +1753,14 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
     torch.linalg.inv's, and the bound. before: the replaced branch's
     device ms at this shape, logged beside. A as the solver hands it over:
     where it is not contiguous (the IRK stage Jacobians come transposed),
-    each wrapper call copies it first, and the device time on a
-    contiguous copy is given beside, for the kernel alone."""
+    the wrapper reads it in place or copies it first (input_layout, logged
+    and kept as "layout"), and the device time on a contiguous copy is
+    given beside."""
     import torch
     from acados_tpu_torch.ops import batched_inv
     kern = batched_inv._gj_inverse_cuda
     M, n = A.shape[0], A.shape[-1]
+    layout = batched_inv.input_layout(A)
     k_ms = cuda_ms(lambda: kern(A), reps=30)
     k_dev_ms = device_ms(lambda: kern(A))
     contiguous = {}
@@ -1721,7 +1774,9 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
     b_ms, b_by = k1_bound(A)
     was = f"; the replaced branch: {before}" if before else ""
     if contiguous:
-        was += (f"; strides {A.stride()}, so the wrapper's copy is in it: "
+        how = ("read in place" if layout == "transposed"
+               else "the wrapper's copy is in it")
+        was += (f"; strides {A.stride()}, layout {layout!r}: {how}; "
                 f"{contiguous['contiguous_device_ms']:.4f} ms on a "
                 f"contiguous copy")
     log(f"K1 at {tuple(A.shape)} float32: kernel {k_ms:.4f} ms (device "
@@ -1731,7 +1786,7 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
     return {"name": name, "route": "cuda",
             "source": "acados_tpu_torch/csrc/gj_inverse.cu",
             "replaces": "acados_tpu/ops/batched_inv.py:39",
-            "shape": list(A.shape), "launches": launches,
+            "shape": list(A.shape), "layout": layout, "launches": launches,
             "max_abs_err": abs_err, "max_rel_err_f32": rel, "ms": k_ms,
             "device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms, **contiguous}
@@ -2869,12 +2924,14 @@ def qp_solver_gaps(label, solver, cond_N, where, ref_where) -> bool:
 # the Newton SQP (phase 27): bench_pendulum_irk_sqp's problem (SQP, IRK,
 # N = 20, float32, the main path's batch and x0s) with the exact Hessian,
 # CONVEXIFY and the merit line search; its Gauss-Newton solve of the
-# same x0s is phase 21's. MIRROR
-# (newton_batch with regularize_method="MIRROR"), whose solve the port's
-# CPU tests hold, takes 69-92 SQP iterations an instance from these x0s
-# on the CPU (float32, B = 8 and 64) and on the H100 at B = 4096 ran to
-# max_iter 100 with one instance unconverged: its call would not fit the
-# script's time limit. CONVEXIFY leaves the Hessian as it is where the
+# same x0s is phase 21's. MIRROR (newton_batch with
+# regularize_method="MIRROR"), whose solve the port's CPU tests hold,
+# takes 72.0 SQP iterations an instance on average at B = 4096 on the
+# H100, and one instance, 2135, runs to max_iter 100 (367.5 s a call: it
+# would not fit the script's time limit). That instance converges in
+# 98-99 iterations alone, on the card and on the CPU, in both packages
+# (sqp_f32_settle.py): float32 rounding that follows the batch size, not
+# a fault. CONVEXIFY leaves the Hessian as it is where the
 # reduced Hessian is convex and keeps Newton's local convergence (16-29
 # iterations on the CPU at B = 8).
 NEWTON_SO = dict(hessian_approx="EXACT", regularize_method="CONVEXIFY",
@@ -5170,21 +5227,15 @@ def main() -> int:
         stop_cpu_refs()
 
 
-def card_phases(dev, t_run, at) -> int:
-    """Phases 3-41 (see the module docstring)."""
+def stage_jacobians(dev):
+    """The main path's batch solver and the stage Jacobians of one
+    linearisation, (B_MAIN * N_HORIZON, 16, 16) float32 as the IRK step
+    hands them to K1: the first inverse it asks for at the initial
+    iterate."""
     import torch
-    from acados_tpu_torch.dense_qp import ipm as dense_ipm
-    from acados_tpu_torch.ops import batched_chol, batched_inv
-    from acados_tpu_torch.ops.linsolve import linsolve
-
-    # ---- 3. K1 against its plain version --------------------------------------
-    at(3)
-    log("K1 gj_inverse: kernel vs plain version on the card")
-    solver, ocp = rti_batch(dict(N=N_HORIZON, dtype="float32",
-                                 nlp_solver_type="SQP_RTI",
-                                 integrator_type="IRK"), B_MAIN, dev)
-    # stage Jacobians of one linearisation of the main path: the first
-    # inverse the IRK step asks for at the initial iterate
+    solver, _ = rti_batch(dict(N=N_HORIZON, dtype="float32",
+                               nlp_solver_type="SQP_RTI",
+                               integrator_type="IRK"), B_MAIN, dev)
     data = solver._data
     M = B_MAIN * N_HORIZON
     flat = lambda a: torch.as_tensor(
@@ -5200,11 +5251,26 @@ def card_phases(dev, t_run, at) -> int:
     J = k1.first
     if J.shape != (M, 16, 16):
         raise SystemExit(f"unexpected stage Jacobian shape {tuple(J.shape)}")
+    return solver, J
+
+
+def card_phases(dev, t_run, at) -> int:
+    """Phases 3-41 (see the module docstring)."""
+    import torch
+    from acados_tpu_torch.dense_qp import ipm as dense_ipm
+    from acados_tpu_torch.ops import batched_chol, batched_inv
+    from acados_tpu_torch.ops.linsolve import linsolve
+
+    # ---- 3. K1 against its plain version --------------------------------------
+    at(3)
+    log("K1 gj_inverse: kernel vs plain version on the card")
+    solver, J = stage_jacobians(dev)
     kern = batched_inv._gj_inverse_cuda
-    rel32, abs32, res32 = check_inverse(
-        f"stage Jacobians {tuple(J.shape)}", J, kern, F32_BOUND)
-    check_inverse(f"stage Jacobians {tuple(J.shape)}", J.double(), kern,
-                  F64_BOUND)
+    # handed over transposed (strides (256, 1, 16)), read in place
+    rel32, abs32, res32 = check_transposed(
+        f"stage Jacobians {tuple(J.shape)}", J, kern, F32_BOUND, quiet=False)
+    check_transposed(f"stage Jacobians {tuple(J.shape)}", J.double(), kern,
+                     F64_BOUND, quiet=False)
     rng = np.random.default_rng(SEED)
     k1_batches(dev, rng, kern)
     k1_edge_cases(dev, rng, kern)

@@ -4,11 +4,30 @@ GPU: each against the plain version (chip_smoke.py's K1 batches and edge
 cases), on N(0, 1) + 3 I at n = 3 against the plain version and against
 each other, each later build against the first bit for bit on the group
 branch's batches (n = 2, 4, 8, 16), then their device times in turns over
-K1's grid.
+K1's grid, each cell on its row-major batch and on the same matrices as a
+transposed view (label/tr; the layout the IRK hands over, read in place
+by a build that has the gj_inverse_tr_* entry points, copied first by the
+wrapper as the parent did for one that has not).
 
 Run from the root of the repository:
 
-    python3 k1_compare.py [--sass] [LABEL=PATH.cu ...]
+    python3 k1_compare.py [--sass] [--stage] [--variants] [LABEL=PATH.cu ...]
+
+--stage also captures the main path's stage Jacobians, (81,920, 16, 16)
+float32 as the IRK hands them over (chip_smoke.stage_jacobians), and
+times each build in turns on them as handed over, on their contiguous
+copy and on variants that each change one property of the data (N(0, 1)
++ 16 I, their exact zeros filled, N(0, 1) + 16 I with their zeros, their
+rows permuted, 1e-2 N(0, 1) + I, the identity), logging each variant's
+share of zeros and of matrices whose pivot search swaps a row.
+--variants adds builds of the `now` source (or the package's) with one
+change each (VARIANTS, written under build/): flip_tr, the group
+branch's other transposed loads at each n (see below); seethrough, the
+numerator's select left visible to the compiler (which then divides
+zeros on the slow path, as the parent did); divzero, zero numerators
+divided as the others (the same results: x / piv and x * piv are the
+same signed zero); nodiv, the quotients multiplied instead of divided
+(wrong results, timed all the same).
 
 With no LABEL=PATH it builds acados_tpu_torch/csrc/gj_inverse.cu alone. To
 hold the source against an earlier commit's, write that copy under build/
@@ -30,6 +49,15 @@ exit code 1. --sass prints, for each build, the SASS instruction mix of
 one elimination step (cuobjdump) for each band of the warp branch and
 each instance of the group branch. Needs one GPU and nvcc; imports
 nothing of JAX.
+
+The group branch's transposed loads (direct scalar loads at one row a
+lane, the warp's matrices staged through shared memory at two) are held
+against the other choice at each n by a copy that flips kStageTransposed:
+
+    sed -e 's/kStageTransposed = RL == 2/kStageTransposed = RL != 2/' \
+        acados_tpu_torch/csrc/gj_inverse.cu > build/gj_inverse_flip_tr.cu
+    python3 k1_compare.py --stage now=acados_tpu_torch/csrc/gj_inverse.cu \
+        flip_tr=build/gj_inverse_flip_tr.cu
 
 The group branch's rows a lane (RL, 1 or 2 at each n) are held against
 the other choice by a copy that differs in the dispatch lines alone:
@@ -59,6 +87,34 @@ import chip_smoke as cs
 ROOT = Path(__file__).resolve().parent
 SOURCE = "acados_tpu_torch/csrc/gj_inverse.cu"
 ILL_SEEDS = (0, 1, 2, 3)
+# copies of the source with one change each, for timing (--variants)
+_DIVIDE = "const T q = opaque(z ? T(1) : x) / piv;"
+VARIANTS = {
+    "flip_tr": (("kStageTransposed = RL == 2", "kStageTransposed = RL != 2"),),
+    "seethrough": ((_DIVIDE, _DIVIDE.replace("opaque(z ? T(1) : x)",
+                                             "(z ? T(1) : x)")),),
+    "divzero": (("const bool z = plain_zero && x == T(0);",
+                 "const bool z = false && plain_zero;"),),
+    "nodiv": ((_DIVIDE, _DIVIDE.replace(" / piv", " * piv")),)}
+
+
+def variants(source: str) -> dict:
+    """{label: path} of copies of `source` with VARIANTS applied (every
+    occurrence: both branches), written under build/."""
+    text = (ROOT / source).read_text()
+    out = {}
+    for label, edits in VARIANTS.items():
+        t = text
+        for old, new in edits:
+            if old not in t:
+                raise SystemExit(f"variant {label}: the source has no "
+                                 f"{old!r}")
+            t = t.replace(old, new)
+        path = ROOT / "build" / f"gj_inverse_{label}.cu"
+        path.parent.mkdir(exist_ok=True)
+        path.write_text(t)
+        out[label] = str(path.relative_to(ROOT))
+    return out
 
 
 def build(specs: dict) -> dict:
@@ -79,9 +135,99 @@ def build(specs: dict) -> dict:
             elif kernel and ("registers" in line or "spill" in line):
                 cs.log(f"  ptxas {label} {kernel}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
-    return {label: functools.partial(batched_inv._gj_inverse_cuda,
-                                     source=path)
-            for label, path in paths.items()}
+    kerns = {}
+    for label, path in paths.items():
+        kern = functools.partial(batched_inv._gj_inverse_cuda, source=path)
+        if not hasattr(cuda_build.load(path), "gj_inverse_tr_f32"):
+            kern = functools.partial(_copy_first, kern)
+        kerns[label] = kern
+    return kerns
+
+
+def _copy_first(kern, A):
+    """A build without the transposed entry points, called as its own
+    wrapper called it: on a row-major copy of any other layout."""
+    return kern(A.contiguous())
+
+
+def pivot_swaps(A) -> float:
+    """The share of the matrices of A whose partial pivoting swaps a row
+    at some step (gj_inverse_plain's pivot search, in A's type)."""
+    import torch
+    n = A.shape[-1]
+    M = A.clone()
+    idx = torch.arange(n, device=A.device)
+    swapped = torch.zeros(A.shape[0], dtype=torch.bool, device=A.device)
+    rows = torch.arange(A.shape[0], device=A.device)
+    for k in range(n):
+        mag = torch.where(idx >= k, M[:, :, k].abs(), -1.0)
+        p = mag.argmax(-1)
+        swapped |= p != k
+        rk, rp = M[:, k].clone(), M[rows, p].clone()
+        M[rows, p] = rk
+        M[:, k] = rp / rp[:, k:k + 1]
+        f = torch.where(idx == k, 0.0, M[:, :, k])
+        M = M - f[:, :, None] * M[:, k][:, None, :]
+        M[:, k] = rp / rp[:, k:k + 1]
+    return float(swapped.double().mean())
+
+
+def stage_gap(kerns: dict) -> list:
+    """Device ms back to back of each build, in turns (labels, then
+    reversed), on the main path's stage Jacobians J as handed over, on
+    J's contiguous copy and on row-major variants of the same shape, each
+    changing one property of J; every result bit for bit the first
+    build's on J's contiguous copy where the input is J."""
+    import torch
+    from acados_tpu_torch.ops.batched_inv import input_layout
+    _, J = cs.stage_jacobians(torch.device("cuda"))
+    gen = torch.Generator(device=J.device).manual_seed(cs.SEED)
+    n = J.shape[-1]
+    eye = torch.eye(n, device=J.device)
+    noise = torch.randn(J.shape, generator=gen, device=J.device)
+    Jc = J.contiguous()
+    perm = torch.argsort(torch.rand(J.shape[:2], generator=gen,
+                                    device=J.device), dim=1)
+    variants = {
+        "J as handed over": J,
+        "J contiguous": Jc,
+        "N(0, 1) + 16 I": noise + n * eye,
+        "J, zeros filled by 1e-3 N(0, 1)": Jc + (Jc == 0) * 1e-3 * noise,
+        "N(0, 1) + 16 I with J's zeros": (noise + n * eye) * (Jc != 0),
+        "J, rows permuted": torch.take_along_dim(Jc, perm[..., None], 1),
+        "1e-2 N(0, 1) + I": 1e-2 * noise + eye,
+        "identity": eye.expand(J.shape).contiguous(),
+    }
+    first = next(iter(kerns.values()))
+    ref = first(Jc)
+    labels = list(kerns)
+    rows, differ = [], []
+    cs.log(f"K1 on the main path's stage Jacobians {tuple(J.shape)} float32 "
+           f"(strides {J.stride()}) and variants, device ms back to back "
+           f"in turns {labels + labels[::-1]}:")
+    for name, X in variants.items():
+        if X.data_ptr() == J.data_ptr() or name == "J contiguous":
+            for label, kern in kerns.items():
+                if not cs.same_bits(kern(X), ref) and label not in differ:
+                    cs.log(f"  {label} on {name} differs from {labels[0]} "
+                           f"on J's contiguous copy")
+                    differ.append(label)
+        times = {label: [] for label in labels}
+        for label in labels + labels[::-1]:
+            times[label].append(cs.device_ms(lambda: kerns[label](X)))
+        nz = X[X != 0].abs()
+        row = dict(variant=name, layout=input_layout(X),
+                   zeros=float((X == 0).double().mean()),
+                   min_abs_nonzero=float(nz.min()),
+                   swaps=pivot_swaps(X),
+                   **{k: float(np.median(v)) for k, v in times.items()})
+        rows.append(row)
+        cs.log(f"  {name:<34} {row['layout']:<10} zeros {row['zeros']:.3f}"
+               f" min|nonzero| {row['min_abs_nonzero']:.2e} pivot swaps in "
+               f"{row['swaps']:.3f}: " + "  ".join(
+                   f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+                   for k, v in times.items()))
+    return rows, differ
 
 
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
@@ -128,6 +274,7 @@ def step_mix(sass: str) -> list:
             reduce=per("REDUX"), shuffle=per("SHFL"),
             integer=per("ISETP", "IMAD", "IADD3", "VIADD", "LOP3", "SHF",
                         "LEA", "MOV", "P2R", "R2P"),
+            fchk=per("FCHK"), mufu=per("MUFU"),
             branch=per("BRA", "BSSY", "BSYNC", "CALL")))
     return rows
 
@@ -219,6 +366,8 @@ def main() -> int:
     from acados_tpu_torch.utils.device import full_precision_matmul
     specs = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
     specs = specs or {"now": SOURCE}
+    if "--variants" in sys.argv:
+        specs.update(variants(specs.get("now", SOURCE)))
     cs.log(f"card: {cs.card_line()}; torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
     full_precision_matmul()
@@ -228,11 +377,11 @@ def main() -> int:
     cs.log(f"build: {sorted(specs)} in {time.perf_counter() - t0:.1f} s")
     if "--sass" in sys.argv:
         tool = Path(cuda_build._nvcc()).parent / "cuobjdump"
-        for label, kern in kerns.items():
-            sass = subprocess.run(
-                [str(tool), "-sass",
-                 str(cuda_build.target(kern.keywords["source"]))],
-                capture_output=True, text=True, check=True).stdout
+        for label in kerns:
+            lib = cuda_build.target(str((ROOT / specs[label]).resolve()))
+            sass = subprocess.run([str(tool), "-sass", str(lib)],
+                                  capture_output=True, text=True,
+                                  check=True).stdout
             for row in step_mix(sass):
                 cs.log(f"  sass {label} {row['band']}: {row['instructions']}"
                        f" instructions, {row['per_step']:.0f} a step: "
@@ -241,7 +390,8 @@ def main() -> int:
                        f"{row['shared']:.1f} shared, {row['reduce']:.0f} "
                        f"redux, {row['shuffle']:.1f} shuffle, "
                        f"{row['integer']:.0f} integer/move, "
-                       f"{row['branch']:.1f} branch")
+                       f"{row['branch']:.1f} branch, {row['fchk']:.1f} "
+                       f"FCHK, {row['mufu']:.1f} MUFU")
     failed = []
     for label, kern in kerns.items():
         cs.log(f"K1 build {label!r} against the plain version:")
@@ -256,9 +406,13 @@ def main() -> int:
     failed += [label for label in group_bit_equality(kerns)
                if label not in failed]
     labels = list(kerns)
-    rows = cs.k1_grid(kerns, order=labels + labels[::-1])
-    cs.log(json.dumps({"k1_grid": rows, "card": cs.card_line(),
-                       "failed": failed}))
+    stage = None
+    if "--stage" in sys.argv:
+        stage, differ = stage_gap(kerns)
+        failed += [label for label in differ if label not in failed]
+    rows = cs.k1_grid(kerns, order=labels + labels[::-1], transposed=True)
+    cs.log(json.dumps({"k1_grid": rows, "stage": stage,
+                       "card": cs.card_line(), "failed": failed}))
     return 1 if failed else 0
 
 
