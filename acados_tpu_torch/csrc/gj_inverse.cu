@@ -24,7 +24,14 @@
 // the tensor cores): 2 n^2 x 4 bytes and about 2 n^3 flops a matrix.
 //   (81,920, 16, 16) float32: 168 MB -> 50 us; 0.67 GFLOP -> 10 us
 //   (10240, 39, 39) float32:  125 MB -> 37 us; 1.22 GFLOP -> 18 us
-// so both shapes the solvers launch are bound by bytes.
+//   (81,920, 9, 9) float32:    53 MB -> 16 us; 0.12 GFLOP -> 2 us
+// so every shape the solvers launch is bound by bytes.
+//
+// Routes (gj_inverse_route reports the one an n takes):
+//   n = 2, 4, 8, 16        group branch, band n (RL 1, 2, 2, 1)
+//   n = 3, 5-7, 9-15       group branch padded to the band 4, 8 or 16
+//                          (RL 2, 2, 1)
+//   n = 1, 17-48           warp branch, band the next multiple of 8
 //
 // n in {2, 4, 8, 16}: the group branch gj_inv_group (a template per n,
 // type and RL, the rows a lane owns: RL = 1 at n = 2 and 16, 2 at n = 4
@@ -70,8 +77,32 @@
 // 4 schedulers at 1.98 GHz, 1.3x the 0.050 ms byte bound. PERF.md gives
 // what the card reaches.
 //
-// Every other n <= 48: the warp branch gj_inv_warp, one warp a matrix, n
-// padded to a band NP of 8, 16, ..., 48 (a template per band and type):
+// The padded orders n = 3, 5-7, 9-15 run the same kernel in the band N the
+// next power of two (a template per n and type, NV = n): the matrix is
+// [[A, 0], [0, I]], its rows n..N-1 the identity's.
+//   - The identity's rows are held in registers, never loaded or stored;
+//     their key is 0, so they never pivot and keep their positions, and
+//     only n steps run (steps n..N-1 would change nothing). A row holds n
+//     slots rounded up to whole vectors (NS: 12 at n = 9 in float32).
+//   - Loads are direct scalar loads in either layout (rows of n elements
+//     are not aligned to vectors); staging them through shared memory,
+//     timed against them, was slower at every padded n.
+//   - Every element of A goes through the same operations in the same
+//     order as in the warp branch, which pads the same matrix to its band
+//     and runs every step: the results are bit for bit the warp branch's
+//     on finite input (its identity rows stay e_i while every quotient is
+//     finite, and lose every tie to the rows at lower positions).
+// At (81,920, 9, 9) float32 (band 16, one row a lane, two matrices a
+// warp) a step is 109 warp instructions with the loads and the store
+// spread over the 9 steps (17 FFMA, 12 selects, 12 shared accesses, 4
+// redux, 43 integer and moves; `python3 k1_compare.py --sass`), 981 a
+// warp, 40 M over the batch: 0.038 ms of issue, 2.4x the 0.016 ms byte
+// bound (the warp branch it replaced ran all 16 steps of its band on a
+// warp a matrix, 0.129 ms on the card).
+//
+// n = 1 and 17..48: the warp branch gj_inv_warp, one warp a matrix, n
+// padded to a band NP of 8, 24, 32, 40, 48 (a template per band and
+// type):
 //   - Rows never move. Lane i owns row i, and row i + 32 above n = 32,
 //     as NP registers each, and every row carries its logical position;
 //     a pivot swap exchanges two positions. Storage is in place: slot
@@ -94,7 +125,7 @@
 //     (the owner's stores are issued for both row sets), about 1,800 a
 //     matrix with the staging.
 //   - Registers: every register index is a compile-time constant. The k
-//     loop runs in groups of 8 steps (4 at NP = 16), unrolled inside a
+//     loop runs in groups of 8 steps, unrolled inside a
 //     group, and the rows' registers rotate by a group between groups,
 //     where unrolling the whole k loop would multiply the code several
 //     times over. Occupancy is set by registers (about 165 a thread at
@@ -130,7 +161,9 @@ enum Load : int { kRowsVec = 0, kRows = 1, kTransposed = 2 };
 // loads of each lane's rows (RL = 1: n = 2, 16), or the warp's matrices
 // staged through shared memory (RL = 2: n = 4, 8), the faster of the two
 // at each n on the H100 (k1_compare.py holds this choice against the
-// other by a copy that flips it).
+// other by a copy that flips it). A padded order (n below its band) loads
+// directly in either layout: its rows are not aligned to vectors, and
+// staging them cost more than the scalar loads at every padded n.
 template <int RL>
 constexpr bool kStageTransposed = RL == 2;
 
@@ -258,7 +291,7 @@ __device__ __forceinline__ void load_vec(T (&R)[NP], const T* src) {
     }
   }
 }
-// ---- the warp branch: every n <= 48 but 2, 4, 8, 16 ----------------------
+// ---- the warp branch: n = 1 and 17..48 -------------------------------------
 
 // The smallest tag among the lanes that hold the largest key.
 __device__ __forceinline__ unsigned warp_argmax(unsigned key, unsigned tag) {
@@ -287,7 +320,7 @@ struct WarpCfg {
       (kTile + 2 * NP) * static_cast<int>(sizeof(T)) + NP * 4;
   static constexpr int kWarps =
       (48 * 1024 / kBytes) < 4 ? (48 * 1024 / kBytes) : 4;
-  static constexpr int kGroup = NP == 16 ? 4 : 8;  // steps a group
+  static constexpr int kGroup = 8;  // steps a group
   static_assert(NP % 8 == 0 && NP <= kMaxN && NP % kGroup == 0, "band");
   static_assert(kWarps >= 1 && kBytes % 16 == 0, "layout");
 };
@@ -450,7 +483,7 @@ __global__ void __launch_bounds__((WarpCfg<T, NP>::kWarps * 32), 2)
   }
 }
 
-// ---- the group branch: n = 2, 4, 8, 16 -------------------------------------
+// ---- the group branch: n = 2..16 -------------------------------------------
 
 // The lowest position among the rows of largest key over a group of W
 // lanes (W a power of two), by log2(W) butterfly rounds of
@@ -518,13 +551,21 @@ struct GroupCfg {
                 "group");
 };
 
+// The slots a row of a matrix of order NV holds in the band N: NV
+// rounded up to whole vectors (4 floats, 2 doubles; at most N). Slots NV
+// and up are never read into the result.
+template <typename T, int N, int NV>
+__host__ __device__ constexpr int row_slots() {
+  return (NV + vec_len<T, N>() - 1) / vec_len<T, N>() * vec_len<T, N>();
+}
+
 // The group branch's transposed input staged through shared memory (where
-// kStageTransposed): the warp's matrices m0 .. m0 + G - 1 are
-// contiguous, so its lanes load them with consecutive lanes on consecutive
-// 16-byte vectors (scalars where the base is not aligned to them), write
-// each element into its matrix's tile at (column, row), and each lane
-// then reads its rows from the tile. A matrix past the batch is the
-// identity.
+// kStageTransposed, at n = N only): the warp's matrices m0 .. m0 + G - 1
+// are contiguous, so its lanes load them with consecutive lanes on
+// consecutive 16-byte vectors (scalars where the base is not aligned to
+// them), write each element into its matrix's tile at (column, row), and
+// each lane then reads its rows from the tile. A matrix past the batch is
+// the identity.
 template <typename T, int N, int RL>
 __device__ __forceinline__ void stage_transposed(
     const T* __restrict__ A, long long batch, long long m0,
@@ -583,12 +624,20 @@ __device__ __forceinline__ void stage_transposed(
   __syncwarp();
 }
 
-template <typename T, int N, int RL>
+// N: the band, RL: rows a lane, NV: the matrices' order. NV = N at n = 2,
+// 4, 8, 16; padded (NV < N: n = 3, 5-7, 9-15 in the bands 4, 8, 16) rows
+// NV..N-1 are the identity's, held in registers, never loaded, stored or
+// pivoting, every row holds NS = row_slots slots, and the k loop runs NV
+// steps.
+template <typename T, int N, int RL, int NV>
 __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
     gj_inv_group(const T* __restrict__ A, T* __restrict__ out,
                  long long batch, Load load) {
   using C = GroupCfg<T, N, RL>;
-  constexpr int L = C::kLanes, G = C::kMats, LD = C::kLd;
+  constexpr int L = C::kLanes, G = C::kMats, LD = C::kLd, NN = NV * NV;
+  constexpr int NS = row_slots<T, N, NV>();
+  constexpr bool PAD = NV < N;
+  static_assert(NV >= 2 && NV <= N && NS <= N, "order");
   __shared__ __align__(16) unsigned char smem[C::kWarps * G * C::kBytes];
   const int lane = threadIdx.x & 31;
   const int wid = threadIdx.x >> 5;
@@ -607,11 +656,15 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
   // rows gl * RL + t of the matrix; position = row. Row-major, a row is
   // contiguous in A; transposed, it is column r of the stored block, so
   // the group's lanes read consecutive addresses at each register j.
-  T R[RL][N];
+  T R[RL][NS];
   int pos[RL];
+  bool real[RL];  // a row of the matrix, not of the identity's padding
+#pragma unroll
+  for (int t = 0; t < RL; ++t) real[t] = !PAD || gl * RL + t < NV;
+  const bool tr = load == kTransposed;
   bool staged = false;
-  if constexpr (kStageTransposed<RL>) {
-    if (load == kTransposed) {
+  if constexpr (!PAD && kStageTransposed<RL>) {
+    if (tr) {
       stage_transposed<T, N, RL>(A, batch, m0, base, R, pos);
       staged = true;
     }
@@ -621,33 +674,35 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
     for (int t = 0; t < RL; ++t) {
       const int r = gl * RL + t;
       pos[t] = r;
-      const T* a = A + m * (N * N);
-      if (load == kTransposed) {
+      const T* a = A + m * NN;
+      const bool in = m < batch && real[t];
+      if (tr) {
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          R[t][j] = m < batch ? a[j * N + r] : T(r == j);
+        for (int j = 0; j < NS; ++j) {
+          R[t][j] = in && j < NV ? a[j * NV + r] : T(r == j);
         }
-      } else if (m < batch && load == kRowsVec) {
+      } else if (!PAD && in && load == kRowsVec) {
         load_vec(R[t], a + r * N);
       } else {
 #pragma unroll
-        for (int j = 0; j < N; ++j) {
-          R[t][j] = m < batch ? a[r * N + j] : T(r == j);
+        for (int j = 0; j < NS; ++j) {
+          R[t][j] = in && j < NV ? a[r * NV + j] : T(r == j);
         }
       }
     }
   }
 
 #pragma unroll
-  for (int k = 0; k < N; ++k) {
+  for (int k = 0; k < NV; ++k) {
     // pivot: the largest |slot k| over rows at positions >= k, the lowest
-    // position among equal magnitudes
+    // position among equal magnitudes; the identity's padding rows never
+    // pivot (nor move: their positions stay NV..N-1)
     using Key = decltype(mag_key(T(0)));
     Key lk = 0;
     int lp = N;
 #pragma unroll
     for (int t = 0; t < RL; ++t) {
-      const Key key = pos[t] >= k ? mag_key(R[t][k]) : 0;
+      const Key key = real[t] && pos[t] >= k ? mag_key(R[t][k]) : 0;
       if (key > lk || (key == lk && pos[t] < lp)) {
         lk = key;
         lp = pos[t];
@@ -666,21 +721,23 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
 #pragma unroll
     for (int t = 0; t < RL; ++t) store_row(own[t], raw, R[t]);
     __syncwarp();
-    // lane gl divides slots gl + t L by the pivot; slot k becomes 1 / piv.
-    // A zero over a finite nonzero pivot is x * piv (the same signed
-    // zero), which keeps zeros off the division's slow path.
+    // lane gl divides slots gl + t L by the pivot (past NS it repeats slot
+    // NS - 1: no branch); slot k becomes 1 / piv. A zero over a finite
+    // nonzero pivot is x * piv (the same signed zero), which keeps zeros
+    // off the division's slow path.
     const T piv = raw[k];
     const bool plain_zero = finite_nonzero(piv);
 #pragma unroll
     for (int t = 0; t < RL; ++t) {
-      const int c = gl + t * L;
+      int c = gl + t * L;
+      if constexpr (NS < N) c = c < NS ? c : NS - 1;
       const T x = c == k ? T(1) : raw[c];
       const bool z = plain_zero && x == T(0);
       const T q = opaque(z ? T(1) : x) / piv;
       quot[c] = z ? x * piv : q;
     }
     __syncwarp();
-    T nk[N];
+    T nk[NS];
     load_vec(nk, quot);
     // every row eliminates slot k and receives the inverse's column in
     // it; the pivot row then takes the quotients
@@ -688,7 +745,7 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
     for (int t = 0; t < RL; ++t) {
       const T f = R[t][k];
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
+      for (int j = 0; j < NS; ++j) {
         R[t][j] = (j == k ? T(0) : R[t][j]) - f * nk[j];
       }
       pos[t] = own[t] ? k : (pos[t] == k ? wpos : pos[t]);
@@ -701,44 +758,51 @@ __global__ void __launch_bounds__(GroupCfg<T, N, RL>::kWarps * 32)
   // matrices stored coalesced
   int* row_at = reinterpret_cast<int*>(raw);
 #pragma unroll
-  for (int t = 0; t < RL; ++t) row_at[pos[t]] = gl * RL + t;
-  __syncwarp();
-#pragma unroll
-  for (int j = 0; j < N; ++j) {
-    const int col = row_at[j];
-#pragma unroll
-    for (int t = 0; t < RL; ++t) tile[pos[t] * LD + col] = R[t][j];
+  for (int t = 0; t < RL; ++t) {
+    if (real[t]) row_at[pos[t]] = gl * RL + t;
   }
   __syncwarp();
-  const long long left = (batch - m0) * (N * N);
-  const unsigned char* wbase = smem + wid * G * C::kBytes;
-  T* o = out + m0 * (N * N);
 #pragma unroll
-  for (int e0 = 0; e0 < G * N * N; e0 += 32) {
+  for (int j = 0; j < NV; ++j) {
+    const int col = row_at[j];
+#pragma unroll
+    for (int t = 0; t < RL; ++t) {
+      if (real[t]) tile[pos[t] * LD + col] = R[t][j];
+    }
+  }
+  __syncwarp();
+  // the warp's matrices in the batch, at most G: where 32 does not divide
+  // G n^2 (a padded n), the last step's lanes run past the warp's tiles
+  const long long left = (batch - m0 < G ? batch - m0 : G) * NN;
+  const unsigned char* wbase = smem + wid * G * C::kBytes;
+  T* o = out + m0 * NN;
+#pragma unroll
+  for (int e0 = 0; e0 < G * NN; e0 += 32) {
     const int e = e0 + lane;
     if (e < left) {
-      const int g = e / (N * N), r = (e / N) % N, c = e % N;
+      const int g = e / NN, r = (e / NV) % NV, c = e % NV;
       o[e] = reinterpret_cast<const T*>(wbase + g * C::kBytes)[2 * N +
                                                                r * LD + c];
     }
   }
 }
 
-template <typename T, int N, int RL>
+template <typename T, int N, int RL, int NV = N>
 void launch_group(const T* A, T* out, long long batch, bool transposed,
                   cudaStream_t stream) {
   using C = GroupCfg<T, N, RL>;
   const long long warps = (batch + C::kMats - 1) / C::kMats;
   const long long blocks = (warps + C::kWarps - 1) / C::kWarps;
   // row-major rows load as vectors where A is aligned to them (a fresh
-  // tensor is)
+  // tensor is; padded rows are not)
   constexpr int kVecBytes = vec_len<T, N>() * static_cast<int>(sizeof(T));
   const Load load =
       transposed ? kTransposed
-                 : (reinterpret_cast<unsigned long long>(A) % kVecBytes == 0
+                 : (NV == N && reinterpret_cast<unsigned long long>(A) %
+                                       kVecBytes == 0
                         ? kRowsVec
                         : kRows);
-  gj_inv_group<T, N, RL>
+  gj_inv_group<T, N, RL, NV>
       <<<static_cast<unsigned>(blocks), C::kWarps * 32, 0, stream>>>(
           A, out, batch, load);
 }
@@ -752,6 +816,28 @@ void launch_warp(const T* A, T* out, long long batch, int n,
       A, out, batch, n, transposed);
 }
 
+// The group branch's band at order n: n itself at n = 2, 4, 8, 16, the
+// next power of two at every other n <= 16 but 1 (the warp branch's n = 1
+// and 17..48: 0); its rows a lane: 1 at n = 2 and 16, 2 at n = 4 and 8,
+// and at the padded orders kPadRL4 (n = 3), kPadRL8 (5-7), kPadRL16
+// (9-15), the faster choice on the H100 (k1_compare.py times the other).
+constexpr int kPadRL4 = 2, kPadRL8 = 2, kPadRL16 = 1;
+__host__ __device__ constexpr int group_band(int n) {
+  return n < 2 || n > 16 ? 0 : n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : 16;
+}
+__host__ __device__ constexpr int group_rows(int n) {
+  return n == 2 || n == 16 ? 1 : n == 4 || n == 8 ? 2
+         : group_band(n) == 4 ? kPadRL4 : group_band(n) == 8 ? kPadRL8
+                                                             : kPadRL16;
+}
+
+template <typename T, int NV>
+void launch_group_at(const T* A, T* out, long long batch, bool tr,
+                     cudaStream_t stream) {
+  launch_group<T, group_band(NV), group_rows(NV), NV>(A, out, batch, tr,
+                                                      stream);
+}
+
 template <typename T>
 int launch(const T* A, T* out, long long batch, int n, bool tr,
            void* stream_ptr) {
@@ -761,14 +847,24 @@ int launch(const T* A, T* out, long long batch, int n, bool tr,
   if (batch == 0) return 0;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   switch (n) {
-    case 2: launch_group<T, 2, 1>(A, out, batch, tr, stream); break;
-    case 4: launch_group<T, 4, 2>(A, out, batch, tr, stream); break;
-    case 8: launch_group<T, 8, 2>(A, out, batch, tr, stream); break;
-    case 16: launch_group<T, 16, 1>(A, out, batch, tr, stream); break;
+    case 2: launch_group_at<T, 2>(A, out, batch, tr, stream); break;
+    case 3: launch_group_at<T, 3>(A, out, batch, tr, stream); break;
+    case 4: launch_group_at<T, 4>(A, out, batch, tr, stream); break;
+    case 5: launch_group_at<T, 5>(A, out, batch, tr, stream); break;
+    case 6: launch_group_at<T, 6>(A, out, batch, tr, stream); break;
+    case 7: launch_group_at<T, 7>(A, out, batch, tr, stream); break;
+    case 8: launch_group_at<T, 8>(A, out, batch, tr, stream); break;
+    case 9: launch_group_at<T, 9>(A, out, batch, tr, stream); break;
+    case 10: launch_group_at<T, 10>(A, out, batch, tr, stream); break;
+    case 11: launch_group_at<T, 11>(A, out, batch, tr, stream); break;
+    case 12: launch_group_at<T, 12>(A, out, batch, tr, stream); break;
+    case 13: launch_group_at<T, 13>(A, out, batch, tr, stream); break;
+    case 14: launch_group_at<T, 14>(A, out, batch, tr, stream); break;
+    case 15: launch_group_at<T, 15>(A, out, batch, tr, stream); break;
+    case 16: launch_group_at<T, 16>(A, out, batch, tr, stream); break;
     default:
       switch ((n + 7) / 8) {
         case 1: launch_warp<T, 8>(A, out, batch, n, tr, stream); break;
-        case 2: launch_warp<T, 16>(A, out, batch, n, tr, stream); break;
         case 3: launch_warp<T, 24>(A, out, batch, n, tr, stream); break;
         case 4: launch_warp<T, 32>(A, out, batch, n, tr, stream); break;
         case 5: launch_warp<T, 40>(A, out, batch, n, tr, stream); break;
@@ -800,4 +896,14 @@ extern "C" int gj_inverse_tr_f32(const float* A, float* out,
 extern "C" int gj_inverse_tr_f64(const double* A, double* out,
                                  long long batch, int n, void* stream) {
   return launch<double>(A, out, batch, n, true, stream);
+}
+
+// Which branch launch() takes at order n: 16 x band + rows a lane for the
+// group branch (band n, or the next power of two where it pads n), 16 x
+// band for the warp branch (one warp a matrix, band the next multiple of
+// 8), -1 for an n the kernel does not take.
+extern "C" int gj_inverse_route(int n) {
+  if (n < 1 || n > kMaxN) return -1;
+  return group_band(n) ? 16 * group_band(n) + group_rows(n)
+                       : 16 * ((n + 7) / 8 * 8);
 }

@@ -10,13 +10,18 @@ The kernel has two branches with one schedule: the rows are owned by
 lanes and never moved. Each row carries its logical position (a pivot
 swap exchanges two positions), and its n slots are updated in place,
 slot k receiving the inverse's column of the row that pivoted at step k.
-n = 2, 4, 8, 16 run a group of n or n / 2 lanes a matrix (one or two
-rows a lane), so a warp holds several matrices; every other n <= 48 runs
-one warp a matrix. That computes what `gj_inverse_plain` computes, to the
-last bit: it drops only the columns of [A | I] that hold 0 or 1 and the
-updates that leave them so (tests/test_torch_ops.py holds a PyTorch model
-of that schedule against `gj_inverse_plain` bit for bit). Both branches
-differ from the plain version only by fused multiply-adds.
+Every n <= 16 but 1 runs the group branch: a group of lanes a matrix
+(one or two rows a lane) in a band that is the next power of two, n
+itself at n = 2, 4, 8, 16; below the band the matrix is padded with an
+identity block that never pivots, and only n steps run. So a warp holds
+several matrices. n = 1 and n = 17..48 run one warp a matrix
+(`gj_route` asks the built library which). That computes what
+`gj_inverse_plain` computes, to the last bit: it drops only the columns
+of [A | I] that hold 0 or 1 and the updates that leave them so
+(tests/test_torch_ops.py and tests/test_torch_k1_padded.py hold a
+PyTorch model of that schedule, padded and not, against
+`gj_inverse_plain` bit for bit). Both branches differ from the plain
+version only by fused multiply-adds.
 
 The kernel reads its input row-major or, in place, as a batch of
 matrices each stored as its transpose (`input_layout`): the IRK hands
@@ -132,6 +137,22 @@ def _gj_inverse_cuda(A: torch.Tensor,
                            f"{err}")
     cuda_build.count_launch(globals(), "LAUNCHES")
     return out
+
+
+def gj_route(n: int, source: str = "gj_inverse") -> tuple:
+    """The branch csrc/gj_inverse.cu takes at order n, as its dispatcher
+    decides: ("group", band, rows a lane), the band n itself or the next
+    power of two that n is padded to, or ("warp", band, None), one warp a
+    matrix with n padded to the next multiple of 8. Asks the built library
+    (the card's machine only); source as in `_gj_inverse_cuda`."""
+    fn = cuda_build.load(source).gj_inverse_route
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    route = fn(n)
+    if route < 0:
+        raise ValueError(f"kernel takes 1 <= n <= {_GJ_MAX_N}, got {n}")
+    band, rows = divmod(route, 16)
+    return ("group", band, rows) if rows else ("warp", band, None)
 
 
 def _gj_inverse_kernel(A: torch.Tensor) -> torch.Tensor:

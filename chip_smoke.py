@@ -9,30 +9,37 @@ failure exits non-zero:
     versions, TF32 off;
  2. build: every CUDA kernel of acados_tpu_torch/csrc/ with nvcc for
     sm_90a (one nvcc per source, all started together);
- 3. kernels against their plain PyTorch versions on the card: the
-    Gauss-Jordan inverse K1 on the IRK stage Jacobians of the main path
+ 3. kernels against their plain PyTorch versions on the card: first
+    the route K1's dispatcher takes at every n = 1..48 (k1_routes: the
+    group branch at every n = 2..16, padded to the next power of two
+    below 16 but at 2, 4, 8; the warp branch at n = 1 and 17..48),
+    held to the design; then the Gauss-Jordan inverse K1 on the IRK
+    stage Jacobians of the main path
     (81,920 x 16 x 16 float32), on seeded diagonally dominant batches
-    (n = 2, 4, 8, 16 for its group branch, n = 9, 21, 29, 39, 48 for its
-    warp branch, a ragged batch size, n = 56 through the Schur path), on
+    (n = 2, 4, 8, 16 for its group branch, n = 9, 21, 29, 39, 48, a
+    ragged batch size, n = 56 through the Schur path), on
     the same with rows permuted (row swaps at most steps), in float32 and
     float64, on matrices with equal magnitudes in their pivot columns,
     where exact arithmetic makes kernel, plain version and exact inverse
-    agree bit for bit only under the lowest-index tie rule, and on the
+    agree bit for bit only under the lowest-index tie rule, at every
+    n = 3..15 (the padded orders among them) on all three kinds of batch
+    in both layouts (k1_padded_batches), and on the
     edge cases of both branches (every n = 1..48 at B = 7; B = 1, 2, 3,
-    33 at n = 9, 29, 39, 48; B = 1, 2, 3, 33, 65, 1023 at n = 2, 4, 8,
-    16; n = 2, 3, 16 at B = 200,003; a misaligned input at n = 2 and 16),
+    33 at n = 9, 29, 39, 48; B = 1, 2, 3, 33, 65, 1023 at n = 2, 3, 4, 7,
+    8, 9, 15, 16; n = 2, 3, 16 at B = 200,003; a misaligned input at
+    n = 2, 9 and 16),
     and the same edge cases (n = 16 alone at B = 200,003) as transposed
     views, the layout in which the IRK hands K1 its stage Jacobians, each
     bit for bit the kernel on the view's contiguous copy; linsolve on the
     card launching K1 for small n too; then K1's time at
     the main-path shape beside its bound, the plain version and
-    torch.linalg.inv, and over both branches' grid (n = 9, 21, 29, 39, 48
-    at B = 10240 and n = 2, 4, 8, 16 at B = 81920 float32,
-    (10240, 39, 39) and (81920, 16, 16) float64) beside the branches they
-    replaced;
+    torch.linalg.inv, and over the group branch's grid (every n = 2..16
+    at B = 81920 float32, (81920, 16, 16) float64; k1_compare.py times
+    the warp branch's cells) beside the branches they replaced;
  4. main path: AcadosOcpBatchSolver on the canonical pendulum IRK SQP-RTI
-    config (N = 20, float32) at B = 4096, 1 cold + 10 warm + 6 timed
-    solve() calls; every status 0, the float32 tolerances met, and exactly
+    config (N = 20, float32) at B = 4096, 1 cold + 10 warm + 3 timed
+    solve() calls (cut from 6); every status 0, the float32 tolerances
+    met, and exactly
     8 kernel launches per RTI call; then where the time of a call goes
     (layers on the host clock, device busy share from torch.profiler);
  5. reference check: the same config in float64 at B = 8 on the card and
@@ -41,7 +48,8 @@ failure exits non-zero:
  6. full-condensing path: the same config with qp_solver =
     "FULL_CONDENSING_HPIPM" (full condensing, then the dense IPM, whose
     barrier Hessian is factored by the Cholesky kernel K2 once per
-    lockstep round) at B = 4096 float32, 1 cold + 10 warm + 6 timed calls;
+    lockstep round) at B = 4096 float32, 1 cold + 10 warm + 3 timed calls
+    (cut from 6);
     every status 0, in tolerance, K1 at 8 launches per call and K2 at the
     sum over calls of the batch's largest qp_iter; then where the time
     goes (linearize, condense, dense IPM, expand);
@@ -59,10 +67,8 @@ failure exits non-zero:
     above the diagonal and with a zero or NaN diagonal); then their times
     at (4096, 24, 24) float32 beside their bounds, the plain versions and
     the library's Cholesky calls (CUDA events around one call, and the
-    device time of the call's kernels), and the grid of each (n = 4, 8,
-    13, 16, 24, 32 at B = 4096 float32,
-    (4096, 24, 24) float64, n = 39, 64 at
-    B = 4096) beside the replaced kernels' figures and the library call;
+    device time of the call's kernels), beside the replaced kernels'
+    figures (the grids over n and B went: k2_compare.py times them);
  8. the public ops entry points (chol_factor_batched, chol_solve_batched,
     chol_factor_solve_batched: K3 and K4 have no solver caller) on the
     barrier Hessians of phase 6 in float64, one launch each, against the
@@ -76,15 +82,17 @@ failure exits non-zero:
     moved by one rounding step, beside it;
 11. chain path: AcadosOcpBatchSolver on make_chain_mass_ocp(n_mass=8,
     N=40) (nx = 39, nu = 3, the Kronecker IRK path) in float32 at B = 256,
-    x0 = steady state + N(0, 0.02), 1 cold + 10 warm + 6 timed calls; every
+    x0 = steady state + N(0, 0.02), 1 cold + 10 warm + 3 timed calls (cut
+    from 6); every
     status 0, bench.py's chain tolerances met, K1 exactly 2 launches a call
     of (10240, 39, 39), K2 and K5 none; K1 on the captured block
     determinants against its plain version, and its time there; then
     where the time of a call goes;
-12. chain sweep: n_mass = 3, 5, 11 (nx = 9, 21, 57) at B = 256, N = 40,
-    1 cold + 10 warm calls; every status 0 and in tolerance, K1 at 2
-    launches a call (4 at nx = 57: two n = 29 inverses of the Schur
-    recursion per determinant);
+12. chain sweep: n_mass = 3, 4, 5, 11 (nx = 9, 15, 21, 57) at B = 256,
+    N = 40, 1 cold + 3 warm calls (cut from 10); every status 0 and in
+    tolerance, K1 at 2 launches a call (4 at nx = 57: two n = 29
+    inverses of the Schur recursion per determinant), its route at each
+    shape logged (the padded group branch at nx = 9 and 15);
 13. the small-matrix product K5 against its plain version, bit for bit:
     on phase 11's dynamics Jacobians (A @ A at (10240, 39, 39)), on seeded
     batches at n = 1, 20, 39, 48, 64 with B = 1001 in float32 and float64,
@@ -97,10 +105,11 @@ failure exits non-zero:
     calls, card against CPU, beside the CPU's own spread under one
     rounding step of the x0s;
 15. the quadrotor (N = 20) and race car (N = 30, Tf = 0.6) ERK RTI batches
-    at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 10 warm calls; every
+    at B = 1024, x0 spreads 0.05 and 0.01, 1 cold + 6 warm + 1 timed
+    calls (cut from 9 warm); every
     status 0, within stat 5e-3 and eq 1e-4, no kernel launches;
 16. RTI phases on the main path's config (pendulum IRK, N = 20, float32,
-    B = 4096) from phase 4's converged iterate: 1 + 2 warm + 4 timed
+    B = 4096) from phase 4's converged iterate: 1 + 2 warm + 2 timed
     (cut from 11 warm cycles from the swing-up and 8 timed, for time)
     prepare() / feedback(x0) cycles at STANDARD; every status 0 and in tolerance, K1 exactly 8
     launches in each prepare() and none in each feedback(); the medians
@@ -124,20 +133,22 @@ failure exits non-zero:
     counted), and its times there;
 18. chain at qp_solver_cond_N = 8 (n_mass = 8, N = 40, B = 256,
     float32; blocks of M = 5, condensed nu = 15 > 12, so each condensed
-    stage's Huu goes through K2): 1 cold + 10 warm calls, then 3
-    interleaved rounds of 4 timed calls beside phase 11's plain chain;
+    stage's Huu goes through K2): 1 cold + 10 warm calls, then 2
+    interleaved rounds of 2 timed calls (cut from 3 of 4) beside phase
+    11's plain chain;
     every status 0 and in tolerance, K1 2 launches a call, K2 exactly 8
     a lockstep IPM round (8 stages x 1 factorization x the rounds), K2 on
     the captured (256, 15, 15) Huu batches of the cold call's first round
     bit for bit against chol_factor_plain, and its time there;
 19. float64 card against CPU of the new paths: the long-horizon
     pendulum at cond_N = 16 (B = 4), the chain at cond_N = 8 (B = 4) and
-    the main path's config (B = 8) in prepare() / feedback() cycles, 2
-    calls or cycles each (cut from 3), each within 1e-9;
+    the main path's config (B = 8) in prepare() / feedback() cycles, 1
+    call or cycle each (cut from 3), each within 1e-9;
 20. the batch simulator (AcadosSimBatchSolver) with the main path's
     integrator (pendulum, IRK Gauss-Legendre 4 stages, 2 substeps,
     dt = Tf / N = 0.05) at B = 4096 float32 with sens_forw, and RK4
-    beside it: 3 warm + 10 timed calls, median (p10, p90), sims/s, K1
+    beside it: 3 warm + 5 timed calls (cut from 10), median (p10, p90),
+    sims/s, K1
     exactly 8 launches a call (3 Newton inverses and 1 tangent solve a
     substep), none for RK4; K1 on one captured stage-Jacobian batch
     against its plain version (the bits that differ counted, the error
@@ -172,7 +183,8 @@ failure exits non-zero:
     parallel_riccati, 13 a lockstep IPM round;
 25. the ADMM QP backend (bench.py's bench_admm_backend): the pendulum
     ERK SQP-RTI, N = 20, float32, B = 4096, x0 spread 0.05, the Riccati
-    IPM beside qp_solver_name="ADMM": the IPM 1 cold + 15 warm calls,
+    IPM beside qp_solver_name="ADMM": the IPM 1 cold + 10 warm calls (cut
+    from 15),
     ADMM 1 + 3 calls from the IPM's iterate after its 6th call (not yet
     in tolerance: ADMM's own steps bring the batch there), then 2
     interleaved rounds of 1 timed call (at 1 the last ADMM call was out
@@ -183,8 +195,8 @@ failure exits non-zero:
     call, ADMM's residual maxima call by call;
 26. float64 card against CPU of the QP-breadth paths, each within 1e-9:
     the long horizon with parallel_riccati, the main path's config with
-    abs_form and the ADMM RTI batch (B = 8, 2 RTI calls each; 3 for
-    the first two cut from 3), and
+    abs_form and the ADMM RTI batch (B = 8, 1 RTI call each, cut from 3
+    for the first two and from 2 for ADMM), and
     AcadosOcpQpSolver on a random QP (N = 20, x0 free) with the Riccati
     IPM, ADMM and ADMM through partial condensing (cond_N = 4), with its
     forward and adjoint sensitivities;
@@ -204,7 +216,7 @@ failure exits non-zero:
     the largest launch of the EXACT linearization against its plain
     version, and its times there;
 28. float64 card against CPU of the new options, B = 4, each solve cut
-    at 3 iterations (cut from 4): the Newton SQP of phase 27 (2
+    at 2 iterations (cut from 4): the Newton SQP of phase 27 (2
     iterations),
     EXACT with each of the five
     regularizations on the nonconvex EXTERNAL-cost double integrator,
@@ -245,15 +257,17 @@ failure exits non-zero:
 34. integrator breadth at B = 4096, float32: the main path with GNSF by
     SQP-RTI from the main path's converged iterate (structure detected,
     every status 0 and in tolerance, no kernel launch) and the batch
-    simulator with GNSF beside IRK (their gap in x_next); DISCRETE, the
-    pendulum's RK4 step as disc_dyn_expr, beside ERK at 4 stages and 1
-    step, 3 RTI calls each, every status 0 (in float32 the step and its
+    simulator with GNSF beside IRK (their gap in x_next; 1 call each,
+    cut from 2); DISCRETE, the pendulum's RK4 step as disc_dyn_expr,
+    beside ERK at 4 stages and 1 step, 2 RTI calls each (cut from 3),
+    every status 0 (in float32 the step and its
     Jacobians within rounding and at most 1 % of the instances parted,
     beside ERK against itself on x0s moved by one rounding step; in
-    float64 the trajectories within 1e-6); the pglob model with per-instance
-    global parameters bit for bit equal to the same batch with the tail
-    baked into p; LIFTED_IRK's single-instance simulate() calls
-    converging to IRK's x_next, and the OCP with LIFTED_IRK bit for bit
+    float64 the trajectories within 1e-6); the pglob model with
+    per-instance global parameters bit for bit equal to the same batch
+    with the tail baked into p; LIFTED_IRK's 3 single-instance simulate()
+    calls (cut from 5) converging to IRK's x_next, and the OCP with
+    LIFTED_IRK bit for bit
     equal to IRK;
 35. float64 card against CPU at B = 4, within 1e-9: the DAE cart (N =
     10, 2 iterations), the GNSF, LIFTED_IRK and DISCRETE RTI batches,
@@ -276,7 +290,7 @@ failure exits non-zero:
 38. the interface utilities at the main path's width (pendulum IRK GL4,
     N = 20, float32, B = 4096, from the main path's converged iterate):
     the batch with and without collect_phase_times, interleaved (1 warm
-    call each, 3 rounds of 1 timed call): every status 0 and in
+    call each, 1 round of 1 timed call, cut from 3): every status 0 and in
     tolerance, K1 8 launches a call either way, the four phase times
     positive and their sum within 0.5-1.05 of time_tot after each call,
     both medians; store_iterates on one RTI call (K1 8) and on the
@@ -287,7 +301,8 @@ failure exits non-zero:
     batch solver, whose next call equals the first solver's bit for bit;
     on single-instance SQPs of the same pendulum, store_iterates
     (get_iterates' first and last rows) and the timeouts from its
-    iterate 3 iterations before the solution (1e-7 s with LAST: status 7
+    iterate 2 iterations before the solution (cut from 3; 1e-7 s with
+    LAST: status 7
     before 5 iterations; 120 s with ZERO, LAST, MAX, AVERAGE: status 0
     and bit for bit the solve without), print_
     statistics() and dump_qp_to_file (19 keys at the JAX package's
@@ -315,7 +330,8 @@ failure exits non-zero:
     largest x/u gap and the instances whose qp_iter differs (a float32
     QP's last round follows the batch size's reduction order); one warm
     call each, then
-    3 interleaved rounds of one timed call, both medians beside the
+    2 interleaved rounds of one timed call (cut from 3), both medians
+    beside the
     card's name and power limit, and K1 at the shard's shape against its
     plain version, torch.linalg.inv and its bound (41a, after phase
     40); two processes on the card with torchrun's environment
@@ -324,7 +340,8 @@ failure exits non-zero:
     process_local_batch_slice from the converged iterate: after its
     first call K1 8, the summed status histogram equal to the
     one-process call's and the global largest res_stat within the
-    float32 gate of it, then, after 41a, 3 timed calls, K1 8 each, and
+    float32 gate of it, then, after 41a, 2 timed calls (cut from 3), K1
+    8 each, and
     the pair's wall time (41b); float64 card
     against CPU within 1e-9: tests/test_torch_sharding.py's B = 8
     pendulum MERIT SQP over 4 shards cut at 4 iterations (statuses and
@@ -343,6 +360,10 @@ The CPU halves of the float64 card-against-CPU checks (phases 5, 9, 14,
 after the build (chip_smoke.py --cpu-refs DIR, with no card), which
 the script waits for and stops before it ends; a check called alone
 computes both halves itself.
+Depth cuts that keep the run well inside its 1200 s limit (timed calls,
+rounds, warm calls and check iterations, each check kept) are noted at
+each phase as "cut from"; the "-- phase N from T s" lines time each
+phase.
 The last lines are the kernels JSON line, the card line and
 {"ok": true, "device": {...}}.
 """
@@ -360,8 +381,10 @@ import numpy as np
 B_MAIN = 4096
 N_HORIZON = 20
 WARM_CALLS = 10
-TIMED_CALLS = 6
+TIMED_CALLS = 3               # cut from 6 (phases 4, 6, 11)
 LAUNCHES_PER_RTI = 8          # 4 inverses per substep x 2 substeps
+# timed calls of each part of a time split (host_ms; cut from 3)
+SPLIT_REPS = 1
 # the main path's OCP (make_pendulum_ocp's keywords)
 MAIN_KW = dict(N=N_HORIZON, dtype="float32", nlp_solver_type="SQP_RTI",
                integrator_type="IRK")
@@ -403,10 +426,12 @@ ERK_MODELS = (("quadrotor", 0.05, dict(N=20)),
               ("race_car", 0.01, dict(N=30, Tf=0.6)))
 ERK_TOLS = (5e-3, 1e-4, np.inf, np.inf)
 B_ERK = 1024
+ERK_WARM = 6                  # cut from 9 (at 4 the quadrotor ends out of
+                              # tolerance: res_stat 0.0608 against 5e-3)
 # the RTI phases on the main path: warm and timed prepare/feedback cycles
 # (from the main path's converged iterate; from the swing-up it took 11
 # warm cycles)
-RTI_WARM, RTI_TIMED = 2, 4
+RTI_WARM, RTI_TIMED = 2, 2    # timed cut from 4
 # bench.py's bench_long_horizon_rti: N, B, x0 spread, its float32
 # tolerances (_LONGH_TOLS: stat, eq) and the condensed horizon of its
 # cond_N16 variant; the warm calls (bench.py: 25) and interleaved rounds
@@ -442,11 +467,14 @@ LAT_WARM, LAT_ROUNDS, LAT_PER_ROUND = 0, 1, 1
 # the phase near a minute: an ADMM call runs up to 500 lockstep
 # iterations, ~6 s at B = 4096
 B_ADMM, N_ADMM, ADMM_SIGMA = 4096, 20, 0.05
-ADMM_IPM_WARM, ADMM_FROM_IPM_CALL = 15, 6
+ADMM_IPM_WARM, ADMM_FROM_IPM_CALL = 10, 6   # warm cut from 15
 ADMM_WARM, ADMM_ROUNDS, ADMM_PER_ROUND = 3, 2, 1
+# the chain sweep's warm calls (phase 12; cut from 10: the largest
+# qp_iter settles at 2 from the second or third call)
+SWEEP_WARM = 3
 # the chain at qp_solver_cond_N = 8: condensed nu = 5 * 3 = 15
 COND_CHAIN = 8
-CHAIN_ROUNDS, CHAIN_PER_ROUND = 3, 4
+CHAIN_ROUNDS, CHAIN_PER_ROUND = 2, 2   # cut from 3 rounds of 4
 # K5's edge cases: n at the start, inside and at the end of a band of the
 # kernel's padded sizes (one n in each band: 4, 8, 16, ..., 64), batches
 # that end inside a pair group (4 k + 3 among them), a long batch with
@@ -455,34 +483,39 @@ K5_EDGE_N = (1, 7, 13, 20, 29, 39, 40, 48, 53, 64)
 K5_EDGE_B = (1, 2, 3, 5, 1023)
 K5_LONG_B = 200_003
 K5_SWEEP_B = 7
-# K1's warp branch (every n <= 48 but 2, 4, 8, 16): the n of its checks
-# and grid (one in each band from 16 to 48), the n and batches of its
-# edge cases (batches that end inside a block of warps), the long batch
-# and the short batch every n runs at
+# K1's warp branch (n = 1 and 17..48; n = 9, now in the padded group
+# branch, keeps its checks here): the n of its checks and grid (one in
+# each band from 16 to 48), the n and batches of its edge cases
+# (batches that end inside a block of warps), the long batch and the
+# short batch every n runs at
 K1_BRANCH_N = (9, 21, 29, 39, 48)
 K1_EDGE_N = (9, 29, 39, 48)
 K1_EDGE_B = (1, 2, 3, 33)
 K1_LONG_B = 200_003
 K1_SWEEP_B = 7
 K1_GRID_B = (10240,)
-# K1's group branch (n = 2, 4, 8, 16): batches that end inside a group of
-# lanes, a warp and a block of warps, the n of the long batch beside the
-# warp branch's n = 3, and the batches of its grid
+# K1's group branch (n = 2, 4, 8, 16, and padded to the next of those
+# bands, n = 3, 5-7, 9-15): batches that end inside a group of lanes, a
+# warp and a block of warps, the n of the long batches, and the batches
+# of its grid (every n = 2..16 in phase 3; k1_compare.py times the warp
+# branch's cells). The padded orders' checks draw from a generator of
+# their own (K1_PAD_SEED), so the other checks keep their draws
 K1_GROUP_N = (2, 4, 8, 16)
+K1_PAD_N = (3, 5, 6, 7, 9, 10, 11, 12, 13, 14, 15)
 K1_GROUP_EDGE_B = (1, 2, 3, 33, 65, 1023)
+K1_PAD_EDGE_N = (3, 7, 9, 15)
+K1_PAD_SEED = 1
 K1_LONG_N = (2, 3, 16)
 K1_GROUP_GRID_B = (81920,)
-# the branch K1's warp branch replaced (one warp a matrix, [A | I] in
-# shared memory): device ms back to back over k1_grid's cells, by (n, B,
-# type), from k1_compare.py (NVIDIA H100 80GB HBM3, 700.00 W), for the log
-# lines only
-K1_PARENT_DEVICE_MS = {
-    (9, 1024, "float32"): 0.0145, (9, 10240, "float32"): 0.0394,
-    (21, 1024, "float32"): 0.0477, (21, 10240, "float32"): 0.1833,
-    (29, 1024, "float32"): 0.0750, (29, 10240, "float32"): 0.3177,
-    (39, 1024, "float32"): 0.1628, (39, 10240, "float32"): 0.8959,
-    (48, 1024, "float32"): 0.2298, (48, 10240, "float32"): 1.8106,
-    (39, 10240, "float64"): 1.7107}
+# k1_grid's cells (n, B, type): the warp branch's (k1_compare.py), the
+# group branch's at every n = 2..16 (phase 3), and the padded orders in
+# both types (k1_compare.py --pad)
+K1_WARP_CELLS = tuple((n, B, "float32") for n in K1_BRANCH_N
+                      for B in K1_GRID_B) + ((39, 10240, "float64"),)
+K1_GROUP_CELLS = tuple((n, B, "float32") for n in range(2, 17)
+                       for B in K1_GROUP_GRID_B) + ((16, 81920, "float64"),)
+K1_PAD_CELLS = tuple((n, B, dt) for dt in ("float32", "float64")
+                     for n in range(3, 16) for B in K1_GROUP_GRID_B)
 # the same branch at the chain's shape, on the chain's block determinants
 # (chip_smoke.py phase 11; NVIDIA H100 80GB HBM3, 700.00 W)
 K1_PARENT_CHAIN_DEVICE_MS = 0.9014
@@ -497,6 +530,17 @@ K1_PARENT_GROUP_DEVICE_MS = {
     (16, 10240, "float32"): 0.0341, (16, 81920, "float32"): 0.2175,
     (16, 81920, "float64"): 0.4028}
 K1_PARENT_MAIN_DEVICE_MS = 0.2793
+# the warp branch that ran n = 3, 5-7, 9-15 before the padded group
+# branch: device ms back to back at k1_grid's cells, by (n, B, type), from
+# k1_compare.py --pad (NVIDIA H100 80GB HBM3, 700.00 W), for the log lines
+# only
+K1_PARENT_PAD_DEVICE_MS = {
+    (3, 81920, "float32"): 0.0691, (5, 81920, "float32"): 0.0693,
+    (6, 81920, "float32"): 0.0720, (7, 81920, "float32"): 0.0720,
+    (9, 81920, "float32"): 0.1291, (10, 81920, "float32"): 0.1346,
+    (11, 81920, "float32"): 0.1349, (12, 81920, "float32"): 0.1332,
+    (13, 81920, "float32"): 0.1649, (14, 81920, "float32"): 0.1672,
+    (15, 81920, "float32"): 0.1743}
 # K2's row branch (n <= 32, bands 4, 8, 16, 24, 32): an n in each band
 # with the batches that end inside a group, a warp and a block of warps,
 # the long batches, the short batch every n runs at, and K2's grid
@@ -792,8 +836,9 @@ def in_tolerance(solver, tols=None):
     return bool(np.all(res <= np.asarray(tols))), res, tols
 
 
-def host_ms(fn, reps: int = 3) -> float:
-    """Median host-clock time of fn() ending in a synchronize (ms)."""
+def host_ms(fn, reps: int = SPLIT_REPS) -> float:
+    """Median host-clock time of fn() ending in a synchronize (ms), after
+    one untimed call."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -906,7 +951,7 @@ def qp_solve(solver, qp, warm=None):
         x0_fixed=use_x0_elimination(form, opts))
 
 
-def time_split(solver, reps: int = 3, profiled: int = 0) -> dict:
+def time_split(solver, reps: int = SPLIT_REPS, profiled: int = 0) -> dict:
     """Where the time of one warm RTI call goes: its layers on the host
     clock (each synchronised, medians of `reps`), then a torch.profiler
     trace of a few calls for the device's busy share and kernel launches
@@ -1577,6 +1622,74 @@ def riccati_free_x0(dev) -> None:
         raise SystemExit("Riccati IPM with P_0 through K2 failed")
 
 
+def k1_routes(source: str = "gj_inverse") -> dict:
+    """The branch K1's dispatcher takes at every n = 1..48 in the build
+    of `source` (batched_inv.gj_route), held to the design: the group
+    branch in the band n at n = 2, 4, 8, 16 and in the next power of two
+    at every other n <= 16 but 1, the warp branch in the next multiple
+    of 8 at n = 1 and 17..48. Logged; returns {n: route}."""
+    from acados_tpu_torch.ops.batched_inv import _GJ_MAX_N, gj_route
+    routes = {n: gj_route(n, source) for n in range(1, _GJ_MAX_N + 1)}
+    bad = []
+    for n, (branch, band, _) in routes.items():
+        want = (("group", 1 << (n - 1).bit_length()) if 2 <= n <= 16
+                else ("warp", -(-n // 8) * 8))
+        if (branch, band) != want:
+            bad.append((n, routes[n], want))
+    log(f"  K1 routes: " + "; ".join(
+        f"n={n} {route_name(routes[n], n)}" for n in
+        tuple(range(1, 18)) + (24, 25, 48))
+        + (f"; MISROUTED {bad}" if bad else ""))
+    if bad:
+        raise SystemExit(f"K1 routes n off the design: {bad}")
+    return routes
+
+
+def route_name(route, n) -> str:
+    """A gj_route result in words."""
+    branch, band, rows = route
+    if branch == "warp":
+        return f"warp {band}"
+    return f"group {band} RL={rows}" + (" padded" if n < band else "")
+
+
+def k1_padded_batches(dev, rng, kern):
+    """K1 at every n = 3..15 (the group branch, padded to its band at every
+    n but 4 and 8) against its plain version, float32 and float64, each
+    batch row-major and as a transposed view (check_transposed: bit for
+    bit the row-major result, within bound of the plain version): N(0, 1)
+    + n I and the same with rows permuted at B = 1001 (no multiple of the
+    matrices a warp holds), and the pivot-tie batch, whose kernel result
+    must equal the exact inverse in either layout."""
+    import torch
+    from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
+    for n in range(3, 16):
+        draws = dict(random=rng.normal(size=(1001, n, n)) + n * np.eye(n),
+                     permuted=row_permuted_batch(rng, 1001, n))
+        A_tie, X_tie = pivot_tie_batch(rng, 4096, n)
+        for dtype, bound in ((torch.float32, F32_BOUND),
+                             (torch.float64, F64_BOUND)):
+            errs = {}
+            for kind, A0 in draws.items():
+                A = torch.as_tensor(A0, dtype=dtype, device=dev)
+                errs[kind] = max(
+                    check_inverse(f"{kind} n={n} B=1001", A, kern, bound,
+                                  quiet=True)[0],
+                    check_transposed(f"{kind} n={n} B=1001",
+                                     transposed_view(A), kern, bound)[0])
+            At = torch.as_tensor(A_tie, dtype=dtype, device=dev)
+            Xt = torch.as_tensor(X_tie, dtype=dtype, device=dev)
+            d_kx = max(float((kern(X) - Xt).abs().max())
+                       for X in (At, transposed_view(At)))
+            log(f"  padded batches n={n:2d} {str(dtype):<14} both layouts: "
+                f"random {errs['random']:.3e}, rows permuted "
+                f"{errs['permuted']:.3e} (bound {bound:g}); ties B="
+                f"{len(A_tie)} max|k-exact| {d_kx:g}  "
+                f"{'ok' if len(A_tie) and d_kx == 0 else 'FAIL'}")
+            if not len(A_tie) or d_kx != 0:
+                raise SystemExit(f"K1 breaks pivot ties differently: n={n}")
+
+
 def k1_batches(dev, rng, kern):
     """K1 against its plain version on seeded batches at every n of the
     warp branch's grid and at the group branch's n = 2, 4, 8, 16: random
@@ -1584,7 +1697,7 @@ def k1_batches(dev, rng, kern):
     in float32 and float64, and matrices with equal magnitudes in their
     pivot columns, where exact arithmetic makes kernel, plain version and
     exact inverse agree bit for bit only under the lowest-index tie
-    rule."""
+    rule; then k1_padded_batches at n = 3..15 (its own generator)."""
     import torch
     from acados_tpu_torch.ops.batched_inv import gj_inverse_plain
     from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
@@ -1619,15 +1732,17 @@ def k1_batches(dev, rng, kern):
                 f"max|k-exact| {d_kx:g}  bound 0  {'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"K1 breaks pivot ties differently: n={n}")
+    k1_padded_batches(dev, np.random.default_rng(K1_PAD_SEED), kern)
 
 
 def k1_edge_cases(dev, rng, kern):
     """K1 against its plain version where the branches' groups, warps,
     bands and blocks end: every n = 1..48 at a short batch, batches that
     end inside a block of warps (warp branch) or inside a group, a warp or
-    a block (group branch), long batches at n = 2, 3, 16 (more warps than
-    the card holds at once), and an input one element off its allocation
-    (not aligned to the group branch's vector loads). The long batches
+    a block (group branch, at n = 2, 4, 8, 16 and padded at n = 3, 7, 9,
+    15), long batches at n = 2, 3, 16 (more warps than the card holds at
+    once), and an input one element off its allocation (not aligned to
+    the group branch's vector loads; padded at n = 9). The long batches
     are strictly diagonally dominant with their rows permuted, so they
     pivot and stay well conditioned: 200,003 draws of N(0, 1) + 3 I hold
     matrices so ill-conditioned that the kernel's fused multiply-adds
@@ -1635,8 +1750,8 @@ def k1_edge_cases(dev, rng, kern):
     batch's largest entry (k1_compare.py logs such batches). Each row-major
     batch's transposed view (every batch above but the long ones at n = 2,
     3, one long batch at n = 16, and transposed views misaligned by an
-    element at n = 2, 8, 16, 39) goes through check_transposed: bit for
-    bit the kernel on its contiguous copy, and within bound."""
+    element at n = 2, 8, 9, 16, 39) goes through check_transposed: bit
+    for bit the kernel on its contiguous copy, and within bound."""
     import torch
     from acados_tpu_torch.ops.batched_inv import _GJ_MAX_N
     for dtype, bound in ((torch.float32, F32_BOUND),
@@ -1676,16 +1791,35 @@ def k1_edge_cases(dev, rng, kern):
             worst_t = max(worst_t, check_transposed(
                 f"misaligned n={n} B={B}", A.transpose(-1, -2), kern,
                 bound)[0])
-        log(f"  edge cases {str(dtype):<14} {len(cases) + len(K1_LONG_N) + 2}"
-            f" batches (n = 1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in "
-            f"{K1_EDGE_N} at B in {K1_EDGE_B}; n in {K1_GROUP_N} at B in "
+        # the padded orders, from a generator of their own: batches that
+        # end inside a group, a warp and a block, and a misaligned input
+        prng = np.random.default_rng(K1_PAD_SEED)
+        pcases = [(n, B) for n in K1_PAD_EDGE_N for B in K1_GROUP_EDGE_B]
+        for n, B in pcases + [(9, -1023)]:
+            A0 = prng.normal(size=(abs(B), n, n)) + n * np.eye(n)
+            if B < 0:       # one element off its allocation
+                flat = torch.empty(A0.size + 1, dtype=dtype, device=dev)
+                A = flat[1:].view(A0.shape)
+                A.copy_(torch.as_tensor(A0, dtype=dtype))
+            else:
+                A = torch.as_tensor(A0, dtype=dtype, device=dev)
+            name = f"{'misaligned' if B < 0 else 'edge'} n={n} B={abs(B)}"
+            worst = max(worst, check_inverse(name, A, kern, bound,
+                                             quiet=True)[0])
+            worst_t = max(worst_t, check_transposed(
+                name, transposed_view(A) if B > 0 else A.transpose(-1, -2),
+                kern, bound)[0])
+        log(f"  edge cases {str(dtype):<14} "
+            f"{len(cases) + len(pcases) + len(K1_LONG_N) + 3} batches (n = "
+            f"1..{_GJ_MAX_N} at B = {K1_SWEEP_B}; n in {K1_EDGE_N} at B in "
+            f"{K1_EDGE_B}; n in {K1_GROUP_N + K1_PAD_EDGE_N} at B in "
             f"{K1_GROUP_EDGE_B}; n in {K1_LONG_N} dominant, rows permuted, "
-            f"at B = {K1_LONG_B}; misaligned n = 2, 16): worst "
+            f"at B = {K1_LONG_B}; misaligned n = 2, 9, 16): worst "
             f"max|k-p|/max|p| {worst:.3e}, bound {bound:g}, ok; their "
-            f"transposed views ({len(cases) + 5} batches: the same, the "
-            f"long one at n = 16 only, misaligned n = 2, 8, 16, 39) each "
-            f"bit for bit its contiguous copy, worst max|k-p|/max|p| "
-            f"{worst_t:.3e}, ok")
+            f"transposed views ({len(cases) + len(pcases) + 6} batches: the "
+            f"same, the long one at n = 16 only, misaligned n = 2, 8, 9, 16, "
+            f"39) each bit for bit its contiguous copy, worst "
+            f"max|k-p|/max|p| {worst_t:.3e}, ok")
 
 
 def k1_bound(A):
@@ -1698,30 +1832,25 @@ def k1_bound(A):
     return bound_of(2 * M * n * n * A.element_size(), 2 * M * n ** 3, peak)
 
 
-def k1_grid(kerns: dict, parent=None, order=None,
-            transposed=False) -> list:
+def k1_grid(kerns: dict, parent=None, order=None, transposed=False,
+            cells=K1_WARP_CELLS + K1_GROUP_CELLS) -> list:
     """Device ms back to back of each K1 wrapper in kerns ({label: fn}),
-    called in turns (order: labels, default each once), over both
-    branches' grid (n in K1_BRANCH_N x B in K1_GRID_B and n in K1_GROUP_N
-    x B in K1_GROUP_GRID_B, float32, and (10240, 39, 39) and
-    (81920, 16, 16) float64), beside torch.linalg.inv (CUDA events around
-    one call: it waits for the host) and the bound. parent: device ms of
-    an earlier build by (n, B, dtype name), logged beside. transposed:
-    each wrapper also on the same matrices as a transposed view (label
-    + "/tr"), in the same turn."""
+    called in turns (order: labels, default each once), over the cells
+    (n, B, type name) (default both branches' grid: K1_WARP_CELLS and
+    K1_GROUP_CELLS), beside torch.linalg.inv (CUDA events around one
+    call: it waits for the host) and the bound. parent: device ms of an
+    earlier build by (n, B, dtype name), logged beside. transposed: each
+    wrapper also on the same matrices as a transposed view (label +
+    "/tr"), in the same turn."""
     import torch
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED)
     order = list(kerns) if order is None else order
-    cells = [(n, B, torch.float32) for n in K1_BRANCH_N for B in K1_GRID_B]
-    cells.append((39, 10240, torch.float64))
-    cells += [(n, B, torch.float32) for n in K1_GROUP_N
-              for B in K1_GROUP_GRID_B]
-    cells.append((16, 81920, torch.float64))
     log("K1 grid (device ms back to back; torch.linalg.inv CUDA events "
         "around one call; N(0, 1) + n I):")
     rows = []
-    for n, B, dtype in cells:
+    for n, B, dt in cells:
+        dtype = getattr(torch, dt)
         A = torch.randn((B, n, n), generator=gen, device=dev, dtype=dtype) \
             + n * torch.eye(n, device=dev, dtype=dtype)
         views = {"": A}
@@ -1733,7 +1862,6 @@ def k1_grid(kerns: dict, parent=None, order=None,
                 times[label + v].append(device_ms(lambda: kerns[label](X)))
         lib = cuda_ms(lambda: torch.linalg.inv(A), reps=10)
         b_ms, b_by = k1_bound(A)
-        dt = str(dtype).split(".")[-1]
         row = dict(n=n, B=B, dtype=dt, bound_ms=b_ms, bound_by=b_by,
                    library_ms=lib, **{k: float(np.median(v))
                                       for k, v in times.items()})
@@ -1779,11 +1907,12 @@ def k1_entry(name, A, launches, rel, abs_err, before=None) -> dict:
         was += (f"; strides {A.stride()}, layout {layout!r}: {how}; "
                 f"{contiguous['contiguous_device_ms']:.4f} ms on a "
                 f"contiguous copy")
-    log(f"K1 at {tuple(A.shape)} float32: kernel {k_ms:.4f} ms (device "
-        f"{k_dev_ms:.4f} ms back to back{was}), plain {p_ms:.4f} ms, "
-        f"torch.linalg.inv {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+    branch = route_name(batched_inv.gj_route(n), n)
+    log(f"K1 at {tuple(A.shape)} float32 ({branch}): kernel {k_ms:.4f} ms "
+        f"(device {k_dev_ms:.4f} ms back to back{was}), plain {p_ms:.4f} "
+        f"ms, torch.linalg.inv {l_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)")
-    return {"name": name, "route": "cuda",
+    return {"name": name, "route": "cuda", "kernel_route": branch,
             "source": "acados_tpu_torch/csrc/gj_inverse.cu",
             "replaces": "acados_tpu/ops/batched_inv.py:39",
             "shape": list(A.shape), "layout": layout, "launches": launches,
@@ -1831,20 +1960,25 @@ def chain_path(dev):
 
 
 def chain_sweep(dev):
-    """Phase 12: n_mass = 3, 5, 11 at B_CHAIN, N_CHAIN, float32."""
-    for n_mass, per_call in ((3, 2), (5, 2), (11, 4)):
+    """Phase 12: n_mass = 3, 4, 5, 11 (nx = 9, 15, 21, 57) at B_CHAIN,
+    N_CHAIN, float32, 1 cold + SWEEP_WARM warm calls each; K1's route at
+    each launch shape logged (the padded group branch at nx = 9, 15)."""
+    from acados_tpu_torch.ops.batched_inv import gj_route
+    for n_mass, per_call in ((3, 2), (4, 2), (5, 2), (11, 4)):
         solver = chain_batch(n_mass, B_CHAIN, "float32", dev)
         reset_counts()
         with K1Shapes() as k1:
             call_ms, qp_max = run_calls(solver, f"chain n_mass={n_mass}",
                                         tols=CHAIN_TOLS,
-                                        warm=WARM_CALLS - 1, timed=1)
+                                        warm=SWEEP_WARM - 1, timed=1)
         counts = read_counts()
-        calls = 1 + WARM_CALLS
+        calls = 1 + SWEEP_WARM
+        shapes = sorted(set(k1.shapes))
         log(f"chain sweep n_mass={n_mass} nx={solver.form.nx}: {calls} "
-            f"calls, K1 launches {counts['gj_inverse']} of "
-            f"{sorted(set(k1.shapes))}, largest qp_iter per call {qp_max}, "
-            f"last call {call_ms[0]:.2f} ms")
+            f"calls, K1 launches {counts['gj_inverse']} of {shapes} ("
+            + ", ".join(route_name(gj_route(m[-1]), m[-1]) for m in shapes)
+            + f"), largest qp_iter per call {qp_max}, last call "
+            f"{call_ms[0]:.2f} ms")
         if counts["gj_inverse"] != per_call * calls:
             raise SystemExit(f"chain n_mass={n_mass}: expected "
                              f"{per_call * calls} K1 launches")
@@ -1970,10 +2104,11 @@ def erk_models(dev):
         x0s = np.random.default_rng(SEED).normal(0.0, sigma, (B_ERK, nx))
         solver = batch_at(ocp, x0s, dev)
         reset_counts()
-        call_ms, qp_max = run_calls(solver, name, tols=ERK_TOLS, warm=9,
-                                    timed=1)
+        call_ms, qp_max = run_calls(solver, name, tols=ERK_TOLS,
+                                    warm=ERK_WARM, timed=1)
         counts = read_counts()
-        log(f"{name}: nx={nx}, N={solver.N}, B={B_ERK}, float32, 21 calls, "
+        log(f"{name}: nx={nx}, N={solver.N}, B={B_ERK}, float32, "
+            f"{2 + ERK_WARM} calls, "
             f"launches {counts}, largest qp_iter per call {qp_max}, last "
             f"call {call_ms[0]:.2f} ms")
         if any(counts.values()):
@@ -2293,26 +2428,27 @@ def chain_cond(dev, plain) -> dict:
 
 def new_paths_vs_cpu() -> None:
     """Phase 19: float64 card against CPU of the long-horizon pendulum
-    at cond_N = 16, the chain at cond_N = 8 and the RTI phases."""
+    at cond_N = 16, the chain at cond_N = 8 and the RTI phases, one RTI
+    call or cycle each (cut from 2)."""
     card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
                 f"cond_N={COND_LONG})",
                 lambda where: long_batch(4, "float64", where,
-                                         cond_N=COND_LONG, seed=1), calls=2)
+                                         cond_N=COND_LONG, seed=1), calls=1)
     card_vs_cpu(f"chain reference check (n_mass={N_MASS}, N={N_CHAIN}, "
                 f"cond_N={COND_CHAIN})",
                 lambda where: chain_batch(N_MASS, 4, "float64", where,
-                                          cond_N=COND_CHAIN), calls=2)
+                                          cond_N=COND_CHAIN), calls=1)
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
     card_vs_cpu("RTI phases reference check (prepare/feedback)",
                 lambda where: rti_batch(kw64, 8, where, seed=1)[0],
-                step=lambda s: (s.prepare(), s.feedback())[1], calls=2)
+                step=lambda s: (s.prepare(), s.feedback())[1], calls=1)
 
 
 # the simulator (phase 20): the main path's integrator, dt = Tf / N, and
 # K1's launches a call with sens_forw: per substep 3 Newton inverses and
 # one for the implicit gradient's tangent solve, 2 substeps
-B_SIM, SIM_DT, SIM_WARM, SIM_TIMED = 4096, 1.0 / 20, 3, 10
+B_SIM, SIM_DT, SIM_WARM, SIM_TIMED = 4096, 1.0 / 20, 3, 5  # timed cut from 10
 K1_PER_SIM = 8
 # the sensitivities (phase 21): bench.py's bench_pendulum_irk_sqp config,
 # solved in at most this many solve() calls; the forward-adjoint gap is
@@ -2823,7 +2959,7 @@ def qp_paths_vs_cpu() -> None:
     card_vs_cpu(f"long-horizon reference check (N={N_LONG}, "
                 f"parallel_riccati)",
                 lambda where: long_batch(8, "float64", where, seed=1,
-                                         parallel=True), calls=2)
+                                         parallel=True), calls=1)
     kw64 = dict(N=N_HORIZON, dtype="float64", nlp_solver_type="SQP_RTI",
                 integrator_type="IRK")
     # SPEED_ABS stops at iter_max (50) on most instances here: their
@@ -2835,14 +2971,14 @@ def qp_paths_vs_cpu() -> None:
                                         **abs_form)[0],
                 moved=lambda: rti_batch(kw64, 8, "cpu", seed=1, moved=True,
                                         **abs_form)[0], spread_bound=True,
-                calls=2)
+                calls=1)
     kwa = dict(N=N_ADMM, dtype="float64", nlp_solver_type="SQP_RTI")
     card_vs_cpu("ADMM RTI reference check",
                 lambda where: rti_batch(kwa, 8, where, seed=1,
                                         sigma=ADMM_SIGMA,
                                         opts_update=dict(
                                             qp_solver_name="ADMM"))[0],
-                calls=2)
+                calls=1)
     ok = [qp_solver_gaps(solver + (f" cond_N={cond_N}" if cond_N else ""),
                          solver, cond_N, torch.device("cuda"), "cpu")
           for solver, cond_N in (("RICCATI_IPM", None), ("ADMM", None),
@@ -2941,10 +3077,10 @@ NEWTON_SO = dict(hessian_approx="EXACT", regularize_method="CONVEXIFY",
 # (PERF.md), which phases 29-32 need; its launches are still held to
 # newton_k1_expected and its trajectory to finiteness, its convergence by
 # the CPU tests (tests/test_torch_exact_irk.py and the Newton tests) and
-# phase 28. It runs 2 rounds (8 before phases 33-35 came, then 6, then
-# 3 before phases 36-37), and the Gauss-Newton call beside it is phase
-# 21's solve of the same problem, held there to one call
-NEWTON_ROUNDS = 2
+# phase 28. It runs 1 round (8 before phases 33-35 came, then 6, then
+# 3 before phases 36-37, then 2), and the Gauss-Newton call beside it is
+# phase 21's solve of the same problem, held there to one call
+NEWTON_ROUNDS = 1
 # float64 card against CPU of the new options (phase 28), B = 4, each
 # solve cut at CHECK_ITER iterations (the parity of the same code on the
 # card and on the CPU needs no convergence; the CPU tests hold the
@@ -2957,7 +3093,7 @@ NEWTON_ROUNDS = 2
 # them: at the pendulum's own weights the merit's last comparisons are
 # between values within a few rounding steps, whose outcome follows the
 # order of the sums)
-B_NEWTON_CHECK, NEWTON_CHECK_ITER, CHECK_ITER = 4, 2, 3
+B_NEWTON_CHECK, NEWTON_CHECK_ITER, CHECK_ITER = 4, 2, 2   # cut from 3
 
 
 def newton_batch(B, dtype, dev, solver_options=NEWTON_SO, seed=SEED):
@@ -3671,10 +3807,12 @@ K1_PER_DAE_LINEARIZE, K1_PER_DAE_Z = 8, 3
 DAE_STAGE_N = 9
 # GNSF on the main path from its converged iterate: 1 RTI call and no
 # warm one; the simulators' calls; DISCRETE / ERK and LIFTED_IRK calls
-GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 2, 3, 5
+# (the simulators' calls cut from 2, DISCRETE's from 3, LIFTED_IRK's
+# from 5)
+GNSF_WARM, GNSF_SIM_CALLS, DISC_CALLS, LIFTED_CALLS = 0, 1, 2, 3
 # DISCRETE against ERK: the same RK4 in another order of operations, so
 # in float32 the step and its Jacobians agree to rounding (~100 ulp,
-# DISC_STEP_BOUND). After DISC_CALLS RTI calls from the same x0s the
+# DISC_STEP_BOUND). After 3 RTI calls from the same x0s the
 # float32 batches part by 0.50 in x and 1.94 in u (relative; u flips
 # between its bounds) on 0.29 % of 4096 instances, and ERK against
 # itself on the x0s moved by one float32 rounding step parts as much
@@ -4260,12 +4398,13 @@ def multiphase_vs_cpu() -> None:
 # backoff grows along the horizon and the tightened problem stays
 # feasible: at 100 x this W the position's backoff passes its bound and
 # the tightened QP fails) and where the files go
-PT_ROUNDS = 3
+PT_ROUNDS = 1                 # cut from 3
 PT_COVER = (0.5, 1.05)
 TIMEOUT_HEURISTICS = ("ZERO", "LAST", "MAX", "AVERAGE")
 # the timeout solves start this many SQP iterations before the solution
-# (a row of the stored iterates): each runs a few rounds, not 8
-TIMEOUT_START_BACK = 3
+# (a row of the stored iterates): each runs a few rounds, not 8 (cut
+# from 3)
+TIMEOUT_START_BACK = 2
 ZORO_POS_BOUND = 3.0
 ZORO_W = (1e-6, 1e-5, 1e-6, 1e-5)
 ZORO_K = ((1.0, -10.0, 1.0, -1.0),)
@@ -4774,11 +4913,14 @@ def examples_phase(started=None) -> None:
     finally:
         stop_procs(procs.values())
     failed = []
+    wall0 = time.time() - (time.perf_counter() - t0)   # t0 on the wall clock
     for name, (p, _) in procs.items():
-        with open(os.path.join(UTIL_DIR, f"{name}.log")) as f:
+        path = os.path.join(UTIL_DIR, f"{name}.log")
+        with open(path) as f:
             out = f.read().strip().splitlines()
-        log(f"example {name}: exit {p.returncode} after {done[name]:.1f} s; "
-            f"last line: {out[-1] if out else ''}")
+        log(f"example {name}: exit {p.returncode} seen after {done[name]:.1f}"
+            f" s (its log last written at {os.path.getmtime(path) - wall0:.1f}"
+            f" s); last line: {out[-1] if out else ''}")
         if p.returncode != 0:
             failed.append(name)
             log("\n".join(out[-20:]))
@@ -4793,8 +4935,8 @@ def examples_phase(started=None) -> None:
 # float64 checks (41c: tests/test_torch_sharding.py's B = 8 pendulum
 # MERIT SQP, its cost weights scaled by 1e-3, over 4 shards, and the RTI
 # phases with adaptive QP tolerances near the upright pendulum)
-SHARD_ROUNDS = 3
-DIST_TIMED = 3
+SHARD_ROUNDS = 2              # cut from 3
+DIST_TIMED = 2                # cut from 3
 DIST_TIMEOUT = 300
 # how long 41b's processes wait, after their first call, for the go
 # (phases 39, 40 and 41a run meanwhile)
@@ -5264,6 +5406,7 @@ def card_phases(dev, t_run, at) -> int:
     # ---- 3. K1 against its plain version --------------------------------------
     at(3)
     log("K1 gj_inverse: kernel vs plain version on the card")
+    k1_routes()
     solver, J = stage_jacobians(dev)
     kern = batched_inv._gj_inverse_cuda
     # handed over transposed (strides (256, 1, 16)), read in place
@@ -5297,11 +5440,11 @@ def card_phases(dev, t_run, at) -> int:
             raise SystemExit(f"linsolve on the card, n={n}: {launched} "
                              f"launches, error {err:.3e}")
 
-    # time at the main-path shape, then over both branches' grid
+    # time at the main-path shape, then over the group branch's grid
     kernels = [k1_entry("gj_inverse", J, None, rel32, abs32,
                         before=K1_PARENT_MAIN_DEVICE_MS)]
-    k1_grid({"K1": kern},
-            parent={**K1_PARENT_DEVICE_MS, **K1_PARENT_GROUP_DEVICE_MS})
+    k1_grid({"K1": kern}, cells=K1_GROUP_CELLS,
+            parent={**K1_PARENT_GROUP_DEVICE_MS, **K1_PARENT_PAD_DEVICE_MS})
     k1_ms = kernels[0]["ms"]
 
     # ---- 4. main path ----------------------------------------------------------
@@ -5404,7 +5547,7 @@ def card_phases(dev, t_run, at) -> int:
         chol_solve=batched_chol.chol_solve_batched,
         chol_factor_solve=batched_chol.chol_factor_solve_batched), Hb)
 
-    # times at the dense IPM's shape, then over the grid
+    # times at the dense IPM's shape (k2_compare.py times the grids)
     n, Bm = nv, B_MAIN
     bf = b_hb.float()
     L32 = batched_chol.chol_factor_plain(Hb)
@@ -5444,9 +5587,6 @@ def card_phases(dev, t_run, at) -> int:
             "device_ms": k_dev_ms, "plain_ms": p_ms, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": l_ms,
             "library_device_ms": l_dev_ms})
-    for kname, (label, _, parent) in parents.items():
-        chol_grid(kname, {label: getattr(batched_chol, kname + "_batched")},
-                  parent=parent)
 
     # ---- 8. the public ops entry points ----------------------------------------------
     at(8)

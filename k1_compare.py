@@ -11,7 +11,8 @@ wrapper as the parent did for one that has not).
 
 Run from the root of the repository:
 
-    python3 k1_compare.py [--sass] [--stage] [--variants] [LABEL=PATH.cu ...]
+    python3 k1_compare.py [--sass] [--stage] [--pad] [--variants[=A,B]]
+                          [LABEL=PATH.cu ...]
 
 --stage also captures the main path's stage Jacobians, (81,920, 16, 16)
 float32 as the IRK hands them over (chip_smoke.stage_jacobians), and
@@ -20,14 +21,24 @@ copy and on variants that each change one property of the data (N(0, 1)
 + 16 I, their exact zeros filled, N(0, 1) + 16 I with their zeros, their
 rows permuted, 1e-2 N(0, 1) + I, the identity), logging each variant's
 share of zeros and of matrices whose pivot search swaps a row.
+--pad holds the group branch's padded orders (n = 3, 5-7, 9-15, each
+inverted in the band the next power of two) against the first build:
+every build's route at each n (a build that has gj_inverse_route), the
+bit-for-bit lines at every n = 3..15 beside n = 2, 4, 8, 16, and the DAE
+cart's stage systems, (81,920, 9, 9) float32 as its IRK hands them over
+(the first K1 launch of one SQP iteration), each build timed on them in
+turns; its grid is K1_PAD_CELLS (every n = 3..15 at B = 81,920, float32
+and float64), then the default one.
 --variants adds builds of the `now` source (or the package's) with one
-change each (VARIANTS, written under build/): flip_tr, the group
-branch's other transposed loads at each n (see below); seethrough, the
-numerator's select left visible to the compiler (which then divides
-zeros on the slow path, as the parent did); divzero, zero numerators
-divided as the others (the same results: x / piv and x * piv are the
-same signed zero); nodiv, the quotients multiplied instead of divided
-(wrong results, timed all the same).
+change each (VARIANTS, written under build/; --variants=A,B only those):
+flip_tr, the group branch's other transposed loads at each n (see
+below); seethrough, the numerator's select left visible to the compiler
+(which then divides zeros on the slow path, as the parent did); divzero,
+zero numerators divided as the others (the same results: x / piv and
+x * piv are the same signed zero); nodiv, the quotients multiplied
+instead of divided (wrong results, timed all the same); pad_rl, the
+padded orders' other rows a lane in each band (one at n = 3, 5-7, two at
+n = 9-15); flip_rl, the other rows a lane at n = 2, 4, 8, 16.
 
 With no LABEL=PATH it builds acados_tpu_torch/csrc/gj_inverse.cu alone. To
 hold the source against an earlier commit's, write that copy under build/
@@ -52,7 +63,8 @@ nothing of JAX.
 
 The group branch's transposed loads (direct scalar loads at one row a
 lane, the warp's matrices staged through shared memory at two) are held
-against the other choice at each n by a copy that flips kStageTransposed:
+against the other choice at n = 2, 4, 8, 16 (a padded order loads
+directly) by a copy that flips kStageTransposed:
 
     sed -e 's/kStageTransposed = RL == 2/kStageTransposed = RL != 2/' \
         acados_tpu_torch/csrc/gj_inverse.cu > build/gj_inverse_flip_tr.cu
@@ -60,14 +72,12 @@ against the other choice at each n by a copy that flips kStageTransposed:
         flip_tr=build/gj_inverse_flip_tr.cu
 
 The group branch's rows a lane (RL, 1 or 2 at each n) are held against
-the other choice by a copy that differs in the dispatch lines alone:
+the other choice by the variants flip_rl (at n = 2, 4, 8, 16) and pad_rl
+(at the padded orders):
 
-    sed -e 's/\\(launch_group<T, [0-9]*\\), 1>/\\1, 3>/' \\
-        -e 's/\\(launch_group<T, [0-9]*\\), 2>/\\1, 1>/' \\
-        -e 's/\\(launch_group<T, [0-9]*\\), 3>/\\1, 2>/' \\
-        acados_tpu_torch/csrc/gj_inverse.cu > build/gj_inverse_flip.cu
-    python3 k1_compare.py before=build/gj_inverse_before.cu \\
-        now=acados_tpu_torch/csrc/gj_inverse.cu flip=build/gj_inverse_flip.cu
+    python3 k1_compare.py --pad --variants=flip_rl,pad_rl \
+        before=build/gj_inverse_before.cu \
+        now=acados_tpu_torch/csrc/gj_inverse.cu
 """
 from __future__ import annotations
 
@@ -95,15 +105,21 @@ VARIANTS = {
                                              "(z ? T(1) : x)")),),
     "divzero": (("const bool z = plain_zero && x == T(0);",
                  "const bool z = false && plain_zero;"),),
-    "nodiv": ((_DIVIDE, _DIVIDE.replace(" / piv", " * piv")),)}
+    "nodiv": ((_DIVIDE, _DIVIDE.replace(" / piv", " * piv")),),
+    "pad_rl": (("constexpr int kPadRL4 = 2, kPadRL8 = 2, kPadRL16 = 1;",
+                "constexpr int kPadRL4 = 1, kPadRL8 = 1, kPadRL16 = 2;"),),
+    "flip_rl": (("return n == 2 || n == 16 ? 1 : n == 4 || n == 8 ? 2",
+                 "return n == 2 || n == 16 ? 2 : n == 4 || n == 8 ? 1"),)}
 
 
-def variants(source: str) -> dict:
+def variants(source: str, names=None) -> dict:
     """{label: path} of copies of `source` with VARIANTS applied (every
-    occurrence: both branches), written under build/."""
+    occurrence: both branches), written under build/; names: the
+    VARIANTS to write (default all)."""
     text = (ROOT / source).read_text()
     out = {}
-    for label, edits in VARIANTS.items():
+    for label in names or VARIANTS:
+        edits = VARIANTS[label]
         t = text
         for old, new in edits:
             if old not in t:
@@ -128,10 +144,12 @@ def build(specs: dict) -> dict:
         kernel = None
         for line in reports.get(path, "").splitlines():
             m = re.search(r"Compiling entry function '.*?(gj_inv_\w+?)I([fd])"
-                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?", line)
+                          r"(?:Li(\d+)E)?(?:Li(\d+)E)?(?:Li(\d+)E)?", line)
             if m:
                 kernel = f"{m.group(1)} {m.group(2)}{m.group(3) or ''}" + (
-                    f" RL={m.group(4)}" if m.group(4) else "")
+                    f" RL={m.group(4)}" if m.group(4) else "") + (
+                    f" n={m.group(5)}" if m.group(5) not in (None, m.group(3))
+                    else "")
             elif kernel and ("registers" in line or "spill" in line):
                 cs.log(f"  ptxas {label} {kernel}: "
                        f"{line.replace('ptxas info    :', '').strip()}")
@@ -230,6 +248,44 @@ def stage_gap(kerns: dict) -> list:
     return rows, differ
 
 
+def dae_gap(kerns: dict) -> list:
+    """Device ms back to back of each build, in turns (labels, then
+    reversed), on the DAE cart's stage systems as its IRK hands them over
+    to K1 (the first launch of one SQP iteration at chip_smoke's width,
+    (81,920, 9, 9) float32, transposed) and on their contiguous copy;
+    each build's result bit for bit the first build's. Returns the rows
+    and the labels of the builds that differ."""
+    import torch
+    from acados_tpu_torch.ops.batched_inv import input_layout
+    solver = cs.dae_batch(cs.B_MAIN, "float32", torch.device("cuda"),
+                          max_iter=1)
+    with cs.K1Shapes() as k1:
+        solver.solve()
+    D = k1.first
+    labels = list(kerns)
+    ref = kerns[labels[0]](D)
+    differ = [label for label in labels[1:]
+              if not cs.same_bits(kerns[label](D), ref)]
+    cs.log(f"K1 on the DAE cart's stage systems {tuple(D.shape)} "
+           f"{D.dtype} (strides {D.stride()}), device ms back to back in "
+           f"turns {labels + labels[::-1]}; bit for bit {labels[0]}'s: "
+           + ", ".join(f"{label} {label not in differ}"
+                       for label in labels[1:]))
+    rows = []
+    for name, X in (("as handed over", D), ("contiguous copy",
+                                             D.contiguous())):
+        times = {label: [] for label in labels}
+        for label in labels + labels[::-1]:
+            times[label].append(cs.device_ms(lambda: kerns[label](X)))
+        rows.append(dict(variant=name, layout=input_layout(X),
+                         **{k: float(np.median(v)) for k, v in
+                            times.items()}))
+        cs.log(f"  {name:<16} {input_layout(X):<10} " + "  ".join(
+            f"{k} {' '.join(f'{t:.4f}' for t in v)}"
+            for k, v in times.items()))
+    return rows, differ
+
+
 _INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
@@ -238,14 +294,16 @@ def step_mix(sass: str) -> list:
     its SASS instructions, and those of one elimination step and their
     mix. The warp branch's step is averaged over its loop's body (one
     REDUX.MIN a step); the group branch has no loop (its k loop unrolls
-    fully), so its step is its main body over n: the instructions up to
-    its first unpredicated EXIT, staging included, the division's slow
-    path (a subroutine after it) left out."""
+    fully), so its step is its main body over its band: the instructions
+    up to its first unpredicated EXIT, staging included, the division's
+    slow path (a subroutine after it) left out; a padded instance (its
+    order n below the band, labelled n=...) runs n steps."""
     rows = []
     for func in re.split(r"\n\s*Function : ", sass):
         head = func.split("\n", 1)[0]
         warp = re.search(r"gj_inv_warpI([fd])Li(\d+)E", head)
-        group = re.search(r"gj_inv_groupI([fd])Li(\d+)ELi(\d+)E", head)
+        group = re.search(
+            r"gj_inv_groupI([fd])Li(\d+)ELi(\d+)E(?:Li(\d+)E)?", head)
         if not (warp or group):
             continue
         insns = [mm.groups() for mm in map(_INSN.search, func.split("\n"))
@@ -261,8 +319,10 @@ def step_mix(sass: str) -> list:
         else:
             end = next((i + 1 for i, (pred, op) in enumerate(insns)
                         if op == "EXIT" and not pred), len(ops))
-            body, k = ops[:end], int(group.group(2))
-            band = f"{group.group(1)}{group.group(2)} RL={group.group(3)}"
+            nv = group.group(4) or group.group(2)
+            body, k = ops[:end], int(nv)
+            band = (f"{group.group(1)}{group.group(2)} RL={group.group(3)}"
+                    + (f" n={nv}" if nv != group.group(2) else ""))
         body = collections.Counter(op.split(".")[0] for op in body)
         per = lambda *names: sum(body[x] for x in names) / k
         rows.append(dict(
@@ -313,14 +373,15 @@ def ill_conditioned_n3(kerns: dict) -> None:
                    + ", ".join(parts))
 
 
-def group_bit_equality(kerns: dict) -> list:
+def group_bit_equality(kerns: dict, ns=cs.K1_GROUP_N) -> list:
     """Each later build against the first on the group branch's batches
-    (n in chip_smoke's K1_GROUP_N, float32 and float64): N(0, 1) + n I at
-    each B of the grid, the same with rows permuted, the pivot-tie batch,
-    and the long diagonally dominant batch with rows permuted. Logs max
-    |build - first| and the matrices that differ; returns the labels of
-    the builds that differ anywhere (expected none: the same operations in
-    the same order)."""
+    (n in ns, default chip_smoke's K1_GROUP_N; --pad adds every n =
+    3..15, where the parent's build ran the warp branch; float32 and
+    float64): N(0, 1) + n I at each B of the grid, the same with rows
+    permuted and transposed, the pivot-tie batch, and the long diagonally
+    dominant batch with rows permuted. Logs max |build - first| and the
+    matrices that differ; returns the labels of the builds that differ
+    anywhere (expected none: the same operations in the same order)."""
     import torch
     from acados_tpu_torch.testing import pivot_tie_batch, row_permuted_batch
     dev = torch.device("cuda")
@@ -329,11 +390,13 @@ def group_bit_equality(kerns: dict) -> list:
     if not rest:
         return differ
     cs.log(f"group branch, each build against {ref!r} bit for bit:")
-    for n in cs.K1_GROUP_N:
+    for n in ns:
         rng = np.random.default_rng(cs.SEED + n)
         batches = [(f"random B={B}", rng.normal(size=(B, n, n))
                     + n * np.eye(n)) for B in cs.K1_GROUP_GRID_B]
         batches.append(("rows permuted B=10240",
+                        row_permuted_batch(rng, 10240, n)))
+        batches.append(("rows permuted B=10240 /tr",
                         row_permuted_batch(rng, 10240, n)))
         batches.append(("ties", pivot_tie_batch(rng, 4096, n)[0]))
         A = rng.uniform(-1.0, 1.0, (cs.K1_LONG_B, n, n)) + 2 * n * np.eye(n)
@@ -342,6 +405,8 @@ def group_bit_equality(kerns: dict) -> list:
         for name, A0 in batches:
             for dtype in (torch.float32, torch.float64):
                 A = torch.as_tensor(A0, dtype=dtype, device=dev)
+                if name.endswith("/tr"):
+                    A = cs.transposed_view(A)
                 first = kerns[ref](A)
                 parts = []
                 for label in rest:
@@ -364,10 +429,14 @@ def main() -> int:
         return 2
     from acados_tpu_torch.ops import cuda_build
     from acados_tpu_torch.utils.device import full_precision_matmul
-    specs = dict(a.split("=", 1) for a in sys.argv[1:] if "=" in a)
+    specs = dict(a.split("=", 1) for a in sys.argv[1:]
+                 if "=" in a and not a.startswith("--"))
     specs = specs or {"now": SOURCE}
-    if "--variants" in sys.argv:
-        specs.update(variants(specs.get("now", SOURCE)))
+    picked = [a.split("=", 1)[1].split(",") if "=" in a else None
+              for a in sys.argv[1:] if a.split("=")[0] == "--variants"]
+    if picked:
+        specs.update(variants(specs.get("now", SOURCE), picked[0]))
+    pad = "--pad" in sys.argv
     cs.log(f"card: {cs.card_line()}; torch {torch.__version__} cuda "
            f"{torch.version.cuda}")
     full_precision_matmul()
@@ -395,6 +464,13 @@ def main() -> int:
     failed = []
     for label, kern in kerns.items():
         cs.log(f"K1 build {label!r} against the plain version:")
+        path = str((ROOT / specs[label]).resolve())
+        if hasattr(cuda_build.load(path), "gj_inverse_route"):
+            try:
+                cs.k1_routes(path)
+            except SystemExit as e:
+                cs.log(f"  build {label!r} FAILED: {e}")
+                failed.append(label)
         rng = np.random.default_rng(cs.SEED)
         try:
             cs.k1_batches(dev, rng, kern)
@@ -403,15 +479,23 @@ def main() -> int:
             cs.log(f"  build {label!r} FAILED: {e}")
             failed.append(label)
     ill_conditioned_n3(kerns)
-    failed += [label for label in group_bit_equality(kerns)
+    ns = tuple(range(2, 17)) if pad else cs.K1_GROUP_N
+    failed += [label for label in group_bit_equality(kerns, ns)
                if label not in failed]
     labels = list(kerns)
-    stage = None
+    stage = dae = None
     if "--stage" in sys.argv:
         stage, differ = stage_gap(kerns)
         failed += [label for label in differ if label not in failed]
-    rows = cs.k1_grid(kerns, order=labels + labels[::-1], transposed=True)
-    cs.log(json.dumps({"k1_grid": rows, "stage": stage,
+    if pad:
+        dae, differ = dae_gap(kerns)
+        failed += [label for label in differ if label not in failed]
+    cells = cs.K1_WARP_CELLS + cs.K1_GROUP_CELLS
+    if pad:
+        cells = cs.K1_PAD_CELLS + cells
+    rows = cs.k1_grid(kerns, order=labels + labels[::-1], transposed=True,
+                      cells=cells)
+    cs.log(json.dumps({"k1_grid": rows, "stage": stage, "dae": dae,
                        "card": cs.card_line(), "failed": failed}))
     return 1 if failed else 0
 

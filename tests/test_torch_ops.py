@@ -233,7 +233,8 @@ def test_entry_points_default_to_cuda():
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def _row_owned_schedule(A: torch.Tensor) -> torch.Tensor:
+def _row_owned_schedule(A: torch.Tensor, steps=None,
+                        winners=None) -> torch.Tensor:
     """A PyTorch model of the schedule of K1's warp and group branches
     (csrc/gj_inverse.cu, gj_inv_warp and gj_inv_group, which differ only
     in how many lanes hold a matrix): row i stays where it is and
@@ -243,18 +244,23 @@ def _row_owned_schedule(A: torch.Tensor) -> torch.Tensor:
     pivoted at step j), slot j >= k the matrix's column j. At step k the
     pivot row's slots are divided by the pivot, slot k becoming 1 / piv,
     and every other row takes R[j] - f R_piv[j] with f = R[k], slot k
-    becoming 0 - f (1 / piv). At the end out[pos[i], p_k] = R[i, k]."""
+    becoming 0 - f (1 / piv). At the end out[pos[i], p_k] = R[i, k].
+    steps: the steps run (default n; the padded group branch stops at
+    the order of the matrix it pads, p_k = k past it); winners: a list
+    that receives each step's winning position."""
     Bsz, n, _ = A.shape
     R = A.clone()
     b = torch.arange(Bsz)
     rows = torch.arange(n)
     pos = rows.expand(Bsz, n).clone()
-    pk = torch.empty((Bsz, n), dtype=torch.long)
-    for k in range(n):
+    pk = rows.expand(Bsz, n).clone()
+    for k in range(n if steps is None else steps):
         neg = torch.tensor(-1.0, dtype=A.dtype)
         mag = torch.where(pos >= k, R[:, :, k].abs(), neg)
         best = mag.max(dim=1, keepdim=True).values
         wpos = torch.where(mag == best, pos, n).min(dim=1).values
+        if winners is not None:
+            winners.append(wpos)
         p = torch.argmax((pos == wpos[:, None]).int(), dim=1)
         pk[:, k] = p
         raw = R[b, p].clone()
@@ -321,8 +327,9 @@ def _sass_function(name: str, ops: list) -> str:
 def test_step_mix_reads_both_branches():
     """k1_compare.step_mix on a listing holding both kernels and another:
     the warp branch's step is averaged between its REDUX.MIN marks, the
-    group branch's is its body up to the first unpredicated EXIT over n
-    (the division's slow path after it is left out), and other functions
+    group branch's is its body up to the first unpredicated EXIT over its
+    band (the division's slow path after it is left out), a padded
+    instance of the group branch's over its order n, and other functions
     are skipped."""
     import k1_compare
     group = (["LDC R1, c[0x0][0x28]", "@P0 EXIT"]
@@ -343,9 +350,12 @@ def test_step_mix_reads_both_branches():
         _sass_function("_ZN12_GLOBAL__N_111chol_factorIfEEvPKT_PS1_xi",
                        other),
         _sass_function("_ZN12_GLOBAL__N_111gj_inv_warpIdLi40EEEvPKT_PS1_xi",
-                       warp)])
+                       warp),
+        _sass_function("_ZN12_GLOBAL__N_112gj_inv_groupIdLi16ELi2ELi9EEEvPKT_"
+                       "PS2_xNS_4LoadE", group)])
     rows = {row["band"]: row for row in k1_compare.step_mix(sass)}
-    assert sorted(rows) == ["d40", "f16 RL=1"]
+    assert sorted(rows) == ["d16 RL=2 n=9", "d40", "f16 RL=1"]
+    assert rows["d16 RL=2 n=9"]["per_step"] == 467 / 9
     g = rows["f16 RL=1"]
     assert g["instructions"] == len(group)
     assert g["per_step"] == 467 / 16
